@@ -9,20 +9,34 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 1. the card: ``torch.cuda.is_available()``, the card's name and power limit
    as ``nvidia-smi`` reports them, the torch and CUDA versions;
 2. build the CUDA kernels of ``hybdrt_torch/csrc`` from the checkout;
-3. each kernel against its plain PyTorch version on the same CUDA tensors,
-   at the main path's shape (B=8192, n=93, float32) and at (B=130, n=17),
-   within rtol = atol = 2e-4, plus the NaN contract for a non-positive pivot
-   and one float64 case; kernel and plain times from CUDA events;
-4. the main path: ``hybdrt_torch.BatchedEISFitter`` on the benchmark batch
+3. each Cholesky kernel against its plain PyTorch version on the same CUDA
+   tensors, at the main path's shape (B=8192, n=93, float32) and at (B=130,
+   n=17), within rtol = atol = 2e-4, plus the NaN contract for a
+   non-positive pivot and one float64 case; kernel, plain and single
+   library-call times from CUDA events;
+4. the fused kernel ``ip_steps_lane`` against its plain version on the same
+   CUDA tensors: equilibrated SPD box QPs from a seed at (8192, 93) and
+   (130, 17), float32, 4 and 8 steps, within rtol = atol = 2e-4; a lane with
+   an indefinite P comes back equal to its input while its neighbours step;
+   one float64 case at (64, 93); kernel and plain times at (8192, 93, 4);
+5. the main path: ``hybdrt_torch.BatchedEISFitter`` on the benchmark batch
    (``bench.make_batch(8192, 71)``) with the benchmark's settings, on the
    card in float32, ``fit(adaptive="staged", collect="lazy")`` twice; the
-   launch counters are reset just before the second call and must all have
-   risen; the coefficients must be finite, and the first 64 spectra refitted
-   by the port on the CPU in float64 must agree within the float32 bounds of
-   ``tests/test_f32_accuracy.py`` (Rp median, p95 and max, and R_inf).
+   launch counters are reset just before the second call and the three
+   Cholesky kernels must all have launched; the coefficients must be finite,
+   and the first 64 spectra refitted by the port on the CPU in float64 must
+   agree within the float32 bounds of ``tests/test_f32_accuracy.py`` (Rp
+   median, p95 and max, R_inf, and the functional fit);
+6. the fused path: the same with ``qp_fused=True``, where every warm QP runs
+   ``qp_max_iter_warm`` steps in one ``ip_steps_lane`` launch: all four
+   kernels must have launched in the second call, ``ip_steps_lane`` at most
+   once per outer pass; the CPU float64 reference is the port's fused fit,
+   and the Rp max and R_inf bounds are held on the lanes that stop at the
+   same iteration in both precisions (see the comment in ``phase_slice``).
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel (its
+launches from the path it serves: phase 5 for the Cholesky kernels, phase 6
+for ``ip_steps_lane``); the last line is ``{"ok": true, "device": {...}}``.
 """
 import json
 import subprocess
@@ -33,12 +47,22 @@ import numpy as np
 import torch
 
 B_BENCH, N_FREQ, MAX_ITER = 8192, 71, 50
-TOL = 2e-4  # tests/test_pallas_lane_kernels.py: f32 lane kernels vs a dense solve
+# tests/test_pallas_lane_kernels.py: f32 lane kernels vs a dense solve. For
+# ip_steps_lane it is 6x the f32-vs-f64 spread of the plain steps on these
+# problems (3.4e-5 at B=1024, n=93, 4 steps, on a CPU)
+TOL = 2e-4
 KERNELS = {
-    "chol_factor_solve_lane": "hybdrt_tpu/ops/pallas_chol_lane.py:277",
-    "chol_solve_factored_lane": "hybdrt_tpu/ops/pallas_chol_lane.py:208",
-    "chol_solve_lane": "hybdrt_tpu/ops/pallas_chol_lane.py:95",
+    "chol_factor_solve_lane": ("hybdrt_torch/csrc/chol_lane.cu",
+                               "hybdrt_tpu/ops/pallas_chol_lane.py:277"),
+    "chol_solve_factored_lane": ("hybdrt_torch/csrc/chol_lane.cu",
+                                 "hybdrt_tpu/ops/pallas_chol_lane.py:208"),
+    "chol_solve_lane": ("hybdrt_torch/csrc/chol_lane.cu",
+                        "hybdrt_tpu/ops/pallas_chol_lane.py:95"),
+    "ip_steps_lane": ("hybdrt_torch/csrc/ip_lane.cu", "hybdrt_tpu/ops/pallas_ip_lane.py:157"),
 }
+# One H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
 
 
 def check(ok, what):
@@ -54,6 +78,23 @@ def spd_batch(b, n, dtype, seed):
     dev = torch.device("cuda")
     return (torch.as_tensor(a, dtype=dtype, device=dev),
             torch.as_tensor(rhs, dtype=dtype, device=dev))
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the least time the card could take to move
+    n_bytes through HBM and do n_ops float32 operations."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / F32_OPS_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def chol_ops(b, n):
+    """Operations of b Cholesky factorizations, n^3/3 multiply-adds each."""
+    return b * 2 * n ** 3 / 3
+
+
+def solve_ops(b, n):
+    """Operations of b forward and backward substitutions."""
+    return b * 2 * n * n
 
 
 def cuda_ms(fn, reps=20):
@@ -88,13 +129,15 @@ def phase_build():
     log = lib.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                print("  ptxas: " + line.split("'")[1])
+            elif "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
 
 
 def compare_kernels():
-    """Kernel vs plain per kernel; returns ({name: max_abs_err},
-    {name: (ms, plain_ms)}) with the times at the main path's shape."""
+    """Kernel vs plain per Cholesky kernel; returns ({name: max_abs_err},
+    {name: timing dict}) with the times at the main path's shape."""
     from hybdrt_torch.ops import chol_lane as cl
 
     def close(got, want):
@@ -126,19 +169,30 @@ def compare_kernels():
         print(f"kernels vs plain at B={b} n={n} f32: max abs err "
               + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
         if b == B_BENCH:
+            mat, vec = a.numel() * 4, rhs.numel() * 4
+            # library_ms: one PyTorch call computing the same function, where
+            # one exists (none returns both x and the factor)
             times = {
-                "chol_factor_solve_lane": (
-                    cuda_ms(lambda: cl.chol_factor_solve_lane(a, rhs)),
-                    cuda_ms(lambda: cl.chol_factor_solve_lane_plain(a, rhs))),
-                "chol_solve_factored_lane": (
-                    cuda_ms(lambda: cl.chol_solve_factored_lane(l, rhs2)),
-                    cuda_ms(lambda: cl.chol_solve_factored_lane_plain(l_p, rhs2))),
-                "chol_solve_lane": (
-                    cuda_ms(lambda: cl.chol_solve_lane(a, rhs)),
-                    cuda_ms(lambda: cl.chol_solve_lane_plain(a, rhs))),
+                "chol_factor_solve_lane": dict(
+                    ms=cuda_ms(lambda: cl.chol_factor_solve_lane(a, rhs)),
+                    plain_ms=cuda_ms(lambda: cl.chol_factor_solve_lane_plain(a, rhs)),
+                    library_ms=None,
+                    bound=bound(2 * mat + 2 * vec, chol_ops(b, n) + 2 * solve_ops(b, n))),
+                "chol_solve_factored_lane": dict(
+                    ms=cuda_ms(lambda: cl.chol_solve_factored_lane(l, rhs2)),
+                    plain_ms=cuda_ms(lambda: cl.chol_solve_factored_lane_plain(l_p, rhs2)),
+                    library_ms=cuda_ms(lambda: torch.cholesky_solve(rhs2[:, :, None], l_p)),
+                    bound=bound(mat + 2 * vec, 2 * solve_ops(b, n))),
+                "chol_solve_lane": dict(
+                    ms=cuda_ms(lambda: cl.chol_solve_lane(a, rhs)),
+                    plain_ms=cuda_ms(lambda: cl.chol_solve_lane_plain(a, rhs)),
+                    library_ms=cuda_ms(lambda: torch.linalg.solve(a, rhs)),
+                    bound=bound(mat + 2 * vec, chol_ops(b, n) + 2 * solve_ops(b, n))),
             }
-            for k, (ms, plain_ms) in times.items():
-                print(f"  {k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+            for k, t in times.items():
+                lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+                print(f"  {k}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                      f"library {lib}, bound {t['bound'][0]:.4f} ms by {t['bound'][1]} "
                       f"(B={b}, n={n}, f32, CUDA events, mean of 20)")
 
     # Non-positive pivot -> NaN (the QP's bad-step guard depends on it)
@@ -168,15 +222,91 @@ def compare_kernels():
     return max_err, times
 
 
-def phase_slice():
-    """The main path on the card; returns the launch counts of the timed call."""
+def qp_batch(b, n, dtype, seed):
+    """Equilibrated (unit-diagonal) SPD box QPs with a strictly interior warm
+    start, as solve_qp_box hands them to ip_steps_lane: (P, q, lb, x0, s0, z0)."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(b, n, n))
+    a = g @ np.swapaxes(g, 1, 2) / n + 0.1 * np.eye(n)
+    dinv = 1 / np.sqrt(np.einsum("bii->bi", a))
+    lb = np.where(rng.uniform(size=(b, n)) < 0.25, -1.0, 0.0)
+    s0 = rng.uniform(0.05, 2.0, size=(b, n))
+    arrays = (a * dinv[:, :, None] * dinv[:, None, :], rng.normal(size=(b, n)), lb, lb + s0,
+              s0, rng.uniform(0.05, 2.0, size=(b, n)))
+    return [torch.as_tensor(v, dtype=dtype, device="cuda") for v in arrays]
+
+
+def compare_ip_kernel():
+    """ip_steps_lane vs its plain version; returns (max_abs_err, timing dict)
+    with the times at (B=8192, n=93, 4 steps)."""
+    from hybdrt_torch.ops import ip_lane
+
+    max_err = 0.0
+    for (b, n) in ((B_BENCH, 93), (130, 17)):
+        args = qp_batch(b, n, torch.float32, seed=b + n)
+        frozen = 7
+        if b == 130:
+            # an indefinite lane: its first pivot is negative, so it must keep
+            # its input while every other lane steps
+            args[0][frozen] = -args[0][frozen]
+            args[4][frozen], args[5][frozen] = 1.0, 0.1
+            args[3][frozen] = args[2][frozen] + args[4][frozen]
+        for n_steps in (4, 8):
+            got = ip_lane.ip_steps_lane(*args, n_steps)
+            want = ip_lane.ip_steps_lane_plain(*args, n_steps)
+            errs = []
+            for name, g, w in zip("xsz", got, want):
+                err = (g - w).abs()
+                check(bool(torch.all(err <= TOL + TOL * w.abs())),
+                      f"ip_steps_lane ({b}, {n}, {n_steps} steps) {name}: err {float(err.max())}")
+                errs.append(float(err.max()))
+            if b == 130:
+                for g, inp in zip(got, args[3:]):
+                    check(bool(torch.equal(g[frozen], inp[frozen])), "failed lane keeps its input")
+                    others = torch.ones(b, dtype=torch.bool, device=g.device)
+                    others[frozen] = False
+                    check(bool(torch.isfinite(g).all()
+                               and (g[others] != inp[others]).any(dim=1).all()),
+                          "the failed lane's neighbours step")
+            max_err = max(max_err, *errs)
+            print(f"ip_steps_lane vs plain at B={b} n={n} f32 {n_steps} steps: max abs err "
+                  f"x {errs[0]:.3g}, s {errs[1]:.3g}, z {errs[2]:.3g}"
+                  + (f"; lane {frozen} (indefinite P) kept its input" if b == 130 else ""))
+        if b == B_BENCH:
+            mat, vec = args[0].numel() * 4, args[1].numel() * 4
+            steps = 4
+            # per step: the factor, the matvec and two solves (the O(n) vector
+            # work, under 1 % of it, is left out); P and five vectors in,
+            # three vectors out
+            ops = steps * (chol_ops(b, n) + b * 2 * n * n + 2 * solve_ops(b, n))
+            timing = dict(ms=cuda_ms(lambda: ip_lane.ip_steps_lane(*args, steps)),
+                          plain_ms=cuda_ms(lambda: ip_lane.ip_steps_lane_plain(*args, steps)),
+                          library_ms=None, bound=bound(mat + 8 * vec, ops))
+            print(f"  ip_steps_lane: kernel {timing['ms']:.4f} ms, plain "
+                  f"{timing['plain_ms']:.4f} ms, library none, bound "
+                  f"{timing['bound'][0]:.4f} ms by {timing['bound'][1]} "
+                  f"(B={b}, n={n}, {steps} steps, f32, CUDA events, mean of 20)")
+
+    args = qp_batch(64, 93, torch.float64, seed=11)
+    e64 = max(float((g - w).abs().max()) for g, w in
+              zip(ip_lane.ip_steps_lane(*args, 8), ip_lane.ip_steps_lane_plain(*args, 8)))
+    check(e64 < 1e-10, f"float64 ip_steps_lane vs plain: err {e64}")
+    print(f"ip_steps_lane float64 (B=64, n=93, 8 steps): max abs err {e64:.3g}")
+    torch.cuda.synchronize()
+    return max_err, timing
+
+
+def phase_slice(fused):
+    """The main path on the card (with fused warm QPs if ``fused``); returns
+    (launch counts of the timed call, its wall in s)."""
     import hybdrt_torch
-    from hybdrt_torch.ops import chol_lane as cl
+    from hybdrt_torch.ops import chol_lane as cl, ip_lane
     from bench import make_batch
 
+    label = "fused slice" if fused else "slice"
     freq, z = make_batch(B_BENCH, N_FREQ)
     kw = dict(max_iter=MAX_ITER, qp_max_iter=20, qp_max_iter_warm=4, pred_stop=True,
-              pred_rtol=3e-2)
+              pred_rtol=3e-2, qp_fused=fused)
     fitter = hybdrt_torch.BatchedEISFitter(freq, dtype=torch.float32, device="cuda", **kw)
     t0 = time.time()
     fitter.fit(z, adaptive="staged", collect="lazy")
@@ -184,26 +314,38 @@ def phase_slice():
     warm_s = time.time() - t0
 
     cl.reset_launch_counts()
+    ip_lane.reset_launch_counts()
     t0 = time.time()
     res = fitter.fit(z, adaptive="staged", collect="lazy")
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = dict(cl.LAUNCHES)
+    launches = {**cl.LAUNCHES, **ip_lane.LAUNCHES}
 
     check(isinstance(res.weights, torch.Tensor) and res.weights.is_cuda,
           "collect='lazy' keeps weights on the card")
-    check(all(v > 0 for v in launches.values()), f"every kernel launched: {launches}")
+    path = list(launches) if fused else list(cl.LAUNCHES)
+    check(all(launches[k] > 0 for k in path), f"every kernel of the path launched: {launches}")
+    if fused:
+        # one launch per warm outer pass; the passes are as many as the
+        # slowest lane's iterations, the first of them the cold peel
+        passes = int(res.n_iter.max())
+        check(launches["ip_steps_lane"] <= passes,
+              f"ip_steps_lane launched {launches['ip_steps_lane']} times in {passes} passes")
+    else:
+        check(launches["ip_steps_lane"] == 0, "the plain path does not fuse")
     check(bool(np.all(np.isfinite(res.x)) and np.all(np.isfinite(res.r_inf))),
           "finite coefficients")
     z_hat = fitter.predict_z(res)
     rel = np.abs(z_hat - z) / np.abs(z)
     med_rel = float(np.median(rel))
     pct = np.percentile(res.n_iter, [50, 90, 99, 100])
-    print(f"slice: B={B_BENCH} n_freq={N_FREQ} staged lazy f32: first call {warm_s:.2f} s, "
+    print(f"{label}: B={B_BENCH} n_freq={N_FREQ} staged lazy f32: first call {warm_s:.2f} s, "
           f"second call {wall:.3f} s -> {B_BENCH / wall:.1f} spectra/s; "
           f"converged {int(res.converged.sum())}/{B_BENCH}; "
           f"median |z_hat - z|/|z| {med_rel:.4g}; n_iter p50/p90/p99/max {pct.tolist()}")
-    print(f"launches in the timed call: {launches}")
+    print(f"{label}: launches in the timed call: {launches}")
+    if not res.converged.all():
+        print(f"{label}: unconverged lanes {np.flatnonzero(~res.converged).tolist()}")
     # the noise is ~0.4% of |z|; a fit that missed the spectra sits far above
     check(med_rel < 0.02, f"median relative residual {med_rel}")
 
@@ -220,28 +362,49 @@ def phase_slice():
     # f32 than in f64 lands elsewhere on its settled plateau; the lanes that
     # stop at the same iteration show the float32 arithmetic alone
     same = res.n_iter[:64] == r64.n_iter
-    print(f"f32 card vs f64 CPU (64 spectra, CPU fit {cpu_s:.1f} s): Rp rel err median "
-          f"{np.median(rel_rp):.3g} p95 {np.percentile(rel_rp, 95):.3g} max "
+    print(f"{label}: f32 card vs f64 CPU (64 spectra, CPU fit {cpu_s:.1f} s): Rp rel err "
+          f"median {np.median(rel_rp):.3g} p95 {np.percentile(rel_rp, 95):.3g} max "
           f"{np.max(rel_rp):.3g}, max |dR_inf| {np.max(d_rinf):.3g}")
     if same.any():
         print(f"  {int(same.sum())} lanes stopped at the same iteration: Rp rel err max "
               f"{np.max(rel_rp[same]):.3g}, max |dR_inf| {np.max(d_rinf[same]):.3g}")
+    worst = np.argsort(-rel_rp)[:4]
+    print(f"  worst Rp lanes {worst.tolist()}: rel err {rel_rp[worst].tolist()}, n_iter f32 "
+          f"{res.n_iter[:64][worst].tolist()} f64 {r64.n_iter[worst].tolist()}")
+    # tests/test_f32_accuracy.py's bounds. The functional fit (predicted
+    # impedance) and the Rp median and p95 are held on all 64 lanes. The Rp
+    # max and R_inf are held on all lanes of the plain path; on the fused path
+    # on the lanes that stop at the same iteration in both precisions: there
+    # a lane that settles an iteration later in float32 lands elsewhere on its
+    # settled plateau, as in the JAX package's own float32 fused fit, which
+    # breaks the all-lane Rp max on these spectra (PERF.md, Findings)
+    zrel = np.max(np.abs(z_hat[:64] - ref.predict_z(r64)), axis=1) / np.max(np.abs(z[:64]), axis=1)
+    print(f"  functional fit: sup |z_hat32 - z_hat64| / max |z| max {np.max(zrel):.3g}")
     check(np.median(rel_rp) < 1e-3, "Rp median rel err < 1e-3")
     check(np.percentile(rel_rp, 95) < 3e-3, "Rp p95 rel err < 3e-3")
-    check(np.max(rel_rp) < 5e-3, "Rp max rel err < 5e-3")
-    check(np.max(d_rinf) < 5e-3, "max |dR_inf| < 5e-3")
-    return launches
+    check(np.max(zrel) < 1.5e-2, "functional fit rel err < 1.5e-2")
+    held = same if fused else np.ones(64, dtype=bool)
+    check(held.sum() >= 16, f"{int(held.sum())} lanes stopped at the same iteration")
+    check(np.max(rel_rp[held]) < 5e-3, "Rp max rel err < 5e-3")
+    check(np.max(d_rinf[held]) < 5e-3, "max |dR_inf| < 5e-3")
+    return launches, wall
 
 
 def main():
     phase_card()
     phase_build()
     max_err, times = compare_kernels()
-    launches = phase_slice()
+    max_err["ip_steps_lane"], times["ip_steps_lane"] = compare_ip_kernel()
+    launches, wall = phase_slice(fused=False)
+    fused_launches, fused_wall = phase_slice(fused=True)
+    launches["ip_steps_lane"] = fused_launches["ip_steps_lane"]
+    print(f"second-call wall, B={B_BENCH}: plain {wall:.4f} s ({B_BENCH / wall:.1f} spectra/s), "
+          f"fused {fused_wall:.4f} s ({B_BENCH / fused_wall:.1f} spectra/s)")
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": "hybdrt_torch/csrc/chol_lane.cu",
-         "replaces": KERNELS[k], "launches": launches[k], "max_abs_err": max_err[k],
-         "ms": times[k][0], "plain_ms": times[k][1]} for k in KERNELS]}))
+        {"name": k, "route": "cuda", "source": src, "replaces": tpu, "launches": launches[k],
+         "max_abs_err": max_err[k], "ms": times[k]["ms"], "plain_ms": times[k]["plain_ms"],
+         "bound_ms": times[k]["bound"][0], "bound_by": times[k]["bound"][1],
+         "library_ms": times[k]["library_ms"]} for k, (src, tpu) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

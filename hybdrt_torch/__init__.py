@@ -3,7 +3,8 @@ kernels for NVIDIA Hopper.
 
 A port of ``hybdrt_tpu`` (the JAX reference, kept beside it). It mirrors that
 package's layout and function names: ``ops/`` (basis, matrix assembly, the
-batched box QP and its Cholesky kernels), ``solver/`` (QPHB updates and the
+batched box QP, its Cholesky kernels and the fused interior-point kernel),
+``csrc/`` (the CUDA sources and their build), ``solver/`` (QPHB updates and the
 outer fit loop), ``models/`` (EIS problem assembly), ``parallel/`` (the
 batched fitter). The port imports torch, numpy and scipy, never JAX.
 

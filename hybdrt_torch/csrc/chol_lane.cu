@@ -10,7 +10,8 @@
 // block per matrix: the block copies its (n, n) row-major matrix from device
 // memory into shared memory (row stride ld = n | 1, odd, so column walks hit
 // distinct banks), runs a right-looking column loop there, and does both
-// substitutions in the same block.
+// substitutions in the same block. The factor and substitution loops are in
+// lane_common.cuh, shared with the fused interior-point kernel (ip_lane.cu).
 //
 // Contract (kept exactly from the TPU kernels):
 //   * only the lower triangle of a returned factor is valid; the upper
@@ -33,32 +34,11 @@
 // Each launcher returns cudaGetLastError() so that the Python wrapper can
 // raise on a refused launch.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "lane_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
-__device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
-
-template <typename T>
-__device__ __forceinline__ T refined_rsqrt(T x) {
-  T xm = x > T(1e-30) ? x : T(1e-30);
-  T r = rsqrt_t(xm);
-  r = r * (T(1.5) - T(0.5) * xm * r * r);
-  return x > T(0) ? r : T(NAN);
-}
-
-template <typename T>
-__device__ __forceinline__ void load_matrix(const T* __restrict__ g, T* s, int n, int ld) {
-  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-    int r = idx / n;
-    int c = idx - r * n;
-    s[r * ld + c] = g[idx];
-  }
-}
+using namespace hybdrt_lane;
 
 template <typename T>
 __device__ __forceinline__ void store_matrix(const T* s, T* __restrict__ g, int n, int ld) {
@@ -66,59 +46,6 @@ __device__ __forceinline__ void store_matrix(const T* s, T* __restrict__ g, int 
     int r = idx / n;
     int c = idx - r * n;
     g[idx] = s[r * ld + c];
-  }
-}
-
-// In-place lower Cholesky of the (n, n) matrix in shared memory. col is a
-// shared scratch vector of length n.
-template <typename T>
-__device__ void factor_in_place(T* a, T* col, int n, int ld) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  for (int j = 0; j < n; ++j) {
-    // Phase 1: scale column j by the refined inverse pivot. The diagonal is
-    // written back in phase 2, after every thread has read it here.
-    const T ajj = a[j * ld + j];
-    const T inv = refined_rsqrt(ajj);
-    for (int i = j + threadIdx.x; i < n; i += blockDim.x) {
-      const T v = (i == j ? ajj : a[i * ld + j]) * inv;
-      col[i] = v;
-      if (i > j) a[i * ld + j] = v;
-    }
-    __syncthreads();
-    // Phase 2: rank-1 update of the trailing lower triangle, one warp per row.
-    if (threadIdx.x == 0) a[j * ld + j] = col[j];
-    for (int r = j + 1 + warp; r < n; r += n_warps) {
-      const T lr = col[r];
-      T* row = a + r * ld;
-      for (int c = j + 1 + lane; c <= r; c += 32) row[c] -= lr * col[c];
-    }
-    __syncthreads();
-  }
-}
-
-// Solve (L L^T) x = w in place, L the lower triangle of the shared matrix.
-// Runs on warp 0 only (the caller synchronises the block before and after).
-template <typename T>
-__device__ void substitute_warp(const T* l, T* w, int n, int ld) {
-  const int lane = threadIdx.x & 31;
-  // Forward: L y = w, column-oriented.
-  for (int j = 0; j < n; ++j) {
-    const T yj = w[j] / l[j * ld + j];
-    __syncwarp();
-    if (lane == 0) w[j] = yj;
-    for (int i = j + 1 + lane; i < n; i += 32) w[i] -= yj * l[i * ld + j];
-    __syncwarp();
-  }
-  // Backward: L^T x = y, column-oriented over the rows of L.
-  for (int j = n - 1; j >= 0; --j) {
-    const T xj = w[j] / l[j * ld + j];
-    __syncwarp();
-    if (lane == 0) w[j] = xj;
-    const T* row = l + j * ld;
-    for (int i = lane; i < j; i += 32) w[i] -= row[i] * xj;
-    __syncwarp();
   }
 }
 
@@ -189,20 +116,10 @@ solve_factored_kernel(const T* __restrict__ l, const T* __restrict__ b,
   for (int i = threadIdx.x; i < n; i += blockDim.x) x[v_off + i] = s.w[i];
 }
 
-inline int row_stride(int n) { return n | 1; }
-
 template <typename T>
 inline size_t smem_bytes(int n) {
   const int ld = row_stride(n);
   return sizeof(T) * (static_cast<size_t>(n) * ld + 2 * static_cast<size_t>(n));
-}
-
-template <typename K>
-inline int prepare(K kernel, size_t bytes) {
-  // Above 48 KB a block may only use dynamic shared memory after opting in.
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  return static_cast<int>(err);
 }
 
 template <typename T>
@@ -210,7 +127,7 @@ int launch_factor_solve(const void* a, const void* b, void* x, void* l, int batc
                         void* stream) {
   if (batch == 0) return 0;
   const size_t bytes = smem_bytes<T>(n);
-  int err = prepare(factor_solve_kernel<T>, bytes);
+  int err = allow_smem(factor_solve_kernel<T>, bytes);
   if (err) return err;
   factor_solve_kernel<T><<<batch, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(x),
@@ -222,7 +139,7 @@ template <typename T>
 int launch_solve(const void* a, const void* b, void* x, int batch, int n, void* stream) {
   if (batch == 0) return 0;
   const size_t bytes = smem_bytes<T>(n);
-  int err = prepare(solve_kernel<T>, bytes);
+  int err = allow_smem(solve_kernel<T>, bytes);
   if (err) return err;
   solve_kernel<T><<<batch, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(x), n,
@@ -235,7 +152,7 @@ int launch_solve_factored(const void* l, const void* b, void* x, int batch, int 
                           void* stream) {
   if (batch == 0) return 0;
   const size_t bytes = smem_bytes<T>(n);
-  int err = prepare(solve_factored_kernel<T>, bytes);
+  int err = allow_smem(solve_factored_kernel<T>, bytes);
   if (err) return err;
   solve_factored_kernel<T><<<batch, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(l), static_cast<const T*>(b), static_cast<T*>(x), n,

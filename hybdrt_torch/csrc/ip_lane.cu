@@ -1,0 +1,250 @@
+// Fused fixed-count Mehrotra interior-point steps for a batch of box QPs
+//     min 1/2 x'Px + q'x  s.t.  x >= lb.
+//
+// Replaces the TPU kernel hybdrt_tpu/ops/pallas_ip_lane.py::ip_steps_lane
+// (:157) -> ip_steps_lane_{f32,f64}, with the step rule of the JAX package's
+// plain loop, hybdrt_tpu/ops/qp.py::_ip_steps_single (:157-192): the
+// corrector's step is min(1, 0.99 min(1, ratio)), never more than 0.99. The
+// TPU kernel takes min(1, 0.99 ratio) (pallas_ip_lane.py:133-134), a full
+// step where one is feasible; the port follows the plain loop.
+//
+// Each step, per lane: H = P + diag(z/s); r_d = P x + q - z; r_p = s - (x - lb);
+// mu = s.z/n; factor H; predictor solve; fraction-to-boundary ratios; mu_aff
+// and sigma = clip((mu_aff / max(mu, 1e-30))^3, 0, 1); corrector solve against
+// the same factor; step lengths; s, z floored at 1e-25 (f32) or 1e-30 (f64).
+// A lane whose new x or z has a non-finite entry (a non-positive pivot gives
+// NaN, lane_common.cuh) keeps its last iterate for every remaining step. There
+// is no convergence test: every lane takes n_steps steps.
+//
+// Design: one thread block per lane. P is read from device memory once and
+// stays in shared memory (row stride n | 1) for all steps; H is a second
+// shared matrix, of which only the lower triangle is written and factored,
+// so P stays intact for the next step's matvec. All vectors live in shared
+// memory, so nothing goes to device memory between steps. The whole block
+// assembles H and r_d (a warp per row) and factors H (factor_in_place); warp 0
+// alone does the O(n) vector work, both substitutions and the reductions,
+// with warp shuffles and no block barrier.
+//
+// What bounds it: per step the n^3/3 multiply-adds of the factor (n = 93:
+// ~2.7e5 per lane, shared-memory read-modify-writes with two block barriers
+// per column) and the n^2 of the matvec and of each substitution. Device
+// memory traffic is one read of P and of five vectors and one write of three.
+// At n = 93 the block needs 69.2 KB of shared memory in f32 (148.8 KB in
+// f64), so three blocks fit on an SM in f32. Several lanes per block, `mma`
+// for the trailing update and TMA loads are left for later work.
+//
+// NaN: jnp.maximum, jnp.minimum and jnp.clip propagate NaN, and fmaxf/fminf
+// do not, so the floors, caps and min-reductions below are written with
+// comparisons that return a NaN operand.
+//
+// Each launcher returns cudaGetLastError() so that the Python wrapper can
+// raise on a refused launch.
+
+#include "lane_common.cuh"
+
+namespace {
+
+using namespace hybdrt_lane;
+
+constexpr int kVectors = 14;
+
+template <typename T>
+__device__ __forceinline__ T floor_at(T v, T lo) { return v < lo ? lo : v; }
+
+template <typename T>
+__device__ __forceinline__ T cap_at(T v, T hi) { return v > hi ? hi : v; }
+
+template <typename T>
+__device__ __forceinline__ T nan_min(T a, T b) { return (a < b || a != a) ? a : b; }
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_min(T v) {
+  for (int o = 16; o > 0; o >>= 1) v = nan_min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Largest alpha in (0, 1] with v + alpha dv >= 0 (qp.py::_max_step); warp-wide,
+// every lane of the warp gets the result.
+template <typename T>
+__device__ __forceinline__ T max_step_warp(const T* v, const T* dv, int n) {
+  T r = T(INFINITY);
+  for (int i = threadIdx.x & 31; i < n; i += 32) {
+    const T d = dv[i];
+    r = nan_min(r, d < T(0) ? -v[i] / d : T(INFINITY));
+  }
+  return cap_at(warp_min(r), T(1));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ip_steps_kernel(const T* __restrict__ p, const T* __restrict__ q, const T* __restrict__ lb,
+                const T* __restrict__ x0, const T* __restrict__ s0, const T* __restrict__ z0,
+                T* __restrict__ x_out, T* __restrict__ s_out, T* __restrict__ z_out, int n,
+                int ld, int n_steps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sp = reinterpret_cast<T*>(smem_raw);  // P, whole
+  T* h = sp + n * ld;                      // H, lower triangle, factored in place
+  T* x = h + n * ld;
+  T* s = x + n;
+  T* z = s + n;
+  T* qv = z + n;
+  T* lbv = qv + n;
+  T* d = lbv + n;    // z / s
+  T* rd = d + n;     // P x + q - z
+  T* rp = rd + n;    // s - (x - lb)
+  T* w = rp + n;     // right-hand side, then the solution, of each solve
+  T* dsa = w + n;    // predictor ds
+  T* dza = dsa + n;  // predictor dz
+  T* rc = dza + n;   // corrector complementarity residual
+  T* dz = rc + n;    // corrector dz (the corrector ds is kept in dsa)
+  T* col = dz + n;   // factor scratch
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const size_t m_off = static_cast<size_t>(blockIdx.x) * n * n;
+  const size_t v_off = static_cast<size_t>(blockIdx.x) * n;
+  const T tiny = sizeof(T) == 8 ? T(1e-30) : T(1e-25);
+  const T inv_n = T(1) / T(n);
+
+  load_matrix(p + m_off, sp, n, ld);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    x[i] = x0[v_off + i];
+    s[i] = s0[v_off + i];
+    z[i] = z0[v_off + i];
+    qv[i] = q[v_off + i];
+    lbv[i] = lb[v_off + i];
+  }
+  __syncthreads();
+
+  bool frozen = false;  // meaningful in warp 0, the same in each of its lanes
+  for (int step = 0; step < n_steps; ++step) {
+    // H's lower triangle and r_d, a warp per row
+    for (int r = warp; r < n; r += n_warps) {
+      const T* prow = sp + r * ld;
+      T* hrow = h + r * ld;
+      T acc = T(0);
+      for (int c = lane; c < n; c += 32) {
+        const T pv = prow[c];
+        acc += pv * x[c];
+        if (c < r) hrow[c] = pv;
+        else if (c == r) hrow[c] = pv + z[r] / s[r];
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) rd[r] = acc + qv[r] - z[r];
+    }
+    __syncthreads();
+    factor_in_place(h, col, n, ld);
+
+    if (warp == 0) {
+      // Predictor (affine scaling) step
+      T mu = T(0);
+      for (int i = lane; i < n; i += 32) {
+        const T di = z[i] / s[i];
+        const T rpi = s[i] - (x[i] - lbv[i]);
+        d[i] = di;
+        rp[i] = rpi;
+        w[i] = -rd[i] - z[i] + di * rpi;
+        mu += s[i] * z[i];
+      }
+      mu = warp_sum(mu) * inv_n;
+      __syncwarp();
+      substitute_warp(h, w, n, ld);
+      for (int i = lane; i < n; i += 32) {
+        const T dsi = w[i] - rp[i];
+        dsa[i] = dsi;
+        dza[i] = -z[i] - d[i] * dsi;
+      }
+      T a_p = max_step_warp(s, dsa, n);
+      T a_d = max_step_warp(z, dza, n);
+      T mu_aff = T(0);
+      for (int i = lane; i < n; i += 32) mu_aff += (s[i] + a_p * dsa[i]) * (z[i] + a_d * dza[i]);
+      mu_aff = warp_sum(mu_aff) * inv_n;
+      const T ratio = mu_aff / floor_at(mu, T(1e-30));
+      const T sigma = cap_at(floor_at(ratio * ratio * ratio, T(0)), T(1));
+
+      // Corrector step against the same factor
+      for (int i = lane; i < n; i += 32) {
+        const T rci = s[i] * z[i] + dsa[i] * dza[i] - sigma * mu;
+        rc[i] = rci;
+        w[i] = -rd[i] - rci / s[i] + d[i] * rp[i];
+      }
+      __syncwarp();
+      substitute_warp(h, w, n, ld);
+      for (int i = lane; i < n; i += 32) {
+        const T dsi = w[i] - rp[i];
+        dsa[i] = dsi;
+        dz[i] = -rc[i] / s[i] - d[i] * dsi;
+      }
+      a_p = cap_at(T(0.99) * max_step_warp(s, dsa, n), T(1));
+      a_d = cap_at(T(0.99) * max_step_warp(z, dz, n), T(1));
+
+      // New iterate, unless a lane's step is not finite: then it keeps its
+      // last iterate from here on
+      bool bad = false;
+      for (int i = lane; i < n; i += 32) {
+        const T xn = x[i] + a_p * w[i];
+        const T zn = floor_at(z[i] + a_d * dz[i], tiny);
+        bad = bad || !isfinite(xn) || !isfinite(zn);
+      }
+      frozen = frozen || __any_sync(0xffffffffu, bad);
+      if (!frozen) {
+        for (int i = lane; i < n; i += 32) {
+          x[i] = x[i] + a_p * w[i];
+          s[i] = floor_at(s[i] + a_p * dsa[i], tiny);
+          z[i] = floor_at(z[i] + a_d * dz[i], tiny);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    x_out[v_off + i] = x[i];
+    s_out[v_off + i] = s[i];
+    z_out[v_off + i] = z[i];
+  }
+}
+
+template <typename T>
+inline size_t smem_bytes(int n) {
+  const int ld = row_stride(n);
+  return sizeof(T) * (2 * static_cast<size_t>(n) * ld + kVectors * static_cast<size_t>(n));
+}
+
+template <typename T>
+int launch_ip_steps(const void* p, const void* q, const void* lb, const void* x0,
+                    const void* s0, const void* z0, void* x, void* s, void* z, int batch,
+                    int n, int n_steps, void* stream) {
+  if (batch == 0) return 0;
+  const size_t bytes = smem_bytes<T>(n);
+  int err = allow_smem(ip_steps_kernel<T>, bytes);
+  if (err) return err;
+  ip_steps_kernel<T><<<batch, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(p), static_cast<const T*>(q), static_cast<const T*>(lb),
+      static_cast<const T*>(x0), static_cast<const T*>(s0), static_cast<const T*>(z0),
+      static_cast<T*>(x), static_cast<T*>(s), static_cast<T*>(z), n, row_stride(n), n_steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int ip_steps_lane_f32(const void* p, const void* q, const void* lb, const void* x0,
+                      const void* s0, const void* z0, void* x, void* s, void* z, int batch,
+                      int n, int n_steps, void* stream) {
+  return launch_ip_steps<float>(p, q, lb, x0, s0, z0, x, s, z, batch, n, n_steps, stream);
+}
+int ip_steps_lane_f64(const void* p, const void* q, const void* lb, const void* x0,
+                      const void* s0, const void* z0, void* x, void* s, void* z, int batch,
+                      int n, int n_steps, void* stream) {
+  return launch_ip_steps<double>(p, q, lb, x0, s0, z0, x, s, z, batch, n, n_steps, stream);
+}
+}  // extern "C"

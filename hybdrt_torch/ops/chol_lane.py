@@ -20,8 +20,6 @@ applied from ``info``). Given CUDA tensors it launches its kernel or raises.
 Each wrapper adds one to ``LAUNCHES[name]`` for every kernel launch and
 nowhere else.
 """
-import ctypes
-
 import torch
 
 from ..csrc import build as _build
@@ -31,16 +29,7 @@ LAUNCHES = {"chol_factor_solve_lane": 0, "chol_solve_factored_lane": 0,
 
 # Shared memory one block may use on sm_90 (dynamic, after opting in)
 MAX_SMEM_BYTES = 232448
-
-_SIGNATURES = {
-    "chol_factor_solve_lane": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                                       ctypes.c_void_p],
-    "chol_solve_factored_lane": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
-                                                         ctypes.c_void_p],
-    "chol_solve_lane": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
-                                                ctypes.c_void_p],
-}
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+DTYPES = (torch.float32, torch.float64)
 
 
 def reset_launch_counts():
@@ -54,55 +43,43 @@ def smem_bytes(n, dtype):
     return torch.finfo(dtype).bits // 8 * (n * ld + 2 * n)
 
 
-_FNS = {}
-
-
-def _kernel(name, dtype):
-    """The ctypes launcher of one kernel instantiation (builds on first use)."""
-    key = (name, dtype)
-    fn = _FNS.get(key)
-    if fn is None:
-        fn = getattr(_build.load(), f"{name}_{_SUFFIX[dtype]}")
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        _FNS[key] = fn
-    return fn
-
-
-def _check(name, a, b):
-    if a.device.type != "cuda" or b.device != a.device:
+def check_args(name, a, *vecs, smem=smem_bytes):
+    """Raise unless ``a`` (B, n, n) and each of ``vecs`` (B, n) are contiguous
+    CUDA tensors on one device, all float32 or all float64, and the
+    ``smem(n, dtype)`` bytes of shared memory the kernel needs fit one block."""
+    ts = (a, *vecs)
+    if a.device.type != "cuda" or any(t.device != a.device for t in vecs):
         raise ValueError(f"{name}: expected CUDA tensors on one device, got "
-                         f"{a.device} and {b.device}")
-    if a.dtype not in _SUFFIX or b.dtype != a.dtype:
+                         f"{[str(t.device) for t in ts]}")
+    if a.dtype not in DTYPES or any(t.dtype != a.dtype for t in vecs):
         raise TypeError(f"{name}: expected float32 or float64 of one dtype, got "
-                        f"{a.dtype} and {b.dtype}")
-    if a.dim() != 3 or a.shape[1] != a.shape[2] or b.shape != a.shape[:2]:
-        raise ValueError(f"{name}: expected a (B, n, n) and b (B, n), got "
-                         f"{tuple(a.shape)} and {tuple(b.shape)}")
-    if not (a.is_contiguous() and b.is_contiguous()):
+                        f"{[t.dtype for t in ts]}")
+    if a.dim() != 3 or a.shape[1] != a.shape[2] or any(t.shape != a.shape[:2] for t in vecs):
+        raise ValueError(f"{name}: expected a (B, n, n) and vectors (B, n), got "
+                         f"{[tuple(t.shape) for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{name}: inputs must be contiguous")
     n = a.shape[1]
-    if smem_bytes(n, a.dtype) > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: n={n} in {a.dtype} needs {smem_bytes(n, a.dtype)} bytes "
+    if smem(n, a.dtype) > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: n={n} in {a.dtype} needs {smem(n, a.dtype)} bytes "
                          f"of shared memory, more than one block has ({MAX_SMEM_BYTES})")
 
 
-def _launch(name, *args, batch, n, device):
+def on_cpu(name, a, *vecs, smem=smem_bytes):
+    """True when every tensor lies on the CPU, where the wrapper runs its
+    plain version; otherwise checks that the kernel takes them and returns
+    False (a CUDA tensor never reaches a plain version)."""
+    if a.device.type == "cpu" and all(t.device.type == "cpu" for t in vecs):
+        return True
+    check_args(name, a, *vecs, smem=smem)
+    return False
+
+
+def _launch(name, *tensors, batch, n, device):
     if batch == 0:
         return
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernel(name, args[0].dtype)(*(t.data_ptr() for t in args), batch, n, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    _build.launch(name, tensors, (batch, n), device)
     LAUNCHES[name] += 1
-
-
-def _is_cpu(name, a, b):
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return True
-    _check(name, a, b)
-    return False
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +109,7 @@ def chol_solve_lane_plain(a, b):
 def chol_factor_solve_lane(a, b):
     """(x, l) = (a^-1 b, chol(a)); l's upper triangle holds leftover input."""
     name = "chol_factor_solve_lane"
-    if _is_cpu(name, a, b):
+    if on_cpu(name, a, b):
         return chol_factor_solve_lane_plain(a, b)
     x = torch.empty_like(b)
     l = torch.empty_like(a)
@@ -143,7 +120,7 @@ def chol_factor_solve_lane(a, b):
 def chol_solve_factored_lane(l, b):
     """x = (L L^T)^-1 b from the lower triangle of l."""
     name = "chol_solve_factored_lane"
-    if _is_cpu(name, l, b):
+    if on_cpu(name, l, b):
         return chol_solve_factored_lane_plain(l, b)
     x = torch.empty_like(b)
     _launch(name, l, b, x, batch=l.shape[0], n=l.shape[1], device=l.device)
@@ -153,7 +130,7 @@ def chol_solve_factored_lane(l, b):
 def chol_solve_lane(a, b):
     """x = a^-1 b for a batch of SPD matrices."""
     name = "chol_solve_lane"
-    if _is_cpu(name, a, b):
+    if on_cpu(name, a, b):
         return chol_solve_lane_plain(a, b)
     x = torch.empty_like(b)
     _launch(name, a, b, x, batch=a.shape[0], n=a.shape[1], device=a.device)

@@ -9,15 +9,19 @@ the batch dimension written out where the JAX package vmapped a
 flag, and a lane whose loop condition is false is frozen by ``torch.where``,
 so each lane stops at the iteration it stops at in JAX.
 
-Each Mehrotra step factors ``P + diag(z/s)`` once and solves twice through
-the lane kernels of ``ops/chol_lane.py`` (CUDA on a GPU, plain PyTorch on the
-CPU); the cold start and the polish factor and solve in one call.
+Each Mehrotra step (``ops/ip_lane.py::mehrotra_step``) factors
+``P + diag(z/s)`` once and solves twice through the lane kernels of
+``ops/chol_lane.py`` (CUDA on a GPU, plain PyTorch on the CPU); the cold
+start and the polish factor and solve in one call. With ``fused_steps`` a
+fixed number of steps runs in one call of the fused kernel
+``ops/ip_lane.py::ip_steps_lane`` instead of the loop.
 """
 from typing import NamedTuple
 
 import torch
 
 from . import chol_lane
+from .ip_lane import _add_diag, _dot, _mv, ip_steps_lane, mehrotra_step
 
 
 class QPResult(NamedTuple):
@@ -51,31 +55,11 @@ def spd_solve(a, b):
     return chol_lane.chol_solve_lane(a.contiguous(), b.contiguous())
 
 
-def _mv(P, x):
-    return torch.matmul(P, x.unsqueeze(-1)).squeeze(-1)
-
-
-def _dot(a, b):
-    return torch.sum(a * b, dim=-1)
-
-
-def _add_diag(P, d):
-    out = P.clone()
-    out.diagonal(dim1=-2, dim2=-1).add_(d)
-    return out
-
-
-def _max_step(v, dv):
-    """Largest alpha in (0, 1] with v + alpha dv >= 0, per lane."""
-    ratio = torch.where(dv < 0, -v / torch.where(dv < 0, dv, -1.0), torch.inf)
-    return torch.clamp(torch.amin(ratio, dim=-1), max=1.0)
-
-
 TOL_GAP = 1e-12
 TOL_FEAS = 1e-10
 
 
-def solve_qp_box(P, q, lb, max_iter=60, x_init=None, z_init=None):
+def solve_qp_box(P, q, lb, max_iter=60, x_init=None, z_init=None, fused_steps=None):
     """Solve a batch of min 1/2 x'Px + q'x s.t. x >= lb. P must be SPD.
 
     The problem is Jacobi-equilibrated (x = D x~ with D = diag(P)^-1/2) before
@@ -85,6 +69,12 @@ def solve_qp_box(P, q, lb, max_iter=60, x_init=None, z_init=None):
 
     ``max_iter`` is an int or a per-lane integer tensor (B,). ``x_init`` /
     ``z_init`` (B, n) warm-start the interior point.
+
+    ``fused_steps`` (int): instead of the ``while`` loop, run exactly that many
+    Mehrotra steps on every lane, with no convergence test and no host sync
+    between steps, in one ``ip_steps_lane`` call (the fused CUDA kernel on a
+    GPU); ``iterations`` is then ``fused_steps`` on every lane and the polish
+    runs as usual (``hybdrt_tpu/ops/qp.py:356-358``).
     """
     lb = lb.expand_as(q)
     d_eq = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(P, dim1=-2, dim2=-1), min=1e-300))
@@ -97,7 +87,8 @@ def solve_qp_box(P, q, lb, max_iter=60, x_init=None, z_init=None):
     if z_init is not None:
         z_init = z_init * d_eq
 
-    res = _solve_qp_box_core(P, q, lb, max_iter, x_init=x_init, z_init=z_init)
+    res = _solve_qp_box_core(P, q, lb, max_iter, x_init=x_init, z_init=z_init,
+                             fused_steps=fused_steps)
     x = res.x * d_eq
     z = res.z / d_eq
     s = x - lb_orig
@@ -106,7 +97,7 @@ def solve_qp_box(P, q, lb, max_iter=60, x_init=None, z_init=None):
                     iterations=res.iterations, primal_objective=obj)
 
 
-def _solve_qp_box_core(P, q, lb, max_iter, x_init=None, z_init=None):
+def _solve_qp_box_core(P, q, lb, max_iter, x_init=None, z_init=None, fused_steps=None):
     bsz, n = q.shape
     dtype, device = q.dtype, q.device
     # Precision-aware tolerances: float32 cannot reach 1e-12 relative gap
@@ -132,7 +123,6 @@ def _solve_qp_box_core(P, q, lb, max_iter, x_init=None, z_init=None):
         z0 = torch.clamp(torch.abs(_mv(P, x0) + q), min=1.0)
 
     q_scale = 1.0 + torch.amax(torch.abs(q), dim=-1)
-    tiny = 1e-30 if dtype == torch.float64 else 1e-25
 
     def converged(x, s, z):
         r_d = _mv(P, x) + q - z
@@ -142,59 +132,37 @@ def _solve_qp_box_core(P, q, lb, max_iter, x_init=None, z_init=None):
         ok_dual = torch.amax(torch.abs(r_d), dim=-1) <= tol_feas * q_scale
         return ok_gap & ok_dual
 
-    max_iter = torch.as_tensor(max_iter, device=device).expand(bsz)
-    x, s, z = x0, s0, z0
-    it = torch.zeros(bsz, dtype=torch.int32, device=device)
-    done = torch.zeros(bsz, dtype=torch.bool, device=device)
-    while True:
-        # Per-lane loop condition of the vmapped while_loop; a lane that fails
-        # it keeps its carry unchanged (one host sync per step)
-        live = (it < max_iter) & ~done
-        if not bool(live.any()):
-            break
-        d = z / s
-        r_d = _mv(P, x) + q - z
-        r_p = s - (x - lb)
-        mu = _dot(s, z) / n
-        H = _add_diag(P, d)
+    if fused_steps is not None:
+        x, s, z = ip_steps_lane(*(t.contiguous() for t in (P, q, lb, x0, s0, z0)),
+                                fused_steps)
+        it = torch.full((bsz,), int(fused_steps), dtype=torch.int32, device=device)
+    else:
+        max_iter = torch.as_tensor(max_iter, device=device).expand(bsz)
+        x, s, z = x0, s0, z0
+        it = torch.zeros(bsz, dtype=torch.int32, device=device)
+        done = torch.zeros(bsz, dtype=torch.bool, device=device)
+        while True:
+            # Per-lane loop condition of the vmapped while_loop; a lane that
+            # fails it keeps its carry unchanged (one host sync per step)
+            live = (it < max_iter) & ~done
+            if not bool(live.any()):
+                break
+            x_new, s_new, z_new, bad = mehrotra_step(P, q, lb, x, s, z, 1e-300,
+                                                     spd_factor_solve, spd_solve_factored)
+            # NaN/inf guard: a failed step (non-positive pivot in float32)
+            # keeps the previous iterate and stops the lane
+            keep = (done | bad)[:, None]
+            x_new = torch.where(keep, x, x_new)
+            s_new = torch.where(keep, s, s_new)
+            z_new = torch.where(keep, z, z_new)
+            done_new = done | bad | converged(x_new, s_new, z_new)
 
-        # Predictor (affine scaling) step; the factor is reused below
-        rhs_aff = -r_d - z + d * r_p
-        dx_aff, l_f = spd_factor_solve(H, rhs_aff)
-        ds_aff = dx_aff - r_p
-        dz_aff = -z - d * ds_aff
-        a_p = _max_step(s, ds_aff)[:, None]
-        a_d = _max_step(z, dz_aff)[:, None]
-        mu_aff = _dot(s + a_p * ds_aff, z + a_d * dz_aff) / n
-        sigma = torch.clamp((mu_aff / torch.clamp(mu, min=1e-300)) ** 3, 0.0, 1.0)
-
-        # Corrector step
-        r_c = s * z + ds_aff * dz_aff - (sigma * mu)[:, None]
-        rhs = -r_d - r_c / s + d * r_p
-        dx = spd_solve_factored(l_f, rhs)
-        ds = dx - r_p
-        dz = -r_c / s - d * ds
-
-        a_p = torch.clamp(0.99 * _max_step(s, ds), max=1.0)[:, None]
-        a_d = torch.clamp(0.99 * _max_step(z, dz), max=1.0)[:, None]
-        x_new = x + a_p * dx
-        s_new = torch.clamp(s + a_p * ds, min=tiny)
-        z_new = torch.clamp(z + a_d * dz, min=tiny)
-        # NaN/inf guard: a failed step (non-positive pivot in float32) keeps
-        # the previous iterate and stops the lane
-        bad = ~(torch.isfinite(x_new).all(-1) & torch.isfinite(z_new).all(-1))
-        keep = (done | bad)[:, None]
-        x_new = torch.where(keep, x, x_new)
-        s_new = torch.where(keep, s, s_new)
-        z_new = torch.where(keep, z, z_new)
-        done_new = done | bad | converged(x_new, s_new, z_new)
-
-        step = live[:, None]
-        x = torch.where(step, x_new, x)
-        s = torch.where(step, s_new, s)
-        z = torch.where(step, z_new, z)
-        done = torch.where(live, done_new, done)
-        it = it + live.to(torch.int32)
+            step = live[:, None]
+            x = torch.where(step, x_new, x)
+            s = torch.where(step, s_new, s)
+            z = torch.where(step, z_new, z)
+            done = torch.where(live, done_new, done)
+            it = it + live.to(torch.int32)
 
     # Active-set polish: clamp near-active bounds and solve the reduced KKT
     # system exactly (sqrt(diag P)-scaled activity test)

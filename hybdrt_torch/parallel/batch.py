@@ -45,8 +45,13 @@ class BatchedEISFitter:
     """Self-tuning QPHB fits of many EIS spectra on a shared frequency grid.
 
     Usage:
-        fitter = BatchedEISFitter(frequencies, device="cuda", dtype=torch.float32)
+        fitter = BatchedEISFitter(frequencies, dtype=torch.float32)
         result = fitter.fit(z_batch)           # z_batch: (B, n_freq) complex
+
+    The fitter runs on the CUDA card unless ``device="cpu"`` is given, and
+    raises ``RuntimeError`` where no card is present. ``qp_fused=True`` runs
+    every warm-started QP as ``qp_max_iter_warm`` (default 8) fixed Mehrotra
+    steps in one fused kernel call, after a cold iteration 0.
     """
 
     def __init__(self, frequencies, basis_tau=None, tau_supergrid=None, fit_ohmic=True,
@@ -89,9 +94,10 @@ class BatchedEISFitter:
         if mesh is not None:
             raise NotImplementedError("mesh: multi-GPU sharding is not ported yet "
                                       "(ROADMAP Queue 1 item 10)")
-        if qp_fused:
-            raise NotImplementedError("qp_fused: the fused Mehrotra kernel ip_steps_lane "
-                                      "is not ported yet (ROADMAP Queue 1 item 1)")
+        if qp_fused and qp_max_iter_warm is None:
+            # The fused path runs the warm cap as its fixed step count
+            # (hybdrt_tpu/parallel/batch.py:252-256)
+            qp_max_iter_warm = 8
         self.device = resolve_device(device)
         self.dtype = dtype
         self.frequencies = np.asarray(problem["frequencies"], dtype=float)
@@ -118,7 +124,8 @@ class BatchedEISFitter:
         self.fcfg = fitcore.FitConfig(cfg=self.cfg, max_iter=max_iter, x_rtol=xtol,
                                       qp_max_iter=qp_max_iter,
                                       qp_max_iter_warm=qp_max_iter_warm,
-                                      pred_stop=bool(pred_stop), pred_rtol=float(pred_rtol))
+                                      pred_stop=bool(pred_stop), pred_rtol=float(pred_rtol),
+                                      qp_fused=bool(qp_fused))
 
     # ------------------------------------------------------------------
     def _loop_inputs(self, rzv):

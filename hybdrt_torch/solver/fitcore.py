@@ -30,6 +30,10 @@ class FitConfig:
     # iterations back falling below pred_rtol
     pred_stop: bool = False
     pred_rtol: float = 1e-2
+    # Fused warm QP path: iteration 0 is peeled off as one cold pass over
+    # every lane, and every later QP is statically warm-started and runs
+    # qp_max_iter_warm fixed Mehrotra steps in one ip_steps_lane call
+    qp_fused: bool = False
 
 
 # pred_stop settles a lane no earlier than this iteration (max(min_iter=2, 3)
@@ -60,12 +64,14 @@ class FitCarry:
 
 
 def _loop_body(carry: FitCarry, rzm, rzv, vmm, m_stack, l1v, lb, est_weights, hyp,
-               fcfg: FitConfig):
+               fcfg: FitConfig, warm_mode="auto"):
     st = carry.state
+    fused = fcfg.qp_max_iter_warm if fcfg.qp_fused and warm_mode == "warm" else None
     st_new, _ = qphb.iterate_qphb(st, rzv, rzm, vmm, m_stack, m_stack[1], l1v, lb,
                                   est_weights, hyp, fcfg.cfg, x_rtol=fcfg.x_rtol,
                                   qp_max_iter=fcfg.qp_max_iter,
-                                  qp_max_iter_warm=fcfg.qp_max_iter_warm)
+                                  qp_max_iter_warm=fcfg.qp_max_iter_warm,
+                                  warm_mode=warm_mode, qp_fused_steps=fused)
 
     # Normalize the rho update scale to the iteration-0 ridge solution, on the
     # lanes that just ran their iteration 0
@@ -113,17 +119,18 @@ def qphb_fit_loop(rzm, rzv, vmm, m_stack, l1v, lb, hyp, x0, s0, rho0, dop_rho0,
     Per-lane inputs have the lane dimension first: rzv (B, M), x0 (B, N),
     s0 (B, K, N), rho0/dop_rho0 (B, K), weights (B, M). With
     return_pred_history (requires pred_stop) also returns (y_prev, y_prev2),
-    so that qphb_fit_loop_from_state can resume the exact trajectory."""
+    so that qphb_fit_loop_from_state can resume the exact trajectory. With
+    fcfg.qp_fused, iteration 0 is peeled off (peel_cold_start)."""
     state0 = initial_state(x0, s0, rho0, dop_rho0, init_weights, outlier_t0,
                            fcfg.cfg.k_range)
     return qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp,
-                                    est_weights, fcfg,
+                                    est_weights, fcfg, peel_cold_start=fcfg.qp_fused,
                                     return_pred_history=return_pred_history)
 
 
 def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_weights,
                              fcfg: FitConfig, y_prev0=None, y_prev2_0=None,
-                             return_pred_history=False):
+                             peel_cold_start=False, return_pred_history=False):
     """Run (or resume) the QPHB outer loop from an explicit per-lane state.
 
     The loop body is Markovian in the state, so resuming a loop that stopped
@@ -131,7 +138,14 @@ def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_w
     one uninterrupted run. With pred_stop the prediction history is part of
     that state: pass y_prev0/y_prev2_0 from a run with
     return_pred_history=True (without them the history starts at zero, as in
-    a fresh fit)."""
+    a fresh fit).
+
+    With fcfg.qp_fused the loop's QPs are statically warm-started and fused
+    (``warm_mode="warm"``). peel_cold_start first runs one cold pass
+    (``warm_mode="cold"``: the damped unconstrained start and up to
+    qp_max_iter steps) over every lane, as a fresh fused fit does for its
+    iteration 0 (``hybdrt_tpu/solver/fitcore.py:280-282``); a resumed fused
+    fit leaves it False and continues warm."""
     _check_config(fcfg)
     if return_pred_history and not fcfg.pred_stop:
         raise ValueError("return_pred_history requires fcfg.pred_stop")
@@ -143,6 +157,10 @@ def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_w
     else:
         y0 = y02 = torch.zeros_like(rzv)
     carry = FitCarry(state=state0, y_prev=y0, y_prev2=y02)
+    if peel_cold_start:
+        carry = _loop_body(carry, rzm, rzv, vmm, m_stack, l1v, lb, est_weights, hyp, fcfg,
+                           warm_mode="cold")
+    loop_mode = "warm" if fcfg.qp_fused else "auto"
     bsz = rzv.shape[0]
     while True:
         st = carry.state
@@ -153,10 +171,10 @@ def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_w
             break
         if n_live == bsz:
             carry = _loop_body(carry, rzm, rzv, vmm, m_stack, l1v, lb, est_weights, hyp,
-                               fcfg)
+                               fcfg, warm_mode=loop_mode)
         else:
             part = _loop_body(carry.take(idx), rzm, rzv[idx], vmm, m_stack, l1v, lb,
-                              est_weights[idx], hyp, fcfg)
+                              est_weights[idx], hyp, fcfg, warm_mode=loop_mode)
             carry = carry.put(idx, part)
     if return_pred_history:
         return carry.state, carry.y_prev, carry.y_prev2

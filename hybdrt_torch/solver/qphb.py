@@ -220,9 +220,13 @@ def is_converged(x_in, x_out, x_atol, x_rtol):
 # ------------------------------------------------------------------
 def iterate_qphb(state: QPHBState, rv, rm, vmm, m_stack, m1_gmat_source, l1_lambda_vector,
                  lb, est_weights, hyp, cfg: QPHBConfig, x_rtol=1e-2, qp_max_iter=60,
-                 qp_max_iter_warm=None, warm_mode="auto"):
+                 qp_max_iter_warm=None, warm_mode="auto", qp_fused_steps=None):
     """Weighted QP for x, closed-form s/rho updates on the DRT block, then data
-    weight re-estimation. Returns (new_state, qp_result)."""
+    weight re-estimation. Returns (new_state, qp_result).
+
+    With ``warm_mode="warm"`` and ``qp_fused_steps``, the warm-started QP runs
+    exactly that many Mehrotra steps in one fused call
+    (``solve_qp_box(fused_steps=...)``)."""
     if cfg.fit_dop or cfg.has_outlier:
         raise NotImplementedError("DOP and outlier blocks are not ported yet")
     ns = cfg.num_special
@@ -236,9 +240,14 @@ def iterate_qphb(state: QPHBState, rv, rm, vmm, m_stack, m1_gmat_source, l1_lamb
     if warm_mode == "cold" or state.qp_dual is None:
         qp_res = solve_qp_box(p_matrix, q_vector, lb, max_iter=qp_max_iter)
     elif warm_mode == "warm":
-        cap = qp_max_iter if qp_max_iter_warm is None else qp_max_iter_warm
-        qp_res = solve_qp_box(p_matrix, q_vector, lb, max_iter=cap, x_init=state.x,
-                              z_init=torch.clamp(state.qp_dual, min=1e-6))
+        z_ws = torch.clamp(state.qp_dual, min=1e-6)
+        if qp_fused_steps is not None:
+            qp_res = solve_qp_box(p_matrix, q_vector, lb, x_init=state.x, z_init=z_ws,
+                                  fused_steps=int(qp_fused_steps))
+        else:
+            cap = qp_max_iter if qp_max_iter_warm is None else qp_max_iter_warm
+            qp_res = solve_qp_box(p_matrix, q_vector, lb, max_iter=cap, x_init=state.x,
+                                  z_init=z_ws)
     elif warm_mode == "auto":
         # Per-lane warm start from the previous iteration's primal/dual point
         warm = (state.it > 0)[:, None]

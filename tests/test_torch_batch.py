@@ -1,8 +1,10 @@
 """Port parity: the batched EIS fit end to end (hybdrt_torch.BatchedEISFitter)
 against the JAX BatchedEISFitter on the same 12 spectra and 31 frequencies,
-float64 on the CPU. Coefficients within rtol=1e-6, atol=1e-10 (the batched vs
-single-fit tolerance of tests/test_parallel.py) and identical per-lane
-iteration counts and convergence flags."""
+float64 on the CPU (``device="cpu"``; the fitter's default is the card).
+Coefficients within rtol=1e-6, atol=1e-10 (the batched vs single-fit
+tolerance of tests/test_parallel.py) and identical per-lane iteration counts
+and convergence flags, for the plain and the fused (``qp_fused=True``) warm
+QP path."""
 from dataclasses import replace
 
 import numpy as np
@@ -15,6 +17,7 @@ from hybdrt_tpu.parallel import BatchedEISFitter as JaxFitter
 from hybdrt_torch import BatchedEISFitter
 from hybdrt_torch.solver import fitcore
 from hybdrt_torch.solver.qphb import state_from_numpy
+from hybdrt_torch.utils.device import resolve_device
 
 # The suite runs several test processes at once; torch's default of one
 # thread per core in each of them oversubscribes the machine
@@ -54,8 +57,21 @@ def data():
     out = {"z": z}
     for ps in (False, True):
         jf = JaxFitter(FREQ, dtype=jnp.float64, pred_stop=ps, **KW)
-        tf = BatchedEISFitter(FREQ, dtype=torch.float64, pred_stop=ps, **KW)
+        tf = BatchedEISFitter(FREQ, dtype=torch.float64, device="cpu", pred_stop=ps, **KW)
         out[ps] = (jf, tf, jf.fit(z), tf.fit(z))
+    return out
+
+
+@pytest.fixture(scope="module")
+def fused(data):
+    """qp_fused=True fits of the same spectra: (port fitter, JAX result,
+    port result) per pred_stop."""
+    out = {}
+    for ps in (False, True):
+        jf = JaxFitter(FREQ, dtype=jnp.float64, pred_stop=ps, qp_fused=True, **KW)
+        tf = BatchedEISFitter(FREQ, dtype=torch.float64, device="cpu", pred_stop=ps,
+                              qp_fused=True, **KW)
+        out[ps] = (tf, jf.fit(data["z"]), tf.fit(data["z"]))
     return out
 
 
@@ -86,10 +102,43 @@ def test_staged_matches_plain(data, pred_stop):
     _assert_fit_match(r_st, r_plain, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("adaptive", [False, "staged"])
+@pytest.mark.parametrize("pred_stop", [False, True])
+def test_fused_fit_matches_jax(data, fused, pred_stop, adaptive):
+    """The fused warm QP path (cold iteration 0 peeled off, then qp_max_iter_warm
+    fixed Mehrotra steps per warm QP) against the JAX fused fit."""
+    tf, r_j, r_fused = fused[pred_stop]
+    assert tf.fcfg.qp_fused and tf.fcfg.qp_max_iter_warm == KW["qp_max_iter_warm"]
+    r_t = r_fused if adaptive is False else tf.fit(data["z"], adaptive=adaptive)
+    _assert_fit_match(r_t, r_j)
+
+
+def test_fused_matches_plain(data, fused):
+    """Fused and plain warm QPs take different steps but polish onto the same
+    KKT points: fit-level outputs agree at the tolerances of
+    tests/test_parallel.py::test_qp_fused_matches_plain."""
+    _, tf_plain, _, r_p = data[True]
+    tf, _, r_f = fused[True]
+    assert np.all(np.isfinite(r_f.x))
+    assert np.max(np.abs(tf_plain.predict_r_p(r_p) - tf.predict_r_p(r_f))) < 2e-3
+    assert np.max(np.abs(r_p.r_inf - r_f.r_inf)) < 1e-3
+    assert np.max(np.abs(tf_plain.predict_z(r_p) - tf.predict_z(r_f))) < 2e-3
+
+
+def test_qp_fused_defaults_its_step_count():
+    """qp_fused runs the warm cap as its step count, 8 when none is given
+    (hybdrt_tpu/parallel/batch.py:252-256)."""
+    tf = BatchedEISFitter(FREQ, device="cpu", qp_fused=True)
+    assert tf.fcfg.qp_fused and tf.fcfg.qp_max_iter_warm == 8
+    tf = BatchedEISFitter(FREQ, device="cpu", qp_fused=True, qp_max_iter_warm=3)
+    assert tf.fcfg.qp_max_iter_warm == 3
+    assert not BatchedEISFitter(FREQ, device="cpu").fcfg.qp_fused
+
+
 def test_from_arrays_matches_own_assembly(data):
     jf, tf, _, r_t = data[True]
-    tf2 = BatchedEISFitter.from_arrays(jax_problem(jf), dtype=torch.float64, pred_stop=True,
-                                       **KW)
+    tf2 = BatchedEISFitter.from_arrays(jax_problem(jf), dtype=torch.float64, device="cpu",
+                                       pred_stop=True, **KW)
     _assert_fit_match(tf2.fit(data["z"]), r_t)
 
 
@@ -162,9 +211,7 @@ def test_fit_rejects_bad_options(data, kw, exc):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        BatchedEISFitter(FREQ, qp_fused=True)
-    with pytest.raises(NotImplementedError):
-        BatchedEISFitter(FREQ, mesh=object())
+        BatchedEISFitter(FREQ, device="cpu", mesh=object())
 
 
 def test_cuda_request_without_cuda_raises():
@@ -172,3 +219,20 @@ def test_cuda_request_without_cuda_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         BatchedEISFitter(FREQ, device="cuda")
+
+
+def test_default_device_is_the_card(data):
+    """With no device given the fitter takes the CUDA card, and without one
+    it raises instead of falling back to the CPU; device="cpu" asks for the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    jf = data[False][0]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedEISFitter(FREQ)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedEISFitter.from_arrays(jax_problem(jf))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    assert BatchedEISFitter(FREQ, device="cpu").device == torch.device("cpu")
+    assert BatchedEISFitter.from_arrays(jax_problem(jf), device="cpu").rzm.device.type == "cpu"

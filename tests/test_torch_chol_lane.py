@@ -95,7 +95,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     a = torch.eye(4).expand(2, 4, 4)
     b = torch.ones(2, 4)
     with pytest.raises(ValueError, match="CUDA"):
-        chol_lane._check("chol_solve_lane", a, b)
+        chol_lane.check_args("chol_solve_lane", a, b)
     # one (n, n) matrix per block in shared memory: the bench's n = 93 fits in
     # both types, n = 300 does not
     assert chol_lane.smem_bytes(93, torch.float32) < 48 * 1024

@@ -1,5 +1,6 @@
 """GPU tests of the port: the CUDA kernels against their plain versions, and
-the batched fit on the card against the same fit on the CPU.
+the batched fit (plain and fused warm QPs) on the card against the same fit
+on the CPU.
 
 Every test here is marked ``cuda`` and skips where no CUDA device is present.
 The file imports no JAX, so it also runs on a machine without it:
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 from hybdrt_torch import BatchedEISFitter
-from hybdrt_torch.ops import chol_lane
+from hybdrt_torch.ops import chol_lane, ip_lane
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-4  # float32 kernel vs plain, as tests/test_pallas_lane_kernels.py
@@ -77,6 +78,61 @@ def test_empty_batch_and_bad_inputs(cuda):
         chol_lane.chol_solve_lane(a, rhs.cpu())
 
 
+def _qp_batch(b, n, dtype, device, seed=0):
+    """Equilibrated SPD box QPs with an interior warm start (P, q, lb, x0, s0, z0)."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(b, n, n))
+    a = g @ np.swapaxes(g, 1, 2) / n + 0.1 * np.eye(n)
+    dinv = 1 / np.sqrt(np.einsum("bii->bi", a))
+    lb = np.where(rng.uniform(size=(b, n)) < 0.25, -1.0, 0.0)
+    s0 = rng.uniform(0.05, 2.0, size=(b, n))
+    arrays = (a * dinv[:, :, None] * dinv[:, None, :], rng.normal(size=(b, n)), lb, lb + s0,
+              s0, rng.uniform(0.05, 2.0, size=(b, n)))
+    return [torch.as_tensor(v, dtype=dtype, device=device) for v in arrays]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("n_steps", [1, 8])
+@pytest.mark.parametrize("b,n", [(4, 5), (130, 17), (257, 93)])
+def test_ip_steps_lane_matches_plain(cuda, b, n, n_steps, dtype, tol):
+    args = _qp_batch(b, n, dtype, cuda, seed=n + b)
+    ip_lane.reset_launch_counts()
+    got = ip_lane.ip_steps_lane(*args, n_steps)
+    want = ip_lane.ip_steps_lane_plain(*args, n_steps)
+    torch.cuda.synchronize()
+    assert ip_lane.LAUNCHES == {"ip_steps_lane": 1}
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+
+
+def test_ip_steps_lane_freezes_a_failed_lane(cuda):
+    """A lane whose H is indefinite keeps its input (the NaN of the factor
+    must reach the freeze test); its neighbours step as the plain version."""
+    args = _qp_batch(5, 17, torch.float32, cuda, seed=3)
+    args[0][1] = -args[0][1]
+    args[4][1] = 1.0
+    args[5][1] = 0.1
+    args[3][1] = args[2][1] + args[4][1]
+    got = ip_lane.ip_steps_lane(*args, 4)
+    want = ip_lane.ip_steps_lane_plain(*args, 4)
+    for g, w, inp in zip(got, want, args[3:]):
+        assert torch.equal(g[1], inp[1]) and torch.equal(w[1], inp[1])
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+
+
+def test_ip_steps_lane_bad_inputs(cuda):
+    args = _qp_batch(2, 8, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ip_lane.ip_steps_lane(args[0].mT, *args[1:], 2)
+    with pytest.raises(ValueError):
+        ip_lane.ip_steps_lane(args[0], args[1].cpu(), *args[2:], 2)
+    with pytest.raises(TypeError):
+        ip_lane.ip_steps_lane(*(a.half() for a in args), 2)
+    empty = _qp_batch(0, 8, torch.float32, cuda)
+    assert ip_lane.ip_steps_lane(*empty, 2)[0].shape == (0, 8)
+
+
 def test_fit_on_card_matches_cpu(cuda):
     """float64 batched fit on the card (f64 kernels) vs on the CPU (plain)."""
     freq = np.logspace(5, -1, 31)
@@ -85,11 +141,31 @@ def test_fit_on_card_matches_cpu(cuda):
     z = 0.5 + np.stack([1 / (1 + (2j * np.pi * freq * t) ** 0.9) for t in taus])
     z = z + (rng.normal(size=z.shape) + 1j * rng.normal(size=z.shape)) * 0.003
     kw = dict(qp_max_iter=20, qp_max_iter_warm=4, pred_stop=True, pred_rtol=3e-2)
-    r_cpu = BatchedEISFitter(freq, dtype=torch.float64, **kw).fit(z, adaptive="staged")
+    r_cpu = BatchedEISFitter(freq, dtype=torch.float64, device="cpu", **kw).fit(
+        z, adaptive="staged")
     chol_lane.reset_launch_counts()
     r_gpu = BatchedEISFitter(freq, dtype=torch.float64, device=cuda, **kw).fit(
         z, adaptive="staged", collect="lazy")
     assert all(v > 0 for v in chol_lane.LAUNCHES.values())
     assert r_gpu.weights.is_cuda
+    np.testing.assert_array_equal(r_gpu.n_iter, r_cpu.n_iter)
+    np.testing.assert_allclose(r_gpu.x, r_cpu.x, rtol=1e-6, atol=1e-10)
+
+
+def test_fused_fit_on_card_matches_cpu(cuda):
+    """float64 qp_fused fit on the card (the f64 ip_steps_lane kernel) vs the
+    same fit on the CPU (plain steps): same iterations, x within rtol=1e-6."""
+    freq = np.logspace(5, -1, 31)
+    rng = np.random.default_rng(1)
+    taus = 10 ** rng.uniform(-3, 0, 16)
+    z = 0.5 + np.stack([1 / (1 + (2j * np.pi * freq * t) ** 0.9) for t in taus])
+    z = z + (rng.normal(size=z.shape) + 1j * rng.normal(size=z.shape)) * 0.003
+    kw = dict(qp_max_iter=20, qp_max_iter_warm=4, pred_stop=True, pred_rtol=3e-2,
+              qp_fused=True)
+    r_cpu = BatchedEISFitter(freq, dtype=torch.float64, device="cpu", **kw).fit(
+        z, adaptive="staged")
+    ip_lane.reset_launch_counts()
+    r_gpu = BatchedEISFitter(freq, dtype=torch.float64, **kw).fit(z, adaptive="staged")
+    assert 0 < ip_lane.LAUNCHES["ip_steps_lane"] <= int(r_gpu.n_iter.max())
     np.testing.assert_array_equal(r_gpu.n_iter, r_cpu.n_iter)
     np.testing.assert_allclose(r_gpu.x, r_cpu.x, rtol=1e-6, atol=1e-10)

@@ -16,7 +16,7 @@ import jax.numpy as jnp
 from hybdrt_tpu.parallel import BatchedEISFitter as JaxFitter
 from hybdrt_tpu.solver import qphb as jqphb
 from hybdrt_torch import BatchedEISFitter
-from hybdrt_torch.solver import qphb as tqphb
+from hybdrt_torch.solver import fitcore, qphb as tqphb
 
 # The suite runs several test processes at once; torch's default of one
 # thread per core in each of them oversubscribes the machine
@@ -40,7 +40,7 @@ def _spectra():
 @pytest.fixture(scope="module")
 def setup():
     jf = JaxFitter(FREQ, dtype=jnp.float64, **KW)
-    tf = BatchedEISFitter(FREQ, dtype=torch.float64, **KW)
+    tf = BatchedEISFitter(FREQ, dtype=torch.float64, device="cpu", **KW)
     rzv, _ = jf.scale_batch(_spectra())
     # a state two outer iterations in, with QP duals to warm-start from
     state2, est, _ = jax.vmap(lambda rv: jf._fit_phase_single(rv, 2))(jnp.asarray(rzv))
@@ -80,8 +80,12 @@ def test_initialize_weights_matches(setup):
 
 
 @pytest.mark.parametrize("start,warm_mode", [("it0", "auto"), ("it2", "auto"),
-                                             ("it2", "warm"), ("it2", "cold")])
+                                             ("it2", "warm"), ("it2", "cold"),
+                                             ("it2", "fused")])
 def test_iterate_qphb_matches(setup, start, warm_mode):
+    """"fused" is warm_mode="warm" with qp_fused_steps=4."""
+    fused = 4 if warm_mode == "fused" else None
+    warm_mode = "warm" if fused else warm_mode
     jf, tf, rzv, state2, est = setup
     if start == "it0":
         state = state2._replace(it=jnp.zeros_like(state2.it),
@@ -92,15 +96,40 @@ def test_iterate_qphb_matches(setup, start, warm_mode):
 
     def step(st, rv, e):
         return jqphb.iterate_qphb(st, rv, jf.rzm, jf.vmm, jf.m_stack, jf.m_stack[1], None,
-                                  jf.l1v, jf.lb, e, jf.hyp, jf.cfg, warm_mode=warm_mode, **KW)
+                                  jf.l1v, jf.lb, e, jf.hyp, jf.cfg, warm_mode=warm_mode,
+                                  qp_fused_steps=fused, **KW)
 
     st_j, qp_j = jax.vmap(step)(state, jnp.asarray(rzv), est)
     st_t, qp_t = tqphb.iterate_qphb(
         tqphb.state_from_numpy(jax.tree.map(np.asarray, state)), _t(rzv), tf.rzm, tf.vmm,
         tf.m_stack, tf.m_stack[1], tf.l1v, tf.lb, _t(est), tf.hyp, tf.cfg,
-        warm_mode=warm_mode, **KW)
+        warm_mode=warm_mode, qp_fused_steps=fused, **KW)
     np.testing.assert_array_equal(qp_t.iterations.numpy(), np.asarray(qp_j.iterations))
     _assert_state(st_t, st_j)
+
+
+def test_fused_fit_resumes_exactly(setup):
+    """A fused fit (qp_fused) cut at max_iter=3 and resumed statically warm
+    (peel_cold_start=False) with its prediction history lands bit for bit
+    where the uninterrupted fused fit lands."""
+    _, _, rzv, _, _ = setup
+    tf = BatchedEISFitter(FREQ, dtype=torch.float64, device="cpu", qp_fused=True,
+                          pred_stop=True, pred_rtol=3e-2, **KW)
+    rzv = _t(rzv)
+    inp = tf._loop_inputs(rzv)
+    args = (tf.rzm, rzv, tf.vmm, tf.m_stack, tf.l1v, tf.lb, tf.hyp, inp["x0"], inp["s0"],
+            inp["rho0"], inp["dop_rho0"], inp["init_weights"], inp["est_weights"],
+            inp["outlier_t0"])
+    full, fy1, fy2 = fitcore.qphb_fit_loop(*args, tf.fcfg, return_pred_history=True)
+    st, y1, y2 = fitcore.qphb_fit_loop(*args, dataclasses.replace(tf.fcfg, max_iter=3),
+                                       return_pred_history=True)
+    assert int(st.it.max()) == 3 and int(full.it.max()) > 3
+    st, y1, y2 = fitcore.qphb_fit_loop_from_state(
+        st, tf.rzm, rzv, tf.vmm, tf.m_stack, tf.l1v, tf.lb, tf.hyp, inp["est_weights"],
+        tf.fcfg, y_prev0=y1, y_prev2_0=y2, peel_cold_start=False, return_pred_history=True)
+    assert torch.equal(st.it, full.it) and torch.equal(st.converged, full.converged)
+    assert torch.equal(st.x, full.x)
+    assert torch.equal(y1, fy1) and torch.equal(y2, fy2)
 
 
 def test_closed_form_updates_match(setup):
