@@ -32,19 +32,41 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    kernels must have launched in the second call, ``ip_steps_lane`` at most
    once per outer pass; the CPU float64 reference is the port's fused fit,
    and the Rp max and R_inf bounds are held on the lanes that stop at the
-   same iteration in both precisions (see the comment in ``phase_slice``).
+   same iteration in both precisions (see the comment in ``phase_slice``);
+7. the factor-only kernel ``chol_factor_lane`` against its plain version on
+   the same CUDA tensors, on the lower triangle, within rtol = atol = 2e-4,
+   at the resolve's shape (B=1435, n=94: 205 windows of 7) and at (130, 17)
+   in float32 and once in float64; its input must come back unchanged, and a
+   non-positive pivot gives NaN in its lane only; kernel, plain and
+   ``torch.linalg.cholesky_ex`` times at (1435, 94) and (8192, 93);
+8. the group resolve: a 1024-observation map (``resolve_map``) fitted by
+   ``BatchedEISFitter(tau_supergrid=...)`` in float32 on the card, then
+   ``hybdrt_torch.resolve_group`` windowed (batch_size 7, overlap 2) and
+   coupled, each in float32 and called twice, the launch counters reset
+   before the second call, in which ``chol_factor_lane`` and
+   ``chol_solve_factored_lane`` must both launch; the coupled KKT residual
+   within its tolerance, the coupled group objective no higher than the
+   windowed one, every coupled-resolved Rp within 0.05 of the map's truth
+   (the float32 windowed Rp error is printed), and the float32 coupled
+   resolve within ``RESOLVE_F32_BOUND`` of a float64 one of the same
+   blocks; the windowed resolve of the same blocks in float64 on the card
+   must hold every Rp within 0.05 of the truth and match a float64 windowed
+   resolve on the CPU (the port's plain path): the same IP iteration in
+   every window, x within 1e-8 of max |x|.
 
 The line before the last is a JSON object with one entry per kernel (its
-launches from the path it serves: phase 5 for the Cholesky kernels, phase 6
-for ``ip_steps_lane``); the last line is ``{"ok": true, "device": {...}}``.
+launches from the path it serves: phase 5 for the three fit Cholesky
+kernels, phase 6 for ``ip_steps_lane``, phase 8's two timed resolves for
+``chol_factor_lane``); the last line is ``{"ok": true, "device": {...}}``.
 """
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from hybdrt_torch.utils.probe import card_line, cuda_ms, resolve_map, spd_batch
 
 B_BENCH, N_FREQ, MAX_ITER = 8192, 71, 50
 # tests/test_pallas_lane_kernels.py: f32 lane kernels vs a dense solve. For
@@ -59,7 +81,21 @@ KERNELS = {
     "chol_solve_lane": ("hybdrt_torch/csrc/chol_lane.cu",
                         "hybdrt_tpu/ops/pallas_chol_lane.py:95"),
     "ip_steps_lane": ("hybdrt_torch/csrc/ip_lane.cu", "hybdrt_tpu/ops/pallas_ip_lane.py:157"),
+    "chol_factor_lane": ("hybdrt_torch/csrc/chol_lane.cu",
+                         "hybdrt_tpu/ops/pallas_chol_lane.py:178"),
 }
+FIT_KERNELS = ("chol_factor_solve_lane", "chol_solve_factored_lane", "chol_solve_lane")
+# The resolve phase: 1024 observations, windows of 7 overlapping by 2 (205
+# windows, so 1435 diagonal blocks of n = 94 per factor launch)
+RESOLVE_OBS, RESOLVE_B, RESOLVE_N = 1024, 1435, 94
+FORMS = {"windowed": dict(batched=True, batch_size=7, overlap=2), "coupled": dict(coupled=True)}
+# Every resolved Rp against the map's truth 1 + 0.5 p (tests/test_resolve_coupled.py)
+RP_TOL = 0.05
+# max |x32 - x64| / max |x64| of the coupled resolve: 3x the spread of the
+# port's plain path on the CPU on the same blocks (the card's float32 fit),
+# 1.734e-2 (torch_resolve_walls.py); the card's own solve reads 1.793e-3
+# there, stopping at 12 IP iterations where the CPU's stops at 13
+RESOLVE_F32_BOUND = 0.052
 # One H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores
 HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
@@ -68,16 +104,6 @@ HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
-
-
-def spd_batch(b, n, dtype, seed):
-    rng = np.random.default_rng(seed)
-    g = rng.normal(size=(b, n, n))
-    a = g @ np.swapaxes(g, 1, 2) + n * np.eye(n)
-    rhs = rng.normal(size=(b, n))
-    dev = torch.device("cuda")
-    return (torch.as_tensor(a, dtype=dtype, device=dev),
-            torch.as_tensor(rhs, dtype=dtype, device=dev))
 
 
 def bound(n_bytes, n_ops):
@@ -97,25 +123,9 @@ def solve_ops(b, n):
     return b * 2 * n * n
 
 
-def cuda_ms(fn, reps=20):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def phase_card():
     check(torch.cuda.is_available(), "torch.cuda.is_available()")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi exit {smi.returncode}")
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} devices {torch.cuda.device_count()}")
 
@@ -323,7 +333,7 @@ def phase_slice(fused):
 
     check(isinstance(res.weights, torch.Tensor) and res.weights.is_cuda,
           "collect='lazy' keeps weights on the card")
-    path = list(launches) if fused else list(cl.LAUNCHES)
+    path = [*FIT_KERNELS, "ip_steps_lane"] if fused else FIT_KERNELS
     check(all(launches[k] > 0 for k in path), f"every kernel of the path launched: {launches}")
     if fused:
         # one launch per warm outer pass; the passes are as many as the
@@ -390,6 +400,160 @@ def phase_slice(fused):
     return launches, wall
 
 
+def compare_factor_kernel():
+    """chol_factor_lane vs its plain version; returns (max_abs_err, timing
+    dict) with the times at the resolve's shape."""
+    from hybdrt_torch.ops import chol_lane as cl
+
+    max_err, timing = 0.0, None
+    for (b, n) in ((RESOLVE_B, RESOLVE_N), (130, 17)):
+        a, _ = spd_batch(b, n, torch.float32, seed=3 * n + b)
+        a_in = a.clone()
+        l = cl.chol_factor_lane(a)
+        l_p = cl.chol_factor_lane_plain(a)
+        err = (torch.tril(l) - l_p).abs()
+        e = float(err.max())
+        check(bool(torch.all(err <= TOL + TOL * l_p.abs())), f"chol_factor_lane ({b}, {n}): err {e}")
+        torch.cuda.synchronize()
+        check(bool(torch.equal(a, a_in)), "chol_factor_lane leaves its input unchanged")
+        max_err = max(max_err, e)
+        print(f"chol_factor_lane vs plain at B={b} n={n} f32: max abs err {e:.3g}; input unchanged")
+
+    # Non-positive pivot -> NaN in that lane only
+    a, _ = spd_batch(4, 17, torch.float32, seed=7)
+    a[1, 5, 5] = -1.0
+    a[2] = -a[2]
+    l = cl.chol_factor_lane(a)
+    check(bool(torch.isnan(torch.diagonal(l[1])[5:]).all()
+               and torch.isfinite(torch.diagonal(l[1])[:5]).all()
+               and torch.isnan(torch.diagonal(l[2])).all()), "NaN from the non-positive pivot on")
+    check(bool(torch.isfinite(torch.tril(l[0])).all() and torch.isfinite(torch.tril(l[3])).all()),
+          "healthy lanes beside a failed one stay finite")
+    print("chol_factor_lane non-positive pivot: NaN in the failed lanes, finite elsewhere")
+
+    a, _ = spd_batch(64, RESOLVE_N, torch.float64, seed=13)
+    e64 = float((torch.tril(cl.chol_factor_lane(a)) - cl.chol_factor_lane_plain(a)).abs().max())
+    check(e64 < 1e-10, f"float64 chol_factor_lane vs plain: err {e64}")
+    print(f"chol_factor_lane float64 (B=64, n={RESOLVE_N}): max abs err {e64:.3g}")
+
+    for (b, n) in ((RESOLVE_B, RESOLVE_N), (B_BENCH, 93)):
+        a, _ = spd_batch(b, n, torch.float32, seed=n)
+        # read A once, write L once; n^3/3 multiply-adds per factor
+        t = dict(ms=cuda_ms(lambda: cl.chol_factor_lane(a)),
+                 plain_ms=cuda_ms(lambda: cl.chol_factor_lane_plain(a)),
+                 library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(a)),
+                 bound=bound(2 * a.numel() * 4, chol_ops(b, n)))
+        print(f"  chol_factor_lane: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"library (cholesky_ex) {t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
+              f"by {t['bound'][1]} (B={b}, n={n}, f32, CUDA events, mean of 20)")
+        if timing is None:
+            timing = t
+    torch.cuda.synchronize()
+    return max_err, timing
+
+
+def phase_resolve():
+    """The group resolve on the card; returns the chol_factor_lane launches of
+    the two timed resolves."""
+    import hybdrt_torch
+    from hybdrt_torch.mapping.drtmd import group_objective
+    from hybdrt_torch.ops import chol_lane as cl
+
+    freq, tau_super, p, z = resolve_map(RESOLVE_OBS)
+    fitter = hybdrt_torch.BatchedEISFitter(freq, tau_supergrid=tau_super, dtype=torch.float32,
+                                           device="cuda", qp_max_iter=20, qp_max_iter_warm=4)
+    t0 = time.time()
+    res = fitter.fit(z, adaptive="staged", collect="lazy")
+    torch.cuda.synchronize()
+    n_tau = fitter.tau_indices[1] - fitter.tau_indices[0]
+    print(f"resolve map: {RESOLVE_OBS} obs, {len(freq)} frequencies, basis {n_tau} of the "
+          f"{len(tau_super)}-point supergrid (nc = {n_tau + fitter.num_special}); fit f32 "
+          f"{time.time() - t0:.2f} s, converged {int(res.converged.sum())}/{RESOLVE_OBS}")
+    check(isinstance(res.weights, torch.Tensor) and res.weights.is_cuda, "lazy weights on the card")
+
+    outs, factor_launches = {}, 0
+    for label, kw in FORMS.items():
+        t0 = time.time()
+        hybdrt_torch.resolve_group(fitter, res, z, psi=p, dtype=torch.float32, **kw)
+        torch.cuda.synchronize()
+        first = time.time() - t0
+        cl.reset_launch_counts()
+        t0 = time.time()
+        out = hybdrt_torch.resolve_group(fitter, res, z, psi=p, dtype=torch.float32, **kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(cl.LAUNCHES)
+        check(launches["chol_factor_lane"] > 0 and launches["chol_solve_factored_lane"] > 0,
+              f"{label} resolve launched chol_factor_lane and chol_solve_factored_lane: {launches}")
+        check(all(launches[k] == 0 for k in ("chol_factor_solve_lane", "chol_solve_lane")),
+              f"{label} resolve launches no fit kernel: {launches}")
+        factor_launches += launches["chol_factor_lane"]
+        info = out.info
+        n_iter = np.atleast_1d(info["n_iter"])
+        print(f"{label} resolve f32: first call {first:.3f} s, second call {wall:.4f} s; "
+              f"IP iterations {'max ' if n_iter.size > 1 else ''}{int(n_iter.max())}"
+              + (f" (windows {info['windows']}, median {float(np.median(n_iter)):.0f})"
+                 if n_iter.size > 1 else "")
+              + f"; PCG solves {info['pcg_solves']}, CG iterations {info['cg_iterations']} "
+              f"({info['cg_iterations'] / max(info['pcg_solves'], 1):.2f} per solve); "
+              f"host syncs {info['host_syncs']}")
+        print(f"{label} resolve: launches in the timed call: {launches}")
+        check(np.all(np.isfinite(out.x)) and out.x.shape == (RESOLVE_OBS, n_tau),
+              f"{label} resolve: finite x of shape ({RESOLVE_OBS}, {n_tau})")
+        outs[label] = out
+
+    # The same blocks in float64 on the card, and windowed in float64 on the
+    # CPU (the port's plain path); everything is printed before the checks
+    r64 = {}
+    for label, kw in FORMS.items():
+        t0 = time.time()
+        r64[label] = hybdrt_torch.resolve_group(fitter, res, z, psi=p, dtype=torch.float64, **kw)
+        torch.cuda.synchronize()
+        print(f"{label} resolve f64 on the card: {time.time() - t0:.3f} s, IP iterations "
+              f"max {int(np.max(r64[label].info['n_iter']))}")
+    t0 = time.time()
+    cpu64 = hybdrt_torch.resolve_group(fitter, res, z, psi=p, dtype=torch.float64, device="cpu",
+                                       **FORMS["windowed"])
+    print(f"windowed resolve f64 on the CPU: {time.time() - t0:.2f} s")
+
+    def rp_err(out):
+        return float(np.max(np.abs(fitter.predict_r_p(out) - (1 + 0.5 * p))))
+
+    def spread(out, ref):
+        return float(np.max(np.abs(out.x - ref.x)) / np.max(np.abs(ref.x)))
+
+    info = outs["coupled"].info
+    f_win = group_objective(fitter, res, z, p, outs["windowed"])
+    f_cpl = group_objective(fitter, res, z, p, outs["coupled"])
+    f32_spread = spread(outs["coupled"], r64["coupled"])
+    print(f"coupled KKT residual {info['kkt_residual']:.4g} (tolerance {info['kkt_tol']:.4g}); "
+          f"f64 KKT {r64['coupled'].info['kkt_residual']:.3g}")
+    print(f"group objective: windowed {f_win:.8g}, coupled {f_cpl:.8g}")
+    print(f"max |Rp - (1 + 0.5 p)|: coupled f32 {rp_err(outs['coupled']):.4g}, windowed f64 "
+          f"{rp_err(r64['windowed']):.4g} (f32 {rp_err(outs['windowed']):.4g}, reported)")
+    print(f"coupled f32 vs f64 of the same blocks on the card: max |dx| / max |x| "
+          f"{f32_spread:.4g} (bound {RESOLVE_F32_BOUND})")
+    same = r64["windowed"].info["n_iter"] == cpu64.info["n_iter"]
+    dx64 = spread(r64["windowed"], cpu64)
+    print(f"windowed f64, card vs CPU on the same blocks: max |dx| / max |x| {dx64:.4g}; "
+          f"same IP iteration in {int(same.sum())} of {same.size} windows")
+
+    check(rp_err(outs["coupled"]) < RP_TOL, "coupled resolve: every Rp within 0.05 of the truth")
+    check(info["kkt_residual"] <= info["kkt_tol"], "coupled KKT residual within its tolerance")
+    check(f_cpl <= f_win, "the coupled objective is no higher than the windowed one")
+    check(f32_spread <= RESOLVE_F32_BOUND, "float32 coupled resolve tracks float64")
+    # The float32 windowed resolve stops some windows within a few IP steps,
+    # far from their optimum, in the reference's own solver too, and which
+    # ones turns on float32 rounding (ROADMAP.md, Queue 3 item 7): its Rp is
+    # reported, and the windowed path on the card (per-window loops and the
+    # flattened kernel batches) is held in float64, to the truth and to the
+    # CPU's plain path
+    check(rp_err(r64["windowed"]) < RP_TOL, "float64 windowed resolve: every Rp within 0.05")
+    check(same.all() and dx64 < 1e-8,
+          "float64 windowed resolve on the card: the CPU's IP iterations and x within 1e-8")
+    return factor_launches
+
+
 def main():
     phase_card()
     phase_build()
@@ -398,6 +562,8 @@ def main():
     launches, wall = phase_slice(fused=False)
     fused_launches, fused_wall = phase_slice(fused=True)
     launches["ip_steps_lane"] = fused_launches["ip_steps_lane"]
+    max_err["chol_factor_lane"], times["chol_factor_lane"] = compare_factor_kernel()
+    launches["chol_factor_lane"] = phase_resolve()
     print(f"second-call wall, B={B_BENCH}: plain {wall:.4f} s ({B_BENCH / wall:.1f} spectra/s), "
           f"fused {fused_wall:.4f} s ({B_BENCH / fused_wall:.1f} spectra/s)")
     print(json.dumps({"kernels": [

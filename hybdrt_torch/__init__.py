@@ -6,7 +6,8 @@ package's layout and function names: ``ops/`` (basis, matrix assembly, the
 batched box QP, its Cholesky kernels and the fused interior-point kernel),
 ``csrc/`` (the CUDA sources and their build), ``solver/`` (QPHB updates and the
 outer fit loop), ``models/`` (EIS problem assembly), ``parallel/`` (the
-batched fitter). The port imports torch, numpy and scipy, never JAX.
+batched fitter), ``mapping/`` (the group resolve of a fitted map). The port
+imports torch, numpy and scipy, never JAX.
 
 Importing the package turns off TF32 for float32 matrix products and
 convolutions, as the JAX package forced true-float32 matmuls: the QP normal
@@ -18,6 +19,7 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
+from .mapping.drtmd import GroupResolveResult, resolve_group  # noqa: E402
 from .parallel.batch import BatchedEISFitter, BatchFitResult  # noqa: E402
 
-__all__ = ["BatchedEISFitter", "BatchFitResult"]
+__all__ = ["BatchedEISFitter", "BatchFitResult", "GroupResolveResult", "resolve_group"]

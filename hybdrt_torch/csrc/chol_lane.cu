@@ -1,9 +1,10 @@
 // Batched small-matrix Cholesky kernels for the interior-point QP solves.
 //
-// Replaces the three TPU kernels of hybdrt_tpu/ops/pallas_chol_lane.py:
+// Replaces the four TPU kernels of hybdrt_tpu/ops/pallas_chol_lane.py:
 //   chol_factor_solve_lane   (:277) -> chol_factor_solve_lane_{f32,f64}
 //   chol_solve_factored_lane (:208) -> chol_solve_factored_lane_{f32,f64}
 //   chol_solve_lane          (:95)  -> chol_solve_lane_{f32,f64}
+//   chol_factor_lane         (:178) -> chol_factor_lane_{f32,f64}
 //
 // The TPU kernels put 128 matrices in the vector lanes, (n, n, 128), and
 // unrolled the column loop statically. On Hopper the design is one thread
@@ -24,7 +25,7 @@
 // What bounds it: the n^3/3 fused multiply-adds of the trailing updates, each
 // a shared-memory read-modify-write (n = 93: ~2.7e5 updates per matrix), plus
 // two __syncthreads per column. Device memory traffic is one read of the
-// matrix and, for the factor kernel, one write. The design answers that by
+// matrix and, for the kernels that return a factor, one write. The design answers that by
 // updating only the lower triangle of the trailing block (half the traffic of
 // a full update, as the TPU kernels' banded update did) and by keeping the
 // scaled column in its own shared vector, so the update reads it as a
@@ -79,6 +80,21 @@ factor_solve_kernel(const T* __restrict__ a, const T* __restrict__ b,
   store_matrix(s.a, l + m_off, n, ld);
   __syncthreads();
   for (int i = threadIdx.x; i < n; i += blockDim.x) x[v_off + i] = s.w[i];
+}
+
+// L = chol(a) (lower triangle valid). The input is only read: the resolve
+// re-factors the same diagonal blocks at every interior-point step, where
+// the TPU kernel factored a fresh transpose it was free to overwrite.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+factor_kernel(const T* __restrict__ a, T* __restrict__ l, int n, int ld) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<T> s = carve<T>(smem_raw, n, ld);
+  const size_t m_off = static_cast<size_t>(blockIdx.x) * n * n;
+  load_matrix(a + m_off, s.a, n, ld);
+  __syncthreads();
+  factor_in_place(s.a, s.col, n, ld);
+  store_matrix(s.a, l + m_off, n, ld);
 }
 
 // x = a^-1 b (the factor stays in shared memory).
@@ -136,6 +152,17 @@ int launch_factor_solve(const void* a, const void* b, void* x, void* l, int batc
 }
 
 template <typename T>
+int launch_factor(const void* a, void* l, int batch, int n, void* stream) {
+  if (batch == 0) return 0;
+  const size_t bytes = smem_bytes<T>(n);
+  int err = allow_smem(factor_kernel<T>, bytes);
+  if (err) return err;
+  factor_kernel<T><<<batch, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(a), static_cast<T*>(l), n, row_stride(n));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch_solve(const void* a, const void* b, void* x, int batch, int n, void* stream) {
   if (batch == 0) return 0;
   const size_t bytes = smem_bytes<T>(n);
@@ -171,6 +198,12 @@ int chol_factor_solve_lane_f32(const void* a, const void* b, void* x, void* l, i
 int chol_factor_solve_lane_f64(const void* a, const void* b, void* x, void* l, int batch,
                                int n, void* stream) {
   return launch_factor_solve<double>(a, b, x, l, batch, n, stream);
+}
+int chol_factor_lane_f32(const void* a, void* l, int batch, int n, void* stream) {
+  return launch_factor<float>(a, l, batch, n, stream);
+}
+int chol_factor_lane_f64(const void* a, void* l, int batch, int n, void* stream) {
+  return launch_factor<double>(a, l, batch, n, stream);
 }
 int chol_solve_lane_f32(const void* a, const void* b, void* x, int batch, int n,
                         void* stream) {

@@ -31,18 +31,23 @@ def _make_lower_bound(n, nonneg, special_qp_params):
     return lb
 
 
-def build_eis_problem(frequencies, basis_tau=None, fit_ohmic=True, fit_inductance=True,
-                      nonneg=True, iw_l1_lambda_0=1e-4, iw_l2_lambda_0=1e-4,
-                      fit_capacitance=False, fit_dop=False, tau_basis_type="gaussian",
-                      integrate_method="interp", **hyper_kw):
+def build_eis_problem(frequencies, basis_tau=None, tau_supergrid=None, fit_ohmic=True,
+                      fit_inductance=True, nonneg=True, iw_l1_lambda_0=1e-4,
+                      iw_l2_lambda_0=1e-4, fit_capacitance=False, fit_dop=False,
+                      tau_basis_type="gaussian", integrate_method="interp", **hyper_kw):
     """Assemble the shared EIS QP problem for one frequency grid.
+
+    The basis is ``basis_tau`` if given, else the slice of ``tau_supergrid``
+    that covers the data range +- 1 decade, else a 10-ppd grid; epsilon
+    follows the spacing of the first of these given (drt.py:145-151).
 
     Returns a dict of host float64 arrays and metadata: ``frequencies``,
     ``rzm`` (2F, N) design matrix stacked [Re; Im], ``vmm`` (2F, 2F)
     variance-averaging matrix,
     ``m_stack`` (3, N, N) penalty matrices, ``l1v`` (N,), ``lb`` (N,),
     ``hypers`` / ``iw_hypers`` (dicts of floats, arrays and None), ``cfg``,
-    ``special_qp_params``, ``basis_tau``, ``tau_epsilon``, ``inductance_scale``.
+    ``special_qp_params``, ``basis_tau``, ``tau_epsilon``, ``inductance_scale``,
+    ``tau_supergrid`` (None without one).
     """
     if fit_dop:
         raise NotImplementedError("fit_dop: DOP assembly is not ported yet (ROADMAP Queue 1 item 4)")
@@ -64,12 +69,16 @@ def build_eis_problem(frequencies, basis_tau=None, fit_ohmic=True, fit_inductanc
                                   "(ROADMAP Queue 1 item 9)")
 
     frequencies = np.asarray(frequencies, dtype=float)
-    if basis_tau is None:
-        tau_epsilon = pp.get_epsilon_from_ppd(10)
-        basis_tau = pp.get_basis_tau(frequencies, extend_decades=1)
-    else:
+    if basis_tau is not None:
         basis_tau = np.asarray(basis_tau, dtype=float)
         tau_epsilon = 1 / np.mean(np.diff(np.log(basis_tau)))
+    elif tau_supergrid is not None:
+        tau_supergrid = np.asarray(tau_supergrid, dtype=float)
+        tau_epsilon = 1 / np.mean(np.diff(np.log(tau_supergrid)))
+        basis_tau = pp.get_basis_tau(frequencies, extend_decades=1, tau_grid=tau_supergrid)
+    else:
+        tau_epsilon = pp.get_epsilon_from_ppd(10)
+        basis_tau = pp.get_basis_tau(frequencies, extend_decades=1)
 
     special_qp_params = {}
     for name, on in (("R_inf", fit_ohmic), ("inductance", fit_inductance)):
@@ -124,4 +133,5 @@ def build_eis_problem(frequencies, basis_tau=None, fit_ohmic=True, fit_inductanc
         "hypers": hypers, "iw_hypers": iw_hypers, "cfg": cfg,
         "special_qp_params": special_qp_params, "basis_tau": basis_tau,
         "tau_epsilon": float(tau_epsilon), "inductance_scale": inductance_scale,
+        "tau_supergrid": tau_supergrid,
     }

@@ -1,6 +1,6 @@
 """Batched SPD Cholesky factor/solve kernels and their plain versions.
 
-Counterpart of ``hybdrt_tpu/ops/pallas_chol_lane.py``. Three kernels, written
+Counterpart of ``hybdrt_tpu/ops/pallas_chol_lane.py``. Four kernels, written
 in CUDA for Hopper in ``hybdrt_torch/csrc/chol_lane.cu``:
 
 - ``chol_factor_solve_lane(a, b) -> (x, l)``: factor and one solve, returning
@@ -8,7 +8,9 @@ in CUDA for Hopper in ``hybdrt_torch/csrc/chol_lane.cu``:
 - ``chol_solve_factored_lane(l, b) -> x``: both triangular solves against that
   factor (the Mehrotra corrector);
 - ``chol_solve_lane(a, b) -> x``: factor and solve without returning the
-  factor (the QP's cold start and active-set polish).
+  factor (the QP's cold start and active-set polish);
+- ``chol_factor_lane(a) -> l``: the factor alone (the group resolve's
+  block-Jacobi preconditioner, ``mapping/resolve.py``); ``a`` is not written.
 
 ``a``/``l`` are (B, n, n) and ``b``/``x`` are (B, n), contiguous, float32 or
 float64. Only the lower triangle of a returned factor is valid, and a
@@ -25,7 +27,7 @@ import torch
 from ..csrc import build as _build
 
 LAUNCHES = {"chol_factor_solve_lane": 0, "chol_solve_factored_lane": 0,
-            "chol_solve_lane": 0}
+            "chol_solve_lane": 0, "chol_factor_lane": 0}
 
 # Shared memory one block may use on sm_90 (dynamic, after opting in)
 MAX_SMEM_BYTES = 232448
@@ -103,6 +105,10 @@ def chol_solve_lane_plain(a, b):
     return chol_solve_factored_lane_plain(_factor_plain(a), b)
 
 
+def chol_factor_lane_plain(a):
+    return _factor_plain(a)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -135,3 +141,14 @@ def chol_solve_lane(a, b):
     x = torch.empty_like(b)
     _launch(name, a, b, x, batch=a.shape[0], n=a.shape[1], device=a.device)
     return x
+
+
+def chol_factor_lane(a):
+    """l = chol(a) for a batch of SPD matrices; l's upper triangle holds
+    leftover input, and ``a`` is left as it was."""
+    name = "chol_factor_lane"
+    if on_cpu(name, a):
+        return chol_factor_lane_plain(a)
+    l = torch.empty_like(a)
+    _launch(name, a, l, batch=a.shape[0], n=a.shape[1], device=a.device)
+    return l

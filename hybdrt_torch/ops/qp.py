@@ -45,8 +45,14 @@ def spd_factor_solve(a, b):
     return chol_lane.chol_factor_solve_lane(a.contiguous(), b.contiguous())
 
 
+def spd_factor(a):
+    """Lower Cholesky factor of each SPD matrix of the batch (lower triangle
+    valid; ``a`` is not written)."""
+    return chol_lane.chol_factor_lane(a.contiguous())
+
+
 def spd_solve_factored(l, b):
-    """Solve (L L^T) x = b given the factor from spd_factor_solve."""
+    """Solve (L L^T) x = b given the factor from spd_factor_solve or spd_factor."""
     return chol_lane.chol_solve_factored_lane(l.contiguous(), b.contiguous())
 
 

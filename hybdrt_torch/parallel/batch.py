@@ -10,6 +10,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import preprocessing as pp
 from ..models.drt import build_eis_problem
 from ..ops import basis as basis_mod
 from ..ops import mat1d
@@ -52,6 +53,10 @@ class BatchedEISFitter:
     raises ``RuntimeError`` where no card is present. ``qp_fused=True`` runs
     every warm-started QP as ``qp_max_iter_warm`` (default 8) fixed Mehrotra
     steps in one fused kernel call, after a cold iteration 0.
+
+    With ``tau_supergrid`` the basis is the slice of that grid covering the
+    data, and ``tau_indices`` is its (left, right) on the supergrid (the
+    window a map stores the coefficients in, ``hybdrt_tpu/mapping/drtmd.py:735``).
     """
 
     def __init__(self, frequencies, basis_tau=None, tau_supergrid=None, fit_ohmic=True,
@@ -59,10 +64,8 @@ class BatchedEISFitter:
                  dtype=torch.float64, device=None, max_iter=50, xtol=1e-2, qp_max_iter=60,
                  qp_max_iter_warm=None, iw_l1_lambda_0=1e-4, iw_l2_lambda_0=1e-4,
                  mesh=None, pred_stop=False, pred_rtol=1e-2, qp_fused=False, **hyper_kw):
-        if tau_supergrid is not None:
-            raise NotImplementedError("tau_supergrid: not ported yet (ROADMAP Queue 1 item 7, "
-                                      "ragged maps)")
-        problem = build_eis_problem(frequencies, basis_tau=basis_tau, fit_ohmic=fit_ohmic,
+        problem = build_eis_problem(frequencies, basis_tau=basis_tau,
+                                    tau_supergrid=tau_supergrid, fit_ohmic=fit_ohmic,
                                     fit_inductance=fit_inductance, nonneg=nonneg,
                                     iw_l1_lambda_0=iw_l1_lambda_0,
                                     iw_l2_lambda_0=iw_l2_lambda_0,
@@ -111,6 +114,15 @@ class BatchedEISFitter:
         self.tau_epsilon = float(problem["tau_epsilon"])
         self.special_qp_params = problem["special_qp_params"]
         self.inductance_scale = problem["inductance_scale"]
+        self.tau_supergrid = problem.get("tau_supergrid")
+        self.tau_indices = None
+        if self.tau_supergrid is not None:
+            self.tau_indices = (pp.nearest_index(self.tau_supergrid, self.basis_tau[0]),
+                                pp.nearest_index(self.tau_supergrid, self.basis_tau[-1]) + 1)
+        # float64 host copies for the posterior (P, q) rebuild, which runs in
+        # float64 whatever the fit's dtype (hybdrt_tpu/mapping/drtmd.py:1036)
+        self.host_arrays = {k: np.array(problem[k], dtype=float)
+                            for k in ("rzm", "m_stack", "l1v")}
 
         cast = lambda a: torch.as_tensor(np.array(a, dtype=float), dtype=dtype,
                                          device=self.device)

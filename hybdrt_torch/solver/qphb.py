@@ -205,6 +205,22 @@ def initialize_weights(iw_hyp, m_stack, rho_vector, s_vectors, rv, rm, vmm, lb,
 
 
 # ------------------------------------------------------------------
+# Posterior quantities (hybdrt_tpu/solver/qphb.py:299)
+# ------------------------------------------------------------------
+def calculate_pq(rm, rv, m_stack, hyp, l1_lambda_vector, rho_vector, s_vectors, weights,
+                 cfg: QPHBConfig):
+    """The weighted QP of each lane: P = l2 + (W rm)^T (W rm), q = -(W rm)^T
+    (W rv) + l1. rv, weights (B, M); rho_vector (B, K); s_vectors (B, K, N)
+    -> P (B, N, N), q (B, N). EIS subset: no DOP block, so dop_rho is ones."""
+    wrm = rm * weights[:, :, None]
+    wrv = rv * weights
+    l2_matrix = calculate_qp_l2_matrix(hyp, rho_vector, m_stack, s_vectors, cfg)
+    p_matrix = wrm.mT @ wrm + l2_matrix
+    q_vector = -torch.matmul(wrm.mT, wrv[:, :, None])[:, :, 0] + l1_lambda_vector
+    return p_matrix, q_vector
+
+
+# ------------------------------------------------------------------
 # Convergence (hybdrt_tpu/solver/qphb.py:394)
 # ------------------------------------------------------------------
 def is_converged(x_in, x_out, x_atol, x_rtol):
@@ -232,11 +248,8 @@ def iterate_qphb(state: QPHBState, rv, rm, vmm, m_stack, m1_gmat_source, l1_lamb
     ns = cfg.num_special
     dw = hyp["derivative_weights"]
 
-    wrm = rm * state.weights[:, :, None]
-    wrv = rv * state.weights
-    l2_matrix = calculate_qp_l2_matrix(hyp, state.rho_vector, m_stack, state.s_vectors, cfg)
-    p_matrix = wrm.mT @ wrm + l2_matrix
-    q_vector = -torch.matmul(wrm.mT, wrv[:, :, None])[:, :, 0] + l1_lambda_vector
+    p_matrix, q_vector = calculate_pq(rm, rv, m_stack, hyp, l1_lambda_vector,
+                                      state.rho_vector, state.s_vectors, state.weights, cfg)
     if warm_mode == "cold" or state.qp_dual is None:
         qp_res = solve_qp_box(p_matrix, q_vector, lb, max_iter=qp_max_iter)
     elif warm_mode == "warm":

@@ -1,0 +1,85 @@
+"""Inputs and timers shared by the repository's scripts that drive the port on
+a CUDA card (``chip_smoke.py``, ``torch_fit_walls.py``,
+``torch_resolve_walls.py``) and by its tests.
+
+Nothing here is on a fitting path: it makes seeded test inputs, reads the
+card's name and power limit, and times calls.
+"""
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+
+def card_line():
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them (first card)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        raise RuntimeError(f"nvidia-smi exit {smi.returncode}: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def spd_batch(b, n, dtype, seed, device="cuda"):
+    """b seeded SPD matrices G G^T + n I of size n and b right-hand sides."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(b, n, n))
+    a = g @ np.swapaxes(g, 1, 2) + n * np.eye(n)
+    rhs = rng.normal(size=(b, n))
+    return (torch.as_tensor(a, dtype=dtype, device=device),
+            torch.as_tensor(rhs, dtype=dtype, device=device))
+
+
+def resolve_map(n_obs, seed=8):
+    """The smooth analytic map of tests/test_resolve_coupled.py:93-125 on the
+    benchmark's grids (71 frequencies, the 111-point supergrid of
+    bench.py:180): z = 0.4 + R_ct / (1 + (j w tau)^0.85), R_ct = 1 + 0.5 p,
+    tau = 10^(-3 + 2 p), p = linspace(0, 1, n_obs), noise 0.004. Returns
+    (freq, tau_supergrid, p, z)."""
+    freq, tau_super = np.logspace(6, -1, 71), np.logspace(-8, 3, 111)
+    p = np.linspace(0, 1, n_obs)
+    rng = np.random.default_rng(seed)
+    z = 0.4 + (1 + 0.5 * p[:, None]) / (
+        1 + (2j * np.pi * freq[None, :] * 10 ** (-3 + 2 * p[:, None])) ** 0.85)
+    z = z + (rng.normal(size=z.shape) + 1j * rng.normal(size=z.shape)) * 0.004
+    return freq, tau_super, p, z
+
+
+def cuda_ms(fn, reps=20):
+    """Mean ms per call of ``fn`` over ``reps`` calls, by CUDA events, after
+    one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed(fn):
+    """Host-clock seconds of one call of ``fn`` that ends in a synchronize."""
+    t0 = time.time()
+    fn()
+    torch.cuda.synchronize()
+    return time.time() - t0
+
+
+def profile(label, fn, top=8):
+    """One call of ``fn`` under ``torch.profiler`` with CUDA activity: prints
+    its wall, summed kernel time, busy share and the ``top`` kernels by
+    device time."""
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    with prof(activities=[ProfilerActivity.CUDA]) as p:
+        wall = timed(fn)
+    rows = [e for e in p.key_averages() if e.device_type.name == "CUDA"]
+    total_us = sum(e.self_device_time_total for e in rows)
+    print(f"{label} profiled: wall {wall:.4f} s, kernel time {total_us / 1e6:.4f} s in "
+          f"{sum(e.count for e in rows)} kernels, busy {total_us / 1e6 / wall:.3f}")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"  {e.self_device_time_total / 1e3:10.2f} ms {e.count:6d}x  {e.key[:90]}")

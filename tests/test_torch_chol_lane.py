@@ -12,8 +12,8 @@ import torch
 import jax.numpy as jnp
 
 from hybdrt_tpu.ops.pallas_chol_lane import (
-    chol_factor_solve_lane as jax_factor_solve, chol_solve_factored_lane as jax_solve_factored,
-    chol_solve_lane as jax_solve)
+    chol_factor_lane as jax_factor, chol_factor_solve_lane as jax_factor_solve,
+    chol_solve_factored_lane as jax_solve_factored, chol_solve_lane as jax_solve)
 from hybdrt_torch.ops import chol_lane
 
 # The suite runs several test processes at once; torch's default of one
@@ -40,7 +40,7 @@ def _spd_batch(b, n, seed=0):
     return a, rhs
 
 
-@pytest.mark.parametrize("kernel", ["factor_solve", "solve_factored", "solve"])
+@pytest.mark.parametrize("kernel", ["factor_solve", "solve_factored", "solve", "factor"])
 @pytest.mark.parametrize("n", [5, 16, 17, 37])
 @pytest.mark.parametrize("b", [4, 130])
 def test_plain_matches_pallas_interpret(kernel, n, b):
@@ -61,10 +61,17 @@ def test_plain_matches_pallas_interpret(kernel, n, b):
                                                torch.from_numpy(rhs2))
         x_j = jax_solve_factored(l_j, jnp.asarray(rhs2), interpret=True)
         np.testing.assert_allclose(x.numpy(), np.asarray(x_j), rtol=TOL, atol=TOL)
-    else:
+    elif kernel == "solve":
         x = chol_lane.chol_solve_lane(at, rt)
         x_j = jax_solve(jnp.asarray(a), jnp.asarray(rhs), interpret=True)
         np.testing.assert_allclose(x.numpy(), np.asarray(x_j), rtol=TOL, atol=TOL)
+    else:
+        l = chol_lane.chol_factor_lane(at)
+        l_j = jax_factor(jnp.asarray(a), interpret=True)
+        np.testing.assert_allclose(np.tril(l.numpy()), np.tril(np.asarray(l_j)),
+                                   rtol=TOL, atol=TOL)
+        # the factor-only wrapper leaves its input as it was
+        np.testing.assert_array_equal(at.numpy(), a)
 
 
 def test_non_positive_pivot_gives_nan():
@@ -88,6 +95,7 @@ def test_cpu_calls_do_not_count_launches():
     _, l = chol_lane.chol_factor_solve_lane(at, rt)
     chol_lane.chol_solve_factored_lane(l, rt)
     chol_lane.chol_solve_lane(at, rt)
+    chol_lane.chol_factor_lane(at)
     assert chol_lane.LAUNCHES == {k: 0 for k in chol_lane.LAUNCHES}
 
 

@@ -1,6 +1,6 @@
-"""GPU tests of the port: the CUDA kernels against their plain versions, and
-the batched fit (plain and fused warm QPs) on the card against the same fit
-on the CPU.
+"""GPU tests of the port: the CUDA kernels against their plain versions, the
+batched fit (plain and fused warm QPs) and the group resolve (coupled and
+windowed) on the card against the same computations on the CPU.
 
 Every test here is marked ``cuda`` and skips where no CUDA device is present.
 The file imports no JAX, so it also runs on a machine without it:
@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from hybdrt_torch import BatchedEISFitter
+from hybdrt_torch import BatchedEISFitter, resolve_group
 from hybdrt_torch.ops import chol_lane, ip_lane
+from hybdrt_torch.utils.probe import spd_batch
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-4  # float32 kernel vs plain, as tests/test_pallas_lane_kernels.py
@@ -25,21 +26,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _spd_batch(b, n, dtype, device, seed=0):
-    rng = np.random.default_rng(seed)
-    g = rng.normal(size=(b, n, n))
-    a = g @ np.swapaxes(g, 1, 2) + n * np.eye(n)
-    rhs = rng.normal(size=(b, n))
-    return (torch.as_tensor(a, dtype=dtype, device=device),
-            torch.as_tensor(rhs, dtype=dtype, device=device))
-
-
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.float64, 1e-10)])
 @pytest.mark.parametrize("b,n", [(4, 5), (130, 17), (130, 37), (257, 93), (3, 160)])
 def test_kernels_match_plain(cuda, b, n, dtype, tol):
     if chol_lane.smem_bytes(n, dtype) > chol_lane.MAX_SMEM_BYTES:
         pytest.skip("shape exceeds one block's shared memory")
-    a, rhs = _spd_batch(b, n, dtype, cuda, seed=n + b)
+    a, rhs = spd_batch(b, n, dtype, n + b, cuda)
     chol_lane.reset_launch_counts()
     x, l = chol_lane.chol_factor_solve_lane(a, rhs)
     x_p, l_p = chol_lane.chol_factor_solve_lane_plain(a, rhs)
@@ -50,32 +42,47 @@ def test_kernels_match_plain(cuda, b, n, dtype, tol):
     torch.testing.assert_close(chol_lane.chol_solve_factored_lane(l, rhs), x_p,
                                rtol=tol, atol=tol)
     torch.testing.assert_close(chol_lane.chol_solve_lane(a, rhs), x_p, rtol=tol, atol=tol)
+    a_before = a.clone()
+    l2 = chol_lane.chol_factor_lane(a)
+    torch.testing.assert_close(torch.tril(l2), l_p, rtol=tol, atol=tol)
+    torch.testing.assert_close(torch.triu(l2, 1), torch.triu(a, 1))
     torch.cuda.synchronize()
+    assert torch.equal(a, a_before), "chol_factor_lane must not write its input"
     assert chol_lane.LAUNCHES == {k: 1 for k in chol_lane.LAUNCHES}
 
 
 def test_non_positive_pivot_gives_nan(cuda):
-    a, rhs = _spd_batch(4, 17, torch.float32, cuda, seed=7)
+    a, rhs = spd_batch(4, 17, torch.float32, 7, cuda)
     a[1, 5, 5] = -1.0
     a[2] = -a[2]
     x, l = chol_lane.chol_factor_solve_lane(a, rhs)
     for xs in (x, chol_lane.chol_solve_lane(a, rhs)):
         assert torch.isnan(xs[1]).all() and torch.isnan(xs[2]).all()
         assert torch.isfinite(xs[0]).all() and torch.isfinite(xs[3]).all()
-    assert torch.isnan(torch.diagonal(l[1])[5:]).all()
-    assert torch.isfinite(torch.diagonal(l[1])[:5]).all()
+    for lf in (l, chol_lane.chol_factor_lane(a)):
+        assert torch.isnan(torch.diagonal(lf[1])[5:]).all()
+        assert torch.isfinite(torch.diagonal(lf[1])[:5]).all()
+        assert torch.isnan(torch.diagonal(lf[2])).all()
+        assert torch.isfinite(torch.tril(lf[0])).all() and torch.isfinite(torch.tril(lf[3])).all()
 
 
 def test_empty_batch_and_bad_inputs(cuda):
-    a, rhs = _spd_batch(0, 8, torch.float32, cuda)
+    a, rhs = spd_batch(0, 8, torch.float32, 0, cuda)
     assert chol_lane.chol_solve_lane(a, rhs).shape == (0, 8)
-    a, rhs = _spd_batch(2, 8, torch.float32, cuda)
+    a, rhs = spd_batch(2, 8, torch.float32, 0, cuda)
     with pytest.raises(ValueError, match="contiguous"):
         chol_lane.chol_solve_lane(a.mT, rhs)
     with pytest.raises(TypeError):
         chol_lane.chol_solve_lane(a.half(), rhs.half())
     with pytest.raises(ValueError):
         chol_lane.chol_solve_lane(a, rhs.cpu())
+    assert chol_lane.chol_factor_lane(a[:0]).shape == (0, 8, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        chol_lane.chol_factor_lane(a.mT)
+    with pytest.raises(TypeError):
+        chol_lane.chol_factor_lane(a.half())
+    with pytest.raises(ValueError, match="shared memory"):
+        chol_lane.chol_factor_lane(torch.eye(300, device=cuda).expand(1, 300, 300).contiguous())
 
 
 def _qp_batch(b, n, dtype, device, seed=0):
@@ -146,7 +153,9 @@ def test_fit_on_card_matches_cpu(cuda):
     chol_lane.reset_launch_counts()
     r_gpu = BatchedEISFitter(freq, dtype=torch.float64, device=cuda, **kw).fit(
         z, adaptive="staged", collect="lazy")
-    assert all(v > 0 for v in chol_lane.LAUNCHES.values())
+    fit_kernels = ("chol_factor_solve_lane", "chol_solve_factored_lane", "chol_solve_lane")
+    assert all(chol_lane.LAUNCHES[k] > 0 for k in fit_kernels)
+    assert chol_lane.LAUNCHES["chol_factor_lane"] == 0
     assert r_gpu.weights.is_cuda
     np.testing.assert_array_equal(r_gpu.n_iter, r_cpu.n_iter)
     np.testing.assert_allclose(r_gpu.x, r_cpu.x, rtol=1e-6, atol=1e-10)
@@ -169,3 +178,43 @@ def test_fused_fit_on_card_matches_cpu(cuda):
     assert 0 < ip_lane.LAUNCHES["ip_steps_lane"] <= int(r_gpu.n_iter.max())
     np.testing.assert_array_equal(r_gpu.n_iter, r_cpu.n_iter)
     np.testing.assert_allclose(r_gpu.x, r_cpu.x, rtol=1e-6, atol=1e-10)
+
+
+@pytest.fixture(scope="module")
+def map64():
+    """A 64-observation map (the smooth map of tests/test_resolve_coupled.py)
+    fitted in float64 on the CPU: (fitter, result, z, psi)."""
+    freq = np.logspace(5, -1, 41)
+    tau_super = np.logspace(-7, 2, 91)
+    psis = np.linspace(0, 1, 64)
+    rng = np.random.default_rng(8)
+    z = np.stack([0.4 + (1 + 0.5 * p) / (1 + (2j * np.pi * freq * 10 ** (-3 + 2 * p)) ** 0.85)
+                  for p in psis])
+    z = z + (rng.normal(size=z.shape) + 1j * rng.normal(size=z.shape)) * 0.004
+    fitter = BatchedEISFitter(freq, tau_supergrid=tau_super, dtype=torch.float64, device="cpu")
+    return fitter, fitter.fit(z), z, psis
+
+
+@pytest.mark.parametrize("kw", [{"coupled": True},
+                                {"batched": True, "batch_size": 7, "overlap": 2}],
+                         ids=["coupled", "windowed"])
+def test_resolve_on_card_matches_cpu(cuda, map64, kw):
+    """The 64-observation map resolved in float64 on the card
+    (chol_factor_lane and chol_solve_factored_lane) and on the CPU (plain),
+    as one coupled group and as 13 windows of 7 overlapping by 2: with the
+    per-window live masks and the (G*w, nc, nc) kernel batches each window
+    takes the CPU's IP iterations, x lies within 1e-8 of max |x|, and every
+    Rp within 0.05 of the map's truth 1 + 0.5 psi."""
+    fitter, res, z, psis = map64
+    r_cpu = resolve_group(fitter, res, z, psi=psis, device="cpu", **kw)
+    chol_lane.reset_launch_counts()
+    r_gpu = resolve_group(fitter, res, z, psi=psis, device=cuda, **kw)
+    assert chol_lane.LAUNCHES["chol_factor_lane"] > 0
+    assert chol_lane.LAUNCHES["chol_solve_factored_lane"] > 0
+    np.testing.assert_array_equal(r_gpu.info["n_iter"], r_cpu.info["n_iter"])
+    if kw.get("coupled"):
+        assert r_gpu.info["kkt_residual"] <= r_gpu.info["kkt_tol"]
+    else:
+        assert r_gpu.info["windows"] == 13
+    assert np.max(np.abs(r_gpu.x - r_cpu.x)) < 1e-8 * np.max(np.abs(r_cpu.x))
+    assert np.max(np.abs(fitter.predict_r_p(r_gpu) - (1 + 0.5 * psis))) < 0.05

@@ -14,33 +14,14 @@ the summed kernel time, the busy share of its wall, and the kernels with the
 most device time. Prints the card's name and power limit first.
 """
 import argparse
-import subprocess
-import time
 
 import numpy as np
 import torch
 
+import hybdrt_torch
+from hybdrt_torch.utils.probe import card_line, profile, timed
+
 KW = dict(max_iter=50, qp_max_iter=20, qp_max_iter_warm=4, pred_stop=True, pred_rtol=3e-2)
-
-
-def timed(fitter, z):
-    t0 = time.time()
-    fitter.fit(z, adaptive="staged", collect="lazy")
-    torch.cuda.synchronize()
-    return time.time() - t0
-
-
-def profile(label, fitter, z, top=8):
-    from torch.profiler import ProfilerActivity, profile as prof
-
-    with prof(activities=[ProfilerActivity.CUDA]) as p:
-        wall = timed(fitter, z)
-    rows = [e for e in p.key_averages() if e.device_type.name == "CUDA"]
-    total_us = sum(e.self_device_time_total for e in rows)
-    print(f"{label} profiled: wall {wall:.4f} s, kernel time {total_us / 1e6:.4f} s in "
-          f"{sum(e.count for e in rows)} kernels, busy {total_us / 1e6 / wall:.3f}")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"  {e.self_device_time_total / 1e3:10.2f} ms {e.count:6d}x  {e.key[:90]}")
 
 
 def main():
@@ -51,29 +32,31 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_fit_walls.py needs a CUDA card")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip())
+    print(card_line())
 
-    import hybdrt_torch
     from bench import make_batch
 
     freq, z = make_batch(args.batch, 71)
     fitters = {name: hybdrt_torch.BatchedEISFitter(freq, dtype=torch.float32, device="cuda",
                                                    qp_fused=fused, **KW)
                for name, fused in (("plain", False), ("fused", True))}
-    for f in fitters.values():
-        timed(f, z)
+
+    def fit(name):
+        return timed(lambda: fitters[name].fit(z, adaptive="staged", collect="lazy"))
+
+    for name in fitters:
+        fit(name)
     walls = {"plain": [], "fused": []}
     for _ in range(args.rounds):
         for name in ("plain", "fused", "fused", "plain"):
-            walls[name].append(timed(fitters[name], z))
+            walls[name].append(fit(name))
     for name, w in walls.items():
         print(f"{name}: B={args.batch} walls {[round(v, 4) for v in w]} s, median "
               f"{np.median(w):.4f} s -> {args.batch / np.median(w):.1f} spectra/s")
     print(f"fused / plain median wall: {np.median(walls['fused']) / np.median(walls['plain']):.3f}")
     if not args.no_profile:
         for name, f in fitters.items():
-            profile(name, f, z)
+            profile(name, lambda: f.fit(z, adaptive="staged", collect="lazy"))
 
 
 if __name__ == "__main__":
