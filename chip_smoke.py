@@ -20,9 +20,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    an indefinite P comes back equal to its input while its neighbours step;
    one float64 case at (64, 93); kernel and plain times at (8192, 93, 4);
 5. the main path: ``hybdrt_torch.BatchedEISFitter`` on the benchmark batch
-   (``bench.make_batch(8192, 71)``) with the benchmark's settings, on the
-   card in float32, ``fit(adaptive="staged", collect="lazy")`` twice; the
-   launch counters are reset just before the second call and the three
+   (``make_batch(8192, 71)`` of ``hybdrt_torch/utils/probe.py``, the
+   benchmark's spectra) with the benchmark's settings, on the card in
+   float32, ``fit(adaptive="staged", collect="lazy")`` twice; the launch
+   counters are reset just before the second call and the three
    Cholesky kernels must all have launched; the coefficients must be finite,
    and the first 64 spectra refitted by the port on the CPU in float64 must
    agree within the float32 bounds of ``tests/test_f32_accuracy.py`` (Rp
@@ -52,12 +53,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    blocks; the windowed resolve of the same blocks in float64 on the card
    must hold every Rp within 0.05 of the truth and match a float64 windowed
    resolve on the CPU (the port's plain path): the same IP iteration in
-   every window, x within 1e-8 of max |x|.
+   every window, x within 1e-8 of max |x|;
+9. the layout study (``hybdrt_torch/experiments``): each of its four
+   kernels, in every variant the study times, against its plain version on
+   the same CUDA tensors at (8192, 93) and (130, 17), float32, within rtol =
+   atol = 2e-4, and the probe against its closed form; the pivot contracts
+   (NaN in the panel-blocked factor's failed lanes, finite x = b from the
+   column and blocked solves where every pivot fails); then
+   ``experiments.layouts.study`` once at (8192, 93) with the launch counters
+   reset just before it: kernel, plain, library and bound times, and
+   t_probe / t_factor for ``chol_factor_lane`` and ``chol_factor_solve_lane``.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches from the path it serves: phase 5 for the three fit Cholesky
 kernels, phase 6 for ``ip_steps_lane``, phase 8's two timed resolves for
-``chol_factor_lane``); the last line is ``{"ok": true, "device": {...}}``.
+``chol_factor_lane``, phase 9's study for the four layout kernels); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 import json
 import sys
@@ -66,7 +77,8 @@ import time
 import numpy as np
 import torch
 
-from hybdrt_torch.utils.probe import card_line, cuda_ms, resolve_map, spd_batch
+from hybdrt_torch.utils.probe import (bound, card_line, chol_ops, cuda_ms, make_batch,
+                                      resolve_map, solve_ops, spd_batch)
 
 B_BENCH, N_FREQ, MAX_ITER = 8192, 71, 50
 # tests/test_pallas_lane_kernels.py: f32 lane kernels vs a dense solve. For
@@ -83,6 +95,13 @@ KERNELS = {
     "ip_steps_lane": ("hybdrt_torch/csrc/ip_lane.cu", "hybdrt_tpu/ops/pallas_ip_lane.py:157"),
     "chol_factor_lane": ("hybdrt_torch/csrc/chol_lane.cu",
                          "hybdrt_tpu/ops/pallas_chol_lane.py:178"),
+    "chol_factor_solve_lane_blocked": ("hybdrt_torch/csrc/chol_layouts.cu",
+                                       "experiments/pallas_chol_lane_blocked.py:75"),
+    "chol_solve_batched": ("hybdrt_torch/csrc/chol_layouts.cu",
+                           "experiments/pallas_chol_column.py:110"),
+    "chol_solve_blocked": ("hybdrt_torch/csrc/chol_layouts.cu",
+                           "experiments/pallas_chol_blocked.py:158"),
+    "smem_sol": ("hybdrt_torch/csrc/chol_layouts.cu", "experiments/vmem_sol.py:63"),
 }
 FIT_KERNELS = ("chol_factor_solve_lane", "chol_solve_factored_lane", "chol_solve_lane")
 # The resolve phase: 1024 observations, windows of 7 overlapping by 2 (205
@@ -96,31 +115,11 @@ RP_TOL = 0.05
 # 1.734e-2 (torch_resolve_walls.py); the card's own solve reads 1.793e-3
 # there, stopping at 12 IP iterations where the CPU's stops at 13
 RESOLVE_F32_BOUND = 0.052
-# One H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bytes/s and
-# float32 operations/s outside the tensor cores
-HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
 
 
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
-
-
-def bound(n_bytes, n_ops):
-    """(bound_ms, bound_by): the least time the card could take to move
-    n_bytes through HBM and do n_ops float32 operations."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / F32_OPS_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def chol_ops(b, n):
-    """Operations of b Cholesky factorizations, n^3/3 multiply-adds each."""
-    return b * 2 * n ** 3 / 3
-
-
-def solve_ops(b, n):
-    """Operations of b forward and backward substitutions."""
-    return b * 2 * n * n
 
 
 def phase_card():
@@ -311,7 +310,6 @@ def phase_slice(fused):
     (launch counts of the timed call, its wall in s)."""
     import hybdrt_torch
     from hybdrt_torch.ops import chol_lane as cl, ip_lane
-    from bench import make_batch
 
     label = "fused slice" if fused else "slice"
     freq, z = make_batch(B_BENCH, N_FREQ)
@@ -554,6 +552,61 @@ def phase_resolve():
     return factor_launches
 
 
+def phase_layouts():
+    """The layout study's kernels against their plain versions, then the
+    study at the fit's shape; returns ({name: max_abs_err}, {name: launches
+    of the study}, {name: timing dict})."""
+    from hybdrt_torch.experiments import (chol_blocked, chol_column, chol_lane_blocked,
+                                          layouts, smem_sol)
+
+    modules = {m.NAME: m for m in (chol_lane_blocked, chol_column, chol_blocked, smem_sol)}
+    max_err = {k: 0.0 for k in modules}
+    for (b, n) in ((B_BENCH, 93), (130, 17)):
+        a, rhs = spd_batch(b, n, torch.float32, seed=5 * n + b)
+        errs = layouts.check_variants(a, rhs)
+        for k, e in errs.items():
+            max_err[k] = max(max_err[k], e)
+        o, closed = smem_sol.smem_sol(a), a * smem_sol.sol_weights(n, device=a.device)
+        check(bool(torch.all((o - closed).abs() <= TOL + TOL * closed.abs())),
+              f"smem_sol ({b}, {n}) against its closed form 0.999^(c+1)")
+        print(f"layout kernels vs plain at B={b} n={n} f32, every variant of the study: "
+              "max abs err " + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+              + "; smem_sol equals its closed form")
+
+    a, rhs = spd_batch(4, 17, torch.float32, seed=7)
+    a[1, 5, 5] = -1.0
+    a[2] = -a[2]
+    x, l = chol_lane_blocked.chol_factor_solve_lane_blocked(a, rhs)
+    check(bool(torch.isnan(x[1]).all() and torch.isnan(x[2]).all()
+               and torch.isfinite(x[0]).all() and torch.isfinite(x[3]).all()
+               and torch.isnan(torch.diagonal(l[1])[5:]).all()
+               and torch.isfinite(torch.diagonal(l[1])[:5]).all()),
+          "chol_factor_solve_lane_blocked: NaN from a non-positive pivot on, in its lane only")
+    want = chol_column.chol_solve_batched_plain(a, rhs)
+    for name, got in ((chol_column.NAME, chol_column.chol_solve_batched(a, rhs)),
+                      (chol_blocked.NAME, chol_blocked.chol_solve_blocked(a, rhs, nb=4))):
+        check(bool(torch.isfinite(got).all()
+                   and torch.all((got - want).abs() <= TOL + TOL * want.abs())
+                   and torch.equal(got[2], rhs[2])),
+              f"{name}: finite x as the plain version, x = b where every pivot fails")
+    print("layout pivot contracts: the panel-blocked factor NaN in its failed lanes; the "
+          "column and blocked solves finite, x = b where every pivot fails")
+
+    for m in modules.values():
+        m.reset_launch_counts()
+    res = layouts.study(B_BENCH, 93, check=False)
+    torch.cuda.synchronize()
+    launches = {k: m.LAUNCHES[k] for k, m in modules.items()}
+    check(all(v > 0 for v in launches.values()), f"every layout kernel launched: {launches}")
+    ratios = res["kernels"][smem_sol.NAME]["probe_over_factor"]
+    print(f"layout study launches: {launches}; t_probe / t_factor: "
+          + ", ".join(f"{k} {r:.4f}" for k, r in ratios.items()))
+    times = {k: dict(ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                     bound=(r["bound_ms"], r["bound_by"]))
+             for k, r in res["kernels"].items()}
+    return max_err, launches, times
+
+
 def main():
     phase_card()
     phase_build()
@@ -564,6 +617,10 @@ def main():
     launches["ip_steps_lane"] = fused_launches["ip_steps_lane"]
     max_err["chol_factor_lane"], times["chol_factor_lane"] = compare_factor_kernel()
     launches["chol_factor_lane"] = phase_resolve()
+    layout_err, layout_launches, layout_times = phase_layouts()
+    max_err.update(layout_err)
+    launches.update(layout_launches)
+    times.update(layout_times)
     print(f"second-call wall, B={B_BENCH}: plain {wall:.4f} s ({B_BENCH / wall:.1f} spectra/s), "
           f"fused {fused_wall:.4f} s ({B_BENCH / fused_wall:.1f} spectra/s)")
     print(json.dumps({"kernels": [

@@ -6,7 +6,9 @@ package's layout and function names: ``ops/`` (basis, matrix assembly, the
 batched box QP, its Cholesky kernels and the fused interior-point kernel),
 ``csrc/`` (the CUDA sources and their build), ``solver/`` (QPHB updates and the
 outer fit loop), ``models/`` (EIS problem assembly), ``parallel/`` (the
-batched fitter), ``mapping/`` (the group resolve of a fitted map). The port
+batched fitter), ``mapping/`` (the group resolve of a fitted map), and
+``experiments/`` (the Cholesky layout study, the counterpart of the repo's
+``experiments/`` directory; on no fit or resolve path). The port
 imports torch, numpy and scipy, never JAX.
 
 Importing the package turns off TF32 for float32 matrix products and

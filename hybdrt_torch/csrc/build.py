@@ -19,7 +19,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parent / "_build"
-SOURCES = ("chol_lane.cu", "ip_lane.cu")
+SOURCES = ("chol_lane.cu", "ip_lane.cu", "chol_layouts.cu")
 HEADERS = ("lane_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -42,15 +42,6 @@ namespace {
 using namespace hybdrt_lane;
 
 template <typename T>
-__device__ __forceinline__ void store_matrix(const T* s, T* __restrict__ g, int n, int ld) {
-  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-    int r = idx / n;
-    int c = idx - r * n;
-    g[idx] = s[r * ld + c];
-  }
-}
-
-template <typename T>
 struct Smem {
   T* a;
   T* col;

@@ -1,6 +1,6 @@
-// Device helpers shared by the lane kernels (chol_lane.cu, ip_lane.cu): one
-// thread block per (n, n) matrix kept in shared memory with the odd row
-// stride ld = n | 1, so that column walks hit distinct banks.
+// Device helpers shared by the lane kernels (chol_lane.cu, ip_lane.cu,
+// chol_layouts.cu): one thread block per (n, n) matrix kept in shared memory
+// with the odd row stride ld = n | 1, so that column walks hit distinct banks.
 //
 // The factor's contract is the TPU kernels' (hybdrt_tpu/ops/pallas_chol_lane.py):
 // only the lower triangle of the factor is valid, the upper triangle keeps
@@ -33,6 +33,15 @@ __device__ __forceinline__ void load_matrix(const T* __restrict__ g, T* s, int n
     int r = idx / n;
     int c = idx - r * n;
     s[r * ld + c] = g[idx];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_matrix(const T* s, T* __restrict__ g, int n, int ld) {
+  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
+    int r = idx / n;
+    int c = idx - r * n;
+    g[idx] = s[r * ld + c];
   }
 }
 

@@ -45,16 +45,16 @@ def smem_bytes(n, dtype):
     return torch.finfo(dtype).bits // 8 * (n * ld + 2 * n)
 
 
-def check_args(name, a, *vecs, smem=smem_bytes):
+def check_args(name, a, *vecs, smem=smem_bytes, dtypes=DTYPES):
     """Raise unless ``a`` (B, n, n) and each of ``vecs`` (B, n) are contiguous
-    CUDA tensors on one device, all float32 or all float64, and the
+    CUDA tensors on one device, all of one dtype out of ``dtypes``, and the
     ``smem(n, dtype)`` bytes of shared memory the kernel needs fit one block."""
     ts = (a, *vecs)
     if a.device.type != "cuda" or any(t.device != a.device for t in vecs):
         raise ValueError(f"{name}: expected CUDA tensors on one device, got "
                          f"{[str(t.device) for t in ts]}")
-    if a.dtype not in DTYPES or any(t.dtype != a.dtype for t in vecs):
-        raise TypeError(f"{name}: expected float32 or float64 of one dtype, got "
+    if a.dtype not in dtypes or any(t.dtype != a.dtype for t in vecs):
+        raise TypeError(f"{name}: expected one dtype out of {list(dtypes)}, got "
                         f"{[t.dtype for t in ts]}")
     if a.dim() != 3 or a.shape[1] != a.shape[2] or any(t.shape != a.shape[:2] for t in vecs):
         raise ValueError(f"{name}: expected a (B, n, n) and vectors (B, n), got "
@@ -67,13 +67,13 @@ def check_args(name, a, *vecs, smem=smem_bytes):
                          f"of shared memory, more than one block has ({MAX_SMEM_BYTES})")
 
 
-def on_cpu(name, a, *vecs, smem=smem_bytes):
+def on_cpu(name, a, *vecs, smem=smem_bytes, dtypes=DTYPES):
     """True when every tensor lies on the CPU, where the wrapper runs its
     plain version; otherwise checks that the kernel takes them and returns
     False (a CUDA tensor never reaches a plain version)."""
     if a.device.type == "cpu" and all(t.device.type == "cpu" for t in vecs):
         return True
-    check_args(name, a, *vecs, smem=smem)
+    check_args(name, a, *vecs, smem=smem, dtypes=dtypes)
     return False
 
 

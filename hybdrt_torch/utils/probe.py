@@ -1,15 +1,38 @@
 """Inputs and timers shared by the repository's scripts that drive the port on
 a CUDA card (``chip_smoke.py``, ``torch_fit_walls.py``,
-``torch_resolve_walls.py``) and by its tests.
+``torch_resolve_walls.py``, the layout study ``hybdrt_torch.experiments.
+layouts``) and by its tests.
 
 Nothing here is on a fitting path: it makes seeded test inputs, reads the
-card's name and power limit, and times calls.
+card's name and power limit, times calls, and computes a call's bound (the
+least time the card could take for its bytes and operations).
 """
 import subprocess
 import time
 
 import numpy as np
 import torch
+
+# One H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the least time the card could take to move
+    n_bytes through HBM and do n_ops float32 operations."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / F32_OPS_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def chol_ops(b, n):
+    """Operations of b Cholesky factorizations, n^3/3 multiply-adds each."""
+    return b * 2 * n ** 3 / 3
+
+
+def solve_ops(b, n):
+    """Operations of b forward and backward substitutions."""
+    return b * 2 * n * n
 
 
 def card_line():
@@ -20,6 +43,26 @@ def card_line():
     if smi.returncode != 0:
         raise RuntimeError(f"nvidia-smi exit {smi.returncode}: {smi.stderr.strip()}")
     return smi.stdout.strip().splitlines()[0]
+
+
+def make_batch(batch, n_freq, seed=1):
+    """The benchmark's spectra (``bench.py::make_batch``, copied so that the
+    port's scripts need nothing of the TPU benchmark): ``batch`` 2-ZARC
+    spectra with a series inductance on ``logspace(6, -1, n_freq)``, complex
+    noise of 0.004. Returns (freq, z)."""
+    rng = np.random.default_rng(seed)
+    freq = np.logspace(6, -1, n_freq)
+    z = np.zeros((batch, n_freq), dtype=complex)
+    for i in range(batch):
+        r1, r2 = rng.uniform(0.3, 1.5, 2)
+        t1 = 10 ** rng.uniform(-5, -2)
+        t2 = 10 ** rng.uniform(-2, 0.5)
+        a1, a2 = rng.uniform(0.8, 0.95, 2)
+        z[i] = (0.5 + r1 / (1 + (2j * np.pi * freq * t1) ** a1)
+                + r2 / (1 + (2j * np.pi * freq * t2) ** a2)
+                + 2j * np.pi * freq * 1e-7)
+    noise = rng.normal(size=(batch, n_freq)) + 1j * rng.normal(size=(batch, n_freq))
+    return freq, z + noise * 0.004
 
 
 def spd_batch(b, n, dtype, seed, device="cuda"):
@@ -59,6 +102,15 @@ def cuda_ms(fn, reps=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def in_turns(fns, reps=20):
+    """{name: [ms, ms]}: each callable of the dict ``fns`` timed by
+    ``cuda_ms`` in turns, the list and then the list backwards."""
+    ms = {k: [] for k in fns}
+    for k in [*fns, *reversed(fns)]:
+        ms[k].append(cuda_ms(fns[k], reps))
+    return ms
 
 
 def timed(fn):

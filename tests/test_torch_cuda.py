@@ -1,6 +1,7 @@
-"""GPU tests of the port: the CUDA kernels against their plain versions, the
-batched fit (plain and fused warm QPs) and the group resolve (coupled and
-windowed) on the card against the same computations on the CPU.
+"""GPU tests of the port: the CUDA kernels against their plain versions (the
+layout study's kernels of hybdrt_torch/experiments/ too), the batched fit
+(plain and fused warm QPs) and the group resolve (coupled and windowed) on
+the card against the same computations on the CPU.
 
 Every test here is marked ``cuda`` and skips where no CUDA device is present.
 The file imports no JAX, so it also runs on a machine without it:
@@ -12,6 +13,8 @@ import pytest
 import torch
 
 from hybdrt_torch import BatchedEISFitter, resolve_group
+from hybdrt_torch.experiments import (chol_blocked, chol_column, chol_lane_blocked, layouts,
+                                      smem_sol)
 from hybdrt_torch.ops import chol_lane, ip_lane
 from hybdrt_torch.utils.probe import spd_batch
 
@@ -218,3 +221,81 @@ def test_resolve_on_card_matches_cpu(cuda, map64, kw):
         assert r_gpu.info["windows"] == 13
     assert np.max(np.abs(r_gpu.x - r_cpu.x)) < 1e-8 * np.max(np.abs(r_cpu.x))
     assert np.max(np.abs(fitter.predict_r_p(r_gpu) - (1 + 0.5 * psis))) < 0.05
+
+
+LAYOUT_MODULES = {m.NAME: m for m in (chol_lane_blocked, chol_column, chol_blocked, smem_sol)}
+
+
+@pytest.mark.parametrize("b,n", [(4, 5), (130, 17), (130, 37), (8192, 93)])
+@pytest.mark.parametrize("kernel", list(LAYOUT_MODULES))
+def test_layout_kernel_matches_plain(cuda, kernel, b, n):
+    """Every variant the layout study times (kb, block_batch, nb; ragged last
+    panels included) against the plain version on the same tensors, float32;
+    the input is not written, and each call launches once."""
+    a, rhs = spd_batch(b, n, torch.float32, n + b, cuda)
+    a_in = a.clone()
+    module = LAYOUT_MODULES[kernel]
+    module.reset_launch_counts()
+    want = layouts.plain(kernel, a, rhs)
+    fns = layouts.variants(n)[kernel]
+    for label, fn in fns.items():
+        got = fn(a, rhs)
+        if kernel == chol_lane_blocked.NAME:
+            torch.testing.assert_close(got[0], want[0], rtol=TOL, atol=TOL)
+            torch.testing.assert_close(torch.tril(got[1]), want[1], rtol=TOL, atol=TOL)
+            torch.testing.assert_close(torch.triu(got[1], 1), torch.triu(a, 1))
+        else:
+            torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    if kernel == smem_sol.NAME:
+        torch.testing.assert_close(got, a * smem_sol.sol_weights(n, device=cuda),
+                                   rtol=TOL, atol=TOL)
+    torch.cuda.synchronize()
+    assert torch.equal(a, a_in)
+    assert module.LAUNCHES == {kernel: len(fns)}
+
+
+def test_layout_pivot_contracts(cuda):
+    """The panel-blocked factor keeps the lane kernels' NaN from a
+    non-positive pivot on; the column and blocked solves give a zero column,
+    finite x as their plain version, and x = b where every pivot fails."""
+    a, rhs = spd_batch(4, 17, torch.float32, 7, cuda)
+    a[1, 5, 5] = -1.0
+    a[2] = -a[2]
+    for kb in (4, 8, 16):
+        x, l = chol_lane_blocked.chol_factor_solve_lane_blocked(a, rhs, kb=kb)
+        assert torch.isnan(x[1]).all() and torch.isnan(x[2]).all()
+        assert torch.isfinite(x[0]).all() and torch.isfinite(x[3]).all()
+        assert torch.isnan(torch.diagonal(l[1])[5:]).all()
+        assert torch.isfinite(torch.diagonal(l[1])[:5]).all()
+        assert torch.isnan(torch.diagonal(l[2])).all()
+        assert torch.isfinite(torch.tril(l[0])).all() and torch.isfinite(torch.tril(l[3])).all()
+    want = chol_column.chol_solve_batched_plain(a, rhs)
+    assert torch.equal(want[2], rhs[2])
+    solves = [lambda k=k: chol_column.chol_solve_batched(a, rhs, block_batch=k) for k in (1, 3)]
+    solves += [lambda nb=nb: chol_blocked.chol_solve_blocked(a, rhs, nb=nb) for nb in (4, 5, 16)]
+    for solve in solves:
+        x = solve()
+        assert torch.isfinite(x).all()
+        torch.testing.assert_close(x, want, rtol=TOL, atol=TOL)
+        assert torch.equal(x[2], rhs[2])
+
+
+def test_layout_bad_inputs(cuda):
+    a, rhs = spd_batch(2, 8, torch.float32, 0, cuda)
+    calls = {chol_lane_blocked.NAME: chol_lane_blocked.chol_factor_solve_lane_blocked,
+             chol_column.NAME: chol_column.chol_solve_batched,
+             chol_blocked.NAME: chol_blocked.chol_solve_blocked,
+             smem_sol.NAME: lambda a, b: smem_sol.smem_sol(a)}
+    for name, fn in calls.items():
+        with pytest.raises(TypeError):
+            fn(a.double(), rhs.double())
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(a.mT, rhs)
+        if name != smem_sol.NAME:
+            with pytest.raises(ValueError):
+                fn(a, rhs.cpu())
+        out = fn(a[:0], rhs[:0])
+        assert (out[0] if name == chol_lane_blocked.NAME else out).shape[0] == 0
+    big, rhs_big = spd_batch(1, 93, torch.float32, 0, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        chol_column.chol_solve_batched(big, rhs_big, block_batch=7)

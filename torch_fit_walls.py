@@ -5,7 +5,8 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 torch_fit_walls.py [--rounds 3] [--batch 8192] [--no-profile]
 
-The fit is ``chip_smoke.py``'s main path: ``bench.make_batch(batch, 71)``,
+The fit is ``chip_smoke.py``'s main path: ``make_batch(batch, 71)``
+(``hybdrt_torch/utils/probe.py``, the benchmark's spectra),
 float32, the benchmark's knobs, ``fit(adaptive="staged", collect="lazy")``.
 After one warm-up call per fitter, each round times plain, fused, fused,
 plain (host clock around a call that ends in ``torch.cuda.synchronize()``).
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 import hybdrt_torch
-from hybdrt_torch.utils.probe import card_line, profile, timed
+from hybdrt_torch.utils.probe import card_line, make_batch, profile, timed
 
 KW = dict(max_iter=50, qp_max_iter=20, qp_max_iter_warm=4, pred_stop=True, pred_rtol=3e-2)
 
@@ -33,8 +34,6 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("torch_fit_walls.py needs a CUDA card")
     print(card_line())
-
-    from bench import make_batch
 
     freq, z = make_batch(args.batch, 71)
     fitters = {name: hybdrt_torch.BatchedEISFitter(freq, dtype=torch.float32, device="cuda",

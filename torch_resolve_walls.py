@@ -34,7 +34,7 @@ import torch
 
 import hybdrt_torch
 from hybdrt_torch.mapping.drtmd import group_objective
-from hybdrt_torch.utils.probe import card_line, cuda_ms, profile, resolve_map, spd_batch, timed
+from hybdrt_torch.utils.probe import card_line, in_turns, profile, resolve_map, spd_batch, timed
 
 FORMS = {"windowed": dict(batched=True, batch_size=7, overlap=2), "coupled": dict(coupled=True)}
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
@@ -48,9 +48,7 @@ def factor_turns():
         fns = {"chol_factor_lane": lambda: cl.chol_factor_lane(a),
                "chol_factor_solve_lane": lambda: cl.chol_factor_solve_lane(a, rhs),
                "cholesky_ex": lambda: torch.linalg.cholesky_ex(a)}
-        ms = {k: [] for k in fns}
-        for k in [*fns, *reversed(fns)]:
-            ms[k].append(cuda_ms(fns[k]))
+        ms = in_turns(fns)
         print(f"in turns at B={b} n={n} f32 (CUDA events, mean of 20): "
               + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in ms.items()))
 
