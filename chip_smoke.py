@@ -62,13 +62,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    column and blocked solves where every pivot fails); then
    ``experiments.layouts.study`` once at (8192, 93) with the launch counters
    reset just before it: kernel, plain, library and bound times, and
-   t_probe / t_factor for ``chol_factor_lane`` and ``chol_factor_solve_lane``.
+   t_probe / t_factor for ``chol_factor_lane`` and ``chol_factor_solve_lane``;
+10. the IP-loop experiment (``hybdrt_torch/experiments/ip_loop.py``): its
+    kernel ``ip_steps_loop`` (the fused steps with the TPU kernels' full-step
+    rule) against its plain version on the same CUDA tensors, on phase 4's
+    problems (lb with -1 entries) and on the experiment's own, at (8192, 93)
+    and (130, 17), float32, 4 and 8 steps, within rtol = atol = 2e-4; the
+    indefinite lane of phase 4 keeps its input while its neighbours step; a
+    float64 call raises; then ``ip_loop.study(8192, 93, 4)`` with the launch
+    counter reset just before it: the kernel against its plain version on
+    the inputs it times, the experiment's own check against its reference,
+    kernel and ``ip_steps_lane`` times in turns, plain, reference and bound
+    times.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches from the path it serves: phase 5 for the three fit Cholesky
 kernels, phase 6 for ``ip_steps_lane``, phase 8's two timed resolves for
-``chol_factor_lane``, phase 9's study for the four layout kernels); the last
-line is ``{"ok": true, "device": {...}}``.
+``chol_factor_lane``, phase 9's study for the four layout kernels, phase
+10's study for ``ip_steps_loop``); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 import json
 import sys
@@ -77,7 +89,8 @@ import time
 import numpy as np
 import torch
 
-from hybdrt_torch.utils.probe import (bound, card_line, chol_ops, cuda_ms, make_batch,
+from hybdrt_torch.utils.probe import (bound, card_line, check_steps, chol_ops, cuda_ms,
+                                      freeze_lane, ip_steps_bound, make_batch, qp_batch,
                                       resolve_map, solve_ops, spd_batch)
 
 B_BENCH, N_FREQ, MAX_ITER = 8192, 71, 50
@@ -102,6 +115,7 @@ KERNELS = {
     "chol_solve_blocked": ("hybdrt_torch/csrc/chol_layouts.cu",
                            "experiments/pallas_chol_blocked.py:158"),
     "smem_sol": ("hybdrt_torch/csrc/chol_layouts.cu", "experiments/vmem_sol.py:63"),
+    "ip_steps_loop": ("hybdrt_torch/csrc/ip_lane.cu", "experiments/pallas_ip_loop.py:160"),
 }
 FIT_KERNELS = ("chol_factor_solve_lane", "chol_solve_factored_lane", "chol_solve_lane")
 # The resolve phase: 1024 observations, windows of 7 overlapping by 2 (205
@@ -231,20 +245,6 @@ def compare_kernels():
     return max_err, times
 
 
-def qp_batch(b, n, dtype, seed):
-    """Equilibrated (unit-diagonal) SPD box QPs with a strictly interior warm
-    start, as solve_qp_box hands them to ip_steps_lane: (P, q, lb, x0, s0, z0)."""
-    rng = np.random.default_rng(seed)
-    g = rng.normal(size=(b, n, n))
-    a = g @ np.swapaxes(g, 1, 2) / n + 0.1 * np.eye(n)
-    dinv = 1 / np.sqrt(np.einsum("bii->bi", a))
-    lb = np.where(rng.uniform(size=(b, n)) < 0.25, -1.0, 0.0)
-    s0 = rng.uniform(0.05, 2.0, size=(b, n))
-    arrays = (a * dinv[:, :, None] * dinv[:, None, :], rng.normal(size=(b, n)), lb, lb + s0,
-              s0, rng.uniform(0.05, 2.0, size=(b, n)))
-    return [torch.as_tensor(v, dtype=dtype, device="cuda") for v in arrays]
-
-
 def compare_ip_kernel():
     """ip_steps_lane vs its plain version; returns (max_abs_err, timing dict)
     with the times at (B=8192, n=93, 4 steps)."""
@@ -253,44 +253,18 @@ def compare_ip_kernel():
     max_err = 0.0
     for (b, n) in ((B_BENCH, 93), (130, 17)):
         args = qp_batch(b, n, torch.float32, seed=b + n)
-        frozen = 7
-        if b == 130:
-            # an indefinite lane: its first pivot is negative, so it must keep
-            # its input while every other lane steps
-            args[0][frozen] = -args[0][frozen]
-            args[4][frozen], args[5][frozen] = 1.0, 0.1
-            args[3][frozen] = args[2][frozen] + args[4][frozen]
+        frozen = 7 if b == 130 else None
+        if frozen is not None:
+            freeze_lane(args, frozen)
         for n_steps in (4, 8):
-            got = ip_lane.ip_steps_lane(*args, n_steps)
-            want = ip_lane.ip_steps_lane_plain(*args, n_steps)
-            errs = []
-            for name, g, w in zip("xsz", got, want):
-                err = (g - w).abs()
-                check(bool(torch.all(err <= TOL + TOL * w.abs())),
-                      f"ip_steps_lane ({b}, {n}, {n_steps} steps) {name}: err {float(err.max())}")
-                errs.append(float(err.max()))
-            if b == 130:
-                for g, inp in zip(got, args[3:]):
-                    check(bool(torch.equal(g[frozen], inp[frozen])), "failed lane keeps its input")
-                    others = torch.ones(b, dtype=torch.bool, device=g.device)
-                    others[frozen] = False
-                    check(bool(torch.isfinite(g).all()
-                               and (g[others] != inp[others]).any(dim=1).all()),
-                          "the failed lane's neighbours step")
+            errs = check_steps("ip_steps_lane", ip_lane.ip_steps_lane, ip_lane.ip_steps_lane_plain,
+                               args, n_steps, TOL, frozen)
             max_err = max(max_err, *errs)
-            print(f"ip_steps_lane vs plain at B={b} n={n} f32 {n_steps} steps: max abs err "
-                  f"x {errs[0]:.3g}, s {errs[1]:.3g}, z {errs[2]:.3g}"
-                  + (f"; lane {frozen} (indefinite P) kept its input" if b == 130 else ""))
         if b == B_BENCH:
-            mat, vec = args[0].numel() * 4, args[1].numel() * 4
             steps = 4
-            # per step: the factor, the matvec and two solves (the O(n) vector
-            # work, under 1 % of it, is left out); P and five vectors in,
-            # three vectors out
-            ops = steps * (chol_ops(b, n) + b * 2 * n * n + 2 * solve_ops(b, n))
             timing = dict(ms=cuda_ms(lambda: ip_lane.ip_steps_lane(*args, steps)),
                           plain_ms=cuda_ms(lambda: ip_lane.ip_steps_lane_plain(*args, steps)),
-                          library_ms=None, bound=bound(mat + 8 * vec, ops))
+                          library_ms=None, bound=ip_steps_bound(b, n, steps))
             print(f"  ip_steps_lane: kernel {timing['ms']:.4f} ms, plain "
                   f"{timing['plain_ms']:.4f} ms, library none, bound "
                   f"{timing['bound'][0]:.4f} ms by {timing['bound'][1]} "
@@ -607,6 +581,45 @@ def phase_layouts():
     return max_err, launches, times
 
 
+def phase_ip_loop():
+    """The IP-loop experiment's kernel against its plain version, then the
+    experiment at the fused fit's shape; returns (max_abs_err, launches of
+    the study, timing dict)."""
+    from hybdrt_torch.experiments import ip_loop
+
+    max_err = 0.0
+    for (b, n) in ((B_BENCH, 93), (130, 17)):
+        box = qp_batch(b, n, torch.float32, seed=b + n + 1)
+        frozen = 7 if b == 130 else None
+        if frozen is not None:
+            freeze_lane(box, frozen)
+        cases = (("phase 4's box QPs", box, frozen),
+                 ("the experiment's problems", ip_loop.make_problems(b, n, seed=b + n), None))
+        for label, args, lane in cases:
+            for n_steps in (4, 8):
+                errs = check_steps(ip_loop.NAME, ip_loop.ip_steps_loop,
+                                   ip_loop.ip_steps_loop_plain, args, n_steps, TOL, lane,
+                                   f", {label}")
+                max_err = max(max_err, *errs)
+    args = qp_batch(4, 17, torch.float64, seed=11)
+    try:
+        ip_loop.ip_steps_loop(*args, 4)
+    except TypeError as e:
+        print(f"{ip_loop.NAME} float64: raises ({e})")
+    else:
+        check(False, f"{ip_loop.NAME} refuses float64 on the card")
+
+    ip_loop.reset_launch_counts()
+    res = ip_loop.study(B_BENCH, 93, 4)
+    torch.cuda.synchronize()
+    launches = ip_loop.LAUNCHES[ip_loop.NAME]
+    check(launches > 0, f"{ip_loop.NAME} launched in the study: {launches}")
+    print(f"IP-loop study launches: {launches}")
+    timing = dict(ms=res["ms"], plain_ms=res["plain_ms"], library_ms=res["library_ms"],
+                  bound=(res["bound_ms"], res["bound_by"]))
+    return max(max_err, res["max_abs_err"]), launches, timing
+
+
 def main():
     phase_card()
     phase_build()
@@ -621,6 +634,7 @@ def main():
     max_err.update(layout_err)
     launches.update(layout_launches)
     times.update(layout_times)
+    max_err["ip_steps_loop"], launches["ip_steps_loop"], times["ip_steps_loop"] = phase_ip_loop()
     print(f"second-call wall, B={B_BENCH}: plain {wall:.4f} s ({B_BENCH / wall:.1f} spectra/s), "
           f"fused {fused_wall:.4f} s ({B_BENCH / fused_wall:.1f} spectra/s)")
     print(json.dumps({"kernels": [

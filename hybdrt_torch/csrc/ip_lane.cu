@@ -1,12 +1,24 @@
 // Fused fixed-count Mehrotra interior-point steps for a batch of box QPs
 //     min 1/2 x'Px + q'x  s.t.  x >= lb.
 //
-// Replaces the TPU kernel hybdrt_tpu/ops/pallas_ip_lane.py::ip_steps_lane
-// (:157) -> ip_steps_lane_{f32,f64}, with the step rule of the JAX package's
-// plain loop, hybdrt_tpu/ops/qp.py::_ip_steps_single (:157-192): the
-// corrector's step is min(1, 0.99 min(1, ratio)), never more than 0.99. The
-// TPU kernel takes min(1, 0.99 ratio) (pallas_ip_lane.py:133-134), a full
-// step where one is feasible; the port follows the plain loop.
+// One kernel, two corrector step rules (the template parameter kFullStep):
+//
+// - ip_steps_lane_{f32,f64} replaces the TPU kernel
+//   hybdrt_tpu/ops/pallas_ip_lane.py::ip_steps_lane (:157), with the step rule
+//   of the JAX package's plain loop, hybdrt_tpu/ops/qp.py::_ip_steps_single
+//   (:157-192): the corrector's step is min(1, 0.99 min(1, ratio)), never more
+//   than 0.99. The TPU kernel takes min(1, 0.99 ratio) (pallas_ip_lane.py:
+//   133-134), a full step where one is feasible; the fit follows the plain
+//   loop.
+// - ip_steps_loop_f32 replaces the experiment's TPU kernel
+//   experiments/pallas_ip_loop.py::ip_steps_lane (:160), with that kernel's
+//   rule: min(1, 0.99 ratio), the fraction-to-boundary ratio unclamped
+//   (pallas_ip_loop.py:136-137). It is float32 only, as its TPU kernel was.
+//   The two TPU kernels compute the same steps (they differ only in the span
+//   of the factor's trailing update, of which only the lower triangle is
+//   read), so the experiment needs no second design.
+//
+// The predictor's step is min(1, ratio) under both rules.
 //
 // Each step, per lane: H = P + diag(z/s); r_d = P x + q - z; r_p = s - (x - lb);
 // mu = s.z/n; factor H; predictor solve; fraction-to-boundary ratios; mu_aff
@@ -29,9 +41,10 @@
 // ~2.7e5 per lane, shared-memory read-modify-writes with two block barriers
 // per column) and the n^2 of the matvec and of each substitution. Device
 // memory traffic is one read of P and of five vectors and one write of three.
-// At n = 93 the block needs 69.2 KB of shared memory in f32 (148.8 KB in
-// f64), so three blocks fit on an SM in f32. Several lanes per block, `mma`
-// for the trailing update and TMA loads are left for later work.
+// At n = 93 the block needs 74.4 KB of shared memory in f32 (148.8 KB in
+// f64), so three blocks fit on an SM in f32; at n = 95, the experiment's own
+// shape, it needs 77.5 KB and two fit. Several lanes per block, `mma` for the
+// trailing update and TMA loads are left for later work.
 //
 // NaN: jnp.maximum, jnp.minimum and jnp.clip propagate NaN, and fmaxf/fminf
 // do not, so the floors, caps and min-reductions below are written with
@@ -69,19 +82,28 @@ __device__ __forceinline__ T warp_min(T v) {
   return v;
 }
 
-// Largest alpha in (0, 1] with v + alpha dv >= 0 (qp.py::_max_step); warp-wide,
-// every lane of the warp gets the result.
+// Fraction-to-boundary ratio: the largest alpha with v + alpha dv >= 0, not
+// capped (+inf where no dv is negative, NaN where a dv is NaN); warp-wide,
+// every lane of the warp gets the result. cap_at(ratio, 1) is
+// qp.py::_max_step.
 template <typename T>
-__device__ __forceinline__ T max_step_warp(const T* v, const T* dv, int n) {
+__device__ __forceinline__ T min_ratio_warp(const T* v, const T* dv, int n) {
   T r = T(INFINITY);
   for (int i = threadIdx.x & 31; i < n; i += 32) {
     const T d = dv[i];
     r = nan_min(r, d < T(0) ? -v[i] / d : T(INFINITY));
   }
-  return cap_at(warp_min(r), T(1));
+  return warp_min(r);
 }
 
-template <typename T>
+// The corrector's step length from its ratio: min(1, 0.99 ratio) with the
+// full-step rule, else min(1, 0.99 min(1, ratio)). NaN stays NaN either way.
+template <bool kFullStep, typename T>
+__device__ __forceinline__ T corrector_step(T ratio) {
+  return cap_at(T(0.99) * (kFullStep ? ratio : cap_at(ratio, T(1))), T(1));
+}
+
+template <typename T, bool kFullStep>
 __global__ void __launch_bounds__(kThreads)
 ip_steps_kernel(const T* __restrict__ p, const T* __restrict__ q, const T* __restrict__ lb,
                 const T* __restrict__ x0, const T* __restrict__ s0, const T* __restrict__ z0,
@@ -161,8 +183,8 @@ ip_steps_kernel(const T* __restrict__ p, const T* __restrict__ q, const T* __res
         dsa[i] = dsi;
         dza[i] = -z[i] - d[i] * dsi;
       }
-      T a_p = max_step_warp(s, dsa, n);
-      T a_d = max_step_warp(z, dza, n);
+      T a_p = cap_at(min_ratio_warp(s, dsa, n), T(1));
+      T a_d = cap_at(min_ratio_warp(z, dza, n), T(1));
       T mu_aff = T(0);
       for (int i = lane; i < n; i += 32) mu_aff += (s[i] + a_p * dsa[i]) * (z[i] + a_d * dza[i]);
       mu_aff = warp_sum(mu_aff) * inv_n;
@@ -182,8 +204,8 @@ ip_steps_kernel(const T* __restrict__ p, const T* __restrict__ q, const T* __res
         dsa[i] = dsi;
         dz[i] = -rc[i] / s[i] - d[i] * dsi;
       }
-      a_p = cap_at(T(0.99) * max_step_warp(s, dsa, n), T(1));
-      a_d = cap_at(T(0.99) * max_step_warp(z, dz, n), T(1));
+      a_p = corrector_step<kFullStep>(min_ratio_warp(s, dsa, n));
+      a_d = corrector_step<kFullStep>(min_ratio_warp(z, dz, n));
 
       // New iterate, unless a lane's step is not finite: then it keeps its
       // last iterate from here on
@@ -218,15 +240,15 @@ inline size_t smem_bytes(int n) {
   return sizeof(T) * (2 * static_cast<size_t>(n) * ld + kVectors * static_cast<size_t>(n));
 }
 
-template <typename T>
+template <typename T, bool kFullStep>
 int launch_ip_steps(const void* p, const void* q, const void* lb, const void* x0,
                     const void* s0, const void* z0, void* x, void* s, void* z, int batch,
                     int n, int n_steps, void* stream) {
   if (batch == 0) return 0;
   const size_t bytes = smem_bytes<T>(n);
-  int err = allow_smem(ip_steps_kernel<T>, bytes);
+  int err = allow_smem(ip_steps_kernel<T, kFullStep>, bytes);
   if (err) return err;
-  ip_steps_kernel<T><<<batch, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  ip_steps_kernel<T, kFullStep><<<batch, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(p), static_cast<const T*>(q), static_cast<const T*>(lb),
       static_cast<const T*>(x0), static_cast<const T*>(s0), static_cast<const T*>(z0),
       static_cast<T*>(x), static_cast<T*>(s), static_cast<T*>(z), n, row_stride(n), n_steps);
@@ -240,11 +262,19 @@ extern "C" {
 int ip_steps_lane_f32(const void* p, const void* q, const void* lb, const void* x0,
                       const void* s0, const void* z0, void* x, void* s, void* z, int batch,
                       int n, int n_steps, void* stream) {
-  return launch_ip_steps<float>(p, q, lb, x0, s0, z0, x, s, z, batch, n, n_steps, stream);
+  return launch_ip_steps<float, false>(p, q, lb, x0, s0, z0, x, s, z, batch, n, n_steps,
+                                      stream);
 }
 int ip_steps_lane_f64(const void* p, const void* q, const void* lb, const void* x0,
                       const void* s0, const void* z0, void* x, void* s, void* z, int batch,
                       int n, int n_steps, void* stream) {
-  return launch_ip_steps<double>(p, q, lb, x0, s0, z0, x, s, z, batch, n, n_steps, stream);
+  return launch_ip_steps<double, false>(p, q, lb, x0, s0, z0, x, s, z, batch, n, n_steps,
+                                       stream);
+}
+int ip_steps_loop_f32(const void* p, const void* q, const void* lb, const void* x0,
+                      const void* s0, const void* z0, void* x, void* s, void* z, int batch,
+                      int n, int n_steps, void* stream) {
+  return launch_ip_steps<float, true>(p, q, lb, x0, s0, z0, x, s, z, batch, n, n_steps,
+                                     stream);
 }
 }  // extern "C"

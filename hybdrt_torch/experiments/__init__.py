@@ -1,9 +1,9 @@
-"""The Cholesky layout study: the port's counterpart of the repository's
-``experiments/`` directory.
+"""The port's counterpart of the repository's ``experiments/`` directory: the
+Cholesky layout study and the fused interior-point loop.
 
-Four kernels, hand-written CUDA in ``hybdrt_torch/csrc/chol_layouts.cu``,
-each computing the function of a production lane kernel
-(``hybdrt_torch/ops/chol_lane.py``) in another layout:
+The layout study: four kernels, hand-written CUDA in
+``hybdrt_torch/csrc/chol_layouts.cu``, each computing the function of a
+production lane kernel (``hybdrt_torch/ops/chol_lane.py``) in another layout:
 
 - ``chol_lane_blocked``: the panel-blocked factor and solve
   (``experiments/pallas_chol_lane_blocked.py``), ``chol_factor_solve_lane``'s
@@ -16,7 +16,16 @@ each computing the function of a production lane kernel
   (``experiments/vmem_sol.py``).
 
 ``layouts`` times them against the production kernels on a card
-(``python -m hybdrt_torch.experiments.layouts [B] [n]``). Nothing on a fit or
-resolve path calls any of them, as nothing in the JAX package calls the
-experiments. All four are float32 only, as their TPU kernels were.
+(``python -m hybdrt_torch.experiments.layouts [B] [n]``).
+
+``ip_loop``: ``ip_steps_loop``, the fused Mehrotra steps of
+``experiments/pallas_ip_loop.py`` with that TPU kernel's full-step corrector
+rule, which is the production fused kernel of ``hybdrt_torch/csrc/ip_lane.cu``
+with the other rule; ``python -m hybdrt_torch.experiments.ip_loop [B] [n]
+[T]`` checks it against its plain version and the experiment's reference and
+times it in turns with ``ip_steps_lane``.
+
+Nothing on a fit or resolve path calls any of them, as nothing in the JAX
+package calls the experiments. All five are float32 only, as their TPU
+kernels were.
 """

@@ -111,8 +111,9 @@ def resolve_group(fitter, result, z_batch, psi=None, coupled=False, batched=True
     if not coupled and not batched:
         raise NotImplementedError(
             "batched=False (the dense per-window solve): its (batch_size*nc)^2 systems do "
-            "not fit one block's shared memory in the lane-Cholesky kernels; it waits for a "
-            "blocked factor (ROADMAP Queue 2 #6/#9). Use batched=True or coupled=True")
+            "not fit one block's shared memory in the lane-Cholesky kernels, and it needs a "
+            "library factor, as the JAX package's unbatched path reaches no Pallas kernel "
+            "(ROADMAP Queue 1 item 8). Use batched=True or coupled=True")
     x_fit = np.asarray(result.x)
     if not (np.all(np.isfinite(x_fit)) and np.all(np.isfinite(result.r_inf))):
         bad = np.flatnonzero(~(np.isfinite(x_fit).all(axis=1) & np.isfinite(result.r_inf)))

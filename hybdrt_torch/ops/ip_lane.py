@@ -12,8 +12,9 @@ P is (B, n, n), already Jacobi-equilibrated and symmetrized (``qp.py``), and
 q, lb, x0, s0, z0 are (B, n), contiguous, float32 or float64. The step rule
 is that of ``hybdrt_tpu/ops/qp.py::_ip_steps_single``, whose corrector step
 ``min(1, 0.99 min(1, ratio))`` never exceeds 0.99; the TPU kernel departs
-from it (``pallas_ip_lane.py:133-134``, ROADMAP Queue 3) and the port does
-not follow that departure.
+from it (``pallas_ip_lane.py:133-134``, ROADMAP Queue 3) and the fit does
+not follow that departure. The same CUDA kernel with the TPU kernel's rule
+(``full_step``) is the experiment ``hybdrt_torch/experiments/ip_loop.py``.
 
 Given CPU tensors the wrapper runs ``ip_steps_lane_plain``, a loop of
 ``mehrotra_step`` on the plain Cholesky versions of ``ops/chol_lane.py``.
@@ -56,21 +57,31 @@ def _add_diag(P, d):
     return out
 
 
+def _min_ratio(v, dv):
+    """Fraction-to-boundary ratio per lane: the largest alpha with
+    v + alpha dv >= 0, not capped (inf where no dv is negative)."""
+    ratio = torch.where(dv < 0, -v / torch.where(dv < 0, dv, -1.0), torch.inf)
+    return torch.amin(ratio, dim=-1)
+
+
 def _max_step(v, dv):
     """Largest alpha in (0, 1] with v + alpha dv >= 0, per lane."""
-    ratio = torch.where(dv < 0, -v / torch.where(dv < 0, dv, -1.0), torch.inf)
-    return torch.clamp(torch.amin(ratio, dim=-1), max=1.0)
+    return torch.clamp(_min_ratio(v, dv), max=1.0)
 
 
-def mehrotra_step(P, q, lb, x, s, z, mu_floor, factor_solve, solve_factored):
+def mehrotra_step(P, q, lb, x, s, z, mu_floor, factor_solve, solve_factored,
+                  full_step=False):
     """One Mehrotra predictor-corrector step on every lane
     (``hybdrt_tpu/ops/qp.py:311-346``, ``:162-185``).
 
     ``mu_floor`` bounds the denominator of sigma (1e-300 in the QP's loop,
     1e-30 in the fused steps). ``factor_solve(a, b) -> (x, l)`` and
-    ``solve_factored(l, b)`` are the Cholesky routines to use. Returns
-    ``(x_new, s_new, z_new, bad)``, with ``bad`` (B,) true where x_new or
-    z_new has a non-finite entry."""
+    ``solve_factored(l, b)`` are the Cholesky routines to use. The
+    corrector's step is min(1, 0.99 min(1, ratio)), or with ``full_step``
+    the TPU kernels' min(1, 0.99 ratio) (``pallas_ip_lane.py:133-134``,
+    ``experiments/pallas_ip_loop.py:136-137``); both keep a NaN ratio NaN.
+    Returns ``(x_new, s_new, z_new, bad)``, with ``bad`` (B,) true where
+    x_new or z_new has a non-finite entry."""
     n = q.shape[-1]
     d = z / s
     r_d = _mv(P, x) + q - z
@@ -95,8 +106,9 @@ def mehrotra_step(P, q, lb, x, s, z, mu_floor, factor_solve, solve_factored):
     ds = dx - r_p
     dz = -r_c / s - d * ds
 
-    a_p = torch.clamp(0.99 * _max_step(s, ds), max=1.0)[:, None]
-    a_d = torch.clamp(0.99 * _max_step(z, dz), max=1.0)[:, None]
+    ratio = _min_ratio if full_step else _max_step
+    a_p = torch.clamp(0.99 * ratio(s, ds), max=1.0)[:, None]
+    a_d = torch.clamp(0.99 * ratio(z, dz), max=1.0)[:, None]
     tiny = 1e-30 if q.dtype == torch.float64 else 1e-25
     x_new = x + a_p * dx
     s_new = torch.clamp(s + a_p * ds, min=tiny)
@@ -105,13 +117,15 @@ def mehrotra_step(P, q, lb, x, s, z, mu_floor, factor_solve, solve_factored):
     return x_new, s_new, z_new, bad
 
 
-def ip_steps_lane_plain(P, q, lb, x0, s0, z0, n_steps):
+def ip_steps_lane_plain(P, q, lb, x0, s0, z0, n_steps, full_step=False):
+    """The kernel's steps in plain PyTorch; ``full_step`` as in
+    ``mehrotra_step``."""
     x, s, z = x0, s0, z0
     frozen = torch.zeros(q.shape[0], dtype=torch.bool, device=q.device)
     for _ in range(n_steps):
         x_new, s_new, z_new, bad = mehrotra_step(
             P, q, lb, x, s, z, 1e-30, chol_lane.chol_factor_solve_lane_plain,
-            chol_lane.chol_solve_factored_lane_plain)
+            chol_lane.chol_solve_factored_lane_plain, full_step)
         frozen = frozen | bad
         keep = frozen[:, None]
         x = torch.where(keep, x, x_new)

@@ -1,7 +1,7 @@
 """Inputs and timers shared by the repository's scripts that drive the port on
 a CUDA card (``chip_smoke.py``, ``torch_fit_walls.py``,
-``torch_resolve_walls.py``, the layout study ``hybdrt_torch.experiments.
-layouts``) and by its tests.
+``torch_resolve_walls.py``, the experiments ``hybdrt_torch.experiments.
+layouts`` and ``ip_loop``, ``utils/ip_digest.py``) and by its tests.
 
 Nothing here is on a fitting path: it makes seeded test inputs, reads the
 card's name and power limit, times calls, and computes a call's bound (the
@@ -33,6 +33,15 @@ def chol_ops(b, n):
 def solve_ops(b, n):
     """Operations of b forward and backward substitutions."""
     return b * 2 * n * n
+
+
+def ip_steps_bound(b, n, n_steps):
+    """(bound_ms, bound_by) of ``n_steps`` fused Mehrotra steps on b lanes of
+    size n, float32: P and five vectors read once, three vectors written once;
+    per step the factor, the matvec and two substitutions (the O(n) vector
+    work, under 1 % of it, is left out)."""
+    ops = n_steps * (chol_ops(b, n) + b * 2 * n * n + 2 * solve_ops(b, n))
+    return bound(4 * b * n * n + 8 * 4 * b * n, ops)
 
 
 def card_line():
@@ -73,6 +82,60 @@ def spd_batch(b, n, dtype, seed, device="cuda"):
     rhs = rng.normal(size=(b, n))
     return (torch.as_tensor(a, dtype=dtype, device=device),
             torch.as_tensor(rhs, dtype=dtype, device=device))
+
+
+def qp_batch(b, n, dtype, seed, device="cuda"):
+    """b equilibrated (unit-diagonal) SPD box QPs of size n with a strictly
+    interior warm start and lb in {-1, 0}, as ``ops/qp.py::solve_qp_box``
+    hands them to the fused steps: [P, q, lb, x0, s0, z0]."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(b, n, n))
+    a = g @ np.swapaxes(g, 1, 2) / n + 0.1 * np.eye(n)
+    dinv = 1 / np.sqrt(np.einsum("bii->bi", a))
+    lb = np.where(rng.uniform(size=(b, n)) < 0.25, -1.0, 0.0)
+    s0 = rng.uniform(0.05, 2.0, size=(b, n))
+    arrays = (a * dinv[:, :, None] * dinv[:, None, :], rng.normal(size=(b, n)), lb, lb + s0,
+              s0, rng.uniform(0.05, 2.0, size=(b, n)))
+    return [torch.as_tensor(v, dtype=dtype, device=device) for v in arrays]
+
+
+def freeze_lane(args, lane):
+    """Make ``lane`` of the box QPs ``args`` (``qp_batch``) indefinite: -P,
+    with s = 1 and z = 0.1 so that z/s cannot lift its negated diagonal. Its
+    first pivot is negative, so the fused steps must leave it as it was."""
+    args[0][lane] = -args[0][lane]
+    args[4][lane], args[5][lane] = 1.0, 0.1
+    args[3][lane] = args[2][lane] + args[4][lane]
+
+
+def check_steps(name, fn, plain, args, n_steps, tol, frozen=None, label=""):
+    """Fused steps ``fn`` against ``plain`` on the same box QPs ``args``
+    (``qp_batch``), within rtol = atol = ``tol`` on x, s and z; lane
+    ``frozen`` must keep its input while its neighbours step. Prints the
+    errors and returns the max abs errors of x, s and z; raises RuntimeError
+    on a miss."""
+    got, want = fn(*args, n_steps), plain(*args, n_steps)
+    b, n = args[1].shape
+    errs = []
+    for part, g, w in zip("xsz", got, want):
+        err = (g - w).abs()
+        if not bool(torch.all(err <= tol + tol * w.abs())):
+            raise RuntimeError(f"{name} at ({b}, {n}, {n_steps} steps) {part}: max abs err "
+                               f"{float(err.max())} beyond rtol = atol = {tol}")
+        errs.append(float(err.max()))
+    if frozen is not None:
+        others = torch.ones(b, dtype=torch.bool, device=args[1].device)
+        others[frozen] = False
+        for g, inp in zip(got, args[3:]):
+            if not torch.equal(g[frozen], inp[frozen]):
+                raise RuntimeError(f"{name}: the failed lane {frozen} does not keep its input")
+            if not bool(torch.isfinite(g).all() and (g[others] != inp[others]).any(dim=1).all()):
+                raise RuntimeError(f"{name}: a neighbour of the failed lane {frozen} did not step")
+    tag = {torch.float32: "f32", torch.float64: "f64"}[args[1].dtype]
+    print(f"{name} vs plain at B={b} n={n} {tag} {n_steps} steps{label}: max abs err "
+          f"x {errs[0]:.3g}, s {errs[1]:.3g}, z {errs[2]:.3g}"
+          + (f"; lane {frozen} (indefinite P) kept its input" if frozen is not None else ""))
+    return errs
 
 
 def resolve_map(n_obs, seed=8):

@@ -1,5 +1,5 @@
 """GPU tests of the port: the CUDA kernels against their plain versions (the
-layout study's kernels of hybdrt_torch/experiments/ too), the batched fit
+kernels of hybdrt_torch/experiments/ too), the batched fit
 (plain and fused warm QPs) and the group resolve (coupled and windowed) on
 the card against the same computations on the CPU.
 
@@ -13,10 +13,10 @@ import pytest
 import torch
 
 from hybdrt_torch import BatchedEISFitter, resolve_group
-from hybdrt_torch.experiments import (chol_blocked, chol_column, chol_lane_blocked, layouts,
-                                      smem_sol)
+from hybdrt_torch.experiments import (chol_blocked, chol_column, chol_lane_blocked, ip_loop,
+                                      layouts, smem_sol)
 from hybdrt_torch.ops import chol_lane, ip_lane
-from hybdrt_torch.utils.probe import spd_batch
+from hybdrt_torch.utils.probe import freeze_lane, qp_batch, spd_batch
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-4  # float32 kernel vs plain, as tests/test_pallas_lane_kernels.py
@@ -88,24 +88,11 @@ def test_empty_batch_and_bad_inputs(cuda):
         chol_lane.chol_factor_lane(torch.eye(300, device=cuda).expand(1, 300, 300).contiguous())
 
 
-def _qp_batch(b, n, dtype, device, seed=0):
-    """Equilibrated SPD box QPs with an interior warm start (P, q, lb, x0, s0, z0)."""
-    rng = np.random.default_rng(seed)
-    g = rng.normal(size=(b, n, n))
-    a = g @ np.swapaxes(g, 1, 2) / n + 0.1 * np.eye(n)
-    dinv = 1 / np.sqrt(np.einsum("bii->bi", a))
-    lb = np.where(rng.uniform(size=(b, n)) < 0.25, -1.0, 0.0)
-    s0 = rng.uniform(0.05, 2.0, size=(b, n))
-    arrays = (a * dinv[:, :, None] * dinv[:, None, :], rng.normal(size=(b, n)), lb, lb + s0,
-              s0, rng.uniform(0.05, 2.0, size=(b, n)))
-    return [torch.as_tensor(v, dtype=dtype, device=device) for v in arrays]
-
-
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.float64, 1e-10)])
 @pytest.mark.parametrize("n_steps", [1, 8])
 @pytest.mark.parametrize("b,n", [(4, 5), (130, 17), (257, 93)])
 def test_ip_steps_lane_matches_plain(cuda, b, n, n_steps, dtype, tol):
-    args = _qp_batch(b, n, dtype, cuda, seed=n + b)
+    args = qp_batch(b, n, dtype, n + b, cuda)
     ip_lane.reset_launch_counts()
     got = ip_lane.ip_steps_lane(*args, n_steps)
     want = ip_lane.ip_steps_lane_plain(*args, n_steps)
@@ -118,11 +105,8 @@ def test_ip_steps_lane_matches_plain(cuda, b, n, n_steps, dtype, tol):
 def test_ip_steps_lane_freezes_a_failed_lane(cuda):
     """A lane whose H is indefinite keeps its input (the NaN of the factor
     must reach the freeze test); its neighbours step as the plain version."""
-    args = _qp_batch(5, 17, torch.float32, cuda, seed=3)
-    args[0][1] = -args[0][1]
-    args[4][1] = 1.0
-    args[5][1] = 0.1
-    args[3][1] = args[2][1] + args[4][1]
+    args = qp_batch(5, 17, torch.float32, 3, cuda)
+    freeze_lane(args, 1)
     got = ip_lane.ip_steps_lane(*args, 4)
     want = ip_lane.ip_steps_lane_plain(*args, 4)
     for g, w, inp in zip(got, want, args[3:]):
@@ -132,14 +116,14 @@ def test_ip_steps_lane_freezes_a_failed_lane(cuda):
 
 
 def test_ip_steps_lane_bad_inputs(cuda):
-    args = _qp_batch(2, 8, torch.float32, cuda)
+    args = qp_batch(2, 8, torch.float32, 0, cuda)
     with pytest.raises(ValueError, match="contiguous"):
         ip_lane.ip_steps_lane(args[0].mT, *args[1:], 2)
     with pytest.raises(ValueError):
         ip_lane.ip_steps_lane(args[0], args[1].cpu(), *args[2:], 2)
     with pytest.raises(TypeError):
         ip_lane.ip_steps_lane(*(a.half() for a in args), 2)
-    empty = _qp_batch(0, 8, torch.float32, cuda)
+    empty = qp_batch(0, 8, torch.float32, 0, cuda)
     assert ip_lane.ip_steps_lane(*empty, 2)[0].shape == (0, 8)
 
 
@@ -299,3 +283,67 @@ def test_layout_bad_inputs(cuda):
     big, rhs_big = spd_batch(1, 93, torch.float32, 0, cuda)
     with pytest.raises(ValueError, match="shared memory"):
         chol_column.chol_solve_batched(big, rhs_big, block_batch=7)
+
+
+@pytest.mark.parametrize("b,n,n_steps", [(8192, 93, 4), (1024, 95, 8), (130, 17, 8)])
+def test_ip_steps_loop_matches_plain(cuda, b, n, n_steps):
+    """The full-step kernel against its plain version on the experiment's
+    problems at the fused fit's shape, the experiment's own and a small one,
+    and on box QPs with lb = -1 entries; one launch per call."""
+    ip_loop.reset_launch_counts()
+    for args in (ip_loop.make_problems(b, n, seed=n + b, device=cuda),
+                 qp_batch(b, n, torch.float32, n + b, cuda)):
+        got = ip_loop.ip_steps_loop(*args, n_steps)
+        want = ip_loop.ip_steps_loop_plain(*args, n_steps)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+    torch.cuda.synchronize()
+    assert ip_loop.LAUNCHES == {ip_loop.NAME: 2}
+
+
+def test_ip_steps_loop_freezes_a_failed_lane(cuda):
+    """An indefinite lane keeps its input under the full-step rule too: the
+    NaN ratio reaches the freeze test."""
+    args = qp_batch(5, 17, torch.float32, 3, cuda)
+    freeze_lane(args, 1)
+    got = ip_loop.ip_steps_loop(*args, 4)
+    want = ip_loop.ip_steps_loop_plain(*args, 4)
+    for g, w, inp in zip(got, want, args[3:]):
+        assert torch.equal(g[1], inp[1]) and torch.equal(w[1], inp[1])
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+
+
+def test_ip_steps_loop_bad_inputs(cuda):
+    args = qp_batch(2, 8, torch.float32, 0, cuda)
+    with pytest.raises(TypeError):
+        ip_loop.ip_steps_loop(*(a.double() for a in args), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ip_loop.ip_steps_loop(args[0].mT, *args[1:], 2)
+    with pytest.raises(ValueError):
+        ip_loop.ip_steps_loop(args[0], args[1].cpu(), *args[2:], 2)
+    with pytest.raises(ValueError):
+        ip_loop.ip_steps_loop(*args, -1)
+    big = qp_batch(1, 200, torch.float32, 0, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ip_loop.ip_steps_loop(*big, 2)
+    for got, inp in zip(ip_loop.ip_steps_loop(*args, 0), args[3:]):
+        assert torch.equal(got, inp)
+    assert ip_loop.ip_steps_loop(*qp_batch(0, 8, torch.float32, 0, cuda), 2)[0].shape == (0, 8)
+
+
+def test_ip_steps_lane_at_the_fused_fit_shape(cuda):
+    """The production fused kernel, which shares its source with
+    ip_steps_loop, still matches its plain version at (8192, 93, 4), and the
+    two rules part only where the plain versions part."""
+    args = qp_batch(8192, 93, torch.float32, 8192 + 93, cuda)
+    got = ip_lane.ip_steps_lane(*args, 4)
+    want = ip_lane.ip_steps_lane_plain(*args, 4)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+    full = ip_loop.ip_steps_loop(*args, 1)
+    capped = ip_lane.ip_steps_lane(*args, 1)
+    full_p = ip_loop.ip_steps_loop_plain(*args, 1)
+    capped_p = ip_lane.ip_steps_lane_plain(*args, 1)
+    for f, c, fp, cp in zip(full, capped, full_p, capped_p):
+        torch.testing.assert_close(f - c, fp - cp, rtol=TOL, atol=TOL)
