@@ -12,8 +12,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 3. each Cholesky kernel against its plain PyTorch version on the same CUDA
    tensors, at the main path's shape (B=8192, n=93, float32) and at (B=130,
    n=17), within rtol = atol = 2e-4, plus the NaN contract for a
-   non-positive pivot and one float64 case; kernel, plain and single
-   library-call times from CUDA events;
+   non-positive pivot and one float64 case; ``chol_factor_solve_lane``'s x
+   must equal ``chol_solve_lane``'s bit for bit (the register-tiled and the
+   shared-memory factor); kernel, plain and single library-call times from
+   CUDA events, the two factor-and-solve kernels timed in turns;
 4. the fused kernel ``ip_steps_lane`` against its plain version on the same
    CUDA tensors: equilibrated SPD box QPs from a seed at (8192, 93) and
    (130, 17), float32, 4 and 8 steps, within rtol = atol = 2e-4; a lane with
@@ -38,8 +40,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    the same CUDA tensors, on the lower triangle, within rtol = atol = 2e-4,
    at the resolve's shape (B=1435, n=94: 205 windows of 7) and at (130, 17)
    in float32 and once in float64; its input must come back unchanged, and a
-   non-positive pivot gives NaN in its lane only; kernel, plain and
-   ``torch.linalg.cholesky_ex`` times at (1435, 94) and (8192, 93);
+   non-positive pivot gives NaN in its lane only; kernel and
+   ``torch.linalg.cholesky_ex`` times in turns, and plain times, at (1435,
+   94) and (8192, 93);
 8. the group resolve: a 1024-observation map (``resolve_map``) fitted by
    ``BatchedEISFitter(tau_supergrid=...)`` in float32 on the card, then
    ``hybdrt_torch.resolve_group`` windowed (batch_size 7, overlap 2) and
@@ -90,8 +93,8 @@ import numpy as np
 import torch
 
 from hybdrt_torch.utils.probe import (bound, card_line, check_steps, chol_ops, cuda_ms,
-                                      freeze_lane, ip_steps_bound, make_batch, qp_batch,
-                                      resolve_map, solve_ops, spd_batch)
+                                      freeze_lane, in_turns, ip_steps_bound, make_batch,
+                                      qp_batch, resolve_map, solve_ops, spd_batch)
 
 B_BENCH, N_FREQ, MAX_ITER = 8192, 71, 50
 # tests/test_pallas_lane_kernels.py: f32 lane kernels vs a dense solve. For
@@ -185,6 +188,10 @@ def compare_kernels():
         x3 = cl.chol_solve_lane(a, rhs)
         ok3, e3 = close(x3, cl.chol_solve_lane_plain(a, rhs))
         check(ok3, f"chol_solve_lane ({b}, {n}): err {e3}")
+        # the register-tiled factor applies the shared-memory factor's updates
+        # in its order, so the two kernels' x agree bit for bit
+        check(bool(torch.equal(x, x3)), f"chol_factor_solve_lane's x is chol_solve_lane's "
+                                        f"bitwise ({b}, {n})")
         errs = {"chol_factor_solve_lane": max(e_x, e_l), "chol_solve_factored_lane": e2,
                 "chol_solve_lane": e3}
         for k, e in errs.items():
@@ -193,11 +200,17 @@ def compare_kernels():
               + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
         if b == B_BENCH:
             mat, vec = a.numel() * 4, rhs.numel() * 4
+            # the two factor-and-solve kernels in turns (register-tiled and
+            # shared-memory factor)
+            turns = in_turns({"chol_factor_solve_lane": lambda: cl.chol_factor_solve_lane(a, rhs),
+                              "chol_solve_lane": lambda: cl.chol_solve_lane(a, rhs)})
+            print("  in turns: " + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f} ms"
+                                             for k, v in turns.items()))
             # library_ms: one PyTorch call computing the same function, where
             # one exists (none returns both x and the factor)
             times = {
                 "chol_factor_solve_lane": dict(
-                    ms=cuda_ms(lambda: cl.chol_factor_solve_lane(a, rhs)),
+                    ms=float(np.mean(turns["chol_factor_solve_lane"])),
                     plain_ms=cuda_ms(lambda: cl.chol_factor_solve_lane_plain(a, rhs)),
                     library_ms=None,
                     bound=bound(2 * mat + 2 * vec, chol_ops(b, n) + 2 * solve_ops(b, n))),
@@ -207,7 +220,7 @@ def compare_kernels():
                     library_ms=cuda_ms(lambda: torch.cholesky_solve(rhs2[:, :, None], l_p)),
                     bound=bound(mat + 2 * vec, 2 * solve_ops(b, n))),
                 "chol_solve_lane": dict(
-                    ms=cuda_ms(lambda: cl.chol_solve_lane(a, rhs)),
+                    ms=float(np.mean(turns["chol_solve_lane"])),
                     plain_ms=cuda_ms(lambda: cl.chol_solve_lane_plain(a, rhs)),
                     library_ms=cuda_ms(lambda: torch.linalg.solve(a, rhs)),
                     bound=bound(mat + 2 * vec, chol_ops(b, n) + 2 * solve_ops(b, n))),
@@ -410,10 +423,15 @@ def compare_factor_kernel():
 
     for (b, n) in ((RESOLVE_B, RESOLVE_N), (B_BENCH, 93)):
         a, _ = spd_batch(b, n, torch.float32, seed=n)
-        # read A once, write L once; n^3/3 multiply-adds per factor
-        t = dict(ms=cuda_ms(lambda: cl.chol_factor_lane(a)),
+        # the kernel and its library call in turns; read A once, write L
+        # once; n^3/3 multiply-adds per factor
+        turns = in_turns({"chol_factor_lane": lambda: cl.chol_factor_lane(a),
+                          "cholesky_ex": lambda: torch.linalg.cholesky_ex(a)})
+        print("  in turns: " + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f} ms"
+                                         for k, v in turns.items()))
+        t = dict(ms=float(np.mean(turns["chol_factor_lane"])),
                  plain_ms=cuda_ms(lambda: cl.chol_factor_lane_plain(a)),
-                 library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(a)),
+                 library_ms=float(np.mean(turns["cholesky_ex"])),
                  bound=bound(2 * a.numel() * 4, chol_ops(b, n)))
         print(f"  chol_factor_lane: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
               f"library (cholesky_ex) {t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "

@@ -20,7 +20,7 @@ import torch
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parent / "_build"
 SOURCES = ("chol_lane.cu", "ip_lane.cu", "chol_layouts.cu")
-HEADERS = ("lane_common.cuh",)
+HEADERS = ("lane_common.cuh", "lane_regs.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -7,35 +7,50 @@
 //   chol_factor_lane         (:178) -> chol_factor_lane_{f32,f64}
 //
 // The TPU kernels put 128 matrices in the vector lanes, (n, n, 128), and
-// unrolled the column loop statically. On Hopper the design is one thread
-// block per matrix: the block copies its (n, n) row-major matrix from device
-// memory into shared memory (row stride ld = n | 1, odd, so column walks hit
-// distinct banks), runs a right-looking column loop there, and does both
-// substitutions in the same block. The factor and substitution loops are in
-// lane_common.cuh, shared with the fused interior-point kernel (ip_lane.cu).
+// unrolled the column loop statically. On Hopper each matrix gets one thread
+// block, and nothing needs the TPU's padding to 128 lanes.
+//
+// chol_factor_solve_lane and chol_factor_lane keep the lower triangle in
+// registers for the whole factorization (lane_regs.cuh): 4x4 tiles spread
+// over the block's threads, panels of 4 columns factored by one warp from a
+// small shared buffer, the trailing update applied by every thread to its
+// own tiles; chol_factor_solve_lane fuses the forward substitution into the
+// panels and runs the backward one by tile rows. chol_solve_lane and
+// chol_solve_factored_lane copy the matrix into shared memory (row stride
+// ld = n | 1, odd, so column walks hit distinct banks), factor it there by
+// columns (factor_in_place) and substitute with one warp (substitute_warp),
+// code they share with the fused interior-point kernel (ip_lane.cu).
 //
 // Contract (kept exactly from the TPU kernels):
 //   * only the lower triangle of a returned factor is valid; the upper
-//     triangle holds the leftover input;
+//     triangle holds the input;
 //   * the pivot is rsqrt refined by one Newton step r * (1.5 - 0.5 x r^2) on
 //     max(x, 1e-30), and a non-positive pivot yields NaN, which then fills the
 //     rest of the factorization and the solution (the QP's bad-step guard
 //     depends on it).
+// The register-tiled factor applies every update of factor_in_place in its
+// order, each as one fma, so both factor routines give bitwise the same L,
+// and x from chol_factor_solve_lane is bitwise x from chol_solve_lane.
 //
-// What bounds it: the n^3/3 fused multiply-adds of the trailing updates, each
-// a shared-memory read-modify-write (n = 93: ~2.7e5 updates per matrix), plus
-// two __syncthreads per column. Device memory traffic is one read of the
-// matrix and, for the kernels that return a factor, one write. The design answers that by
-// updating only the lower triangle of the trailing block (half the traffic of
-// a full update, as the TPU kernels' banded update did) and by keeping the
-// scaled column in its own shared vector, so the update reads it as a
-// broadcast instead of as a strided column of the matrix. Several matrices
-// per block, register tiles and warp-level panels are left for later work.
+// What bounds them: device memory moves one read of the matrix and, for the
+// kernels that return a factor, one write (0.17 ms at B=8192, n=93 in f32);
+// the n^3/6 multiply-adds of the lower triangle's updates are a tenth of
+// that at the card's f32 rate. What held the shared-memory column loop far
+// above both was not the arithmetic but its skeleton (the layout study's
+// probe, PERF.md): each multiply-add was a shared read-modify-write, two
+// block barriers per column (186 at n = 93), and 35 KB of shared memory per
+// matrix, so six matrices per SM. The register-tiled design answers each:
+// half a shared value read per multiply-add (in 16-byte loads) from a panel
+// buffer the threads share, two block barriers per panel of four columns, and a few KB
+// of shared memory per matrix, so registers (not shared memory) set how many
+// matrices an SM holds. Tensor cores (mma / wgmma) would sum the updates in
+// another order and break the bitwise identity; they are left out. So is a
+// persistent grid that prefetches the next matrix with cp.async: not tried.
 //
 // Each launcher returns cudaGetLastError() so that the Python wrapper can
 // raise on a refused launch.
 
-#include "lane_common.cuh"
+#include "lane_regs.cuh"
 
 namespace {
 
@@ -54,38 +69,56 @@ __device__ __forceinline__ Smem<T> carve(unsigned char* raw, int n, int ld) {
   return {base, base + n * ld, base + n * ld + n};
 }
 
-// x = a^-1 b and L = chol(a) (lower triangle valid).
+// Shared memory of the register-tiled kernels: two panel buffers of np x 4
+// (np = n rounded up to the tile; the backward substitution reuses them),
+// w for the solve (np), and the stage of the upper triangle, n (n - 1) / 2.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-factor_solve_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                    T* __restrict__ x, T* __restrict__ l, int n, int ld) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<T> s = carve<T>(smem_raw, n, ld);
-  const size_t m_off = static_cast<size_t>(blockIdx.x) * n * n;
-  const size_t v_off = static_cast<size_t>(blockIdx.x) * n;
-  load_matrix(a + m_off, s.a, n, ld);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s.w[i] = b[v_off + i];
-  __syncthreads();
-  factor_in_place(s.a, s.col, n, ld);
-  if (threadIdx.x < 32) substitute_warp(s.a, s.w, n, ld);
-  store_matrix(s.a, l + m_off, n, ld);
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) x[v_off + i] = s.w[i];
+inline size_t reg_smem_bytes(int n, bool solve) {
+  const size_t np = kTile * ((n + kTile - 1) / kTile);
+  return sizeof(T) * (2 * kTile * np + (solve ? np : 0) + static_cast<size_t>(n) * (n - 1) / 2);
 }
 
-// L = chol(a) (lower triangle valid). The input is only read: the resolve
-// re-factors the same diagonal blocks at every interior-point step, where
-// the TPU kernel factored a fresh transpose it was free to overwrite.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-factor_kernel(const T* __restrict__ a, T* __restrict__ l, int n, int ld) {
+// x = a^-1 b and L = chol(a) (lower triangle valid), the lower triangle in
+// registers (lane_regs.cuh).
+template <typename T, int TPT>
+__global__ void __launch_bounds__(kRegThreadsMax)
+factor_solve_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                    T* __restrict__ x, T* __restrict__ l, int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<T> s = carve<T>(smem_raw, n, ld);
+  const int np = kTile * ((n + kTile - 1) / kTile);
+  T* pan = reinterpret_cast<T*>(smem_raw);
+  T* w = pan + 2 * kTile * np;
+  T* stage = w + np;
   const size_t m_off = static_cast<size_t>(blockIdx.x) * n * n;
-  load_matrix(a + m_off, s.a, n, ld);
-  __syncthreads();
-  factor_in_place(s.a, s.col, n, ld);
-  store_matrix(s.a, l + m_off, n, ld);
+  const size_t v_off = static_cast<size_t>(blockIdx.x) * n;
+  copy_upper_issue(a + m_off, stage, n);
+  RegTiles<T, TPT> m;
+  load_tiles(a + m_off, m, n);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) w[i] = b[v_off + i];
+  factor_regs<T, TPT, true>(m, pan, w, n);
+  store_tiles(m, l + m_off, n);
+  backward_regs(m, pan, w, n);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) x[v_off + i] = w[i];
+  copy_upper_finish(stage, l + m_off, n);
+}
+
+// L = chol(a) (lower triangle valid), the lower triangle in registers. The
+// input is only read: the resolve re-factors the same diagonal blocks at
+// every interior-point step, where the TPU kernel factored a fresh transpose
+// it was free to overwrite.
+template <typename T, int TPT>
+__global__ void __launch_bounds__(kRegThreadsMax)
+factor_kernel(const T* __restrict__ a, T* __restrict__ l, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* pan = reinterpret_cast<T*>(smem_raw);
+  T* stage = pan + 2 * kTile * kTile * ((n + kTile - 1) / kTile);
+  const size_t m_off = static_cast<size_t>(blockIdx.x) * n * n;
+  copy_upper_issue(a + m_off, stage, n);
+  RegTiles<T, TPT> m;
+  load_tiles(a + m_off, m, n);
+  factor_regs<T, TPT, false>(m, pan, nullptr, n);
+  store_tiles(m, l + m_off, n);
+  copy_upper_finish(stage, l + m_off, n);
 }
 
 // x = a^-1 b (the factor stays in shared memory).
@@ -129,28 +162,47 @@ inline size_t smem_bytes(int n) {
   return sizeof(T) * (static_cast<size_t>(n) * ld + 2 * static_cast<size_t>(n));
 }
 
-template <typename T>
-int launch_factor_solve(const void* a, const void* b, void* x, void* l, int batch, int n,
-                        void* stream) {
-  if (batch == 0) return 0;
-  const size_t bytes = smem_bytes<T>(n);
-  int err = allow_smem(factor_solve_kernel<T>, bytes);
-  if (err) return err;
-  factor_solve_kernel<T><<<batch, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(x),
-      static_cast<T*>(l), n, row_stride(n));
-  return static_cast<int>(cudaGetLastError());
+// The register-tiled kernel for TPT tiles a thread, TPT = 1 .. kMaxTPT<T>
+// (the Python wrapper's reg_geometry picks the threads; TPT follows).
+template <typename T> constexpr int kMaxTPT = 6;
+template <> constexpr int kMaxTPT<double> = 3;
+
+template <typename T, int TPT>
+int launch_regs(int tpt, const void* a, const void* b, void* x, void* l, int batch, int n,
+                int threads, cudaStream_t stream) {
+  if constexpr (TPT > kMaxTPT<T>) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (tpt != TPT) return launch_regs<T, TPT + 1>(tpt, a, b, x, l, batch, n, threads, stream);
+    const size_t bytes = reg_smem_bytes<T>(n, b != nullptr);
+    int err = b == nullptr ? allow_smem(factor_kernel<T, TPT>, bytes)
+                           : allow_smem(factor_solve_kernel<T, TPT>, bytes);
+    if (err) return err;
+    if (b == nullptr) {
+      factor_kernel<T, TPT><<<batch, threads, bytes, stream>>>(
+          static_cast<const T*>(a), static_cast<T*>(l), n);
+    } else {
+      factor_solve_kernel<T, TPT><<<batch, threads, bytes, stream>>>(
+          static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(x),
+          static_cast<T*>(l), n);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
+// b == nullptr: the factor alone. threads: a multiple of 32, at most
+// kRegThreadsMax, with ceil(tiles / threads) <= kMaxTPT<T>.
 template <typename T>
-int launch_factor(const void* a, void* l, int batch, int n, void* stream) {
+int launch_factor_regs(const void* a, const void* b, void* x, void* l, int batch, int n,
+                       int threads, void* stream) {
   if (batch == 0) return 0;
-  const size_t bytes = smem_bytes<T>(n);
-  int err = allow_smem(factor_kernel<T>, bytes);
-  if (err) return err;
-  factor_kernel<T><<<batch, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<T*>(l), n, row_stride(n));
-  return static_cast<int>(cudaGetLastError());
+  const int nt = (n + kTile - 1) / kTile;
+  const int n_tiles = nt * (nt + 1) / 2;
+  if (n < 1 || threads < 32 || threads % 32 || threads > kRegThreadsMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tpt = (n_tiles + threads - 1) / threads;
+  return launch_regs<T, 1>(tpt, a, b, x, l, batch, n, threads,
+                           static_cast<cudaStream_t>(stream));
 }
 
 template <typename T>
@@ -183,18 +235,18 @@ int launch_solve_factored(const void* l, const void* b, void* x, int batch, int 
 extern "C" {
 
 int chol_factor_solve_lane_f32(const void* a, const void* b, void* x, void* l, int batch,
-                               int n, void* stream) {
-  return launch_factor_solve<float>(a, b, x, l, batch, n, stream);
+                               int n, int threads, void* stream) {
+  return launch_factor_regs<float>(a, b, x, l, batch, n, threads, stream);
 }
 int chol_factor_solve_lane_f64(const void* a, const void* b, void* x, void* l, int batch,
-                               int n, void* stream) {
-  return launch_factor_solve<double>(a, b, x, l, batch, n, stream);
+                               int n, int threads, void* stream) {
+  return launch_factor_regs<double>(a, b, x, l, batch, n, threads, stream);
 }
-int chol_factor_lane_f32(const void* a, void* l, int batch, int n, void* stream) {
-  return launch_factor<float>(a, l, batch, n, stream);
+int chol_factor_lane_f32(const void* a, void* l, int batch, int n, int threads, void* stream) {
+  return launch_factor_regs<float>(a, nullptr, nullptr, l, batch, n, threads, stream);
 }
-int chol_factor_lane_f64(const void* a, void* l, int batch, int n, void* stream) {
-  return launch_factor<double>(a, l, batch, n, stream);
+int chol_factor_lane_f64(const void* a, void* l, int batch, int n, int threads, void* stream) {
+  return launch_factor_regs<double>(a, nullptr, nullptr, l, batch, n, threads, stream);
 }
 int chol_solve_lane_f32(const void* a, const void* b, void* x, int batch, int n,
                         void* stream) {

@@ -12,6 +12,11 @@ in CUDA for Hopper in ``hybdrt_torch/csrc/chol_lane.cu``:
 - ``chol_factor_lane(a) -> l``: the factor alone (the group resolve's
   block-Jacobi preconditioner, ``mapping/resolve.py``); ``a`` is not written.
 
+The first and the last hold the lower triangle in registers, in 4x4 tiles
+spread over the block's threads (``csrc/lane_regs.cuh``); ``reg_geometry``
+picks the threads from n, as the CUDA launcher expects. The other two factor
+in shared memory. Both factor routines give bitwise the same L.
+
 ``a``/``l`` are (B, n, n) and ``b``/``x`` are (B, n), contiguous, float32 or
 float64. Only the lower triangle of a returned factor is valid, and a
 non-positive pivot yields NaN.
@@ -34,6 +39,18 @@ MAX_SMEM_BYTES = 232448
 DTYPES = (torch.float32, torch.float64)
 
 
+# The register-tiled kernels (mirrors csrc/lane_regs.cuh and chol_lane.cu):
+# 4x4 tiles of the lower triangle, at most REG_THREADS_MAX threads a block,
+# TILES_PER_THREAD tiles a thread where that many threads suffice, else up to
+# MAX_TILES_PER_THREAD (the launcher's instantiations). At n = 93 and 94
+# these are 64 threads of 5 tiles in float32 and 160 of 2 in float64, where
+# ptxas reports no spill (3 float64 tiles a thread spill).
+TILE = 4
+REG_THREADS_MAX = 384
+TILES_PER_THREAD = {torch.float32: 5, torch.float64: 2}
+MAX_TILES_PER_THREAD = {torch.float32: 6, torch.float64: 3}
+
+
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -43,6 +60,27 @@ def smem_bytes(n, dtype):
     """Shared memory one block of these kernels needs (mirrors the CUDA source)."""
     ld = n | 1
     return torch.finfo(dtype).bits // 8 * (n * ld + 2 * n)
+
+
+def reg_geometry(n, dtype):
+    """(threads, tiles a thread, shared bytes) of the register-tiled kernels
+    for n: the fewest threads, in whole warps and at most REG_THREADS_MAX,
+    that hold the ceil(n/4) * (ceil(n/4) + 1) / 2 lower tiles at
+    ``TILES_PER_THREAD[dtype]`` tiles a thread where they can. The shared
+    bytes are ``chol_factor_solve_lane``'s (two panel buffers of 4 *
+    ceil(n/4) rows of 4, w, and the stage of the strict upper triangle);
+    ``chol_factor_lane`` needs all but w."""
+    nt = -(-n // TILE)
+    tiles = nt * (nt + 1) // 2
+    threads = min(32 * -(-tiles // (32 * TILES_PER_THREAD[dtype])), REG_THREADS_MAX)
+    smem = torch.finfo(dtype).bits // 8 * (2 * TILE * TILE * nt + TILE * nt + n * (n - 1) // 2)
+    return threads, -(-tiles // threads), smem
+
+
+def admitted(n, dtype, smem=smem_bytes):
+    """Whether the kernels take matrices of size n in ``dtype``: those whose
+    ``smem(n, dtype)`` bytes fit one block's shared memory."""
+    return smem(n, dtype) <= MAX_SMEM_BYTES
 
 
 def check_args(name, a, *vecs, smem=smem_bytes, dtypes=DTYPES):
@@ -62,7 +100,7 @@ def check_args(name, a, *vecs, smem=smem_bytes, dtypes=DTYPES):
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{name}: inputs must be contiguous")
     n = a.shape[1]
-    if smem(n, a.dtype) > MAX_SMEM_BYTES:
+    if not admitted(n, a.dtype, smem):
         raise ValueError(f"{name}: n={n} in {a.dtype} needs {smem(n, a.dtype)} bytes "
                          f"of shared memory, more than one block has ({MAX_SMEM_BYTES})")
 
@@ -77,10 +115,10 @@ def on_cpu(name, a, *vecs, smem=smem_bytes, dtypes=DTYPES):
     return False
 
 
-def _launch(name, *tensors, batch, n, device):
+def _launch(name, *tensors, batch, n, device, ints=()):
     if batch == 0:
         return
-    _build.launch(name, tensors, (batch, n), device)
+    _build.launch(name, tensors, (batch, n, *ints), device)
     LAUNCHES[name] += 1
 
 
@@ -119,7 +157,9 @@ def chol_factor_solve_lane(a, b):
         return chol_factor_solve_lane_plain(a, b)
     x = torch.empty_like(b)
     l = torch.empty_like(a)
-    _launch(name, a, b, x, l, batch=a.shape[0], n=a.shape[1], device=a.device)
+    n = a.shape[1]
+    _launch(name, a, b, x, l, batch=a.shape[0], n=n, device=a.device,
+            ints=reg_geometry(n, a.dtype)[:1])
     return x, l
 
 
@@ -150,5 +190,7 @@ def chol_factor_lane(a):
     if on_cpu(name, a):
         return chol_factor_lane_plain(a)
     l = torch.empty_like(a)
-    _launch(name, a, l, batch=a.shape[0], n=a.shape[1], device=a.device)
+    n = a.shape[1]
+    _launch(name, a, l, batch=a.shape[0], n=n, device=a.device,
+            ints=reg_geometry(n, a.dtype)[:1])
     return l

@@ -1,7 +1,7 @@
 """Inputs and timers shared by the repository's scripts that drive the port on
 a CUDA card (``chip_smoke.py``, ``torch_fit_walls.py``,
 ``torch_resolve_walls.py``, the experiments ``hybdrt_torch.experiments.
-layouts`` and ``ip_loop``, ``utils/ip_digest.py``) and by its tests.
+layouts`` and ``ip_loop``, ``utils/kernel_digest.py``) and by its tests.
 
 Nothing here is on a fitting path: it makes seeded test inputs, reads the
 card's name and power limit, times calls, and computes a call's bound (the

@@ -109,3 +109,67 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     assert chol_lane.smem_bytes(93, torch.float32) < 48 * 1024
     assert chol_lane.smem_bytes(93, torch.float64) < chol_lane.MAX_SMEM_BYTES
     assert chol_lane.smem_bytes(300, torch.float32) > chol_lane.MAX_SMEM_BYTES
+
+
+def _tile_of(t):
+    """(I, K) of lower tile t, as csrc/lane_regs.cuh::load_tiles computes it
+    (a float32 square root, then exact integer corrections)."""
+    i = int((np.sqrt(np.float32(8.0) * np.float32(t) + np.float32(1.0)) - np.float32(1.0))
+            * np.float32(0.5))
+    while i * (i + 1) // 2 > t:
+        i -= 1
+    while (i + 1) * (i + 2) // 2 <= t:
+        i += 1
+    return i, t - i * (i + 1) // 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_register_geometry_covers_the_lower_triangle(dtype):
+    """For every n the kernels admit: the threads' tile slots cover each
+    element of the lower triangle exactly once; a block has whole warps, at
+    most REG_THREADS_MAX threads and at most MAX_TILES_PER_THREAD tiles a
+    thread (so ptxas's cap of 65536 / REG_THREADS_MAX registers a thread
+    keeps the block within one SM's registers, the tiles' values taking at
+    most 96 of them); its shared memory fits one block."""
+    words = torch.finfo(dtype).bits // 32
+    ns = [n for n in range(1, 400) if chol_lane.admitted(n, dtype)]
+    assert ns == list(range(1, ns[-1] + 1))
+    for n in ns:
+        threads, tpt, smem = chol_lane.reg_geometry(n, dtype)
+        assert threads % 32 == 0 and 32 <= threads <= chol_lane.REG_THREADS_MAX
+        assert tpt <= chol_lane.MAX_TILES_PER_THREAD[dtype]
+        assert threads * (65536 // chol_lane.REG_THREADS_MAX) <= 65536
+        assert tpt * 16 * words <= 96
+        assert smem <= chol_lane.MAX_SMEM_BYTES
+        nt = -(-n // 4)
+        n_tiles = nt * (nt + 1) // 2
+        assert (tpt - 1) * threads < n_tiles <= tpt * threads
+        count = np.zeros((n, n), dtype=int)
+        for s in range(tpt):
+            for tid in range(threads):
+                t = s * threads + tid
+                if t >= n_tiles:
+                    continue
+                i, k = _tile_of(t)
+                assert 0 <= k <= i < nt
+                rows = np.arange(4 * i, min(4 * i + 4, n))
+                cols = np.arange(4 * k, min(4 * k + 4, n))
+                r, c = np.meshgrid(rows, cols, indexing="ij")
+                keep = c <= r
+                np.add.at(count, (r[keep], c[keep]), 1)
+        np.testing.assert_array_equal(count, np.tril(np.ones((n, n), dtype=int)))
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 5, 17, 31, 32, 33, 93, 94, 95, 128, 152, 153, 169, 170,
+                               200, 239, 240, 300])
+def test_admitted_sizes_are_the_shared_memory_kernels(n):
+    """The register-tiled kernels take exactly the (n, dtype) that the
+    shared-memory kernels took: one (n, n | 1) matrix and two vectors in one
+    block's 232448 bytes of shared memory (``admitted``, which check_args
+    applies), and the register geometry holds every tile of those."""
+    for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
+        fits = size * (n * (n | 1) + 2 * n) <= 232448
+        assert chol_lane.admitted(n, dtype) == fits
+        if fits:
+            threads, tpt, _ = chol_lane.reg_geometry(n, dtype)
+            assert threads * tpt >= (-(-n // 4)) * (-(-n // 4) + 1) // 2

@@ -69,6 +69,65 @@ def test_non_positive_pivot_gives_nan(cuda):
         assert torch.isfinite(torch.tril(lf[0])).all() and torch.isfinite(torch.tril(lf[3])).all()
 
 
+def _largest_admitted(dtype):
+    return max(n for n in range(1, 400)
+               if chol_lane.smem_bytes(n, dtype) <= chol_lane.MAX_SMEM_BYTES)
+
+
+@pytest.mark.parametrize("b", [1, 133])
+@pytest.mark.parametrize("n", [1, 2, 4, 7, 8, 9, 17, 31, 32, 33, 93, 94, 128, "max"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.float64, 1e-10)])
+def test_register_factor_kernels(cuda, dtype, tol, n, b):
+    """The register-tiled chol_factor_solve_lane and chol_factor_lane against
+    their plain versions at every tile remainder, a panel edge on either side
+    of 32 and 93/94, and the largest n either dtype admits; x bitwise that of
+    chol_solve_lane (the shared-memory factor and substitution), the two
+    factors bitwise equal on the lower triangle, the upper triangle the
+    input's, and the input of chol_factor_lane unchanged."""
+    n = _largest_admitted(dtype) if n == "max" else n
+    a, rhs = spd_batch(b, n, dtype, 7 * n + b, cuda)
+    a_in = a.clone()
+    chol_lane.reset_launch_counts()
+    x, l = chol_lane.chol_factor_solve_lane(a, rhs)
+    l4 = chol_lane.chol_factor_lane(a)
+    x3 = chol_lane.chol_solve_lane(a, rhs)
+    x_p, l_p = chol_lane.chol_factor_solve_lane_plain(a, rhs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(x, x_p, rtol=tol, atol=tol)
+    torch.testing.assert_close(torch.tril(l), l_p, rtol=tol, atol=tol)
+    assert torch.equal(x, x3), "chol_factor_solve_lane's x must be chol_solve_lane's bitwise"
+    assert torch.equal(torch.tril(l4), torch.tril(l))
+    for lf in (l, l4):
+        assert torch.equal(torch.triu(lf, 1), torch.triu(a, 1))
+    assert torch.equal(a, a_in), "the kernels must not write their input"
+    assert chol_lane.LAUNCHES == {"chol_factor_solve_lane": 1, "chol_solve_factored_lane": 0,
+                                  "chol_solve_lane": 1, "chol_factor_lane": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_register_factor_nan_contract(cuda, dtype):
+    """A non-positive pivot in the first column, in the first column of a
+    panel (8) and in the last column gives NaN from that column on in the
+    factor of its lane and in its x, as chol_solve_lane; its neighbours stay
+    finite."""
+    n = 17
+    a, rhs = spd_batch(5, n, dtype, 5, cuda)
+    bad = {1: 0, 2: 8, 3: n - 1}
+    for lane, col in bad.items():
+        a[lane, col, col] = -1.0
+    x, l = chol_lane.chol_factor_solve_lane(a, rhs)
+    l4 = chol_lane.chol_factor_lane(a)
+    x3 = chol_lane.chol_solve_lane(a, rhs)
+    assert torch.equal(x.isnan(), x3.isnan())
+    assert torch.equal(torch.tril(l4).isnan(), torch.tril(l).isnan())
+    for lane, col in bad.items():
+        assert torch.isnan(x[lane]).all()
+        d = torch.diagonal(l[lane])
+        assert torch.isnan(d[col:]).all() and torch.isfinite(d[:col]).all()
+    for lane in (0, 4):
+        assert torch.isfinite(x[lane]).all() and torch.isfinite(torch.tril(l[lane])).all()
+
+
 def test_empty_batch_and_bad_inputs(cuda):
     a, rhs = spd_batch(0, 8, torch.float32, 0, cuda)
     assert chol_lane.chol_solve_lane(a, rhs).shape == (0, 8)
