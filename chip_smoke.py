@@ -8,13 +8,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 
 1. the card: ``torch.cuda.is_available()``, the card's name and power limit
    as ``nvidia-smi`` reports them, the torch and CUDA versions;
-2. build the CUDA kernels of ``hybdrt_torch/csrc`` from the checkout;
+2. build the CUDA kernels of ``hybdrt_torch/csrc`` from the checkout, and
+   print each kernel's registers and spills as ``ptxas`` reports them;
 3. each Cholesky kernel against its plain PyTorch version on the same CUDA
    tensors, at the main path's shape (B=8192, n=93, float32) and at (B=130,
    n=17), within rtol = atol = 2e-4, plus the NaN contract for a
    non-positive pivot and one float64 case; ``chol_factor_solve_lane``'s x
-   must equal ``chol_solve_lane``'s bit for bit (the register-tiled and the
-   shared-memory factor); kernel, plain and single library-call times from
+   must equal ``chol_solve_lane``'s bit for bit (the same register-tiled
+   factor, with and without its output); kernel, plain and single
+   library-call times from
    CUDA events, the two factor-and-solve kernels timed in turns;
 4. the fused kernel ``ip_steps_lane`` against its plain version on the same
    CUDA tensors: equilibrated SPD box QPs from a seed at (8192, 93) and
@@ -86,6 +88,7 @@ kernels, phase 6 for ``ip_steps_lane``, phase 8's two timed resolves for
 "device": {...}}``.
 """
 import json
+import re
 import sys
 import time
 
@@ -154,11 +157,34 @@ def phase_build():
     print(f"build: {time.time() - t0:.1f} s -> {lib.name}")
     log = lib.with_suffix(".log")
     if log.exists():
-        for line in log.read_text().splitlines():
-            if "Compiling entry function" in line:
-                print("  ptxas: " + line.split("'")[1])
-            elif "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+        for name, regs, spill in ptxas_report(log.read_text()):
+            print(f"  ptxas: {name}: {regs} registers, spill stores/loads {spill}")
+
+
+def ptxas_report(log):
+    """[(kernel, registers, "stores/loads bytes")] from the ``-Xptxas=-v``
+    log, each kernel named with its template arguments (f or d for float or
+    double, then the ints and bools, e.g. ``ip_steps_kernel<f,4,0,1>``)."""
+    out, name, spill = [], None, "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = kernel_label(line.split("'")[1])
+        elif "spill stores" in line:
+            st = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            spill = f"{st.group(1)}/{st.group(2)} bytes" if st else "?"
+        elif "Used" in line and "registers" in line and name is not None:
+            out.append((name, int(re.search(r"Used (\d+) registers", line).group(1)), spill))
+            name, spill = None, "?"
+    return out
+
+
+def kernel_label(mangled):
+    """``factor_solve_kernel<f,5,1>`` from the kernel's mangled name."""
+    m = re.search(r"([a-z_]+_kernel)(?:I(\w*?)E+v)?", mangled)
+    if m is None:
+        return mangled
+    args = [t or v for t, v in re.findall(r"^([fd])|L[ib](\d+)", m.group(2) or "")]
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
 def compare_kernels():
@@ -188,8 +214,8 @@ def compare_kernels():
         x3 = cl.chol_solve_lane(a, rhs)
         ok3, e3 = close(x3, cl.chol_solve_lane_plain(a, rhs))
         check(ok3, f"chol_solve_lane ({b}, {n}): err {e3}")
-        # the register-tiled factor applies the shared-memory factor's updates
-        # in its order, so the two kernels' x agree bit for bit
+        # the two kernels run the same register-tiled factor and solves, one
+        # with the factor's output and one without, so their x agree bit for bit
         check(bool(torch.equal(x, x3)), f"chol_factor_solve_lane's x is chol_solve_lane's "
                                         f"bitwise ({b}, {n})")
         errs = {"chol_factor_solve_lane": max(e_x, e_l), "chol_solve_factored_lane": e2,
@@ -200,8 +226,8 @@ def compare_kernels():
               + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
         if b == B_BENCH:
             mat, vec = a.numel() * 4, rhs.numel() * 4
-            # the two factor-and-solve kernels in turns (register-tiled and
-            # shared-memory factor)
+            # the two factor-and-solve kernels in turns (with and without the
+            # factor's output)
             turns = in_turns({"chol_factor_solve_lane": lambda: cl.chol_factor_solve_lane(a, rhs),
                               "chol_solve_lane": lambda: cl.chol_solve_lane(a, rhs)})
             print("  in turns: " + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f} ms"
@@ -424,7 +450,7 @@ def compare_factor_kernel():
     for (b, n) in ((RESOLVE_B, RESOLVE_N), (B_BENCH, 93)):
         a, _ = spd_batch(b, n, torch.float32, seed=n)
         # the kernel and its library call in turns; read A once, write L
-        # once; n^3/3 multiply-adds per factor
+        # once; (n^3 - n)/6 multiply-adds per factor
         turns = in_turns({"chol_factor_lane": lambda: cl.chol_factor_lane(a),
                           "cholesky_ex": lambda: torch.linalg.cholesky_ex(a)})
         print("  in turns: " + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f} ms"

@@ -10,16 +10,16 @@
 // unrolled the column loop statically. On Hopper each matrix gets one thread
 // block, and nothing needs the TPU's padding to 128 lanes.
 //
-// chol_factor_solve_lane and chol_factor_lane keep the lower triangle in
-// registers for the whole factorization (lane_regs.cuh): 4x4 tiles spread
-// over the block's threads, panels of 4 columns factored by one warp from a
-// small shared buffer, the trailing update applied by every thread to its
-// own tiles; chol_factor_solve_lane fuses the forward substitution into the
-// panels and runs the backward one by tile rows. chol_solve_lane and
-// chol_solve_factored_lane copy the matrix into shared memory (row stride
-// ld = n | 1, odd, so column walks hit distinct banks), factor it there by
-// columns (factor_in_place) and substitute with one warp (substitute_warp),
-// code they share with the fused interior-point kernel (ip_lane.cu).
+// chol_factor_solve_lane, chol_solve_lane and chol_factor_lane keep the
+// lower triangle in registers for the whole factorization (lane_regs.cuh):
+// 4x4 tiles spread over the block's threads, panels of 4 columns factored by
+// one warp from a small shared buffer, the trailing update applied by every
+// thread to its own tiles. The two that solve fuse the forward substitution
+// into the panels and run the backward one by tile rows; chol_solve_lane is
+// chol_factor_solve_lane without the factor's output (no store of the tiles,
+// no copy of the upper triangle). chol_solve_factored_lane copies the factor
+// into shared memory (row stride ld = n | 1) and substitutes with one warp
+// (substitute_warp, lane_common.cuh).
 //
 // Contract (kept exactly from the TPU kernels):
 //   * only the lower triangle of a returned factor is valid; the upper
@@ -28,22 +28,24 @@
 //     max(x, 1e-30), and a non-positive pivot yields NaN, which then fills the
 //     rest of the factorization and the solution (the QP's bad-step guard
 //     depends on it).
-// The register-tiled factor applies every update of factor_in_place in its
-// order, each as one fma, so both factor routines give bitwise the same L,
-// and x from chol_factor_solve_lane is bitwise x from chol_solve_lane.
+// The register-tiled factor applies every update in a fixed order, each as
+// one fma (lane_regs.cuh), whatever the threads, so x from
+// chol_factor_solve_lane is bitwise x from chol_solve_lane, and L from
+// chol_factor_solve_lane bitwise L from chol_factor_lane.
 //
 // What bounds them: device memory moves one read of the matrix and, for the
 // kernels that return a factor, one write (0.17 ms at B=8192, n=93 in f32);
 // the n^3/6 multiply-adds of the lower triangle's updates are a tenth of
-// that at the card's f32 rate. What held the shared-memory column loop far
-// above both was not the arithmetic but its skeleton (the layout study's
-// probe, PERF.md): each multiply-add was a shared read-modify-write, two
-// block barriers per column (186 at n = 93), and 35 KB of shared memory per
-// matrix, so six matrices per SM. The register-tiled design answers each:
-// half a shared value read per multiply-add (in 16-byte loads) from a panel
-// buffer the threads share, two block barriers per panel of four columns, and a few KB
-// of shared memory per matrix, so registers (not shared memory) set how many
-// matrices an SM holds. Tensor cores (mma / wgmma) would sum the updates in
+// that at the card's f32 rate. What held the shared-memory column loop that
+// these kernels replaced far above both was not the arithmetic but its
+// skeleton (the layout study's probe, PERF.md): each multiply-add was a
+// shared read-modify-write, two block barriers per column (186 at n = 93),
+// and 35 KB of shared memory per matrix, so six matrices per SM. The
+// register-tiled design answers each: half a shared value read per
+// multiply-add (in 16-byte loads) from a panel buffer the threads share, two
+// block barriers per panel of four columns, and a few KB of shared memory per
+// matrix, so registers (not shared memory) set how many matrices an SM
+// holds. Tensor cores (mma / wgmma) would sum the updates in
 // another order and break the bitwise identity; they are left out. So is a
 // persistent grid that prefetches the next matrix with cp.async: not tried.
 //
@@ -71,16 +73,18 @@ __device__ __forceinline__ Smem<T> carve(unsigned char* raw, int n, int ld) {
 
 // Shared memory of the register-tiled kernels: two panel buffers of np x 4
 // (np = n rounded up to the tile; the backward substitution reuses them),
-// w for the solve (np), and the stage of the upper triangle, n (n - 1) / 2.
+// w for the solve (np), and, where the factor is returned, the stage of the
+// upper triangle, n (n - 1) / 2.
 template <typename T>
-inline size_t reg_smem_bytes(int n, bool solve) {
+inline size_t reg_smem_bytes(int n, bool solve, bool factor_out) {
   const size_t np = kTile * ((n + kTile - 1) / kTile);
-  return sizeof(T) * (2 * kTile * np + (solve ? np : 0) + static_cast<size_t>(n) * (n - 1) / 2);
+  return sizeof(T) * (2 * kTile * np + (solve ? np : 0) +
+                      (factor_out ? static_cast<size_t>(n) * (n - 1) / 2 : 0));
 }
 
-// x = a^-1 b and L = chol(a) (lower triangle valid), the lower triangle in
-// registers (lane_regs.cuh).
-template <typename T, int TPT>
+// x = a^-1 b and, with kFactorOut, L = chol(a) (lower triangle valid), the
+// lower triangle in registers (lane_regs.cuh).
+template <typename T, int TPT, bool kFactorOut>
 __global__ void __launch_bounds__(kRegThreadsMax)
 factor_solve_kernel(const T* __restrict__ a, const T* __restrict__ b,
                     T* __restrict__ x, T* __restrict__ l, int n) {
@@ -91,15 +95,15 @@ factor_solve_kernel(const T* __restrict__ a, const T* __restrict__ b,
   T* stage = w + np;
   const size_t m_off = static_cast<size_t>(blockIdx.x) * n * n;
   const size_t v_off = static_cast<size_t>(blockIdx.x) * n;
-  copy_upper_issue(a + m_off, stage, n);
+  if (kFactorOut) copy_upper_issue(a + m_off, stage, n);
   RegTiles<T, TPT> m;
   load_tiles(a + m_off, m, n);
   for (int i = threadIdx.x; i < n; i += blockDim.x) w[i] = b[v_off + i];
   factor_regs<T, TPT, true>(m, pan, w, n);
-  store_tiles(m, l + m_off, n);
+  if (kFactorOut) store_tiles(m, l + m_off, n);
   backward_regs(m, pan, w, n);
   for (int i = threadIdx.x; i < n; i += blockDim.x) x[v_off + i] = w[i];
-  copy_upper_finish(stage, l + m_off, n);
+  if (kFactorOut) copy_upper_finish(stage, l + m_off, n);
 }
 
 // L = chol(a) (lower triangle valid), the lower triangle in registers. The
@@ -121,24 +125,6 @@ factor_kernel(const T* __restrict__ a, T* __restrict__ l, int n) {
   copy_upper_finish(stage, l + m_off, n);
 }
 
-// x = a^-1 b (the factor stays in shared memory).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-solve_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ x,
-             int n, int ld) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<T> s = carve<T>(smem_raw, n, ld);
-  const size_t m_off = static_cast<size_t>(blockIdx.x) * n * n;
-  const size_t v_off = static_cast<size_t>(blockIdx.x) * n;
-  load_matrix(a + m_off, s.a, n, ld);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s.w[i] = b[v_off + i];
-  __syncthreads();
-  factor_in_place(s.a, s.col, n, ld);
-  if (threadIdx.x < 32) substitute_warp(s.a, s.w, n, ld);
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) x[v_off + i] = s.w[i];
-}
-
 // x = (L L^T)^-1 b against a factor from factor_solve_kernel.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -156,6 +142,9 @@ solve_factored_kernel(const T* __restrict__ l, const T* __restrict__ b,
   for (int i = threadIdx.x; i < n; i += blockDim.x) x[v_off + i] = s.w[i];
 }
 
+// The size rule by which the wrappers admit n for all four kernels
+// (ops/chol_lane.py::smem_bytes): one (n, n | 1) matrix and two vectors, the
+// shared memory of solve_factored_kernel.
 template <typename T>
 inline size_t smem_bytes(int n) {
   const int ld = row_stride(n);
@@ -174,24 +163,31 @@ int launch_regs(int tpt, const void* a, const void* b, void* x, void* l, int bat
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (tpt != TPT) return launch_regs<T, TPT + 1>(tpt, a, b, x, l, batch, n, threads, stream);
-    const size_t bytes = reg_smem_bytes<T>(n, b != nullptr);
-    int err = b == nullptr ? allow_smem(factor_kernel<T, TPT>, bytes)
-                           : allow_smem(factor_solve_kernel<T, TPT>, bytes);
-    if (err) return err;
+    const size_t bytes = reg_smem_bytes<T>(n, b != nullptr, l != nullptr);
+    const T* ta = static_cast<const T*>(a);
+    const T* tb = static_cast<const T*>(b);
+    T* tx = static_cast<T*>(x);
+    T* tl = static_cast<T*>(l);
+    int err;
     if (b == nullptr) {
-      factor_kernel<T, TPT><<<batch, threads, bytes, stream>>>(
-          static_cast<const T*>(a), static_cast<T*>(l), n);
+      err = allow_smem(factor_kernel<T, TPT>, bytes);
+      if (!err) factor_kernel<T, TPT><<<batch, threads, bytes, stream>>>(ta, tl, n);
+    } else if (l == nullptr) {
+      err = allow_smem(factor_solve_kernel<T, TPT, false>, bytes);
+      if (!err)
+        factor_solve_kernel<T, TPT, false><<<batch, threads, bytes, stream>>>(ta, tb, tx, tl, n);
     } else {
-      factor_solve_kernel<T, TPT><<<batch, threads, bytes, stream>>>(
-          static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(x),
-          static_cast<T*>(l), n);
+      err = allow_smem(factor_solve_kernel<T, TPT, true>, bytes);
+      if (!err)
+        factor_solve_kernel<T, TPT, true><<<batch, threads, bytes, stream>>>(ta, tb, tx, tl, n);
     }
-    return static_cast<int>(cudaGetLastError());
+    return err ? err : static_cast<int>(cudaGetLastError());
   }
 }
 
-// b == nullptr: the factor alone. threads: a multiple of 32, at most
-// kRegThreadsMax, with ceil(tiles / threads) <= kMaxTPT<T>.
+// b == nullptr: the factor alone; l == nullptr: the solve alone. threads: a
+// multiple of 32, at most kRegThreadsMax, with ceil(tiles / threads) <=
+// kMaxTPT<T>.
 template <typename T>
 int launch_factor_regs(const void* a, const void* b, void* x, void* l, int batch, int n,
                        int threads, void* stream) {
@@ -203,18 +199,6 @@ int launch_factor_regs(const void* a, const void* b, void* x, void* l, int batch
   const int tpt = (n_tiles + threads - 1) / threads;
   return launch_regs<T, 1>(tpt, a, b, x, l, batch, n, threads,
                            static_cast<cudaStream_t>(stream));
-}
-
-template <typename T>
-int launch_solve(const void* a, const void* b, void* x, int batch, int n, void* stream) {
-  if (batch == 0) return 0;
-  const size_t bytes = smem_bytes<T>(n);
-  int err = allow_smem(solve_kernel<T>, bytes);
-  if (err) return err;
-  solve_kernel<T><<<batch, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(x), n,
-      row_stride(n));
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -248,13 +232,13 @@ int chol_factor_lane_f32(const void* a, void* l, int batch, int n, int threads, 
 int chol_factor_lane_f64(const void* a, void* l, int batch, int n, int threads, void* stream) {
   return launch_factor_regs<double>(a, nullptr, nullptr, l, batch, n, threads, stream);
 }
-int chol_solve_lane_f32(const void* a, const void* b, void* x, int batch, int n,
+int chol_solve_lane_f32(const void* a, const void* b, void* x, int batch, int n, int threads,
                         void* stream) {
-  return launch_solve<float>(a, b, x, batch, n, stream);
+  return launch_factor_regs<float>(a, b, x, nullptr, batch, n, threads, stream);
 }
-int chol_solve_lane_f64(const void* a, const void* b, void* x, int batch, int n,
+int chol_solve_lane_f64(const void* a, const void* b, void* x, int batch, int n, int threads,
                         void* stream) {
-  return launch_solve<double>(a, b, x, batch, n, stream);
+  return launch_factor_regs<double>(a, b, x, nullptr, batch, n, threads, stream);
 }
 int chol_solve_factored_lane_f32(const void* l, const void* b, void* x, int batch, int n,
                                  void* stream) {

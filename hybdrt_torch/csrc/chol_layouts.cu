@@ -23,7 +23,7 @@
 // n=93: device memory, by a wide margin: 0.1710 ms for the factor-solve
 // (read A and b, write L and x), 0.0864 ms for the two solves (read A and b,
 // write x), 0.169 ms for the probe (read A, write the result), against about
-// 0.07 ms for the n^3/3 multiply-adds. The lane kernels run at 5-16 % of
+// 0.04 ms for the n^3/6 multiply-adds. The lane kernels run at 5-16 % of
 // that bound; the layouts here test three answers to the question of what
 // holds them back (block barriers, one matrix per block, the per-column
 // read-modify-write of the trailing block), and the probe measures the
@@ -287,7 +287,8 @@ warp_solve_kernel(const float* __restrict__ a, const float* __restrict__ b,
 // smem_sol: the speed-of-light probe of the lane factor.
 //
 // The grid, block size, shared memory (the same bytes), column loop and the
-// two __syncthreads per column of factor_in_place (lane_common.cuh), and
+// two __syncthreads per column of the shared-memory column factor that the
+// lane kernels ran before their register-tiled design (lane_regs.cuh), and
 // the same elements touched: column j from the diagonal down, then the
 // trailing lower triangle. Each touched element is only scaled by 0.999
 // (one read, one multiply, one write), so element (r, c) of the lower

@@ -28,23 +28,39 @@
 // NaN, lane_common.cuh) keeps its last iterate for every remaining step. There
 // is no convergence test: every lane takes n_steps steps.
 //
-// Design: one thread block per lane. P is read from device memory once and
-// stays in shared memory (row stride n | 1) for all steps; H is a second
-// shared matrix, of which only the lower triangle is written and factored,
-// so P stays intact for the next step's matvec. All vectors live in shared
-// memory, so nothing goes to device memory between steps. The whole block
-// assembles H and r_d (a warp per row) and factors H (factor_in_place); warp 0
-// alone does the O(n) vector work, both substitutions and the reductions,
-// with warp shuffles and no block barrier.
+// Design: one thread block per lane, H's lower triangle in registers. P
+// stays in device memory and is read at every step, for the matvec and to
+// rebuild H; the resident blocks' P (at n = 93, four blocks of 35 KB per SM,
+// 18 MB on 132 SMs) stays in the 50 MB L2. Each step builds H = P + diag(z/s)
+// in the 4x4 register tiles of lane_regs.cuh
+// and factors it there (factor_regs, two block barriers per panel of 4
+// columns), with the predictor's forward substitution fused into the
+// panels; the backward substitution (backward_regs) and the corrector's two
+// (forward_regs, backward_regs) run against the factor still in registers,
+// two barriers per tile column or row. The whole block computes r_d (a warp
+// per row, four rows at a time); warp 0 alone does the O(n) vector work and
+// the reductions, with
+// warp shuffles and no block barrier. All vectors live in shared memory, so
+// nothing goes to device memory between steps. The threads per block and
+// the tiles a thread follow n (ops/ip_lane.py::geometry), one instantiation
+// per tile count. The outputs do not depend on the geometry: the factor and
+// substitution orders are fixed (lane_regs.cuh), and the matvec (lane-strided
+// sums and warp_sum), the step lengths, mu, sigma and the freeze sum in
+// orders that do not depend on the number of warps.
 //
-// What bounds it: per step the n^3/3 multiply-adds of the factor (n = 93:
-// ~2.7e5 per lane, shared-memory read-modify-writes with two block barriers
-// per column) and the n^2 of the matvec and of each substitution. Device
-// memory traffic is one read of P and of five vectors and one write of three.
-// At n = 93 the block needs 74.4 KB of shared memory in f32 (148.8 KB in
-// f64), so three blocks fit on an SM in f32; at n = 95, the experiment's own
-// shape, it needs 77.5 KB and two fit. Several lanes per block, `mma` for the
-// trailing update and TMA loads are left for later work.
+// What bounds it: per step the n^3/6 multiply-adds of the factor (n = 93:
+// ~1.3e5 per lane) and the n^2 of the matvec and of each substitution, in
+// chains of dependent panels and tile steps, each behind a block barrier.
+// Device memory traffic is one read of P and of five vectors and one write
+// of three; the reads of P after the first come from L2. Holding P in shared
+// memory instead (35.7 KB a block at n = 93) was slower at every batch size
+// measured: the blocks an SM holds are set by registers either way (four of
+// 96 threads at n = 93 in f32, 162 registers a thread), and the L2 reads
+// overlap. Registers also bound the sizes taken: at most kMaxTPT<T> tiles a
+// thread on kRegThreadsMax threads (n <= 216 in f32, 152 in f64); no f32
+// instantiation spills, the f64 one of 2 tiles spills 16 bytes. Several
+// lanes per block, `mma` for the trailing update and TMA loads are left for
+// later work.
 //
 // NaN: jnp.maximum, jnp.minimum and jnp.clip propagate NaN, and fmaxf/fminf
 // do not, so the floors, caps and min-reductions below are written with
@@ -53,13 +69,15 @@
 // Each launcher returns cudaGetLastError() so that the Python wrapper can
 // raise on a refused launch.
 
-#include "lane_common.cuh"
+#include "lane_regs.cuh"
 
 namespace {
 
 using namespace hybdrt_lane;
 
-constexpr int kVectors = 14;
+constexpr int kVectors = 13;
+// Rows of P x a warp sums at a time
+constexpr int kRows = 4;
 
 template <typename T>
 __device__ __forceinline__ T floor_at(T v, T lo) { return v < lo ? lo : v; }
@@ -103,16 +121,16 @@ __device__ __forceinline__ T corrector_step(T ratio) {
   return cap_at(T(0.99) * (kFullStep ? ratio : cap_at(ratio, T(1))), T(1));
 }
 
-template <typename T, bool kFullStep>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int TPT, bool kFullStep>
+__global__ void __launch_bounds__(kRegThreadsMax)
 ip_steps_kernel(const T* __restrict__ p, const T* __restrict__ q, const T* __restrict__ lb,
                 const T* __restrict__ x0, const T* __restrict__ s0, const T* __restrict__ z0,
                 T* __restrict__ x_out, T* __restrict__ s_out, T* __restrict__ z_out, int n,
-                int ld, int n_steps) {
+                int n_steps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sp = reinterpret_cast<T*>(smem_raw);  // P, whole
-  T* h = sp + n * ld;                      // H, lower triangle, factored in place
-  T* x = h + n * ld;
+  const int np = kTile * ((n + kTile - 1) / kTile);
+  T* pan = reinterpret_cast<T*>(smem_raw);  // two panel buffers of np x 4
+  T* x = pan + 2 * kTile * np;
   T* s = x + n;
   T* z = s + n;
   T* qv = z + n;
@@ -125,7 +143,6 @@ ip_steps_kernel(const T* __restrict__ p, const T* __restrict__ q, const T* __res
   T* dza = dsa + n;  // predictor dz
   T* rc = dza + n;   // corrector complementarity residual
   T* dz = rc + n;    // corrector dz (the corrector ds is kept in dsa)
-  T* col = dz + n;   // factor scratch
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -134,8 +151,8 @@ ip_steps_kernel(const T* __restrict__ p, const T* __restrict__ q, const T* __res
   const size_t v_off = static_cast<size_t>(blockIdx.x) * n;
   const T tiny = sizeof(T) == 8 ? T(1e-30) : T(1e-25);
   const T inv_n = T(1) / T(n);
+  const T* pm = p + m_off;
 
-  load_matrix(p + m_off, sp, n, ld);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     x[i] = x0[v_off + i];
     s[i] = s0[v_off + i];
@@ -145,28 +162,58 @@ ip_steps_kernel(const T* __restrict__ p, const T* __restrict__ q, const T* __res
   }
   __syncthreads();
 
+  RegTiles<T, TPT> h;
   bool frozen = false;  // meaningful in warp 0, the same in each of its lanes
   for (int step = 0; step < n_steps; ++step) {
-    // H's lower triangle and r_d, a warp per row
-    for (int r = warp; r < n; r += n_warps) {
-      const T* prow = sp + r * ld;
-      T* hrow = h + r * ld;
-      T acc = T(0);
+    // r_d, a warp per row, kRows rows of a warp at a time (independent sums,
+    // each in the order of one row alone)
+    for (int r0 = warp; r0 < n; r0 += kRows * n_warps) {
+      T acc[kRows];
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) acc[j] = T(0);
       for (int c = lane; c < n; c += 32) {
-        const T pv = prow[c];
-        acc += pv * x[c];
-        if (c < r) hrow[c] = pv;
-        else if (c == r) hrow[c] = pv + z[r] / s[r];
+        const T xc = x[c];
+#pragma unroll
+        for (int j = 0; j < kRows; ++j) {
+          const int r = r0 + j * n_warps;
+          if (r < n) {
+            const T pv = pm[r * n + c];
+            acc[j] += pv * xc;
+          }
+        }
       }
-      acc = warp_sum(acc);
-      if (lane == 0) rd[r] = acc + qv[r] - z[r];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+        for (int j = 0; j < kRows; ++j) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], o);
+      }
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        const int r = r0 + j * n_warps;
+        if (lane == 0 && r < n) rd[r] = acc[j] + qv[r] - z[r];
+      }
+    }
+    // H = P + diag(z / s), its lower tiles in registers
+    load_tiles(pm, h, n);
+#pragma unroll
+    for (int t = 0; t < TPT; ++t) {
+      if (h.ti[t] >= 0 && h.ti[t] == h.tk[t]) {
+#pragma unroll
+        for (int rr = 0; rr < kTile; ++rr) {
+          const int r = kTile * h.ti[t] + rr;
+          if (r < n) {
+            const T pv = h.v[t][rr][rr];
+            h.v[t][rr][rr] = pv + z[r] / s[r];
+          }
+        }
+      }
     }
     __syncthreads();
-    factor_in_place(h, col, n, ld);
 
+    // Predictor (affine scaling) step: its right-hand side, then the factor
+    // with the forward substitution fused in, then the backward one
+    T mu = T(0);
     if (warp == 0) {
-      // Predictor (affine scaling) step
-      T mu = T(0);
       for (int i = lane; i < n; i += 32) {
         const T di = z[i] / s[i];
         const T rpi = s[i] - (x[i] - lbv[i]);
@@ -176,15 +223,18 @@ ip_steps_kernel(const T* __restrict__ p, const T* __restrict__ q, const T* __res
         mu += s[i] * z[i];
       }
       mu = warp_sum(mu) * inv_n;
-      __syncwarp();
-      substitute_warp(h, w, n, ld);
+    }
+    factor_regs<T, TPT, true>(h, pan, w, n);
+    backward_regs(h, pan, w, n);
+
+    if (warp == 0) {
       for (int i = lane; i < n; i += 32) {
         const T dsi = w[i] - rp[i];
         dsa[i] = dsi;
         dza[i] = -z[i] - d[i] * dsi;
       }
-      T a_p = cap_at(min_ratio_warp(s, dsa, n), T(1));
-      T a_d = cap_at(min_ratio_warp(z, dza, n), T(1));
+      const T a_p = cap_at(min_ratio_warp(s, dsa, n), T(1));
+      const T a_d = cap_at(min_ratio_warp(z, dza, n), T(1));
       T mu_aff = T(0);
       for (int i = lane; i < n; i += 32) mu_aff += (s[i] + a_p * dsa[i]) * (z[i] + a_d * dza[i]);
       mu_aff = warp_sum(mu_aff) * inv_n;
@@ -197,15 +247,18 @@ ip_steps_kernel(const T* __restrict__ p, const T* __restrict__ q, const T* __res
         rc[i] = rci;
         w[i] = -rd[i] - rci / s[i] + d[i] * rp[i];
       }
-      __syncwarp();
-      substitute_warp(h, w, n, ld);
+    }
+    forward_regs(h, pan, w, n);
+    backward_regs(h, pan, w, n);
+
+    if (warp == 0) {
       for (int i = lane; i < n; i += 32) {
         const T dsi = w[i] - rp[i];
         dsa[i] = dsi;
         dz[i] = -rc[i] / s[i] - d[i] * dsi;
       }
-      a_p = corrector_step<kFullStep>(min_ratio_warp(s, dsa, n));
-      a_d = corrector_step<kFullStep>(min_ratio_warp(z, dz, n));
+      const T a_p = corrector_step<kFullStep>(min_ratio_warp(s, dsa, n));
+      const T a_d = corrector_step<kFullStep>(min_ratio_warp(z, dz, n));
 
       // New iterate, unless a lane's step is not finite: then it keeps its
       // last iterate from here on
@@ -234,25 +287,54 @@ ip_steps_kernel(const T* __restrict__ p, const T* __restrict__ q, const T* __res
   }
 }
 
+// Shared memory of a block (ops/ip_lane.py::smem_bytes mirrors it): two
+// panel buffers of np x 4 and kVectors vectors.
 template <typename T>
 inline size_t smem_bytes(int n) {
-  const int ld = row_stride(n);
-  return sizeof(T) * (2 * static_cast<size_t>(n) * ld + kVectors * static_cast<size_t>(n));
+  const size_t np = kTile * ((n + kTile - 1) / kTile);
+  return sizeof(T) * (2 * kTile * np + kVectors * static_cast<size_t>(n));
 }
 
+// The kernel for TPT tiles a thread, TPT = 1 .. kMaxTPT<T>
+// (ops/ip_lane.py::geometry picks the threads and TPT follows; its
+// MAX_TILES_PER_THREAD mirrors kMaxTPT).
+template <typename T> constexpr int kMaxTPT = 4;
+template <> constexpr int kMaxTPT<double> = 2;
+
+template <typename T, bool kFullStep, int TPT>
+int launch_tpt(int tpt, const void* p, const void* q, const void* lb, const void* x0,
+               const void* s0, const void* z0, void* x, void* s, void* z, int batch, int n,
+               int n_steps, int threads, cudaStream_t stream) {
+  if constexpr (TPT > kMaxTPT<T>) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (tpt != TPT)
+      return launch_tpt<T, kFullStep, TPT + 1>(tpt, p, q, lb, x0, s0, z0, x, s, z, batch, n,
+                                               n_steps, threads, stream);
+    // under the 48 KB a block may use without opting in, at every n taken
+    const size_t bytes = smem_bytes<T>(n);
+    ip_steps_kernel<T, TPT, kFullStep><<<batch, threads, bytes, stream>>>(
+        static_cast<const T*>(p), static_cast<const T*>(q), static_cast<const T*>(lb),
+        static_cast<const T*>(x0), static_cast<const T*>(s0), static_cast<const T*>(z0),
+        static_cast<T*>(x), static_cast<T*>(s), static_cast<T*>(z), n, n_steps);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+// threads: a multiple of 32, at most kRegThreadsMax, with ceil(tiles /
+// threads) <= kMaxTPT<T>.
 template <typename T, bool kFullStep>
 int launch_ip_steps(const void* p, const void* q, const void* lb, const void* x0,
                     const void* s0, const void* z0, void* x, void* s, void* z, int batch,
-                    int n, int n_steps, void* stream) {
+                    int n, int n_steps, int threads, void* stream) {
   if (batch == 0) return 0;
-  const size_t bytes = smem_bytes<T>(n);
-  int err = allow_smem(ip_steps_kernel<T, kFullStep>, bytes);
-  if (err) return err;
-  ip_steps_kernel<T, kFullStep><<<batch, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(p), static_cast<const T*>(q), static_cast<const T*>(lb),
-      static_cast<const T*>(x0), static_cast<const T*>(s0), static_cast<const T*>(z0),
-      static_cast<T*>(x), static_cast<T*>(s), static_cast<T*>(z), n, row_stride(n), n_steps);
-  return static_cast<int>(cudaGetLastError());
+  const int nt = (n + kTile - 1) / kTile;
+  const int n_tiles = nt * (nt + 1) / 2;
+  if (n < 1 || threads < 32 || threads % 32 || threads > kRegThreadsMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tpt = (n_tiles + threads - 1) / threads;
+  return launch_tpt<T, kFullStep, 1>(tpt, p, q, lb, x0, s0, z0, x, s, z, batch, n, n_steps,
+                                     threads, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -261,20 +343,20 @@ extern "C" {
 
 int ip_steps_lane_f32(const void* p, const void* q, const void* lb, const void* x0,
                       const void* s0, const void* z0, void* x, void* s, void* z, int batch,
-                      int n, int n_steps, void* stream) {
+                      int n, int n_steps, int threads, void* stream) {
   return launch_ip_steps<float, false>(p, q, lb, x0, s0, z0, x, s, z, batch, n, n_steps,
-                                      stream);
+                                      threads, stream);
 }
 int ip_steps_lane_f64(const void* p, const void* q, const void* lb, const void* x0,
                       const void* s0, const void* z0, void* x, void* s, void* z, int batch,
-                      int n, int n_steps, void* stream) {
+                      int n, int n_steps, int threads, void* stream) {
   return launch_ip_steps<double, false>(p, q, lb, x0, s0, z0, x, s, z, batch, n, n_steps,
-                                       stream);
+                                       threads, stream);
 }
 int ip_steps_loop_f32(const void* p, const void* q, const void* lb, const void* x0,
                       const void* s0, const void* z0, void* x, void* s, void* z, int batch,
-                      int n, int n_steps, void* stream) {
+                      int n, int n_steps, int threads, void* stream) {
   return launch_ip_steps<float, true>(p, q, lb, x0, s0, z0, x, s, z, batch, n, n_steps,
-                                     stream);
+                                     threads, stream);
 }
 }  // extern "C"

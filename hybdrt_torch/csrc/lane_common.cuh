@@ -1,6 +1,8 @@
 // Device helpers shared by the lane kernels (chol_lane.cu, ip_lane.cu,
-// chol_layouts.cu): one thread block per (n, n) matrix kept in shared memory
-// with the odd row stride ld = n | 1, so that column walks hit distinct banks.
+// chol_layouts.cu, and lane_regs.cuh): the refined pivot, and for the
+// kernels that keep one (n, n) matrix per thread block in shared memory (row
+// stride ld = n | 1, odd, so that column walks hit distinct banks) its load,
+// store and the one-warp substitution.
 //
 // The factor's contract is the TPU kernels' (hybdrt_tpu/ops/pallas_chol_lane.py):
 // only the lower triangle of the factor is valid, the upper triangle keeps
@@ -42,36 +44,6 @@ __device__ __forceinline__ void store_matrix(const T* s, T* __restrict__ g, int 
     int r = idx / n;
     int c = idx - r * n;
     g[idx] = s[r * ld + c];
-  }
-}
-
-// In-place lower Cholesky of the (n, n) matrix in shared memory, reading and
-// writing its lower triangle only. col is a shared scratch vector of length
-// n. Called by the whole block; ends on a barrier.
-template <typename T>
-__device__ void factor_in_place(T* a, T* col, int n, int ld) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  for (int j = 0; j < n; ++j) {
-    // Phase 1: scale column j by the refined inverse pivot. The diagonal is
-    // written back in phase 2, after every thread has read it here.
-    const T ajj = a[j * ld + j];
-    const T inv = refined_rsqrt(ajj);
-    for (int i = j + threadIdx.x; i < n; i += blockDim.x) {
-      const T v = (i == j ? ajj : a[i * ld + j]) * inv;
-      col[i] = v;
-      if (i > j) a[i * ld + j] = v;
-    }
-    __syncthreads();
-    // Phase 2: rank-1 update of the trailing lower triangle, one warp per row.
-    if (threadIdx.x == 0) a[j * ld + j] = col[j];
-    for (int r = j + 1 + warp; r < n; r += n_warps) {
-      const T lr = col[r];
-      T* row = a + r * ld;
-      for (int c = j + 1 + lane; c <= r; c += 32) row[c] -= lr * col[c];
-    }
-    __syncthreads();
   }
 }
 

@@ -1,6 +1,8 @@
-// The register-tiled lane Cholesky of chol_factor_solve_lane and
-// chol_factor_lane (chol_lane.cu): one thread block per (n, n) matrix, its
-// lower triangle held in registers for the whole factorization.
+// The register-tiled lane Cholesky: one thread block per (n, n) matrix, its
+// lower triangle held in registers for the whole factorization and for the
+// substitutions against it. Used by chol_factor_solve_lane, chol_solve_lane
+// and chol_factor_lane (chol_lane.cu) and by the fused interior-point steps
+// (ip_lane.cu).
 //
 // Layout. The lower triangle is cut into 4x4 tiles (I, K), K <= I < nt =
 // ceil(n / 4), padded past n with zeros. Tile t = I (I + 1) / 2 + K (row by
@@ -21,20 +23,25 @@
 //      the shared panel (two 16-byte loads per row of 4 multiply-adds), then
 //      publishes tile column J + 1 into the other buffer, so that the next
 //      panel needs no barrier of its own before it.
-// n = 93: 48 block barriers for the factor, against factor_in_place's 186.
-// The input's strict upper triangle, which the factor's output keeps, goes
-// to the output through a shared stage by asynchronous copies started
-// before the factorization and stored after it.
+// n = 93: 48 block barriers for the factor. A substitution against a factor
+// already in registers (forward_regs, backward_regs) takes two barriers per
+// tile column or row: its owners publish it, thread 0 solves the 4
+// unknowns, every thread updates its rows. chol_lane.cu copies the input's
+// strict upper triangle, which a returned factor keeps, to the output
+// through a shared stage by asynchronous copies started before the
+// factorization and stored after it.
 //
-// Bitwise identity with factor_in_place (lane_common.cuh). Every element
-// (r, c) receives a_rc <- fma(-l_rj, l_cj, a_rc) for j = 0, 1, ..., c - 1 in
-// ascending order, as factor_in_place's contracted row[c] -= lr * col[c];
-// the pivot is refined_rsqrt of the updated diagonal, and every element of
-// column c, the diagonal included, is scaled as a_ic * inv. The forward and
-// backward substitutions apply, per element, the updates of substitute_warp
-// in its order (ascending j forward, descending j backward, each one fma)
-// and divide by the diagonal as it does. So L and x are bitwise those of
-// factor_in_place and substitute_warp.
+// The order of every update is fixed, whatever the geometry. Each element
+// (r, c) of the lower triangle receives a_rc <- fma(-l_rj, l_cj, a_rc) for j =
+// 0, 1, ..., c - 1 in ascending order; the pivot of column c is
+// refined_rsqrt of its updated diagonal, and every element of column c, the
+// diagonal included, is then scaled as a_ic * inv. The forward substitution
+// gives each w_i the updates w_i <- fma(-l_ij, y_j, w_i) for ascending j < i
+// and then y_i = w_i / l_ii; the backward one gives w_i the updates
+// fma(-l_ji, x_j, w_i) for descending j > i and then x_i = w_i / l_ii. So L
+// and x do not depend on the number of threads or tiles a thread, and
+// substitute_warp (lane_common.cuh), which applies the same substitution
+// orders, gives bitwise the same x against the same L.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -170,6 +177,21 @@ __device__ __forceinline__ void read_back(T (&v)[kTile][kTile], const T* pan, in
   for (int rr = 0; rr < kTile; ++rr) load4(pan + (kTile * i + rr) * kTile, v[rr]);
 }
 
+// The forward substitution of one diagonal 4x4 block, in registers: y <-
+// D^-1 y for its first kend rows, d[k2][k] = D(k2, k), k <= k2.
+template <typename T>
+__device__ __forceinline__ void solve_diag4(T (&y)[kTile], const T (&d)[kTile][kTile], int kend) {
+#pragma unroll
+  for (int k = 0; k < kTile; ++k) {
+    if (k < kend) {
+      y[k] = y[k] / d[k][k];
+#pragma unroll
+      for (int k2 = k + 1; k2 < kTile; ++k2)
+        if (k2 < kend) y[k2] = fma_t(-d[k2][k], y[k], y[k2]);
+    }
+  }
+}
+
 // Warp 0: factor the panel of columns j0 .. j0 + 3 in the shared buffer pan
 // (rows j0 .. n - 1 valid) in registers, 32 kPanelSlots<T> rows at a time,
 // a lane per row; the pivot rows' values go round by shuffles. With kSolve,
@@ -223,15 +245,7 @@ __device__ __forceinline__ void factor_panel_warp(T* pan, T* w, int j0, int n) {
     T y[kTile];
 #pragma unroll
     for (int k = 0; k < kTile; ++k) y[k] = k < kend ? w[j0 + k] : T(0);
-#pragma unroll
-    for (int k = 0; k < kTile; ++k) {
-      if (k < kend) {
-        y[k] = y[k] / d[k][k];
-#pragma unroll
-        for (int k2 = k + 1; k2 < kTile; ++k2)
-          if (k2 < kend) y[k2] = fma_t(-d[k2][k], y[k], y[k2]);
-      }
-    }
+    solve_diag4(y, d, kend);
 #pragma unroll
     for (int k = 0; k < kTile; ++k)
       if (k < kend) w[j0 + k] = y[k];
@@ -338,6 +352,48 @@ __device__ __forceinline__ void backward_regs(const RegTiles<T, TPT>& m, T* rows
     for (int i = threadIdx.x; i < j0; i += blockDim.x) {
       T wi = w[i];
       for (int jj = jend - 1; jj >= 0; --jj) wi = fma_t(-r[jj * np + i], w[j0 + jj], wi);
+      w[i] = wi;
+    }
+  }
+}
+
+// w <- L^-1 w for the factor in m, by tile columns from the first: the
+// owners publish tile column J to cols[np][4] (one of two buffers, 2 * 4 * np
+// values of shared scratch), thread 0 solves its 4 unknowns in registers,
+// and every thread updates the rows below it, ascending k, one fma each (the
+// order factor_regs' fused forward substitution keeps). Called by the whole
+// block after factor_regs; ends after a barrier.
+template <typename T, int TPT>
+__device__ __forceinline__ void forward_regs(const RegTiles<T, TPT>& m, T* cols, T* w, int n) {
+  const int nt = (n + kTile - 1) / kTile;
+  const int np = kTile * nt;
+  for (int jt = 0; jt < nt; ++jt) {
+    const int j0 = kTile * jt;
+    T* p = cols + (jt & 1) * kTile * np;
+#pragma unroll
+    for (int s = 0; s < TPT; ++s)
+      if (m.tk[s] == jt) publish(m.v[s], p, m.ti[s]);
+    __syncthreads();
+    const int kend = min(kTile, n - j0);
+    if (threadIdx.x == 0) {
+      T y[kTile], d[kTile][kTile];  // d[k2][k] = l(j0 + k2, j0 + k), k <= k2
+#pragma unroll
+      for (int k2 = 0; k2 < kTile; ++k2) {
+        y[k2] = k2 < kend ? w[j0 + k2] : T(0);
+#pragma unroll
+        for (int k = 0; k < kTile; ++k)
+          d[k2][k] = k2 < kend && k <= k2 ? p[(j0 + k2) * kTile + k] : T(0);
+      }
+      solve_diag4(y, d, kend);
+#pragma unroll
+      for (int k = 0; k < kTile; ++k)
+        if (k < kend) w[j0 + k] = y[k];
+    }
+    __syncthreads();
+    for (int i = j0 + kTile + threadIdx.x; i < n; i += blockDim.x) {
+      T wi = w[i];
+#pragma unroll
+      for (int k = 0; k < kTile; ++k) wi = fma_t(-p[i * kTile + k], w[j0 + k], wi);
       w[i] = wi;
     }
   }

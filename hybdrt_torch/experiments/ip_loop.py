@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from ..csrc import build as _build
-from ..ops import chol_lane, ip_lane
+from ..ops import ip_lane
 from ..utils.probe import card_line, check_steps, cuda_ms, in_turns, ip_steps_bound
 
 NAME = "ip_steps_loop"
@@ -85,12 +85,13 @@ def ip_steps_loop(P, q, lb, x0, s0, z0, n_steps=8):
     if n_steps < 0:
         raise ValueError(f"{NAME}: n_steps={n_steps} must be >= 0")
     vecs = (q, lb, x0, s0, z0)
-    if chol_lane.on_cpu(NAME, P, *vecs, smem=ip_lane.smem_bytes, dtypes=DTYPES):
+    if ip_lane.on_cpu(NAME, P, *vecs, dtypes=DTYPES):
         return ip_steps_loop_plain(P, *vecs, n_steps)
     x, s, z = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     bsz, n = q.shape
     if bsz:
-        _build.launch(NAME, (P, *vecs, x, s, z), (bsz, n, n_steps), P.device)
+        _build.launch(NAME, (P, *vecs, x, s, z),
+                      (bsz, n, n_steps, ip_lane.geometry(n, P.dtype)[0]), P.device)
         LAUNCHES[NAME] += 1
     return x, s, z
 

@@ -1,9 +1,9 @@
 """Speed-of-light probe of the lane factor: the port of
 ``experiments/vmem_sol.py::main.sol``.
 
-``smem_sol(a) -> o`` runs the access pattern of the lane factor
-(``factor_in_place`` in ``hybdrt_torch/csrc/lane_common.cuh``, as
-``chol_factor_lane`` launches it) with its arithmetic taken out: the same
+``smem_sol(a) -> o`` runs the access pattern of the shared-memory column
+factor that the lane kernels ran before their register-tiled design
+(``hybdrt_torch/csrc/lane_regs.cuh``) with its arithmetic taken out: the same
 grid, block, shared memory, column loop and two block barriers per column,
 the same elements touched (column j from the diagonal down, then the
 trailing lower triangle), each only scaled by ``SCALE`` (CUDA kernel

@@ -12,10 +12,12 @@ in CUDA for Hopper in ``hybdrt_torch/csrc/chol_lane.cu``:
 - ``chol_factor_lane(a) -> l``: the factor alone (the group resolve's
   block-Jacobi preconditioner, ``mapping/resolve.py``); ``a`` is not written.
 
-The first and the last hold the lower triangle in registers, in 4x4 tiles
-spread over the block's threads (``csrc/lane_regs.cuh``); ``reg_geometry``
-picks the threads from n, as the CUDA launcher expects. The other two factor
-in shared memory. Both factor routines give bitwise the same L.
+All but ``chol_solve_factored_lane`` hold the lower triangle in registers,
+in 4x4 tiles spread over the block's threads (``csrc/lane_regs.cuh``);
+``reg_geometry`` picks the threads from n, as the CUDA launcher expects.
+``chol_solve_factored_lane`` substitutes with one warp against the factor in
+shared memory. The factor's update order is fixed, so the first and the last
+give bitwise the same L, and the first and the third bitwise the same x.
 
 ``a``/``l`` are (B, n, n) and ``b``/``x`` are (B, n), contiguous, float32 or
 float64. Only the lower triangle of a returned factor is valid, and a
@@ -62,56 +64,73 @@ def smem_bytes(n, dtype):
     return torch.finfo(dtype).bits // 8 * (n * ld + 2 * n)
 
 
-def reg_geometry(n, dtype):
+def reg_geometry(n, dtype, tiles_per_thread=None):
     """(threads, tiles a thread, shared bytes) of the register-tiled kernels
     for n: the fewest threads, in whole warps and at most REG_THREADS_MAX,
     that hold the ceil(n/4) * (ceil(n/4) + 1) / 2 lower tiles at
-    ``TILES_PER_THREAD[dtype]`` tiles a thread where they can. The shared
-    bytes are ``chol_factor_solve_lane``'s (two panel buffers of 4 *
-    ceil(n/4) rows of 4, w, and the stage of the strict upper triangle);
-    ``chol_factor_lane`` needs all but w."""
+    ``tiles_per_thread`` (default ``TILES_PER_THREAD[dtype]``) tiles a thread
+    where they can. The shared bytes are ``chol_factor_solve_lane``'s (two
+    panel buffers of 4 * ceil(n/4) rows of 4, w, and the stage of the strict
+    upper triangle); ``chol_factor_lane`` needs all but w,
+    ``chol_solve_lane`` all but the stage."""
+    per_thread = TILES_PER_THREAD[dtype] if tiles_per_thread is None else tiles_per_thread
     nt = -(-n // TILE)
-    tiles = nt * (nt + 1) // 2
-    threads = min(32 * -(-tiles // (32 * TILES_PER_THREAD[dtype])), REG_THREADS_MAX)
+    tiles = lower_tiles(n)
+    threads = min(32 * -(-tiles // (32 * per_thread)), REG_THREADS_MAX)
     smem = torch.finfo(dtype).bits // 8 * (2 * TILE * TILE * nt + TILE * nt + n * (n - 1) // 2)
     return threads, -(-tiles // threads), smem
 
 
-def admitted(n, dtype, smem=smem_bytes):
+def lower_tiles(n):
+    """The 4x4 tiles of an (n, n) lower triangle: ceil(n/4) (ceil(n/4) + 1) / 2."""
+    nt = -(-n // TILE)
+    return nt * (nt + 1) // 2
+
+
+def admitted(n, dtype, smem=smem_bytes, tiles=None):
     """Whether the kernels take matrices of size n in ``dtype``: those whose
-    ``smem(n, dtype)`` bytes fit one block's shared memory."""
-    return smem(n, dtype) <= MAX_SMEM_BYTES
+    ``smem(n, dtype)`` bytes fit one block's shared memory and, for a kernel
+    that holds the lower triangle in registers at most ``tiles[dtype]`` tiles
+    a thread, whose tiles fit REG_THREADS_MAX threads."""
+    return smem(n, dtype) <= MAX_SMEM_BYTES and (
+        tiles is None or lower_tiles(n) <= REG_THREADS_MAX * tiles[dtype])
 
 
-def check_args(name, a, *vecs, smem=smem_bytes, dtypes=DTYPES):
-    """Raise unless ``a`` (B, n, n) and each of ``vecs`` (B, n) are contiguous
-    CUDA tensors on one device, all of one dtype out of ``dtypes``, and the
-    ``smem(n, dtype)`` bytes of shared memory the kernel needs fit one block."""
+def check_args(name, a, *vecs, smem=smem_bytes, dtypes=DTYPES, tiles=None):
+    """Raise unless ``a`` (B, n, n) and each of ``vecs`` (B, n) are all of one
+    dtype out of ``dtypes``, the kernel takes their n (``admitted``: the
+    ``smem(n, dtype)`` bytes of shared memory it needs fit one block, and the
+    lower tiles fit its registers where ``tiles`` is given), and they are
+    contiguous CUDA tensors on one device."""
     ts = (a, *vecs)
-    if a.device.type != "cuda" or any(t.device != a.device for t in vecs):
-        raise ValueError(f"{name}: expected CUDA tensors on one device, got "
-                         f"{[str(t.device) for t in ts]}")
     if a.dtype not in dtypes or any(t.dtype != a.dtype for t in vecs):
         raise TypeError(f"{name}: expected one dtype out of {list(dtypes)}, got "
                         f"{[t.dtype for t in ts]}")
     if a.dim() != 3 or a.shape[1] != a.shape[2] or any(t.shape != a.shape[:2] for t in vecs):
         raise ValueError(f"{name}: expected a (B, n, n) and vectors (B, n), got "
                          f"{[tuple(t.shape) for t in ts]}")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError(f"{name}: inputs must be contiguous")
     n = a.shape[1]
     if not admitted(n, a.dtype, smem):
         raise ValueError(f"{name}: n={n} in {a.dtype} needs {smem(n, a.dtype)} bytes "
                          f"of shared memory, more than one block has ({MAX_SMEM_BYTES})")
+    if not admitted(n, a.dtype, smem, tiles):
+        raise ValueError(f"{name}: n={n} has {lower_tiles(n)} lower tiles, more than "
+                         f"{REG_THREADS_MAX} threads hold at {tiles[a.dtype]} a thread in "
+                         f"{a.dtype}")
+    if a.device.type != "cuda" or any(t.device != a.device for t in vecs):
+        raise ValueError(f"{name}: expected CUDA tensors on one device, got "
+                         f"{[str(t.device) for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}: inputs must be contiguous")
 
 
-def on_cpu(name, a, *vecs, smem=smem_bytes, dtypes=DTYPES):
+def on_cpu(name, a, *vecs, smem=smem_bytes, dtypes=DTYPES, tiles=None):
     """True when every tensor lies on the CPU, where the wrapper runs its
     plain version; otherwise checks that the kernel takes them and returns
     False (a CUDA tensor never reaches a plain version)."""
     if a.device.type == "cpu" and all(t.device.type == "cpu" for t in vecs):
         return True
-    check_args(name, a, *vecs, smem=smem, dtypes=dtypes)
+    check_args(name, a, *vecs, smem=smem, dtypes=dtypes, tiles=tiles)
     return False
 
 
@@ -179,7 +198,9 @@ def chol_solve_lane(a, b):
     if on_cpu(name, a, b):
         return chol_solve_lane_plain(a, b)
     x = torch.empty_like(b)
-    _launch(name, a, b, x, batch=a.shape[0], n=a.shape[1], device=a.device)
+    n = a.shape[1]
+    _launch(name, a, b, x, batch=a.shape[0], n=n, device=a.device,
+            ints=reg_geometry(n, a.dtype)[:1])
     return x
 
 

@@ -36,11 +36,50 @@ def reset_launch_counts():
     LAUNCHES["ip_steps_lane"] = 0
 
 
+# Tiles of H a thread holds (csrc/ip_lane.cu instantiates 1 .. kMaxTPT<T>,
+# which this mirrors): a block holds H's lower tiles on the fewest whole warps
+# at this many tiles a thread, so at most REG_THREADS_MAX times as many
+# tiles, n <= 216 in float32 and 152 in float64. At n = 93 and 94: 96
+# threads of 4 tiles in float32 (162 registers, no spill), 160 of 2 in
+# float64 (168 registers, 16 bytes of spill).
+MAX_TILES_PER_THREAD = {torch.float32: 4, torch.float64: 2}
+
+
 def smem_bytes(n, dtype):
-    """Shared memory one block of the kernel needs (mirrors the CUDA source:
-    P and H with row stride n | 1, and 14 vectors)."""
-    ld = n | 1
-    return torch.finfo(dtype).bits // 8 * (2 * n * ld + 14 * n)
+    """Shared memory one block of the kernel needs (mirrors ``smem_bytes`` in
+    ``csrc/ip_lane.cu``): two panel buffers of np x 4 (np = n rounded up to
+    4) and 13 vectors."""
+    np_ = chol_lane.TILE * -(-n // chol_lane.TILE)
+    return torch.finfo(dtype).bits // 8 * (2 * chol_lane.TILE * np_ + 13 * n)
+
+
+def admitted(n, dtype):
+    """Whether the kernel takes lanes of size n in ``dtype`` (the rule
+    ``check_args`` applies): H's lower tiles fit ``chol_lane.
+    REG_THREADS_MAX`` threads at ``MAX_TILES_PER_THREAD[dtype]`` tiles a
+    thread."""
+    return chol_lane.admitted(n, dtype, smem_bytes, MAX_TILES_PER_THREAD)
+
+
+def check_args(name, P, *vecs, dtypes=chol_lane.DTYPES):
+    """``chol_lane.check_args`` with this kernel's rule for n."""
+    chol_lane.check_args(name, P, *vecs, smem=smem_bytes, dtypes=dtypes,
+                         tiles=MAX_TILES_PER_THREAD)
+
+
+def on_cpu(name, P, *vecs, dtypes=chol_lane.DTYPES):
+    """``chol_lane.on_cpu`` with this kernel's rule for n."""
+    return chol_lane.on_cpu(name, P, *vecs, smem=smem_bytes, dtypes=dtypes,
+                            tiles=MAX_TILES_PER_THREAD)
+
+
+def geometry(n, dtype):
+    """(threads, tiles a thread, shared bytes) of a block for n: H's lower
+    tiles on the fewest whole warps (at most ``chol_lane.REG_THREADS_MAX``
+    threads) that hold them at ``MAX_TILES_PER_THREAD[dtype]`` tiles a
+    thread, as ``chol_lane.reg_geometry`` does."""
+    threads, tpt, _ = chol_lane.reg_geometry(n, dtype, MAX_TILES_PER_THREAD[dtype])
+    return threads, tpt, smem_bytes(n, dtype)
 
 
 def _mv(P, x):
@@ -140,11 +179,12 @@ def ip_steps_lane(P, q, lb, x0, s0, z0, n_steps):
     if n_steps < 0:
         raise ValueError(f"ip_steps_lane: n_steps={n_steps} must be >= 0")
     vecs = (q, lb, x0, s0, z0)
-    if chol_lane.on_cpu("ip_steps_lane", P, *vecs, smem=smem_bytes):
+    if on_cpu("ip_steps_lane", P, *vecs):
         return ip_steps_lane_plain(P, q, lb, x0, s0, z0, n_steps)
     x, s, z = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     bsz, n = q.shape
     if bsz:
-        _build.launch("ip_steps_lane", (P, *vecs, x, s, z), (bsz, n, n_steps), P.device)
+        _build.launch("ip_steps_lane", (P, *vecs, x, s, z),
+                      (bsz, n, n_steps, geometry(n, P.dtype)[0]), P.device)
         LAUNCHES["ip_steps_lane"] += 1
     return x, s, z

@@ -15,8 +15,8 @@ n) at the fused fit's (8192, 93, 4 steps), the IP-loop experiment's (1024,
 93, 8) in float64; their line prints the digest of x, s and z, and at
 (8192, 93, 4) a line does the same for the IP-loop experiment's
 ``ip_steps_loop``. At the float32 shapes of (8192, 93), (1024, 93) and
-(1435, 94), and at (8192, 93, 4), each line also gives the kernel's time,
-the mean of 20 calls by CUDA events after a warm-up. Run from the repository root on a
+(1435, 94), and at (8192, 93, 4) and (1024, 95, 8), each line also gives the
+kernel's time, the mean of 20 calls by CUDA events after a warm-up. Run from the repository root on a
 machine with a CUDA card:
 
     python hybdrt_torch/utils/kernel_digest.py [ROOT]
@@ -40,7 +40,8 @@ CHOL_CASES = ((8192, 93, torch.float32), (1024, 93, torch.float32), (1435, 94, t
 IP_CASES = ((8192, 93, 4, torch.float32), (1024, 95, 8, torch.float32),
             (130, 17, 8, torch.float32), (64, 93, 8, torch.float64))
 CHOL_TIMED = {(8192, 93), (1024, 93), (1435, 94)}
-IP_TIMED = {(8192, 93, 4)}
+IP_TIMED = {(8192, 93, 4), (1024, 95, 8)}
+LOOP_CASES = {(8192, 93, 4)}
 FROZEN = {130: 7}
 
 
@@ -84,7 +85,7 @@ def ip_lines(probe, ip_lane, ip_loop):
                   if (b, n, n_steps) in IP_TIMED else "")
         print(f"ip_steps_lane ({b}, {n}, {n_steps} steps) {str(dtype)[6:]}: "
               f"sha256 {sha(*out)}{timing}")
-        if (b, n, n_steps) in IP_TIMED:
+        if (b, n, n_steps) in LOOP_CASES:
             loop = ip_loop.ip_steps_loop(*args, n_steps)
             ms = probe.cuda_ms(lambda: ip_loop.ip_steps_loop(*args, n_steps))
             print(f"ip_steps_loop ({b}, {n}, {n_steps} steps) {str(dtype)[6:]}: "

@@ -26,8 +26,10 @@ def bound(n_bytes, n_ops):
 
 
 def chol_ops(b, n):
-    """Operations of b Cholesky factorizations, n^3/3 multiply-adds each."""
-    return b * 2 * n ** 3 / 3
+    """Operations of b Cholesky factorizations: the trailing updates of the
+    lower triangle, sum_k k (k + 1) / 2 = (n^3 - n) / 6 multiply-adds each
+    (about n^3 / 6), two operations a multiply-add."""
+    return b * (n ** 3 - n) / 3
 
 
 def solve_ops(b, n):

@@ -44,7 +44,9 @@ def test_kernels_match_plain(cuda, b, n, dtype, tol):
     torch.testing.assert_close(torch.triu(l, 1), torch.triu(a, 1))
     torch.testing.assert_close(chol_lane.chol_solve_factored_lane(l, rhs), x_p,
                                rtol=tol, atol=tol)
-    torch.testing.assert_close(chol_lane.chol_solve_lane(a, rhs), x_p, rtol=tol, atol=tol)
+    x3 = chol_lane.chol_solve_lane(a, rhs)
+    torch.testing.assert_close(x3, x_p, rtol=tol, atol=tol)
+    assert torch.equal(x3, x), "chol_solve_lane's x must be chol_factor_solve_lane's bitwise"
     a_before = a.clone()
     l2 = chol_lane.chol_factor_lane(a)
     torch.testing.assert_close(torch.tril(l2), l_p, rtol=tol, atol=tol)
@@ -78,12 +80,12 @@ def _largest_admitted(dtype):
 @pytest.mark.parametrize("n", [1, 2, 4, 7, 8, 9, 17, 31, 32, 33, 93, 94, 128, "max"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.float64, 1e-10)])
 def test_register_factor_kernels(cuda, dtype, tol, n, b):
-    """The register-tiled chol_factor_solve_lane and chol_factor_lane against
-    their plain versions at every tile remainder, a panel edge on either side
-    of 32 and 93/94, and the largest n either dtype admits; x bitwise that of
-    chol_solve_lane (the shared-memory factor and substitution), the two
+    """The register-tiled kernels against their plain versions at every tile
+    remainder, a panel edge on either side of 32 and 93/94, and the largest n
+    either dtype admits; x of chol_solve_lane bitwise that of
+    chol_factor_solve_lane (the same factor without its output), the two
     factors bitwise equal on the lower triangle, the upper triangle the
-    input's, and the input of chol_factor_lane unchanged."""
+    input's, and the input of the kernels unchanged."""
     n = _largest_admitted(dtype) if n == "max" else n
     a, rhs = spd_batch(b, n, dtype, 7 * n + b, cuda)
     a_in = a.clone()
@@ -159,6 +161,42 @@ def test_ip_steps_lane_matches_plain(cuda, b, n, n_steps, dtype, tol):
     assert ip_lane.LAUNCHES == {"ip_steps_lane": 1}
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+
+
+# n for the fused kernels: each tile count a thread that csrc/ip_lane.cu
+# instantiates runs in each dtype (tests/test_torch_ip_lane.py holds the list
+# to that), beside the fused fit's n = 93, the resolve's 94 and the IP-loop
+# experiment's 95
+IP_SIZES = (1, 4, 5, 17, 33, 45, 93, 94, 95, "max")
+
+
+def _ip_largest(dtype):
+    return max(n for n in range(1, 400) if ip_lane.admitted(n, dtype))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("n", IP_SIZES)
+def test_ip_kernels_at_every_tile_count(cuda, n, dtype, tol):
+    """ip_steps_lane (float32 and float64) and ip_steps_loop (float32)
+    against their plain versions, 4 steps on 37 box QPs, at every n of
+    IP_SIZES, the largest admitted included; lane 5 has an indefinite P and
+    must keep its input. One launch per call."""
+    n = _ip_largest(dtype) if n == "max" else n
+    args = qp_batch(37, n, dtype, 11 * n, cuda)
+    freeze_lane(args, 5)
+    pairs = {"ip_steps_lane": (ip_lane.ip_steps_lane, ip_lane.ip_steps_lane_plain)}
+    if dtype == torch.float32:
+        pairs[ip_loop.NAME] = (ip_loop.ip_steps_loop, ip_loop.ip_steps_loop_plain)
+    ip_lane.reset_launch_counts()
+    ip_loop.reset_launch_counts()
+    for fn, plain in pairs.values():
+        got, want = fn(*args, 4), plain(*args, 4)
+        for g, w, inp in zip(got, want, args[3:]):
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+            assert torch.equal(g[5], inp[5]) and torch.isfinite(g).all()
+    torch.cuda.synchronize()
+    assert {**ip_lane.LAUNCHES, **ip_loop.LAUNCHES} == {
+        "ip_steps_lane": 1, ip_loop.NAME: int(dtype == torch.float32)}
 
 
 def test_ip_steps_lane_freezes_a_failed_lane(cuda):
@@ -383,8 +421,8 @@ def test_ip_steps_loop_bad_inputs(cuda):
         ip_loop.ip_steps_loop(args[0], args[1].cpu(), *args[2:], 2)
     with pytest.raises(ValueError):
         ip_loop.ip_steps_loop(*args, -1)
-    big = qp_batch(1, 200, torch.float32, 0, cuda)
-    with pytest.raises(ValueError, match="shared memory"):
+    big = qp_batch(1, _ip_largest(torch.float32) + 1, torch.float32, 0, cuda)
+    with pytest.raises(ValueError, match="lower tiles"):
         ip_loop.ip_steps_loop(*big, 2)
     for got, inp in zip(ip_loop.ip_steps_loop(*args, 0), args[3:]):
         assert torch.equal(got, inp)

@@ -15,6 +15,9 @@ takes 0.99. ``test_tpu_kernel_departs_where_a_full_step_is_feasible`` pins
 that: the port follows ``_ip_steps_single``. The CUDA kernel is held to the
 plain version on a GPU by tests/test_torch_cuda.py.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +27,7 @@ import jax.numpy as jnp
 from hybdrt_tpu.ops import qp as jqp
 from hybdrt_tpu.ops.pallas_ip_lane import ip_steps_lane as tpu_ip_steps_lane
 from hybdrt_torch.ops import chol_lane, ip_lane
+from test_torch_cuda import IP_SIZES
 
 # The suite runs several test processes at once; torch's default of one
 # thread per core in each of them oversubscribes the machine
@@ -158,9 +162,58 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     P = torch.eye(4).expand(2, 4, 4).contiguous()
     v = torch.ones(2, 4)
     with pytest.raises(ValueError, match="CUDA"):
-        chol_lane.check_args("ip_steps_lane", P, v, v, v, v, v, smem=ip_lane.smem_bytes)
-    # P and H per block in shared memory: the bench's n = 93 needs the
-    # dynamic opt-in above 48 KB in both types and fits; n = 200 does not
-    assert 48 * 1024 < ip_lane.smem_bytes(93, torch.float32) < chol_lane.MAX_SMEM_BYTES
-    assert ip_lane.smem_bytes(93, torch.float64) < chol_lane.MAX_SMEM_BYTES
-    assert ip_lane.smem_bytes(200, torch.float32) > chol_lane.MAX_SMEM_BYTES
+        ip_lane.check_args("ip_steps_lane", P, v, v, v, v, v)
+    # H in registers, at most 4 tiles a thread in float32 and 2 in float64 on
+    # 384 threads: the bench's n = 93 and the largest admitted n (216 and
+    # 152, above the 166 and 117 that P and H in shared memory allowed) pass
+    # to the device check, and the next n is refused for its tiles
+    for dtype, largest in ((torch.float32, 216), (torch.float64, 152)):
+        for n in (93, largest):
+            assert ip_lane.admitted(n, dtype)
+            P = torch.eye(n, dtype=dtype).expand(1, n, n).contiguous()
+            v = torch.ones(1, n, dtype=dtype)
+            with pytest.raises(ValueError, match="CUDA"):
+                ip_lane.check_args("ip_steps_lane", P, v, v, v, v, v)
+        n = largest + 1
+        assert not ip_lane.admitted(n, dtype)
+        P = torch.eye(n, dtype=dtype).expand(1, n, n).contiguous()
+        v = torch.ones(1, n, dtype=dtype)
+        with pytest.raises(ValueError, match="lower tiles"):
+            ip_lane.check_args("ip_steps_lane", P, v, v, v, v, v)
+
+
+_IP_SOURCE = Path(__file__).resolve().parents[1] / "hybdrt_torch" / "csrc" / "ip_lane.cu"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [93, 94])
+def test_geometry_mirrors_the_source(n, dtype):
+    """``ip_lane.geometry`` at the fused fit's n = 93 and the resolve's 94:
+    the shared bytes are those of ``smem_bytes`` in csrc/ip_lane.cu (two
+    panel buffers, kVectors vectors), the tiles a thread within what the
+    source instantiates (kMaxTPT, which MAX_TILES_PER_THREAD mirrors), and
+    the launcher's bounds (whole warps, at most kRegThreadsMax) hold."""
+    src = _IP_SOURCE.read_text()
+    regs = _IP_SOURCE.with_name("lane_regs.cuh").read_text()
+    n_vectors = int(re.search(r"constexpr int kVectors = (\d+);", src).group(1))
+    max_tpt = {torch.float32: int(re.search(r"constexpr int kMaxTPT = (\d+);", src).group(1)),
+               torch.float64: int(re.search(r"constexpr int kMaxTPT<double> = (\d+);",
+                                            src).group(1))}
+    threads_max = int(re.search(r"constexpr int kRegThreadsMax = (\d+);", regs).group(1))
+    assert max_tpt == ip_lane.MAX_TILES_PER_THREAD and threads_max == chol_lane.REG_THREADS_MAX
+    threads, tpt, smem = ip_lane.geometry(n, dtype)
+    np_ = 4 * -(-n // 4)
+    assert smem == torch.finfo(dtype).bits // 8 * (2 * 4 * np_ + n_vectors * n)
+    assert tpt == -(-chol_lane.lower_tiles(n) // threads) <= max_tpt[dtype]
+    assert threads % 32 == 0 and threads <= threads_max
+    # the production geometry: three warps of four tiles in float32, five of
+    # two in float64, at both n
+    assert (threads, tpt) == {torch.float32: (96, 4), torch.float64: (160, 2)}[dtype]
+    # the admitted n are 1 .. largest, the largest needs every tile a thread
+    # the source instantiates, and the GPU tests' sizes run each
+    # instantiation
+    ns = [m for m in range(1, 400) if ip_lane.admitted(m, dtype)]
+    assert ns == list(range(1, ns[-1] + 1))
+    assert ip_lane.geometry(ns[-1], dtype)[:2] == (chol_lane.REG_THREADS_MAX, max_tpt[dtype])
+    sizes = [ns[-1] if m == "max" else m for m in IP_SIZES]
+    assert {ip_lane.geometry(m, dtype)[1] for m in sizes} == set(range(1, max_tpt[dtype] + 1))

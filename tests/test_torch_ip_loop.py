@@ -25,7 +25,7 @@ import jax.numpy as jnp
 
 from hybdrt_tpu.ops.pallas_ip_lane import ip_steps_lane as tpu_ip_steps_lane
 from hybdrt_torch.experiments import ip_loop
-from hybdrt_torch.ops import chol_lane, ip_lane
+from hybdrt_torch.ops import ip_lane
 from hybdrt_torch.utils.probe import check_steps, freeze_lane, ip_steps_bound, qp_batch
 from test_torch_ip_lane import _corrector_ratios, _problems
 
@@ -153,10 +153,10 @@ def test_zero_steps_and_bad_arguments():
         ip_loop.ip_steps_loop(*args, -1)
     P, v = args[0], args[1]
     with pytest.raises(ValueError, match="CUDA"):
-        chol_lane.check_args(ip_loop.NAME, P, v, v, v, v, v, smem=ip_lane.smem_bytes,
-                             dtypes=ip_loop.DTYPES)
-    # the block at the experiment's n = 95: P, H and 14 vectors, 77.5 KB
-    assert ip_lane.smem_bytes(95, torch.float32) == 77520
+        ip_lane.check_args(ip_loop.NAME, P, v, v, v, v, v, dtypes=ip_loop.DTYPES)
+    # the block at the experiment's n = 95: two panel buffers of 96 x 4 and 13
+    # vectors, 8 KB (P stays in device memory, H in registers)
+    assert ip_lane.smem_bytes(95, torch.float32) == 8012
 
 
 def test_cpu_calls_do_not_count_launches():
@@ -177,8 +177,8 @@ def test_make_problems_is_the_experiments():
         for g, w in zip(got, _experiment_problems(8, 23, np_dtype)):
             np.testing.assert_array_equal(g.numpy(), w)
     bound_ms, bound_by = ip_steps_bound(1024, 95, 8)
-    assert bound_by == "operations" and round(bound_ms, 4) == 0.0765
-    assert round(ip_steps_bound(8192, 93, 4)[0], 4) == 0.2876
+    assert bound_by == "operations" and round(bound_ms, 4) == 0.0416
+    assert round(ip_steps_bound(8192, 93, 4)[0], 4) == 0.1565
 
 
 def test_check_steps_holds_a_version_to_its_plain_one():
