@@ -15,9 +15,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    n=17), within rtol = atol = 2e-4, plus the NaN contract for a
    non-positive pivot and one float64 case; ``chol_factor_solve_lane``'s x
    must equal ``chol_solve_lane``'s bit for bit (the same register-tiled
-   factor, with and without its output); kernel, plain and single
-   library-call times from
-   CUDA events, the two factor-and-solve kernels timed in turns;
+   factor, with and without its output), and ``chol_solve_factored_lane``'s
+   against ``chol_factor_solve_lane``'s L too (the same substitution
+   orders); kernel, plain and single library-call times from CUDA events,
+   the three kernels timed in turns;
 4. the fused kernel ``ip_steps_lane`` against its plain version on the same
    CUDA tensors: equilibrated SPD box QPs from a seed at (8192, 93) and
    (130, 17), float32, 4 and 8 steps, within rtol = atol = 2e-4; a lane with
@@ -58,7 +59,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    blocks; the windowed resolve of the same blocks in float64 on the card
    must hold every Rp within 0.05 of the truth and match a float64 windowed
    resolve on the CPU (the port's plain path): the same IP iteration in
-   every window, x within 1e-8 of max |x|;
+   every window, x within 1e-8 of max |x|; a third float32 call of each
+   form under ``torch.profiler`` reports the device time of
+   ``chol_solve_factored_lane`` and ``chol_factor_lane``;
 9. the layout study (``hybdrt_torch/experiments``): each of its four
    kernels, in every variant the study times, against its plain version on
    the same CUDA tensors at (8192, 93) and (130, 17), float32, within rtol =
@@ -96,8 +99,8 @@ import numpy as np
 import torch
 
 from hybdrt_torch.utils.probe import (bound, card_line, check_steps, chol_ops, cuda_ms,
-                                      freeze_lane, in_turns, ip_steps_bound, make_batch,
-                                      qp_batch, resolve_map, solve_ops, spd_batch)
+                                      freeze_lane, in_turns, ip_steps_bound, lower_bytes,
+                                      make_batch, qp_batch, resolve_map, solve_ops, spd_batch)
 
 B_BENCH, N_FREQ, MAX_ITER = 8192, 71, 50
 # tests/test_pallas_lane_kernels.py: f32 lane kernels vs a dense solve. For
@@ -215,9 +218,13 @@ def compare_kernels():
         ok3, e3 = close(x3, cl.chol_solve_lane_plain(a, rhs))
         check(ok3, f"chol_solve_lane ({b}, {n}): err {e3}")
         # the two kernels run the same register-tiled factor and solves, one
-        # with the factor's output and one without, so their x agree bit for bit
+        # with the factor's output and one without, so their x agree bit for
+        # bit; and the one-warp substitution applies the same orders, so
+        # against that factor it gives the same x too
         check(bool(torch.equal(x, x3)), f"chol_factor_solve_lane's x is chol_solve_lane's "
                                         f"bitwise ({b}, {n})")
+        check(bool(torch.equal(cl.chol_solve_factored_lane(l, rhs), x)),
+              f"chol_solve_factored_lane's x against #1's L is #1's bitwise ({b}, {n})")
         errs = {"chol_factor_solve_lane": max(e_x, e_l), "chol_solve_factored_lane": e2,
                 "chol_solve_lane": e3}
         for k, e in errs.items():
@@ -225,11 +232,15 @@ def compare_kernels():
         print(f"kernels vs plain at B={b} n={n} f32: max abs err "
               + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
         if b == B_BENCH:
-            mat, vec = a.numel() * 4, rhs.numel() * 4
-            # the two factor-and-solve kernels in turns (with and without the
-            # factor's output)
+            # #2 and #3 are defined on the lower triangle and read only that;
+            # #1 returns the input's upper triangle, so it reads all of A
+            mat, vec, low = a.numel() * 4, rhs.numel() * 4, lower_bytes(b, n)
+            # the three kernels in turns (the factor-and-solve with and
+            # without the factor's output, and the solve against the factor)
             turns = in_turns({"chol_factor_solve_lane": lambda: cl.chol_factor_solve_lane(a, rhs),
-                              "chol_solve_lane": lambda: cl.chol_solve_lane(a, rhs)})
+                              "chol_solve_lane": lambda: cl.chol_solve_lane(a, rhs),
+                              "chol_solve_factored_lane":
+                                  lambda: cl.chol_solve_factored_lane(l, rhs2)})
             print("  in turns: " + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f} ms"
                                              for k, v in turns.items()))
             # library_ms: one PyTorch call computing the same function, where
@@ -241,15 +252,15 @@ def compare_kernels():
                     library_ms=None,
                     bound=bound(2 * mat + 2 * vec, chol_ops(b, n) + 2 * solve_ops(b, n))),
                 "chol_solve_factored_lane": dict(
-                    ms=cuda_ms(lambda: cl.chol_solve_factored_lane(l, rhs2)),
+                    ms=float(np.mean(turns["chol_solve_factored_lane"])),
                     plain_ms=cuda_ms(lambda: cl.chol_solve_factored_lane_plain(l_p, rhs2)),
                     library_ms=cuda_ms(lambda: torch.cholesky_solve(rhs2[:, :, None], l_p)),
-                    bound=bound(mat + 2 * vec, 2 * solve_ops(b, n))),
+                    bound=bound(low + 2 * vec, 2 * solve_ops(b, n))),
                 "chol_solve_lane": dict(
                     ms=float(np.mean(turns["chol_solve_lane"])),
                     plain_ms=cuda_ms(lambda: cl.chol_solve_lane_plain(a, rhs)),
                     library_ms=cuda_ms(lambda: torch.linalg.solve(a, rhs)),
-                    bound=bound(mat + 2 * vec, chol_ops(b, n) + 2 * solve_ops(b, n))),
+                    bound=bound(low + 2 * vec, chol_ops(b, n) + 2 * solve_ops(b, n))),
             }
             for k, t in times.items():
                 lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
@@ -514,6 +525,8 @@ def phase_resolve():
               f"({info['cg_iterations'] / max(info['pcg_solves'], 1):.2f} per solve); "
               f"host syncs {info['host_syncs']}")
         print(f"{label} resolve: launches in the timed call: {launches}")
+        lane_kernel_times(label, lambda: hybdrt_torch.resolve_group(
+            fitter, res, z, psi=p, dtype=torch.float32, **kw))
         check(np.all(np.isfinite(out.x)) and out.x.shape == (RESOLVE_OBS, n_tau),
               f"{label} resolve: finite x of shape ({RESOLVE_OBS}, {n_tau})")
         outs[label] = out
@@ -570,6 +583,24 @@ def phase_resolve():
     return factor_launches
 
 
+def lane_kernel_times(label, fn):
+    """One more call of ``fn`` under torch.profiler with CUDA activity:
+    prints the device time and launches of the two lane kernels of the
+    resolve (``solve_factored_kernel`` and ``factor_kernel``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    parts = []
+    for kernel in ("solve_factored_kernel", "factor_kernel"):
+        hits = [e for e in rows if kernel in e.key]
+        parts.append(f"{kernel} {sum(e.self_device_time_total for e in hits) / 1e3:.3f} ms in "
+                     f"{sum(e.count for e in hits)} launches")
+    print(f"{label} resolve, profiled third call, device time: " + ", ".join(parts))
+
+
 def phase_layouts():
     """The layout study's kernels against their plain versions, then the
     study at the fit's shape; returns ({name: max_abs_err}, {name: launches
@@ -618,7 +649,9 @@ def phase_layouts():
     check(all(v > 0 for v in launches.values()), f"every layout kernel launched: {launches}")
     ratios = res["kernels"][smem_sol.NAME]["probe_over_factor"]
     print(f"layout study launches: {launches}; t_probe / t_factor: "
-          + ", ".join(f"{k} {r:.4f}" for k, r in ratios.items()))
+          + ", ".join(f"{k} {r:.4f}" for k, r in ratios.items())
+          + "; blocks an SM holds (probe, chol_factor_lane) at n = 93: "
+          + str(smem_sol.occupancy(93)))
     times = {k: dict(ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                      bound=(r["bound_ms"], r["bound_by"]))
              for k, r in res["kernels"].items()}

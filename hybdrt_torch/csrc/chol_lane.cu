@@ -17,9 +17,10 @@
 // thread to its own tiles. The two that solve fuse the forward substitution
 // into the panels and run the backward one by tile rows; chol_solve_lane is
 // chol_factor_solve_lane without the factor's output (no store of the tiles,
-// no copy of the upper triangle). chol_solve_factored_lane copies the factor
-// into shared memory (row stride ld = n | 1) and substitutes with one warp
-// (substitute_warp, lane_common.cuh).
+// no copy of the upper triangle). chol_solve_factored_lane copies the
+// factor's lower triangle, packed by rows, into shared memory by cp.async
+// and substitutes with one warp (substitute_warp, lane_common.cuh), one
+// matrix to a warp-sized block.
 //
 // Contract (kept exactly from the TPU kernels):
 //   * only the lower triangle of a returned factor is valid; the upper
@@ -31,7 +32,9 @@
 // The register-tiled factor applies every update in a fixed order, each as
 // one fma (lane_regs.cuh), whatever the threads, so x from
 // chol_factor_solve_lane is bitwise x from chol_solve_lane, and L from
-// chol_factor_solve_lane bitwise L from chol_factor_lane.
+// chol_factor_solve_lane bitwise L from chol_factor_lane. substitute_warp
+// gives each unknown its updates in the same order, so
+// chol_solve_factored_lane against that L gives bitwise the same x.
 //
 // What bounds them: device memory moves one read of the matrix and, for the
 // kernels that return a factor, one write (0.17 ms at B=8192, n=93 in f32);
@@ -49,6 +52,17 @@
 // another order and break the bitwise identity; they are left out. So is a
 // persistent grid that prefetches the next matrix with cp.async: not tried.
 //
+// chol_solve_factored_lane needs only a read of the lower triangle and of b
+// and a write of x (0.045 ms at B=8192, n=93 in f32) and 2 n^2
+// multiply-adds; what holds it is the chain of 2 n dependent divisions,
+// each behind a warp barrier. One warp per matrix keeps that chain free of
+// block barriers, and the packed triangle (17.8 KB at n = 93 in f32, half
+// of the (n, n | 1) matrix it replaced) lets twelve matrices share an SM.
+// The triangle in register tiles over 64 threads, substituted by tile
+// columns and rows, gave the same x and was slower at the fit's batch; so
+// was a warp reading the triangle through L1 with no shared memory
+// (PERF.md, Findings).
+//
 // Each launcher returns cudaGetLastError() so that the Python wrapper can
 // raise on a refused launch.
 
@@ -58,18 +72,8 @@ namespace {
 
 using namespace hybdrt_lane;
 
-template <typename T>
-struct Smem {
-  T* a;
-  T* col;
-  T* w;
-};
-
-template <typename T>
-__device__ __forceinline__ Smem<T> carve(unsigned char* raw, int n, int ld) {
-  T* base = reinterpret_cast<T*>(raw);
-  return {base, base + n * ld, base + n * ld + n};
-}
+// chol_solve_factored_lane: one warp a matrix (ops/chol_lane.py::solve_geometry)
+constexpr int kSolveThreads = 32;
 
 // Shared memory of the register-tiled kernels: two panel buffers of np x 4
 // (np = n rounded up to the tile; the backward substitution reuses them),
@@ -125,30 +129,35 @@ factor_kernel(const T* __restrict__ a, T* __restrict__ l, int n) {
   copy_upper_finish(stage, l + m_off, n);
 }
 
-// x = (L L^T)^-1 b against a factor from factor_solve_kernel.
+// x = (L L^T)^-1 b against a factor from factor_solve_kernel or
+// factor_kernel, one warp a matrix and a matrix a block: the factor's lower
+// triangle, packed by rows, is copied into shared memory by cp.async, then
+// substitute_warp solves against it (lane_common.cuh).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-solve_factored_kernel(const T* __restrict__ l, const T* __restrict__ b,
-                      T* __restrict__ x, int n, int ld) {
+__global__ void __launch_bounds__(kSolveThreads)
+solve_factored_kernel(const T* __restrict__ l, const T* __restrict__ b, T* __restrict__ x,
+                      int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<T> s = carve<T>(smem_raw, n, ld);
-  const size_t m_off = static_cast<size_t>(blockIdx.x) * n * n;
+  T* s = reinterpret_cast<T*>(smem_raw);
+  T* w = s + n * (n + 1) / 2;
+  const T* g = l + static_cast<size_t>(blockIdx.x) * n * n;
   const size_t v_off = static_cast<size_t>(blockIdx.x) * n;
-  load_matrix(l + m_off, s.a, n, ld);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s.w[i] = b[v_off + i];
-  __syncthreads();
-  if (threadIdx.x < 32) substitute_warp(s.a, s.w, n, ld);
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) x[v_off + i] = s.w[i];
+  for (int r = 0; r < n; ++r)
+    for (int c = threadIdx.x; c <= r; c += kSolveThreads)
+      __pipeline_memcpy_async(s + r * (r + 1) / 2 + c, g + r * n + c, sizeof(T));
+  __pipeline_commit();
+  for (int i = threadIdx.x; i < n; i += kSolveThreads) w[i] = b[v_off + i];
+  __pipeline_wait_prior(0);
+  __syncwarp();
+  substitute_warp(s, w, n, PackedRows{});
+  for (int i = threadIdx.x; i < n; i += kSolveThreads) x[v_off + i] = w[i];
 }
 
-// The size rule by which the wrappers admit n for all four kernels
-// (ops/chol_lane.py::smem_bytes): one (n, n | 1) matrix and two vectors, the
-// shared memory of solve_factored_kernel.
+// Shared memory of solve_factored_kernel (ops/chol_lane.py::solve_geometry
+// mirrors it): the packed lower triangle and w.
 template <typename T>
-inline size_t smem_bytes(int n) {
-  const int ld = row_stride(n);
-  return sizeof(T) * (static_cast<size_t>(n) * ld + 2 * static_cast<size_t>(n));
+inline size_t solve_smem_bytes(int n) {
+  return sizeof(T) * (static_cast<size_t>(n) * (n + 1) / 2 + n);
 }
 
 // The register-tiled kernel for TPT tiles a thread, TPT = 1 .. kMaxTPT<T>
@@ -201,16 +210,36 @@ int launch_factor_regs(const void* a, const void* b, void* x, void* l, int batch
                            static_cast<cudaStream_t>(stream));
 }
 
+// The blocks of factor_kernel<float, TPT> one SM holds at (n, threads), for
+// the layout study's probe, which runs at the same occupancy
+// (chol_layouts.cu::sol_occupancy).
+template <int TPT>
+int factor_blocks_per_sm(int tpt, int n, int threads, int* blocks) {
+  if constexpr (TPT > kMaxTPT<float>) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (tpt != TPT) return factor_blocks_per_sm<TPT + 1>(tpt, n, threads, blocks);
+    const size_t bytes = reg_smem_bytes<float>(n, false, true);
+    int err = allow_smem(factor_kernel<float, TPT>, bytes);
+    if (!err)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, factor_kernel<float, TPT>,
+                                                          threads, bytes);
+    return err;
+  }
+}
+
+// threads and bytes: the wrapper's solve_geometry, refused unless they are
+// this kernel's.
 template <typename T>
 int launch_solve_factored(const void* l, const void* b, void* x, int batch, int n,
-                          void* stream) {
+                          int threads, int bytes, void* stream) {
   if (batch == 0) return 0;
-  const size_t bytes = smem_bytes<T>(n);
+  if (n < 1 || threads != kSolveThreads || static_cast<size_t>(bytes) != solve_smem_bytes<T>(n))
+    return static_cast<int>(cudaErrorInvalidValue);
   int err = allow_smem(solve_factored_kernel<T>, bytes);
   if (err) return err;
-  solve_factored_kernel<T><<<batch, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(l), static_cast<const T*>(b), static_cast<T*>(x), n,
-      row_stride(n));
+  solve_factored_kernel<T><<<batch, kSolveThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(l), static_cast<const T*>(b), static_cast<T*>(x), n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -240,12 +269,18 @@ int chol_solve_lane_f64(const void* a, const void* b, void* x, int batch, int n,
                         void* stream) {
   return launch_factor_regs<double>(a, b, x, nullptr, batch, n, threads, stream);
 }
+int chol_factor_lane_blocks_per_sm_f32(int n, int threads, int* blocks) {
+  const int nt = (n + kTile - 1) / kTile;
+  if (n < 1 || threads < 32 || threads % 32 || threads > kRegThreadsMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return factor_blocks_per_sm<1>((nt * (nt + 1) / 2 + threads - 1) / threads, n, threads, blocks);
+}
 int chol_solve_factored_lane_f32(const void* l, const void* b, void* x, int batch, int n,
-                                 void* stream) {
-  return launch_solve_factored<float>(l, b, x, batch, n, stream);
+                                 int threads, int bytes, void* stream) {
+  return launch_solve_factored<float>(l, b, x, batch, n, threads, bytes, stream);
 }
 int chol_solve_factored_lane_f64(const void* l, const void* b, void* x, int batch, int n,
-                                 void* stream) {
-  return launch_solve_factored<double>(l, b, x, batch, n, stream);
+                                 int threads, int bytes, void* stream) {
+  return launch_solve_factored<double>(l, b, x, batch, n, threads, bytes, stream);
 }
 }  // extern "C"

@@ -15,24 +15,28 @@
 //
 // The TPU kernels padded the batch to its 128 lanes or to their tile and n
 // to 128 with a decoupled identity block; neither padding is ported, since
-// it changes no result. Every kernel here keeps each matrix in shared memory
-// with the odd row stride ld = n | 1 (lane_common.cuh), reads it from device
-// memory once and writes each output once.
+// it changes no result. The three layouts keep each matrix in shared memory
+// with the odd row stride ld = n | 1 (lane_common.cuh); the probe runs the
+// production factor's register-tiled skeleton (lane_regs.cuh). Each reads
+// its matrix from device memory once and writes each output once.
 //
 // What bounds them on an H100 (3.35 TB/s, 67 TFLOP/s float32) at B=8192,
 // n=93: device memory, by a wide margin: 0.1710 ms for the factor-solve
-// (read A and b, write L and x), 0.0864 ms for the two solves (read A and b,
-// write x), 0.169 ms for the probe (read A, write the result), against about
-// 0.04 ms for the n^3/6 multiply-adds. The lane kernels run at 5-16 % of
-// that bound; the layouts here test three answers to the question of what
-// holds them back (block barriers, one matrix per block, the per-column
+// (read A and b, write L and x), 0.0446 ms for the two solves (read A's
+// lower triangle and b, write x), 0.169 ms for the probe (read A, write the
+// result), against about 0.04 ms for the n^3/6 multiply-adds. The layouts
+// here test three answers to the question of what holds the lane kernels
+// back (block barriers, one matrix per block, the per-column
 // read-modify-write of the trailing block), and the probe measures the
-// access pattern and barriers of the production factor without its math.
+// skeleton of the production factor without its math.
 //
 // Each launcher returns cudaGetLastError() so that the Python wrapper can
 // raise on a refused launch.
 
-#include "lane_common.cuh"
+#include "lane_regs.cuh"
+
+// chol_lane.cu: the blocks of chol_factor_lane's float kernel one SM holds.
+extern "C" int chol_factor_lane_blocks_per_sm_f32(int n, int threads, int* blocks);
 
 namespace {
 
@@ -125,7 +129,7 @@ factor_solve_blocked_kernel(const float* __restrict__ a, const float* __restrict
       __syncthreads();
     }
   }
-  if (threadIdx.x < 32) substitute_warp(s, w, n, ld);
+  if (threadIdx.x < 32) substitute_warp(s, w, n, StridedRows{ld});
   store_matrix(s, l + m_off, n, ld);
   __syncthreads();
   for (int i = threadIdx.x; i < n; i += blockDim.x) x[v_off + i] = w[i];
@@ -286,38 +290,126 @@ warp_solve_kernel(const float* __restrict__ a, const float* __restrict__ b,
 // ---------------------------------------------------------------------------
 // smem_sol: the speed-of-light probe of the lane factor.
 //
-// The grid, block size, shared memory (the same bytes), column loop and the
-// two __syncthreads per column of the shared-memory column factor that the
-// lane kernels ran before their register-tiled design (lane_regs.cuh), and
-// the same elements touched: column j from the diagonal down, then the
-// trailing lower triangle. Each touched element is only scaled by 0.999
-// (one read, one multiply, one write), so element (r, c) of the lower
-// triangle comes out scaled by 0.999^(c+1). The TPU probe also scaled the
-// upper part of each trailing block, because its factor updated it; the
-// port's factor updates the lower triangle only, and so does its probe. Its
-// time over chol_factor_lane's is the share of the factor's time that is
-// access pattern and barriers rather than arithmetic.
+// chol_factor_lane's kernel (chol_lane.cu::factor_kernel) as it is: its
+// grid, block (threads from ops/chol_lane.py::reg_geometry), shared memory,
+// the upper triangle's cp.async stage, load_tiles and store_tiles, and per
+// panel of 4 columns the publish to the two panel buffers, the two block
+// barriers, warp 0's register panel pass with its shuffles, the read-back
+// and the trailing pass over every thread's tiles (lane_regs.cuh::
+// factor_regs), with the arithmetic taken out (ProbeMath): each
+// multiply-add a_rc <- fma(-l_rj, l_cj, a_rc) becomes a_rc <- a_rc 0.999,
+// each pivot scale the same, and the inverse pivot's rsqrt and Newton step
+// go. The probe does not need the panel values, and ptxas drops a load or a
+// shuffle whose value goes unused, so ProbeMath keeps them in the code that
+// runs: the trailing pass's 16-byte shared loads are volatile PTX
+// (ld.volatile.shared, which ptxas keeps), and each of warp 0's shuffles is
+// multiplied by 0 and added to the value it would have updated or scaled.
+// So every update and scale is one fma, fma(a, 0.999, z) with z = +-0, as
+// in the factor, and the panel pass adds one multiply per shuffle.
+// Element (r, c) of the lower triangle is touched c times by trailing
+// updates and once by its column's scale, so it comes out as a 0.999^(c+1),
+// the product rounded after each multiply (adding +-0 to a nonzero product
+// changes no bit); the upper triangle keeps the input. The TPU probe also
+// scaled the upper part of each trailing block, because its factor updated
+// it; the port's factor updates the lower triangle only, and so does its
+// probe.
+//
+// The launcher holds the probe to chol_factor_lane's occupancy: where the
+// probe, with fewer registers, would fit more blocks on an SM, it is given
+// the dynamic shared memory that caps it at the factor's count
+// (smem_sol_occupancy reports both; at n = 93 both are 6). Its time over
+// chol_factor_lane's is then the share of the factor's time that its
+// skeleton (access pattern, barriers, shuffles, occupancy) takes rather
+// than its arithmetic.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-sol_kernel(const float* __restrict__ a, float* __restrict__ o, int n, int ld) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* s = reinterpret_cast<float*>(smem_raw);
-  const size_t m_off = static_cast<size_t>(blockIdx.x) * n * n;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  load_matrix(a + m_off, s, n, ld);
-  __syncthreads();
-  for (int j = 0; j < n; ++j) {
-    for (int i = j + threadIdx.x; i < n; i += blockDim.x) s[i * ld + j] *= kSolScale;
-    __syncthreads();
-    for (int r = j + 1 + warp; r < n; r += n_warps) {
-      float* row = s + r * ld;
-      for (int c = j + 1 + lane; c <= r; c += 32) row[c] *= kSolScale;
-    }
-    __syncthreads();
+struct ProbeMath {
+  // l_c: a shuffled value times 0 in the panel pass, 0 in the trailing pass
+  __device__ __forceinline__ static float update(float a, float, float l_c) {
+    return fmaf(a, kSolScale, l_c);
   }
-  store_matrix(s, o + m_off, n, ld);
+  __device__ __forceinline__ static float inverse_pivot(float z) { return z; }
+  __device__ __forceinline__ static float scale(float a, float z) { return fmaf(a, kSolScale, z); }
+  // the panel values are loaded and left unused: v comes back as zeros
+  __device__ __forceinline__ static void load(const float* p, float (&v)[kTile]) {
+    const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+    float u0, u1, u2, u3;
+    asm volatile("ld.volatile.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(u0), "=f"(u1), "=f"(u2), "=f"(u3)
+                 : "r"(addr));
+    v[0] = v[1] = v[2] = v[3] = 0.0f;
+  }
+  __device__ __forceinline__ static float shfl(float v, int src) {
+    return __shfl_sync(0xffffffffu, v, src) * 0.0f;
+  }
+};
+
+template <int TPT>
+__global__ void __launch_bounds__(kRegThreadsMax)
+sol_kernel(const float* __restrict__ a, float* __restrict__ o, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* pan = reinterpret_cast<float*>(smem_raw);
+  float* stage = pan + 2 * kTile * kTile * ((n + kTile - 1) / kTile);
+  const size_t m_off = static_cast<size_t>(blockIdx.x) * n * n;
+  copy_upper_issue(a + m_off, stage, n);
+  RegTiles<float, TPT> m;
+  load_tiles(a + m_off, m, n);
+  factor_regs<float, TPT, false, ProbeMath>(m, pan, nullptr, n);
+  store_tiles(m, o + m_off, n);
+  copy_upper_finish(stage, o + m_off, n);
+}
+
+// The probe for TPT tiles a thread, TPT = 1 .. 6 (chol_factor_lane's float
+// instantiations, chol_lane.cu::kMaxTPT).
+constexpr int kSolMaxTPT = 6;
+
+// The probe's dynamic shared memory for (n, threads) and the blocks an SM
+// then holds of it and of chol_factor_lane's kernel: chol_factor_lane's
+// bytes (two panel buffers and the upper stage), raised where the probe
+// would otherwise fit more blocks than the factor to the share of an SM's
+// shared memory that leaves room for the factor's count alone.
+template <int TPT>
+int sol_occupancy(int n, int threads, size_t* bytes, int* probe_blocks, int* factor_blocks) {
+  const size_t np = kTile * ((n + kTile - 1) / kTile);
+  *bytes = sizeof(float) * (2 * kTile * np + static_cast<size_t>(n) * (n - 1) / 2);
+  int err = chol_factor_lane_blocks_per_sm_f32(n, threads, factor_blocks);
+  if (!err) err = allow_smem(sol_kernel<TPT>, *bytes);
+  if (!err)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(probe_blocks, sol_kernel<TPT>, threads,
+                                                        *bytes);
+  if (err || *probe_blocks <= *factor_blocks) return err;
+  int dev, sm_bytes, reserved;
+  err = cudaGetDevice(&dev);
+  if (!err) err = cudaDeviceGetAttribute(&sm_bytes, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (!err) err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (err) return err;
+  *bytes = static_cast<size_t>(sm_bytes / *factor_blocks - reserved) / 16 * 16;
+  err = allow_smem(sol_kernel<TPT>, *bytes);
+  if (!err)
+    err = cudaFuncSetAttribute(sol_kernel<TPT>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (!err)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(probe_blocks, sol_kernel<TPT>, threads,
+                                                        *bytes);
+  return err;
+}
+
+template <int TPT>
+int launch_sol_regs(int tpt, const void* a, void* o, int batch, int n, int threads,
+                    cudaStream_t stream, int* probe_blocks, int* factor_blocks) {
+  if constexpr (TPT > kSolMaxTPT) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (tpt != TPT)
+      return launch_sol_regs<TPT + 1>(tpt, a, o, batch, n, threads, stream, probe_blocks,
+                                      factor_blocks);
+    size_t bytes;
+    int err = sol_occupancy<TPT>(n, threads, &bytes, probe_blocks, factor_blocks);
+    if (err) return err;
+    if (a != nullptr)
+      sol_kernel<TPT><<<batch, threads, bytes, stream>>>(static_cast<const float*>(a),
+                                                         static_cast<float*>(o), n);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 inline size_t lane_matrix_floats(int n) {
@@ -352,16 +444,16 @@ int launch_warp_solve(const void* a, const void* b, void* x, int batch, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_sol(const void* a, void* o, int batch, int n, void* stream) {
+// a == nullptr: no launch, only the occupancy of the probe and of the factor.
+int launch_sol(const void* a, void* o, int batch, int n, int threads, void* stream,
+               int* probe_blocks, int* factor_blocks) {
   if (batch == 0) return 0;
-  // chol_factor_lane's bytes (matrix and its column vector), so that the
-  // probe runs at the factor's occupancy
-  const size_t bytes = sizeof(float) * (lane_matrix_floats(n) + n);
-  int err = allow_smem(sol_kernel, bytes);
-  if (err) return err;
-  sol_kernel<<<batch, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<float*>(o), n, row_stride(n));
-  return static_cast<int>(cudaGetLastError());
+  if (n < 1 || threads < 32 || threads % 32 || threads > kRegThreadsMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nt = (n + kTile - 1) / kTile;
+  const int tpt = (nt * (nt + 1) / 2 + threads - 1) / threads;
+  return launch_sol_regs<1>(tpt, a, o, batch, n, threads, static_cast<cudaStream_t>(stream),
+                            probe_blocks, factor_blocks);
 }
 
 }  // namespace
@@ -381,7 +473,14 @@ int chol_solve_blocked_f32(const void* a, const void* b, void* x, int batch, int
   if (nb < 1) return static_cast<int>(cudaErrorInvalidValue);
   return launch_warp_solve(a, b, x, batch, n, block_batch, nb, stream);
 }
-int smem_sol_f32(const void* a, void* o, int batch, int n, void* stream) {
-  return launch_sol(a, o, batch, n, stream);
+int smem_sol_f32(const void* a, void* o, int batch, int n, int threads, void* stream) {
+  int probe_blocks, factor_blocks;
+  return launch_sol(a, o, batch, n, threads, stream, &probe_blocks, &factor_blocks);
+}
+// The blocks of the probe and of chol_factor_lane one SM holds at (n,
+// threads), as the probe is launched.
+int smem_sol_occupancy_f32(int n, int threads, int* probe_blocks, int* factor_blocks) {
+  *probe_blocks = *factor_blocks = 0;
+  return launch_sol(nullptr, nullptr, 1, n, threads, nullptr, probe_blocks, factor_blocks);
 }
 }  // extern "C"

@@ -1,8 +1,9 @@
 // Device helpers shared by the lane kernels (chol_lane.cu, ip_lane.cu,
-// chol_layouts.cu, and lane_regs.cuh): the refined pivot, and for the
+// chol_layouts.cu, and lane_regs.cuh): the refined pivot; for the layout
 // kernels that keep one (n, n) matrix per thread block in shared memory (row
-// stride ld = n | 1, odd, so that column walks hit distinct banks) its load,
-// store and the one-warp substitution.
+// stride ld = n | 1, odd, so that column walks hit distinct banks) its load
+// and store; and the one-warp substitution, which chol_solve_factored_lane
+// runs on a packed lower triangle.
 //
 // The factor's contract is the TPU kernels' (hybdrt_tpu/ops/pallas_chol_lane.py):
 // only the lower triangle of the factor is valid, the upper triangle keeps
@@ -47,25 +48,36 @@ __device__ __forceinline__ void store_matrix(const T* s, T* __restrict__ g, int 
   }
 }
 
-// Solve (L L^T) x = w in place, L the lower triangle of the shared matrix.
-// Runs on warp 0 only (the caller synchronises the block before and after).
-template <typename T>
-__device__ void substitute_warp(const T* l, T* w, int n, int ld) {
+// Where row r of a lower triangle in shared memory starts: rows of ld
+// values (a whole matrix), or packed one after the other (r (r + 1) / 2).
+struct StridedRows {
+  int ld;
+  __device__ __forceinline__ int operator()(int r) const { return r * ld; }
+};
+struct PackedRows {
+  __device__ __forceinline__ int operator()(int r) const { return r * (r + 1) / 2; }
+};
+
+// Solve (L L^T) x = w in place, L the lower triangle in shared memory with
+// its rows where `rows` puts them. Runs on one warp (the caller makes w and
+// L visible to the warp before and reads w after it).
+template <typename T, typename Rows>
+__device__ void substitute_warp(const T* l, T* w, int n, Rows rows) {
   const int lane = threadIdx.x & 31;
   // Forward: L y = w, column-oriented.
   for (int j = 0; j < n; ++j) {
-    const T yj = w[j] / l[j * ld + j];
+    const T yj = w[j] / l[rows(j) + j];
     __syncwarp();
     if (lane == 0) w[j] = yj;
-    for (int i = j + 1 + lane; i < n; i += 32) w[i] -= yj * l[i * ld + j];
+    for (int i = j + 1 + lane; i < n; i += 32) w[i] -= yj * l[rows(i) + j];
     __syncwarp();
   }
   // Backward: L^T x = y, column-oriented over the rows of L.
   for (int j = n - 1; j >= 0; --j) {
-    const T xj = w[j] / l[j * ld + j];
+    const T* row = l + rows(j);
+    const T xj = w[j] / row[j];
     __syncwarp();
     if (lane == 0) w[j] = xj;
-    const T* row = l + j * ld;
     for (int i = lane; i < j; i += 32) w[i] -= row[i] * xj;
     __syncwarp();
   }

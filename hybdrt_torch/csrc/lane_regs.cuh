@@ -1,8 +1,11 @@
 // The register-tiled lane Cholesky: one thread block per (n, n) matrix, its
 // lower triangle held in registers for the whole factorization and for the
 // substitutions against it. Used by chol_factor_solve_lane, chol_solve_lane
-// and chol_factor_lane (chol_lane.cu) and by the fused interior-point steps
-// (ip_lane.cu).
+// and chol_factor_lane (chol_lane.cu), by the fused interior-point steps
+// (ip_lane.cu), and by the layout study's speed-of-light probe
+// (chol_layouts.cu::sol_kernel), which runs factor_regs with its arithmetic
+// (CholMath) swapped out. chol_solve_factored_lane substitutes with one warp
+// instead (chol_lane.cu).
 //
 // Layout. The lower triangle is cut into 4x4 tiles (I, K), K <= I < nt =
 // ceil(n / 4), padded past n with zeros. Tile t = I (I + 1) / 2 + K (row by
@@ -75,6 +78,26 @@ __device__ __forceinline__ void store4(double* p, const double (&v)[4]) {
   *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
   *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
 }
+
+// The factor's arithmetic: each multiply-add a_rc <- fma(-l_rj, l_cj, a_rc),
+// the inverse pivot, and the scale of a column by it; and the two ways the
+// panel's values reach it: the trailing pass's 16-byte shared loads (load)
+// and warp 0's shuffles of the pivot rows (shfl). factor_regs takes it as a
+// template parameter so that the layout study's speed-of-light probe
+// (chol_layouts.cu) runs this skeleton with other arithmetic, its loads and
+// shuffles kept although the probe does not use their values.
+struct CholMath {
+  template <typename T>
+  __device__ __forceinline__ static T update(T a, T l_r, T l_c) { return fma_t(-l_r, l_c, a); }
+  template <typename T>
+  __device__ __forceinline__ static T inverse_pivot(T d) { return refined_rsqrt(d); }
+  template <typename T>
+  __device__ __forceinline__ static T scale(T a, T inv) { return a * inv; }
+  template <typename T>
+  __device__ __forceinline__ static void load(const T* p, T (&v)[kTile]) { load4(p, v); }
+  template <typename T>
+  __device__ __forceinline__ static T shfl(T v, int src) { return __shfl_sync(0xffffffffu, v, src); }
+};
 
 // A thread's tiles: v[s] is tile (ti[s], tk[s]); an unused slot has -1 in both.
 template <typename T, int TPT>
@@ -197,9 +220,8 @@ __device__ __forceinline__ void solve_diag4(T (&y)[kTile], const T (&d)[kTile][k
 // a lane per row; the pivot rows' values go round by shuffles. With kSolve,
 // lane 0 then runs the forward substitution of w's rows j0 .. j0 + 3 (w
 // already holds the earlier panels' updates).
-template <typename T, bool kSolve>
+template <typename T, bool kSolve, typename Math>
 __device__ __forceinline__ void factor_panel_warp(T* pan, T* w, int j0, int n) {
-  constexpr unsigned kAll = 0xffffffffu;
   constexpr int kSlots = kPanelSlots<T>;
   const int lane = threadIdx.x & 31;
   const int kend = min(kTile, n - j0);
@@ -220,18 +242,18 @@ __device__ __forceinline__ void factor_panel_warp(T* pan, T* w, int j0, int n) {
 #pragma unroll
     for (int k = 0; k < kTile; ++k) {
       if (k >= kend) break;
-      if (base == j0) inv[k] = refined_rsqrt(__shfl_sync(kAll, v[0][k], k));
+      if (base == j0) inv[k] = Math::inverse_pivot(Math::shfl(v[0][k], k));
 #pragma unroll
-      for (int q = 0; q < kSlots; ++q) v[q][k] = v[q][k] * inv[k];
+      for (int q = 0; q < kSlots; ++q) v[q][k] = Math::scale(v[q][k], inv[k]);
       if (base == j0) {
 #pragma unroll
-        for (int k2 = k; k2 < kTile; ++k2) d[k2][k] = __shfl_sync(kAll, v[0][k], k2);
+        for (int k2 = k; k2 < kTile; ++k2) d[k2][k] = Math::shfl(v[0][k], k2);
       }
 #pragma unroll
       for (int k2 = k + 1; k2 < kTile; ++k2) {
         if (k2 < kend) {
 #pragma unroll
-          for (int q = 0; q < kSlots; ++q) v[q][k2] = fma_t(-v[q][k], d[k2][k], v[q][k2]);
+          for (int q = 0; q < kSlots; ++q) v[q][k2] = Math::update(v[q][k2], v[q][k], d[k2][k]);
         }
       }
     }
@@ -257,7 +279,7 @@ __device__ __forceinline__ void factor_panel_warp(T* pan, T* w, int j0, int n) {
 // kSolve also w <- L^-1 w (w in shared memory, np = 4 nt long). pan is
 // shared scratch of 2 * 4 * np values. Called by the whole block; ends with
 // the factor in m, after a barrier.
-template <typename T, int TPT, bool kSolve>
+template <typename T, int TPT, bool kSolve, typename Math = CholMath>
 __device__ __forceinline__ void factor_regs(RegTiles<T, TPT>& m, T* pan, T* w, int n) {
   const int nt = (n + kTile - 1) / kTile;
   const int np = kTile * nt;
@@ -269,7 +291,7 @@ __device__ __forceinline__ void factor_regs(RegTiles<T, TPT>& m, T* pan, T* w, i
     T* p = pan + (jt & 1) * kTile * np;
     T* q = pan + ((jt + 1) & 1) * kTile * np;
     __syncthreads();
-    if (threadIdx.x < 32) factor_panel_warp<T, kSolve>(p, w, j0, n);
+    if (threadIdx.x < 32) factor_panel_warp<T, kSolve, Math>(p, w, j0, n);
     __syncthreads();
 #pragma unroll
     for (int s = 0; s < TPT; ++s) {
@@ -279,16 +301,16 @@ __device__ __forceinline__ void factor_regs(RegTiles<T, TPT>& m, T* pan, T* w, i
       } else if (tk > jt) {
         T lc[kTile][kTile];
 #pragma unroll
-        for (int cc = 0; cc < kTile; ++cc) load4(p + (kTile * tk + cc) * kTile, lc[cc]);
+        for (int cc = 0; cc < kTile; ++cc) Math::load(p + (kTile * tk + cc) * kTile, lc[cc]);
 #pragma unroll
         for (int rr = 0; rr < kTile; ++rr) {
           T lr[kTile];
-          load4(p + (kTile * ti + rr) * kTile, lr);
+          Math::load(p + (kTile * ti + rr) * kTile, lr);
 #pragma unroll
           for (int cc = 0; cc < kTile; ++cc) {
 #pragma unroll
             for (int k = 0; k < kTile; ++k)
-              m.v[s][rr][cc] = fma_t(-lr[k], lc[cc][k], m.v[s][rr][cc]);
+              m.v[s][rr][cc] = Math::update(m.v[s][rr][cc], lr[k], lc[cc][k]);
           }
         }
         if (tk == jt + 1) publish(m.v[s], q, ti);

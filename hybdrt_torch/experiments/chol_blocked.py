@@ -37,6 +37,6 @@ def chol_solve_blocked(a, b, block_batch=None, nb=16):
         raise ValueError(f"{NAME}: nb={nb} must be positive")
     block_batch = block_batch_for(a.shape[-1], block_batch)
     if chol_lane.on_cpu(NAME, a, b, smem=lambda n, dt: smem_bytes(n, block_batch),
-                        dtypes=DTYPES):
+                        dtypes=DTYPES, tiles=None):
         return chol_solve_blocked_plain(a, b)
     return launch_warp_solve(NAME, LAUNCHES, a, b, (block_batch, nb))

@@ -114,6 +114,6 @@ def chol_solve_batched(a, b, block_batch=None):
     """x = a^-1 b by the column loop, ``block_batch`` matrices per block."""
     block_batch = block_batch_for(a.shape[-1], block_batch)
     if chol_lane.on_cpu(NAME, a, b, smem=lambda n, dt: smem_bytes(n, block_batch),
-                        dtypes=DTYPES):
+                        dtypes=DTYPES, tiles=None):
         return chol_solve_batched_plain(a, b)
     return launch_warp_solve(NAME, LAUNCHES, a, b, (block_batch,))

@@ -44,7 +44,7 @@ def chol_factor_solve_lane_blocked(a, b, kb=8):
     columns; l's upper triangle holds leftover input."""
     if not 1 <= kb <= MAX_PANEL:
         raise ValueError(f"{NAME}: kb={kb} outside 1..{MAX_PANEL}")
-    if chol_lane.on_cpu(NAME, a, b, smem=smem_bytes, dtypes=DTYPES):
+    if chol_lane.on_cpu(NAME, a, b, smem=smem_bytes, dtypes=DTYPES, tiles=None):
         return chol_factor_solve_lane_blocked_plain(a, b)
     x = torch.empty_like(b)
     l = torch.empty_like(a)

@@ -12,12 +12,15 @@ in CUDA for Hopper in ``hybdrt_torch/csrc/chol_lane.cu``:
 - ``chol_factor_lane(a) -> l``: the factor alone (the group resolve's
   block-Jacobi preconditioner, ``mapping/resolve.py``); ``a`` is not written.
 
-All but ``chol_solve_factored_lane`` hold the lower triangle in registers,
-in 4x4 tiles spread over the block's threads (``csrc/lane_regs.cuh``);
+The first, third and fourth hold the lower triangle in registers, in 4x4
+tiles spread over the block's threads (``csrc/lane_regs.cuh``);
 ``reg_geometry`` picks the threads from n, as the CUDA launcher expects.
-``chol_solve_factored_lane`` substitutes with one warp against the factor in
-shared memory. The factor's update order is fixed, so the first and the last
-give bitwise the same L, and the first and the third bitwise the same x.
+``chol_solve_factored_lane`` copies the factor's lower triangle, packed by
+rows, into shared memory and substitutes with one warp, one matrix to a
+block (``solve_geometry``). The factor's update order and the substitutions'
+orders are fixed, so the first and the last give bitwise the same L, the
+first and the third bitwise the same x, and the second, given the first's
+L, bitwise the first's x.
 
 ``a``/``l`` are (B, n, n) and ``b``/``x`` are (B, n), contiguous, float32 or
 float64. Only the lower triangle of a returned factor is valid, and a
@@ -46,22 +49,21 @@ DTYPES = (torch.float32, torch.float64)
 # TILES_PER_THREAD tiles a thread where that many threads suffice, else up to
 # MAX_TILES_PER_THREAD (the launcher's instantiations). At n = 93 and 94
 # these are 64 threads of 5 tiles in float32 and 160 of 2 in float64, where
-# ptxas reports no spill (3 float64 tiles a thread spill).
+# ptxas reports no spill (3 float64 tiles a thread spill). The four kernels
+# take the n whose tiles fit REG_THREADS_MAX threads at
+# MAX_TILES_PER_THREAD (``admitted``): n <= 268 in float32, 188 in float64.
 TILE = 4
 REG_THREADS_MAX = 384
 TILES_PER_THREAD = {torch.float32: 5, torch.float64: 2}
 MAX_TILES_PER_THREAD = {torch.float32: 6, torch.float64: 3}
+# chol_solve_factored_lane: one warp a matrix and a matrix a block
+# (chol_lane.cu's kSolveThreads)
+SOLVE_THREADS = 32
 
 
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def smem_bytes(n, dtype):
-    """Shared memory one block of these kernels needs (mirrors the CUDA source)."""
-    ld = n | 1
-    return torch.finfo(dtype).bits // 8 * (n * ld + 2 * n)
 
 
 def reg_geometry(n, dtype, tiles_per_thread=None):
@@ -81,27 +83,39 @@ def reg_geometry(n, dtype, tiles_per_thread=None):
     return threads, -(-tiles // threads), smem
 
 
+def solve_geometry(n, dtype):
+    """(threads, shared bytes) of a ``chol_solve_factored_lane`` block for n,
+    which the wrapper passes to the launcher and the launcher refuses unless
+    they are ``kSolveThreads`` and ``solve_smem_bytes`` (csrc/chol_lane.cu):
+    one warp, the packed lower triangle, n (n + 1) / 2 values, and w. At
+    every n the four kernels admit it fits one block (at most 145 KB, at
+    n = 268 in float32)."""
+    return SOLVE_THREADS, torch.finfo(dtype).bits // 8 * (n * (n + 1) // 2 + n)
+
+
 def lower_tiles(n):
     """The 4x4 tiles of an (n, n) lower triangle: ceil(n/4) (ceil(n/4) + 1) / 2."""
     nt = -(-n // TILE)
     return nt * (nt + 1) // 2
 
 
-def admitted(n, dtype, smem=smem_bytes, tiles=None):
-    """Whether the kernels take matrices of size n in ``dtype``: those whose
-    ``smem(n, dtype)`` bytes fit one block's shared memory and, for a kernel
-    that holds the lower triangle in registers at most ``tiles[dtype]`` tiles
-    a thread, whose tiles fit REG_THREADS_MAX threads."""
-    return smem(n, dtype) <= MAX_SMEM_BYTES and (
+def admitted(n, dtype, smem=None, tiles=MAX_TILES_PER_THREAD):
+    """Whether a kernel takes matrices of size n in ``dtype``: those whose
+    ``smem(n, dtype)`` bytes, where ``smem`` is given, fit one block's shared
+    memory and, where ``tiles`` is given, whose lower tiles fit
+    REG_THREADS_MAX threads at ``tiles[dtype]`` tiles a thread. The defaults
+    are the rule of this module's four kernels, whose shared memory never
+    binds first."""
+    return (smem is None or smem(n, dtype) <= MAX_SMEM_BYTES) and (
         tiles is None or lower_tiles(n) <= REG_THREADS_MAX * tiles[dtype])
 
 
-def check_args(name, a, *vecs, smem=smem_bytes, dtypes=DTYPES, tiles=None):
+def check_args(name, a, *vecs, smem=None, dtypes=DTYPES, tiles=MAX_TILES_PER_THREAD):
     """Raise unless ``a`` (B, n, n) and each of ``vecs`` (B, n) are all of one
     dtype out of ``dtypes``, the kernel takes their n (``admitted``: the
-    ``smem(n, dtype)`` bytes of shared memory it needs fit one block, and the
-    lower tiles fit its registers where ``tiles`` is given), and they are
-    contiguous CUDA tensors on one device."""
+    ``smem(n, dtype)`` bytes of shared memory it needs fit one block where
+    ``smem`` is given, and the lower tiles fit its registers where ``tiles``
+    is given), and they are contiguous CUDA tensors on one device."""
     ts = (a, *vecs)
     if a.dtype not in dtypes or any(t.dtype != a.dtype for t in vecs):
         raise TypeError(f"{name}: expected one dtype out of {list(dtypes)}, got "
@@ -110,10 +124,10 @@ def check_args(name, a, *vecs, smem=smem_bytes, dtypes=DTYPES, tiles=None):
         raise ValueError(f"{name}: expected a (B, n, n) and vectors (B, n), got "
                          f"{[tuple(t.shape) for t in ts]}")
     n = a.shape[1]
-    if not admitted(n, a.dtype, smem):
+    if not admitted(n, a.dtype, smem, None):
         raise ValueError(f"{name}: n={n} in {a.dtype} needs {smem(n, a.dtype)} bytes "
                          f"of shared memory, more than one block has ({MAX_SMEM_BYTES})")
-    if not admitted(n, a.dtype, smem, tiles):
+    if not admitted(n, a.dtype, None, tiles):
         raise ValueError(f"{name}: n={n} has {lower_tiles(n)} lower tiles, more than "
                          f"{REG_THREADS_MAX} threads hold at {tiles[a.dtype]} a thread in "
                          f"{a.dtype}")
@@ -124,7 +138,7 @@ def check_args(name, a, *vecs, smem=smem_bytes, dtypes=DTYPES, tiles=None):
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
-def on_cpu(name, a, *vecs, smem=smem_bytes, dtypes=DTYPES, tiles=None):
+def on_cpu(name, a, *vecs, smem=None, dtypes=DTYPES, tiles=MAX_TILES_PER_THREAD):
     """True when every tensor lies on the CPU, where the wrapper runs its
     plain version; otherwise checks that the kernel takes them and returns
     False (a CUDA tensor never reaches a plain version)."""
@@ -188,7 +202,9 @@ def chol_solve_factored_lane(l, b):
     if on_cpu(name, l, b):
         return chol_solve_factored_lane_plain(l, b)
     x = torch.empty_like(b)
-    _launch(name, l, b, x, batch=l.shape[0], n=l.shape[1], device=l.device)
+    n = l.shape[1]
+    _launch(name, l, b, x, batch=l.shape[0], n=n, device=l.device,
+            ints=solve_geometry(n, l.dtype))
     return x
 
 

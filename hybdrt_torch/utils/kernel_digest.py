@@ -16,8 +16,11 @@ n) at the fused fit's (8192, 93, 4 steps), the IP-loop experiment's (1024,
 (8192, 93, 4) a line does the same for the IP-loop experiment's
 ``ip_steps_loop``. At the float32 shapes of (8192, 93), (1024, 93) and
 (1435, 94), and at (8192, 93, 4) and (1024, 95, 8), each line also gives the
-kernel's time, the mean of 20 calls by CUDA events after a warm-up. Run from the repository root on a
-machine with a CUDA card:
+kernel's time, the mean of 20 calls by CUDA events after a warm-up. The
+layout study's probe ``smem_sol`` (``experiments/smem_sol.py``) runs on
+``spd_batch`` matrices (seed B + n) at (8192, 93), timed, and (130, 17),
+float32; its line prints the digest of its output. Run from the repository
+root on a machine with a CUDA card:
 
     python hybdrt_torch/utils/kernel_digest.py [ROOT]
 
@@ -42,6 +45,8 @@ IP_CASES = ((8192, 93, 4, torch.float32), (1024, 95, 8, torch.float32),
 CHOL_TIMED = {(8192, 93), (1024, 93), (1435, 94)}
 IP_TIMED = {(8192, 93, 4), (1024, 95, 8)}
 LOOP_CASES = {(8192, 93, 4)}
+SOL_CASES = ((8192, 93), (130, 17))
+SOL_TIMED = {(8192, 93)}
 FROZEN = {130: 7}
 
 
@@ -92,6 +97,15 @@ def ip_lines(probe, ip_lane, ip_loop):
                   f"sha256 {sha(*loop)}, {ms:.4f} ms")
 
 
+def sol_lines(probe, smem_sol):
+    for b, n in SOL_CASES:
+        a, _ = probe.spd_batch(b, n, torch.float32, b + n)
+        out = smem_sol.smem_sol(a)
+        timing = (f", {probe.cuda_ms(lambda: smem_sol.smem_sol(a)):.4f} ms"
+                  if (b, n) in SOL_TIMED else "")
+        print(f"smem_sol ({b}, {n}) float32: sha256 {sha(out)}{timing}")
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -99,13 +113,14 @@ def main(argv=None):
     root = Path(argv[0]).resolve() if argv else HERE.parents[1]
     probe = _probe()
     sys.path.insert(0, str(root))
-    from hybdrt_torch.experiments import ip_loop
+    from hybdrt_torch.experiments import ip_loop, smem_sol
     from hybdrt_torch.ops import chol_lane, ip_lane
 
     print(probe.card_line())
     print(f"kernels from {Path(chol_lane.__file__).resolve().parents[1]}")
     chol_lines(probe, chol_lane)
     ip_lines(probe, ip_lane, ip_loop)
+    sol_lines(probe, smem_sol)
 
 
 if __name__ == "__main__":

@@ -25,6 +25,13 @@ def bound(n_bytes, n_ops):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def lower_bytes(b, n, itemsize=4):
+    """Bytes of the lower triangles (diagonal included) of b (n, n) matrices,
+    b n (n + 1) / 2 values: what a function defined on the lower triangle
+    must read of its matrix."""
+    return b * n * (n + 1) // 2 * itemsize
+
+
 def chol_ops(b, n):
     """Operations of b Cholesky factorizations: the trailing updates of the
     lower triangle, sum_k k (k + 1) / 2 = (n^3 - n) / 6 multiply-adds each

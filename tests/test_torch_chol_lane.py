@@ -6,6 +6,9 @@ runs them) on the same seeded inputs, float32, rtol = atol = 2e-4. The CUDA
 kernels themselves are held to these plain versions on a GPU by
 tests/test_torch_cuda.py.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -104,11 +107,18 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     b = torch.ones(2, 4)
     with pytest.raises(ValueError, match="CUDA"):
         chol_lane.check_args("chol_solve_lane", a, b)
-    # one (n, n) matrix per block in shared memory: the bench's n = 93 fits in
-    # both types, n = 300 does not
-    assert chol_lane.smem_bytes(93, torch.float32) < 48 * 1024
-    assert chol_lane.smem_bytes(93, torch.float64) < chol_lane.MAX_SMEM_BYTES
-    assert chol_lane.smem_bytes(300, torch.float32) > chol_lane.MAX_SMEM_BYTES
+    # the lower tiles on at most REG_THREADS_MAX threads: the bench's n = 93
+    # and the largest n, 268 and 188, pass the size check (and then need a
+    # CUDA tensor); the next n is refused for its tiles, before the device
+    for dtype, largest in ((torch.float32, 268), (torch.float64, 188)):
+        for n in (93, largest):
+            with pytest.raises(ValueError, match="CUDA"):
+                chol_lane.check_args("chol_solve_lane", torch.zeros(1, n, n, dtype=dtype),
+                                     torch.zeros(1, n, dtype=dtype))
+        with pytest.raises(ValueError, match="lower tiles"):
+            chol_lane.check_args("chol_solve_lane", torch.zeros(1, largest + 1, largest + 1,
+                                                                dtype=dtype),
+                                 torch.zeros(1, largest + 1, dtype=dtype))
 
 
 def _tile_of(t):
@@ -160,16 +170,61 @@ def test_register_geometry_covers_the_lower_triangle(dtype):
         np.testing.assert_array_equal(count, np.tril(np.ones((n, n), dtype=int)))
 
 
+def _shared_memory_rule(n, itemsize):
+    """The size rule the four kernels admitted n by until chol_solve_factored_lane
+    left its (n, n | 1) shared matrix: that matrix and two vectors in one
+    block's 232448 bytes of shared memory."""
+    return itemsize * (n * (n | 1) + 2 * n) <= 232448
+
+
 @pytest.mark.parametrize("n", [1, 2, 4, 5, 17, 31, 32, 33, 93, 94, 95, 128, 152, 153, 169, 170,
                                200, 239, 240, 300])
 def test_admitted_sizes_are_the_shared_memory_kernels(n):
-    """The register-tiled kernels take exactly the (n, dtype) that the
-    shared-memory kernels took: one (n, n | 1) matrix and two vectors in one
-    block's 232448 bytes of shared memory (``admitted``, which check_args
-    applies), and the register geometry holds every tile of those."""
-    for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
-        fits = size * (n * (n | 1) + 2 * n) <= 232448
-        assert chol_lane.admitted(n, dtype) == fits
-        if fits:
+    """The four kernels take every (n, dtype) that the shared-memory rule took
+    (``_shared_memory_rule``), and more: the tile rule alone (``admitted``,
+    which check_args applies) takes n up to 268 in float32 and 188 in
+    float64; the register geometry holds every tile of those, and
+    chol_solve_factored_lane's packed triangle fits one block."""
+    for dtype, size, largest in ((torch.float32, 4, 268), (torch.float64, 8, 188)):
+        assert chol_lane.admitted(n, dtype) == (n <= largest)
+        if _shared_memory_rule(n, size):
+            assert chol_lane.admitted(n, dtype)
+        if chol_lane.admitted(n, dtype):
             threads, tpt, _ = chol_lane.reg_geometry(n, dtype)
             assert threads * tpt >= (-(-n // 4)) * (-(-n // 4) + 1) // 2
+            assert chol_lane.solve_geometry(n, dtype)[1] <= chol_lane.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("dtype,size", [(torch.float32, 4), (torch.float64, 8)])
+def test_admission_takes_every_n_the_shared_memory_rule_took(dtype, size):
+    """Every n from 1 to 400 that the shared-memory rule took is admitted;
+    the admitted n are 1 .. largest, and the largest needs every tile a
+    thread that the launcher instantiates (MAX_TILES_PER_THREAD on
+    REG_THREADS_MAX threads)."""
+    ns = [n for n in range(1, 400) if chol_lane.admitted(n, dtype)]
+    assert ns == list(range(1, ns[-1] + 1))
+    assert all(n in ns for n in range(1, 400) if _shared_memory_rule(n, size))
+    assert len(ns) > sum(_shared_memory_rule(n, size) for n in range(1, 400))
+    assert chol_lane.reg_geometry(ns[-1], dtype)[:2] == (
+        chol_lane.REG_THREADS_MAX, chol_lane.MAX_TILES_PER_THREAD[dtype])
+
+
+_CHOL_SOURCE = Path(__file__).resolve().parents[1] / "hybdrt_torch" / "csrc" / "chol_lane.cu"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [93, 94])
+def test_solve_geometry_mirrors_the_source(n, dtype):
+    """``chol_lane.solve_geometry`` at the fit's n = 93 and the resolve's 94:
+    one warp a block (kSolveThreads in csrc/chol_lane.cu), and the shared
+    bytes of ``solve_smem_bytes`` there, the packed lower triangle and w
+    (17.8 KB at n = 93 in float32, half the (n, n | 1) matrix it
+    replaced)."""
+    src = _CHOL_SOURCE.read_text()
+    threads = int(re.search(r"constexpr int kSolveThreads = (\d+);", src).group(1))
+    assert "sizeof(T) * (static_cast<size_t>(n) * (n + 1) / 2 + n)" in src
+    size = torch.finfo(dtype).bits // 8
+    assert chol_lane.solve_geometry(n, dtype) == (threads, size * (n * (n + 1) // 2 + n))
+    assert threads == chol_lane.SOLVE_THREADS == 32
+    if (n, dtype) == (93, torch.float32):
+        assert chol_lane.solve_geometry(n, dtype)[1] == 17856

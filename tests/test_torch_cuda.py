@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from hybdrt_torch import BatchedEISFitter, resolve_group
+from hybdrt_torch.csrc import build as _build
 from hybdrt_torch.experiments import (chol_blocked, chol_column, chol_lane_blocked, ip_loop,
                                       layouts, smem_sol)
 from hybdrt_torch.ops import chol_lane, ip_lane
@@ -32,8 +33,7 @@ def cuda():
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.float64, 1e-10)])
 @pytest.mark.parametrize("b,n", [(4, 5), (130, 17), (130, 37), (257, 93), (3, 160)])
 def test_kernels_match_plain(cuda, b, n, dtype, tol):
-    if chol_lane.smem_bytes(n, dtype) > chol_lane.MAX_SMEM_BYTES:
-        pytest.skip("shape exceeds one block's shared memory")
+    assert chol_lane.admitted(n, dtype)
     a, rhs = spd_batch(b, n, dtype, n + b, cuda)
     chol_lane.reset_launch_counts()
     x, l = chol_lane.chol_factor_solve_lane(a, rhs)
@@ -72,8 +72,7 @@ def test_non_positive_pivot_gives_nan(cuda):
 
 
 def _largest_admitted(dtype):
-    return max(n for n in range(1, 400)
-               if chol_lane.smem_bytes(n, dtype) <= chol_lane.MAX_SMEM_BYTES)
+    return max(n for n in range(1, 400) if chol_lane.admitted(n, dtype))
 
 
 @pytest.mark.parametrize("b", [1, 133])
@@ -130,6 +129,50 @@ def test_register_factor_nan_contract(cuda, dtype):
         assert torch.isfinite(x[lane]).all() and torch.isfinite(torch.tril(l[lane])).all()
 
 
+@pytest.mark.parametrize("b", [1, 133])
+@pytest.mark.parametrize("n", [1, 4, 5, 17, 33, 93, 94, 95, 128, "max"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.float64, 1e-10)])
+def test_solve_factored_kernel(cuda, dtype, tol, n, b):
+    """chol_solve_factored_lane (one warp, the packed lower triangle in shared
+    memory) against its plain version on either side of a warp's 32 rows,
+    at 93/94/95, 128 and the largest n either dtype admits: against
+    chol_factor_solve_lane's factor (its upper triangle the input's) it
+    gives that kernel's x bitwise, the same substitution orders; its inputs
+    are not written, and each call launches once."""
+    n = _largest_admitted(dtype) if n == "max" else n
+    a, rhs = spd_batch(b, n, dtype, 11 * n + b, cuda)
+    x1, l = chol_lane.chol_factor_solve_lane(a, rhs)
+    l_in, rhs2 = l.clone(), rhs * 0.5 - 1.0
+    chol_lane.reset_launch_counts()
+    x = chol_lane.chol_solve_factored_lane(l, rhs2)
+    x_own = chol_lane.chol_solve_factored_lane(l, rhs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(x, chol_lane.chol_solve_factored_lane_plain(l, rhs2),
+                               rtol=tol, atol=tol)
+    assert torch.equal(x_own, x1), "x against #1's factor must be #1's x bitwise"
+    assert torch.equal(l, l_in)
+    assert chol_lane.LAUNCHES["chol_solve_factored_lane"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_solve_factored_nan_contract(cuda, dtype):
+    """A factor that is NaN from a failed pivot on (in the first column, the
+    first of a panel and the last) gives NaN x in its lane only, where
+    chol_factor_solve_lane's x is NaN."""
+    n = 17
+    a, rhs = spd_batch(5, n, dtype, 5, cuda)
+    bad = {1: 0, 2: 8, 3: n - 1}
+    for lane, col in bad.items():
+        a[lane, col, col] = -1.0
+    x1, l = chol_lane.chol_factor_solve_lane(a, rhs)
+    x = chol_lane.chol_solve_factored_lane(l, rhs * 0.5 - 1.0)
+    assert torch.equal(x.isnan(), x1.isnan())
+    for lane in bad:
+        assert torch.isnan(x[lane]).all()
+    for lane in (0, 4):
+        assert torch.isfinite(x[lane]).all()
+
+
 def test_empty_batch_and_bad_inputs(cuda):
     a, rhs = spd_batch(0, 8, torch.float32, 0, cuda)
     assert chol_lane.chol_solve_lane(a, rhs).shape == (0, 8)
@@ -145,8 +188,15 @@ def test_empty_batch_and_bad_inputs(cuda):
         chol_lane.chol_factor_lane(a.mT)
     with pytest.raises(TypeError):
         chol_lane.chol_factor_lane(a.half())
-    with pytest.raises(ValueError, match="shared memory"):
+    # n = 300 has more lower tiles than 384 threads hold at 6 a thread
+    with pytest.raises(ValueError, match="lower tiles"):
         chol_lane.chol_factor_lane(torch.eye(300, device=cuda).expand(1, 300, 300).contiguous())
+    # chol_solve_factored_lane's launcher takes only solve_geometry's threads and bytes
+    x = torch.empty_like(rhs)
+    threads, size = chol_lane.solve_geometry(8, torch.float32)
+    for ints in ((2, 8, threads * 2, size), (2, 8, threads, size + 4)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _build.launch("chol_solve_factored_lane", (a, rhs, x), ints, a.device)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.float64, 1e-10)])
@@ -333,6 +383,38 @@ def test_layout_kernel_matches_plain(cuda, kernel, b, n):
     torch.cuda.synchronize()
     assert torch.equal(a, a_in)
     assert module.LAUNCHES == {kernel: len(fns)}
+
+
+def _probe_sizes():
+    """{tiles a thread: the smallest n that chol_factor_lane's geometry runs
+    with that many} in float32, 1 .. MAX_TILES_PER_THREAD."""
+    sizes = {}
+    for n in range(1, _largest_admitted(torch.float32) + 1):
+        sizes.setdefault(chol_lane.reg_geometry(n, torch.float32)[1], n)
+    return sizes
+
+
+@pytest.mark.parametrize("tpt", [1, 2, 3, 4, 5, 6])
+def test_probe_at_every_tile_count(cuda, tpt):
+    """The probe on chol_factor_lane's register-tiled skeleton, at the
+    smallest n of each of its instantiations: a * sol_weights on the lower
+    triangle (0.999^(c+1)), the input's upper triangle, the input unchanged."""
+    sizes = _probe_sizes()
+    assert sorted(sizes) == list(range(1, chol_lane.MAX_TILES_PER_THREAD[torch.float32] + 1))
+    n = sizes[tpt]
+    a, _ = spd_batch(7, n, torch.float32, n, cuda)
+    a_in = a.clone()
+    o = smem_sol.smem_sol(a)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, a * smem_sol.sol_weights(n, device=cuda), rtol=TOL, atol=TOL)
+    assert torch.equal(torch.triu(o, 1), torch.triu(a, 1))
+    assert torch.equal(a, a_in)
+    # no more blocks an SM than chol_factor_lane (its launcher pads the
+    # probe's shared memory), and as many at the fit's n = 93
+    probe, factor = smem_sol.occupancy(n)
+    assert 0 < probe <= factor, (n, probe, factor)
+    probe, factor = smem_sol.occupancy(93)
+    assert probe == factor > 0
 
 
 def test_layout_pivot_contracts(cuda):

@@ -188,12 +188,14 @@ def test_study_variants_match_pallas_interpret():
 
 
 def test_bounds_at_the_fit_shape():
-    """B=8192, n=93, float32: the factor-solve's bytes as chol_factor_solve_lane's,
-    the solves' as chol_solve_lane's, the probe's one read and one write."""
+    """B=8192, n=93, float32: the factor-solve's bytes as chol_factor_solve_lane's
+    (all of A read, L and x written), the solves' as chol_solve_lane's (A's
+    lower triangle and b read, x written), the probe's one read and one
+    write."""
     bnd = layouts.bounds(8192, 93)
     assert {k: v[1] for k, v in bnd.items()} == {k: "bytes" for k in bnd}
     assert round(bnd["chol_factor_solve_lane_blocked"][0], 4) == 0.1710
-    assert round(bnd["chol_solve_batched"][0], 4) == round(bnd["chol_solve_blocked"][0], 4) == 0.0864
+    assert round(bnd["chol_solve_batched"][0], 4) == round(bnd["chol_solve_blocked"][0], 4) == 0.0446
     assert round(bnd["smem_sol"][0], 3) == 0.169
     assert layouts.default_label("chol_solve_blocked", 93) == "nb=16 block_batch=6"
 
@@ -219,6 +221,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
             chol_lane.check_args(name, a, b, dtypes=chol_column.DTYPES)
     with pytest.raises(ValueError, match="CUDA"):
         chol_lane.check_args(smem_sol.NAME, a, dtypes=smem_sol.DTYPES)
+    # the probe takes the n chol_factor_lane takes, float32 only: the size
+    # and type are refused before the device
+    with pytest.raises(ValueError, match="CUDA"):
+        chol_lane.check_args(smem_sol.NAME, torch.zeros(1, 268, 268), dtypes=smem_sol.DTYPES)
+    with pytest.raises(ValueError, match="lower tiles"):
+        chol_lane.check_args(smem_sol.NAME, torch.zeros(1, 269, 269), dtypes=smem_sol.DTYPES)
+    with pytest.raises(TypeError):
+        chol_lane.check_args(smem_sol.NAME, a.double(), dtypes=smem_sol.DTYPES)
     # one warp per matrix at row stride n | 1: 6 matrices of n = 93 fit one
     # block's shared memory, 7 do not
     assert chol_column.block_batch_for(93) == 6

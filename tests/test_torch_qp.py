@@ -84,13 +84,25 @@ def test_solve_qp_box_matches_jax_vmap(n, mode):
         assert np.any(r_t["iterations"] == kw["max_iter"])
 
 
+def _max_rel_change(a, b):
+    """max |a - b| / |b| over the nonzero entries of b, whose zeros a must keep."""
+    nz = b != 0
+    np.testing.assert_array_equal(a[~nz], b[~nz])
+    return float(np.max(np.abs(a[nz] - b[nz]) / np.abs(b[nz])))
+
+
 @pytest.mark.parametrize("start", ["cold", "warm"])
 @pytest.mark.parametrize("n", [20, 40])
 def test_fused_steps_match_jax_vmap(n, start):
     """fused_steps=4: four fixed Mehrotra steps in one ip_steps_lane call, then
     the polish, against the JAX solve_qp_box(fused_steps=4) vmapped (its
-    custom_vmap runs _ip_steps_single on the CPU). x and z within rtol=1e-8,
-    iterations 4 on every lane."""
+    custom_vmap runs _ip_steps_single on the CPU), iterations 4 on every
+    lane. x and z within rtol = max(1e-8, 4 s), s the JAX solve's own
+    largest relative change of x or z when every entry of P moves by one
+    ulp, up or down, measured here on these problems: the four steps
+    amplify rounding differently per lane (s = 7.0e-9 at n = 40 cold, where
+    the port differs from JAX by 1.2e-8 on one z, in the very entry where
+    JAX moves most; below 2e-10 in the other cases, where rtol stays 1e-8)."""
     P, q, lb, rng = _problems(n, seed=n + 1)
     kw = {"fused_steps": 4, "max_iter": np.full(B, 60, dtype=np.int32)}
     if start == "warm":
@@ -99,8 +111,14 @@ def test_fused_steps_match_jax_vmap(n, start):
     r_j = _jax_solve(P, q, lb, **dict(kw))
     r_t = _torch_solve(P, q, lb, **dict(kw))
     assert np.all(r_t["iterations"] == 4) and np.all(r_j["iterations"] == 4)
-    np.testing.assert_allclose(r_t["x"], r_j["x"], rtol=1e-8, atol=0)
-    np.testing.assert_allclose(r_t["z"], r_j["z"], rtol=1e-8, atol=0)
+    s = 0.0
+    for direction in (np.inf, -np.inf):
+        # one ulp of every entry keeps P symmetric
+        r_u = _jax_solve(np.nextafter(P, direction), q, lb, **dict(kw))
+        s = max(s, _max_rel_change(r_u["x"], r_j["x"]), _max_rel_change(r_u["z"], r_j["z"]))
+    rtol = max(1e-8, 4 * s)
+    np.testing.assert_allclose(r_t["x"], r_j["x"], rtol=rtol, atol=0)
+    np.testing.assert_allclose(r_t["z"], r_j["z"], rtol=rtol, atol=0)
 
 
 def test_solution_satisfies_kkt():

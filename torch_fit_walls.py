@@ -55,7 +55,7 @@ def main():
     print(f"fused / plain median wall: {np.median(walls['fused']) / np.median(walls['plain']):.3f}")
     if not args.no_profile:
         for name, f in fitters.items():
-            profile(name, lambda: f.fit(z, adaptive="staged", collect="lazy"))
+            profile(name, lambda: f.fit(z, adaptive="staged", collect="lazy"), top=12)
 
 
 if __name__ == "__main__":

@@ -5,6 +5,7 @@ beside its library call.
 Run from the repository root:
 
     python3 torch_resolve_walls.py [--device cpu] [--n-obs 1024] [--rounds 3] [--no-profile]
+                                   [--walls-only]
 
 Fits ``resolve_map(n_obs)`` (``hybdrt_torch/utils/probe.py``) in float32
 (``qp_max_iter=20``, ``qp_max_iter_warm=4``), then for the windowed (windows
@@ -24,7 +25,9 @@ synchronize, after one warm-up each); profiles one call of each
 (``torch.profiler``, CUDA activity: kernel time, busy share of the wall, the
 kernels with the most device time); and times ``chol_factor_lane``,
 ``chol_factor_solve_lane`` and ``torch.linalg.cholesky_ex`` in turns by CUDA
-events at the resolve's (1435, 94) and the fit's (8192, 93).
+events at the resolve's (1435, 94) and the fit's (8192, 93). ``--walls-only``
+skips the float32-vs-float64 and card-vs-CPU solves (a few minutes of CPU
+time at 1024 observations) and goes straight to the walls.
 """
 import argparse
 import time
@@ -63,6 +66,7 @@ def main():
     ap.add_argument("--n-obs", type=int, default=1024)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--no-profile", action="store_true")
+    ap.add_argument("--walls-only", action="store_true")
     args = ap.parse_args()
     on_card = args.device is None or torch.device(args.device).type == "cuda"
     if on_card:
@@ -84,7 +88,7 @@ def main():
                                           **FORMS[form])
 
     outs = {}
-    for form in FORMS:
+    for form in ([] if args.walls_only else FORMS):
         r = {}
         for where in (["card", "cpu"] if on_card else ["cpu"]):
             for name, dtype in DTYPES.items():
@@ -104,8 +108,9 @@ def main():
                       f"{spread(r['card', name], r['cpu', name]):.6g}; same IP iteration in "
                       f"{int(same.sum())} of {same.size}")
         outs[form] = r[("card" if on_card else "cpu"), "f32"]
-    print("group objective f32: " + ", ".join(
-        f"{form} {group_objective(fitter, res, z, p, out):.10g}" for form, out in outs.items()))
+    if outs:
+        print("group objective f32: " + ", ".join(
+            f"{form} {group_objective(fitter, res, z, p, out):.10g}" for form, out in outs.items()))
     if not on_card:
         return
 
