@@ -69,8 +69,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    (NaN in the panel-blocked factor's failed lanes, finite x = b from the
    column and blocked solves where every pivot fails); then
    ``experiments.layouts.study`` once at (8192, 93) with the launch counters
-   reset just before it: kernel, plain, library and bound times, and
-   t_probe / t_factor for ``chol_factor_lane`` and ``chol_factor_solve_lane``;
+   reset just before it: kernel, plain, library and bound times, the
+   panel-blocked factor-solve's kb variants beside ``chol_factor_solve_lane``
+   and the column solve's block_batch variants beside ``chol_solve_lane``,
+   and t_probe / t_factor for ``chol_factor_lane`` and
+   ``chol_factor_solve_lane``;
 10. the IP-loop experiment (``hybdrt_torch/experiments/ip_loop.py``): its
     kernel ``ip_steps_loop`` (the fused steps with the TPU kernels' full-step
     rule) against its plain version on the same CUDA tensors, on phase 4's
@@ -647,6 +650,10 @@ def phase_layouts():
     torch.cuda.synchronize()
     launches = {k: m.LAUNCHES[k] for k, m in modules.items()}
     check(all(v > 0 for v in launches.values()), f"every layout kernel launched: {launches}")
+    for kernel in (chol_lane_blocked.NAME, chol_column.NAME):
+        ms = {k: sum(v) / len(v) for k, v in res["kernels"][kernel]["variants_ms"].items()}
+        print(f"{kernel} beside {layouts.YARDSTICK[kernel]} at B={B_BENCH} n=93 (means in "
+              "turns): " + ", ".join(f"{k} {t:.4f} ms" for k, t in ms.items()))
     ratios = res["kernels"][smem_sol.NAME]["probe_over_factor"]
     print(f"layout study launches: {launches}; t_probe / t_factor: "
           + ", ".join(f"{k} {r:.4f}" for k, r in ratios.items())

@@ -15,18 +15,24 @@
 //
 // The TPU kernels padded the batch to its 128 lanes or to their tile and n
 // to 128 with a decoupled identity block; neither padding is ported, since
-// it changes no result. The three layouts keep each matrix in shared memory
-// with the odd row stride ld = n | 1 (lane_common.cuh); the probe runs the
-// production factor's register-tiled skeleton (lane_regs.cuh). Each reads
-// its matrix from device memory once and writes each output once.
+// it changes no result. Each kernel reads its matrix from device memory once
+// and writes each output once. Where they keep it:
+//   * the panel-blocked factor-solve and the probe run the production
+//     factor's register-tiled skeleton (lane_regs.cuh): a block per matrix,
+//     the lower triangle in registers, panels factored by warp 0 from a
+//     shared panel buffer;
+//   * the column solve keeps each matrix's lower triangle packed by rows in
+//     shared memory (row starts padded, below), one warp per matrix;
+//   * the blocked solve keeps each whole matrix in shared memory at the odd
+//     row stride ld = n | 1 (lane_common.cuh), one warp per matrix.
 //
 // What bounds them on an H100 (3.35 TB/s, 67 TFLOP/s float32) at B=8192,
 // n=93: device memory, by a wide margin: 0.1710 ms for the factor-solve
 // (read A and b, write L and x), 0.0446 ms for the two solves (read A's
 // lower triangle and b, write x), 0.169 ms for the probe (read A, write the
 // result), against about 0.04 ms for the n^3/6 multiply-adds. The layouts
-// here test three answers to the question of what holds the lane kernels
-// back (block barriers, one matrix per block, the per-column
+// test answers to the question of what holds the lane kernels back (block
+// barriers, the warp-serial panel pass, one matrix per block, the shared
 // read-modify-write of the trailing block), and the probe measures the
 // skeleton of the production factor without its math.
 //
@@ -42,98 +48,13 @@ namespace {
 
 using namespace hybdrt_lane;
 
-constexpr int kMaxPanel = 32;      // a diagonal block is factored by one warp
+constexpr int kMaxPanel = 32;      // the widest panel of the factor-solve
 constexpr int kMaxWarps = 32;      // matrices per block of the warp layouts
 constexpr float kSolScale = 0.999f;
-
-// ---------------------------------------------------------------------------
-// chol_factor_solve_lane_blocked: panel-blocked factor, then both solves.
-//
-// The TPU kernel factored each kb-column panel column by column and then
-// applied the panel's kb rank-1 terms to the trailing block in one fused
-// pass. Here one block per matrix (as chol_lane.cu), three block barriers
-// per panel instead of two per column (about 36 against 186 at n=93, kb=8):
-//   1. warp 0 factors the panel's kb x kb diagonal block (warp barriers
-//      only) and keeps the refined inverse pivots;
-//   2. one thread per row below the panel finishes its kb panel entries by
-//      substitution against that block (the same products, in the same
-//      order, as the right-looking column loop);
-//   3. the trailing lower triangle is updated once per panel, each element
-//      read once and written once, its kb products summed in a register.
-// The contract is chol_factor_solve_lane's: refined rsqrt, NaN from a
-// non-positive pivot on, only the lower triangle of L valid (the upper one
-// keeps the input; the TPU kernel left other leftovers there).
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-factor_solve_blocked_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                            float* __restrict__ x, float* __restrict__ l, int n, int ld,
-                            int kb) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* s = reinterpret_cast<float*>(smem_raw);
-  float* w = s + n * ld;
-  float* dinv = w + n;
-  const size_t m_off = static_cast<size_t>(blockIdx.x) * n * n;
-  const size_t v_off = static_cast<size_t>(blockIdx.x) * n;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  load_matrix(a + m_off, s, n, ld);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) w[i] = b[v_off + i];
-  __syncthreads();
-  for (int j0 = 0; j0 < n; j0 += kb) {
-    const int j1 = min(j0 + kb, n);
-    const int width = j1 - j0;
-    if (warp == 0) {
-      // lane c owns row j0 + c of the diagonal block
-      const int r = j0 + lane;
-      for (int k = 0; k < width; ++k) {
-        const int j = j0 + k;
-        const float ajj = s[j * ld + j];
-        const float inv = refined_rsqrt(ajj);
-        __syncwarp();
-        if (lane == k) {
-          s[j * ld + j] = ajj * inv;
-          dinv[k] = inv;
-        } else if (lane > k && lane < width) {
-          s[r * ld + j] *= inv;
-        }
-        __syncwarp();
-        if (lane > k && lane < width) {
-          const float lr = s[r * ld + j];
-          for (int c = j + 1; c <= r; ++c) s[r * ld + c] -= lr * s[c * ld + j];
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-    for (int r = j1 + threadIdx.x; r < n; r += blockDim.x) {
-      float* row = s + r * ld;
-      for (int k = 0; k < width; ++k) {
-        const int j = j0 + k;
-        const float v = row[j] * dinv[k];
-        row[j] = v;
-        for (int c = j + 1; c < j1; ++c) row[c] -= v * s[c * ld + j];
-      }
-    }
-    __syncthreads();
-    if (j1 < n) {
-      for (int r = j1 + warp; r < n; r += n_warps) {
-        const float* lr = s + r * ld + j0;
-        for (int c = j1 + lane; c <= r; c += 32) {
-          const float* lc = s + c * ld + j0;
-          float acc = 0.f;
-          for (int k = 0; k < width; ++k) acc += lr[k] * lc[k];
-          s[r * ld + c] -= acc;
-        }
-      }
-      __syncthreads();
-    }
-  }
-  if (threadIdx.x < 32) substitute_warp(s, w, n, StridedRows{ld});
-  store_matrix(s, l + m_off, n, ld);
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) x[v_off + i] = w[i];
-}
+// The register-tiled kernels here for TPT tiles a thread, TPT = 1 .. 6
+// (chol_factor_lane's float instantiations, chol_lane.cu::kMaxTPT)
+constexpr int kMaxTPT = 6;
+constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
 // The warp layouts: chol_solve_batched and chol_solve_blocked.
@@ -141,7 +62,7 @@ factor_solve_blocked_kernel(const float* __restrict__ a, const float* __restrict
 // Several matrices per block, one warp per matrix, no block barrier at all:
 // each warp loads its matrix, factors it, solves and stores x, synchronised
 // by __syncwarp only. block_batch warps share a block; shared memory bounds
-// it (6 matrices of n=93 in float32, 209,808 bytes).
+// it.
 //
 // Their contract is the TPU experiments', not the lane kernels': the pivot
 // is a plain rsqrt, a non-positive pivot gives an inverse of 0 and so a zero
@@ -154,6 +75,204 @@ __device__ __forceinline__ float zero_pivot_inv(float ajj) {
 
 __device__ __forceinline__ float pivot_guard(float ljj) { return ljj != 0.f ? ljj : 1.f; }
 
+// L^T x = y in place with the division guard, on the warp's matrix, its rows
+// where `rows` puts them.
+template <typename Rows>
+__device__ __forceinline__ void backward_guarded_warp(const float* l, float* w, int n, Rows rows,
+                                                      int lane) {
+  for (int j = n - 1; j >= 0; --j) {
+    const float* row = l + rows(j);
+    const float xj = w[j] / pivot_guard(row[j]);
+    __syncwarp();
+    if (lane == 0) w[j] = xj;
+    for (int i = lane; i < j; i += 32) w[i] -= row[i] * xj;
+    __syncwarp();
+  }
+}
+
+// chol_solve_batched: a warp per matrix on its lower triangle, packed by rows
+// in shared memory, factored left-looking.
+//
+// The TPU kernel's right-looking column loop, run on a whole (n, n | 1)
+// matrix in shared memory, reads and rewrites the trailing triangle once
+// per column, and at 35 KB a matrix only six matrices share an SM. Here
+// each warp copies only the lower triangle in by cp.async, row r at
+// 4 packed_row4(r) (the rows' starts padded below: 19.2 KB at n = 93 with w,
+// so twelve matrices fit one block), and factors it in groups of 4 columns,
+// a lane per row (kColSlots rows a lane at a time): each of its 4 elements
+// starts from a_rc, takes a_rc -= l_rj l_cj for every earlier column j in
+// ascending order in a register (16-byte loads: l_rj per lane, l_cj
+// broadcast), then the group's own columns as #1's panel (pivot rows by
+// shuffles), and is scaled once by its column's inverse pivot and written
+// once. That is the right-looking loop's order for every element, so x is
+// bitwise the right-looking loop's. The forward substitution runs behind
+// each group on its rows (w_i -= y_j l_ij, ascending j, then the guarded
+// division); the backward one reads the rows of L (backward_guarded_warp),
+// both in substitute_guarded_warp's order.
+//
+// The row starts: row r = 4 m + i needs ceil((r + 1) / 4) = m + 1 vectors of
+// 4 floats; it gets (m + 1) | 1, an odd count, so that 16-byte row starts
+// are aligned and the 8 lanes of each quarter-warp's 16-byte loads (8 rows)
+// mostly land on distinct banks. packed_row4(r) is the sum over the rows
+// before r, in vectors.
+// ---------------------------------------------------------------------------
+constexpr int kColSlots = 2;
+
+__host__ __device__ __forceinline__ int packed_row4(int r) {
+  const int m = r >> 2;
+  return 4 * (m * (m + 1) / 2 + m / 2) + (r & 3) * ((m + 1) | 1);
+}
+
+// Floats of one warp's matrix: the padded triangle and w (rounded up to 4,
+// so that the next warp's triangle starts aligned). The wrapper's
+// smem_bytes mirrors it.
+__host__ __device__ __forceinline__ int column_matrix_floats(int n) {
+  return kTile * (packed_row4(n) + (n + kTile - 1) / kTile);
+}
+
+struct PaddedRows {
+  __device__ __forceinline__ int operator()(int r) const { return kTile * packed_row4(r); }
+};
+
+// Columns c0 .. c0 + 3 of the factor, and rows c0 .. c0 + 3 of the forward
+// substitution, on the warp's matrix s.
+__device__ __forceinline__ void column_group_warp(float* s, float* w, int c0, int n, int lane) {
+  const int kend = min(kTile, n - c0);
+  float inv[kTile];
+  float d[kTile][kTile];  // d[k2][k] = l(c0 + k2, c0 + k), k <= k2
+  float y[kTile];         // the group's unknowns
+#pragma unroll
+  for (int k = 0; k < kTile; ++k) y[k] = k < kend ? w[c0 + k] : 0.f;
+  const float* pc[kTile];  // the group's rows
+#pragma unroll
+  for (int k = 0; k < kTile; ++k) pc[k] = s + kTile * packed_row4(min(c0 + k, n - 1));
+  for (int base = c0; base < n; base += 32 * kColSlots) {
+    float v[kColSlots][kTile];
+    float* row[kColSlots];
+#pragma unroll
+    for (int q = 0; q < kColSlots; ++q) {
+      const int r = base + 32 * q + lane;
+      row[q] = s + kTile * packed_row4(r);
+      if (r < n) {
+        load4(row[q] + c0, v[q]);
+#pragma unroll
+        for (int k = 0; k < kTile; ++k)
+          if (c0 + k > r) v[q][k] = 0.f;  // past the row: padding
+      } else {
+#pragma unroll
+        for (int k = 0; k < kTile; ++k) v[q][k] = 0.f;
+      }
+    }
+    // every earlier column, ascending
+    for (int j = 0; j < c0; j += kTile) {
+      float lr[kColSlots][kTile];
+#pragma unroll
+      for (int q = 0; q < kColSlots; ++q) {
+        if (base + 32 * q + lane < n) {
+          load4(row[q] + j, lr[q]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < kTile; ++k) lr[q][k] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kTile; ++kk) {
+        if (kk < kend) {
+          float lc[kTile];
+          load4(pc[kk] + j, lc);
+#pragma unroll
+          for (int k = 0; k < kTile; ++k)
+#pragma unroll
+            for (int q = 0; q < kColSlots; ++q) v[q][kk] -= lr[q][k] * lc[k];
+        }
+      }
+    }
+    // the group's own columns, right-looking
+#pragma unroll
+    for (int k = 0; k < kTile; ++k) {
+      if (k >= kend) break;
+      if (base == c0) inv[k] = zero_pivot_inv(__shfl_sync(kFull, v[0][k], k));
+#pragma unroll
+      for (int q = 0; q < kColSlots; ++q) v[q][k] *= inv[k];
+      if (base == c0) {
+#pragma unroll
+        for (int k2 = k; k2 < kTile; ++k2) d[k2][k] = __shfl_sync(kFull, v[0][k], k2);
+      }
+#pragma unroll
+      for (int k2 = k + 1; k2 < kTile; ++k2) {
+        if (k2 < kend) {
+#pragma unroll
+          for (int q = 0; q < kColSlots; ++q) v[q][k2] -= v[q][k] * d[k2][k];
+        }
+      }
+    }
+    if (base == c0) {
+#pragma unroll
+      for (int k = 0; k < kTile; ++k) {
+        if (k < kend) {
+          y[k] = y[k] / pivot_guard(d[k][k]);
+#pragma unroll
+          for (int k2 = k + 1; k2 < kTile; ++k2)
+            if (k2 < kend) y[k2] -= y[k] * d[k2][k];
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kColSlots; ++q) {
+      const int r = base + 32 * q + lane;
+      if (r < n) {
+        store4(row[q] + c0, v[q]);
+        if (r >= c0 + kTile) {
+          float wr = w[r];
+#pragma unroll
+          for (int k = 0; k < kTile; ++k)
+            if (k < kend) wr -= y[k] * v[q][k];
+          w[r] = wr;
+        }
+      }
+    }
+  }
+  __syncwarp();
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < kTile; ++k)
+      if (k < kend) w[c0 + k] = y[k];
+  }
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32)
+column_solve_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                    float* __restrict__ x, int batch, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int m = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (m >= batch) return;  // whole warps leave; nothing below waits for them
+  float* s = reinterpret_cast<float*>(smem_raw) + warp * column_matrix_floats(n);
+  float* w = s + kTile * packed_row4(n);
+  const float* g = a + static_cast<size_t>(m) * n * n;
+  const size_t v_off = static_cast<size_t>(m) * n;
+  for (int r = 0; r < n; ++r) {
+    float* row = s + kTile * packed_row4(r);
+    for (int c = lane; c <= r; c += 32) __pipeline_memcpy_async(row + c, g + r * n + c, sizeof(float));
+  }
+  __pipeline_commit();
+  for (int i = lane; i < n; i += 32) w[i] = b[v_off + i];
+  __pipeline_wait_prior(0);
+  __syncwarp();
+  for (int c0 = 0; c0 < n; c0 += kTile) column_group_warp(s, w, c0, n, lane);
+  backward_guarded_warp(s, w, n, PaddedRows{}, lane);
+  for (int i = lane; i < n; i += 32) x[v_off + i] = w[i];
+}
+
+// ---------------------------------------------------------------------------
+// chol_solve_blocked: the whole matrix at row stride ld = n | 1, a warp per
+// matrix, panels of nb columns: each panel factored column by column
+// (scale_column_warp, update_panel_warp), then applied to the trailing block
+// as one product in register tiles (panel_product_warp); both substitutions
+// after the factor (substitute_guarded_warp).
+// ---------------------------------------------------------------------------
 __device__ __forceinline__ void load_matrix_warp(const float* __restrict__ g, float* s, int n,
                                                  int ld, int lane) {
   for (int idx = lane; idx < n * n; idx += 32) {
@@ -162,8 +281,8 @@ __device__ __forceinline__ void load_matrix_warp(const float* __restrict__ g, fl
   }
 }
 
-// Column j of the right-looking loop on the warp's matrix, first half:
-// scale column j (rows j..n-1) by the inverse pivot.
+// Column j of the column loop on the warp's matrix, first half: scale column
+// j (rows j..n-1) by the inverse pivot.
 __device__ __forceinline__ void scale_column_warp(float* s, int j, int n, int ld, int lane) {
   const float inv = zero_pivot_inv(s[j * ld + j]);
   __syncwarp();
@@ -171,19 +290,9 @@ __device__ __forceinline__ void scale_column_warp(float* s, int j, int n, int ld
   __syncwarp();
 }
 
-// Second half, the unblocked loop's: subtract column j's rank-1 term from
-// the trailing lower triangle (r, c), j < c <= r, the lanes across a row.
-__device__ __forceinline__ void update_trailing_warp(float* s, int j, int n, int ld,
-                                                     int lane) {
-  for (int r = j + 1; r < n; ++r) {
-    const float lr = s[r * ld + j];
-    for (int c = j + 1 + lane; c <= r; c += 32) s[r * ld + c] -= lr * s[c * ld + j];
-  }
-  __syncwarp();
-}
-
-// Second half, the blocked loop's: the same within the panel's columns
-// (c < j1) only, a lane per row, since a panel is narrower than a warp.
+// Second half: subtract column j's rank-1 term from the panel's columns
+// right of it (j < c < j1, c <= r), a lane per row, since a panel is
+// narrower than a warp.
 __device__ __forceinline__ void update_panel_warp(float* s, int j, int j1, int n, int ld,
                                                   int lane) {
   for (int r = j + 1 + lane; r < n; r += 32) {
@@ -230,7 +339,6 @@ __device__ void panel_product_warp(float* s, int j0, int j1, int n, int ld, int 
   }
   __syncwarp();
 }
-
 // (L L^T) x = w in place with the division guard, on the warp's matrix.
 __device__ void substitute_guarded_warp(const float* l, float* w, int n, int ld, int lane) {
   for (int j = 0; j < n; ++j) {
@@ -240,22 +348,12 @@ __device__ void substitute_guarded_warp(const float* l, float* w, int n, int ld,
     for (int i = j + 1 + lane; i < n; i += 32) w[i] -= yj * l[i * ld + j];
     __syncwarp();
   }
-  for (int j = n - 1; j >= 0; --j) {
-    const float xj = w[j] / pivot_guard(l[j * ld + j]);
-    __syncwarp();
-    if (lane == 0) w[j] = xj;
-    const float* row = l + j * ld;
-    for (int i = lane; i < j; i += 32) w[i] -= row[i] * xj;
-    __syncwarp();
-  }
+  backward_guarded_warp(l, w, n, StridedRows{ld}, lane);
 }
 
-// nb = 0: the unblocked column loop (chol_solve_batched); nb > 0: panels of
-// nb columns, each factored column by column within the panel and then
-// applied to the trailing block as one product (chol_solve_blocked).
 __global__ void __launch_bounds__(kMaxWarps * 32)
-warp_solve_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                  float* __restrict__ x, int batch, int n, int ld, int nb) {
+blocked_solve_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                     float* __restrict__ x, int batch, int n, int ld, int nb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -268,23 +366,278 @@ warp_solve_kernel(const float* __restrict__ a, const float* __restrict__ b,
   load_matrix_warp(a + m_off, s, n, ld, lane);
   for (int i = lane; i < n; i += 32) w[i] = b[v_off + i];
   __syncwarp();
-  if (nb == 0) {
-    for (int j = 0; j < n; ++j) {
+  for (int j0 = 0; j0 < n; j0 += nb) {
+    const int j1 = min(j0 + nb, n);
+    for (int j = j0; j < j1; ++j) {
       scale_column_warp(s, j, n, ld, lane);
-      update_trailing_warp(s, j, n, ld, lane);
+      update_panel_warp(s, j, j1, n, ld, lane);
     }
-  } else {
-    for (int j0 = 0; j0 < n; j0 += nb) {
-      const int j1 = min(j0 + nb, n);
-      for (int j = j0; j < j1; ++j) {
-        scale_column_warp(s, j, n, ld, lane);
-        update_panel_warp(s, j, j1, n, ld, lane);
-      }
-      if (j1 < n) panel_product_warp(s, j0, j1, n, ld, lane);
-    }
+    if (j1 < n) panel_product_warp(s, j0, j1, n, ld, lane);
   }
   substitute_guarded_warp(s, w, n, ld, lane);
   for (int i = lane; i < n; i += 32) x[v_off + i] = w[i];
+}
+
+// ---------------------------------------------------------------------------
+// chol_factor_solve_lane_blocked: chol_factor_solve_lane's register-tiled
+// skeleton (lane_regs.cuh) with panels of kb columns.
+//
+// The TPU kernel factored each kb-column panel column by column and then
+// applied the panel's kb rank-1 terms to the trailing block in one fused
+// pass. Here the block, the 4x4 register tiles, their geometry
+// (ops/chol_lane.py::reg_geometry), the upper triangle's cp.async stage and
+// the substitutions are chol_factor_solve_lane's; only the panel differs.
+// Per panel of kb columns, two block barriers (2 ceil(n / kb) in all, 24 at
+// n = 93 and kb = 8, against the 4-column factor's 48):
+//   1. the owners of the panel's columns have published them to a shared
+//      panel buffer of kb columns (one of two);
+//   2. warp 0 factors the panel in 4-column chunks, a lane per row, in
+//      registers: each chunk takes the panel's earlier columns from the
+//      buffer, then is factored as #1's panel (pivot rows by shuffles), and
+//      the panel's rows of w are solved behind it;
+//   3. after the barrier every thread reads its panel columns back and
+//      subtracts from each trailing element the panel's kb products, summed
+//      in a register from 0; then it publishes its columns of the next
+//      panel into the other buffer and updates w below the panel.
+// When kb is not a multiple of 4 a panel ends inside a tile column: its
+// tiles are read back, updated and published column by column (masked).
+//
+// The order of operations is the TPU kernel's: within a panel each element
+// (r, c) receives a_rc -= l_rj l_cj for the panel's j < c in ascending order
+// and then its column's scale a_rc * inv; each trailing element receives,
+// per panel, a_rc -= acc with acc = sum of l_rk l_ck from 0 in ascending k.
+// So L and x depend on kb and not on the threads. The contract is
+// chol_factor_solve_lane's: refined rsqrt, NaN from a non-positive pivot
+// on, only the lower triangle of L valid (the upper one keeps the input).
+// ---------------------------------------------------------------------------
+
+// Row stride of a panel buffer: kb rounded up to 4, an odd count of 16-byte
+// vectors, so that warp 0's lanes (a row each) load from distinct banks.
+__host__ __device__ __forceinline__ int panel_stride(int kb) {
+  return kTile * (((kb + kTile - 1) / kTile) | 1);
+}
+
+// Shared memory of the panel-blocked factor-solve (the wrapper's smem_bytes
+// mirrors it): two panel buffers of np rows, w (np) and the stage of the
+// strict upper triangle.
+inline size_t kb_smem_bytes(int n, int kb) {
+  const size_t np = kTile * ((n + kTile - 1) / kTile);
+  return sizeof(float) * (2 * panel_stride(kb) * np + np + static_cast<size_t>(n) * (n - 1) / 2);
+}
+
+// The columns c_begin .. c_end - 1 of a tile into the buffer buf (column c
+// at offset c - c_begin of row stride ld), and back.
+__device__ __forceinline__ void publish_cols(const float (&v)[kTile][kTile], int ti, int tk,
+                                             float* buf, int ld, int c_begin, int c_end) {
+  const int c_lo = kTile * tk;
+  if (ti < 0 || c_lo + kTile <= c_begin || c_lo >= c_end) return;
+  float* row = buf + kTile * ti * ld + c_lo - c_begin;
+  if (c_lo >= c_begin && c_lo + kTile <= c_end && ((c_lo - c_begin) & 3) == 0) {
+#pragma unroll
+    for (int rr = 0; rr < kTile; ++rr) store4(row + rr * ld, v[rr]);
+    return;
+  }
+#pragma unroll
+  for (int rr = 0; rr < kTile; ++rr)
+#pragma unroll
+    for (int cc = 0; cc < kTile; ++cc)
+      if (c_lo + cc >= c_begin && c_lo + cc < c_end) row[rr * ld + cc] = v[rr][cc];
+}
+__device__ __forceinline__ void read_cols(float (&v)[kTile][kTile], int ti, int tk,
+                                          const float* buf, int ld, int c_begin, int c_end) {
+  const int c_lo = kTile * tk;
+  const float* row = buf + kTile * ti * ld + c_lo - c_begin;
+  if (c_lo >= c_begin && c_lo + kTile <= c_end && ((c_lo - c_begin) & 3) == 0) {
+#pragma unroll
+    for (int rr = 0; rr < kTile; ++rr) load4(row + rr * ld, v[rr]);
+    return;
+  }
+#pragma unroll
+  for (int rr = 0; rr < kTile; ++rr)
+#pragma unroll
+    for (int cc = 0; cc < kTile; ++cc)
+      if (c_lo + cc >= c_begin && c_lo + cc < c_end) v[rr][cc] = row[rr * ld + cc];
+}
+
+// Warp 0: factor the panel of columns j0 .. j1 - 1 in the buffer p (rows
+// j0 .. n - 1 valid, column j at offset j - j0 of row stride ld) in chunks
+// of 4 columns, kPanelSlots rows a lane at a time; then solve the chunk's
+// rows of w (which hold the earlier panels' updates) in the substitution's
+// order: w_i -= y_j l_ij for the panel's earlier j, ascending, then the
+// chunk's 4 x 4 block (solve_diag4).
+__device__ __forceinline__ void factor_kb_panel_warp(float* p, int ld, float* w, int j0, int j1,
+                                                     int n) {
+  constexpr int kSlots = kPanelSlots<float>;
+  const int lane = threadIdx.x & 31;
+  for (int c0 = j0; c0 < j1; c0 += kTile) {
+    const int kend = min(kTile, j1 - c0);
+    const int cb = c0 - j0;  // the chunk's first column in the buffer
+    float inv[kTile];
+    float d[kTile][kTile];  // d[k2][k] = l(c0 + k2, c0 + k), k <= k2
+    for (int base = c0; base < n; base += 32 * kSlots) {
+      float v[kSlots][kTile];
+#pragma unroll
+      for (int q = 0; q < kSlots; ++q) {
+        const int i = base + 32 * q + lane;
+        if (i < n) {
+          load4(p + i * ld + cb, v[q]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < kTile; ++k) v[q][k] = 0.0f;
+        }
+      }
+      // the panel's earlier columns, ascending
+      for (int k4 = 0; k4 < cb; k4 += kTile) {
+        float lr[kSlots][kTile];
+#pragma unroll
+        for (int q = 0; q < kSlots; ++q) {
+          const int i = base + 32 * q + lane;
+          if (i < n) {
+            load4(p + i * ld + k4, lr[q]);
+          } else {
+#pragma unroll
+            for (int k = 0; k < kTile; ++k) lr[q][k] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < kTile; ++kk) {
+          if (kk < kend) {
+            float lc[kTile];
+            load4(p + (c0 + kk) * ld + k4, lc);
+#pragma unroll
+            for (int k = 0; k < kTile; ++k)
+#pragma unroll
+              for (int q = 0; q < kSlots; ++q) v[q][kk] -= lr[q][k] * lc[k];
+          }
+        }
+      }
+      // the chunk's own columns, right-looking
+#pragma unroll
+      for (int k = 0; k < kTile; ++k) {
+        if (k >= kend) break;
+        if (base == c0) inv[k] = refined_rsqrt(__shfl_sync(kFull, v[0][k], k));
+#pragma unroll
+        for (int q = 0; q < kSlots; ++q) v[q][k] = v[q][k] * inv[k];
+        if (base == c0) {
+#pragma unroll
+          for (int k2 = k; k2 < kTile; ++k2) d[k2][k] = __shfl_sync(kFull, v[0][k], k2);
+        }
+#pragma unroll
+        for (int k2 = k + 1; k2 < kTile; ++k2) {
+          if (k2 < kend) {
+#pragma unroll
+            for (int q = 0; q < kSlots; ++q) v[q][k2] -= v[q][k] * d[k2][k];
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kSlots; ++q) {
+        const int i = base + 32 * q + lane;
+        if (i < n) store4(p + i * ld + cb, v[q]);
+      }
+    }
+    float wk = 0.0f;
+    if (lane < kend) {
+      const int i = c0 + lane;
+      wk = w[i];
+      for (int k = 0; k < cb; ++k) wk = fma_t(-p[i * ld + k], w[j0 + k], wk);
+    }
+    float y[kTile];
+#pragma unroll
+    for (int k = 0; k < kTile; ++k) y[k] = __shfl_sync(kFull, wk, k);
+    solve_diag4(y, d, kend);
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < kTile; ++k)
+        if (k < kend) w[c0 + k] = y[k];
+    }
+    __syncwarp();
+  }
+}
+
+// Every thread, after warp 0's panel pass: read this tile's panel columns
+// back from p; subtract from its columns right of the panel the panel's
+// summed products; publish its columns of the next panel (j1 .. j1 + kb - 1)
+// to q. Columns left of the panel are final and left alone.
+__device__ __forceinline__ void kb_tile_pass(float (&v)[kTile][kTile], int ti, int tk,
+                                             const float* p, float* q, int ld, int j0, int j1,
+                                             int kb, int n) {
+  const int c_lo = kTile * tk;
+  if (ti < 0 || c_lo + kTile <= j0) return;
+  if (c_lo < j1) read_cols(v, ti, tk, p, ld, j0, j1);
+  if (c_lo + kTile <= j1) return;
+  const int width = j1 - j0;
+  const int kfull = width & ~(kTile - 1);
+  float acc[kTile][kTile] = {};
+  for (int k4 = 0; k4 < kfull; k4 += kTile) {
+    float lc[kTile][kTile];
+#pragma unroll
+    for (int cc = 0; cc < kTile; ++cc) load4(p + (c_lo + cc) * ld + k4, lc[cc]);
+#pragma unroll
+    for (int rr = 0; rr < kTile; ++rr) {
+      float lr[kTile];
+      load4(p + (kTile * ti + rr) * ld + k4, lr);
+#pragma unroll
+      for (int cc = 0; cc < kTile; ++cc)
+#pragma unroll
+        for (int k = 0; k < kTile; ++k) acc[rr][cc] += lr[k] * lc[cc][k];
+    }
+  }
+  for (int k = kfull; k < width; ++k) {
+#pragma unroll
+    for (int rr = 0; rr < kTile; ++rr) {
+      const float lr = p[(kTile * ti + rr) * ld + k];
+#pragma unroll
+      for (int cc = 0; cc < kTile; ++cc) acc[rr][cc] += lr * p[(c_lo + cc) * ld + k];
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < kTile; ++rr)
+#pragma unroll
+    for (int cc = 0; cc < kTile; ++cc)
+      if (c_lo + cc >= j1) v[rr][cc] -= acc[rr][cc];
+  if (j1 < n) publish_cols(v, ti, tk, q, ld, j1, min(j1 + kb, n));
+}
+
+template <int TPT>
+__global__ void __launch_bounds__(kRegThreadsMax)
+factor_solve_kb_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                       float* __restrict__ x, float* __restrict__ l, int n, int kb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int np = kTile * ((n + kTile - 1) / kTile);
+  const int ld = panel_stride(kb);
+  float* pan = reinterpret_cast<float*>(smem_raw);
+  float* w = pan + 2 * ld * np;
+  float* stage = w + np;
+  const size_t m_off = static_cast<size_t>(blockIdx.x) * n * n;
+  const size_t v_off = static_cast<size_t>(blockIdx.x) * n;
+  copy_upper_issue(a + m_off, stage, n);
+  RegTiles<float, TPT> m;
+  load_tiles(a + m_off, m, n);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) w[i] = b[v_off + i];
+#pragma unroll
+  for (int s = 0; s < TPT; ++s) publish_cols(m.v[s], m.ti[s], m.tk[s], pan, ld, 0, min(kb, n));
+  for (int j0 = 0, panel = 0; j0 < n; j0 += kb, ++panel) {
+    const int j1 = min(j0 + kb, n);
+    float* p = pan + (panel & 1) * ld * np;
+    float* q = pan + ((panel + 1) & 1) * ld * np;
+    __syncthreads();
+    if (threadIdx.x < 32) factor_kb_panel_warp(p, ld, w, j0, j1, n);
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < TPT; ++s) kb_tile_pass(m.v[s], m.ti[s], m.tk[s], p, q, ld, j0, j1, kb, n);
+    // the panel's solved rows into the rows below it, ascending j
+    for (int i = j1 + threadIdx.x; i < n; i += blockDim.x) {
+      float wi = w[i];
+      for (int k = 0; k < j1 - j0; ++k) wi = fma_t(-p[i * ld + k], w[j0 + k], wi);
+      w[i] = wi;
+    }
+  }
+  __syncthreads();
+  store_tiles(m, l + m_off, n);
+  backward_regs(m, pan, w, n);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) x[v_off + i] = w[i];
+  copy_upper_finish(stage, l + m_off, n);
 }
 
 // ---------------------------------------------------------------------------
@@ -358,10 +711,6 @@ sol_kernel(const float* __restrict__ a, float* __restrict__ o, int n) {
   copy_upper_finish(stage, o + m_off, n);
 }
 
-// The probe for TPT tiles a thread, TPT = 1 .. 6 (chol_factor_lane's float
-// instantiations, chol_lane.cu::kMaxTPT).
-constexpr int kSolMaxTPT = 6;
-
 // The probe's dynamic shared memory for (n, threads) and the blocks an SM
 // then holds of it and of chol_factor_lane's kernel: chol_factor_lane's
 // bytes (two panel buffers and the upper stage), raised where the probe
@@ -396,7 +745,7 @@ int sol_occupancy(int n, int threads, size_t* bytes, int* probe_blocks, int* fac
 template <int TPT>
 int launch_sol_regs(int tpt, const void* a, void* o, int batch, int n, int threads,
                     cudaStream_t stream, int* probe_blocks, int* factor_blocks) {
-  if constexpr (TPT > kSolMaxTPT) {
+  if constexpr (TPT > kMaxTPT) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (tpt != TPT)
@@ -411,36 +760,65 @@ int launch_sol_regs(int tpt, const void* a, void* o, int batch, int n, int threa
     return static_cast<int>(cudaGetLastError());
   }
 }
-
-inline size_t lane_matrix_floats(int n) {
-  return static_cast<size_t>(n) * row_stride(n) + n;
+template <int TPT>
+int launch_kb_regs(int tpt, const void* a, const void* b, void* x, void* l, int batch, int n,
+                   int kb, int threads, cudaStream_t stream) {
+  if constexpr (TPT > kMaxTPT) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (tpt != TPT)
+      return launch_kb_regs<TPT + 1>(tpt, a, b, x, l, batch, n, kb, threads, stream);
+    const size_t bytes = kb_smem_bytes(n, kb);
+    int err = allow_smem(factor_solve_kb_kernel<TPT>, bytes);
+    if (err) return err;
+    factor_solve_kb_kernel<TPT><<<batch, threads, bytes, stream>>>(
+        static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(x),
+        static_cast<float*>(l), n, kb);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
+// threads: chol_factor_solve_lane's (ops/chol_lane.py::reg_geometry).
 int launch_factor_solve_blocked(const void* a, const void* b, void* x, void* l, int batch,
-                                int n, int kb, void* stream) {
+                                int n, int kb, int threads, void* stream) {
   if (batch == 0) return 0;
-  if (kb < 1 || kb > kMaxPanel) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = sizeof(float) * (lane_matrix_floats(n) + kMaxPanel);
-  int err = allow_smem(factor_solve_blocked_kernel, bytes);
+  if (n < 1 || kb < 1 || kb > kMaxPanel || threads < 32 || threads % 32 ||
+      threads > kRegThreadsMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nt = (n + kTile - 1) / kTile;
+  const int tpt = (nt * (nt + 1) / 2 + threads - 1) / threads;
+  return launch_kb_regs<1>(tpt, a, b, x, l, batch, n, kb, threads,
+                           static_cast<cudaStream_t>(stream));
+}
+
+int launch_column_solve(const void* a, const void* b, void* x, int batch, int n,
+                        int block_batch, void* stream) {
+  if (batch == 0) return 0;
+  if (n < 1 || block_batch < 1 || block_batch > kMaxWarps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = sizeof(float) * block_batch * static_cast<size_t>(column_matrix_floats(n));
+  int err = allow_smem(column_solve_kernel, bytes);
   if (err) return err;
-  factor_solve_blocked_kernel<<<batch, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(x),
-      static_cast<float*>(l), n, row_stride(n), kb);
+  const int blocks = (batch + block_batch - 1) / block_batch;
+  column_solve_kernel<<<blocks, 32 * block_batch, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(x), batch,
+      n);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_warp_solve(const void* a, const void* b, void* x, int batch, int n,
-                      int block_batch, int nb, void* stream) {
+int launch_blocked_solve(const void* a, const void* b, void* x, int batch, int n,
+                         int block_batch, int nb, void* stream) {
   if (batch == 0) return 0;
-  if (block_batch < 1 || block_batch > kMaxWarps || nb < 0)
+  if (block_batch < 1 || block_batch > kMaxWarps || nb < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = sizeof(float) * block_batch * lane_matrix_floats(n);
-  int err = allow_smem(warp_solve_kernel, bytes);
+  const int ld = row_stride(n);
+  const size_t bytes = sizeof(float) * block_batch * (static_cast<size_t>(n) * ld + n);
+  int err = allow_smem(blocked_solve_kernel, bytes);
   if (err) return err;
   const int blocks = (batch + block_batch - 1) / block_batch;
-  warp_solve_kernel<<<blocks, 32 * block_batch, bytes, static_cast<cudaStream_t>(stream)>>>(
+  blocked_solve_kernel<<<blocks, 32 * block_batch, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(x), batch,
-      n, row_stride(n), nb);
+      n, ld, nb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -455,23 +833,21 @@ int launch_sol(const void* a, void* o, int batch, int n, int threads, void* stre
   return launch_sol_regs<1>(tpt, a, o, batch, n, threads, static_cast<cudaStream_t>(stream),
                             probe_blocks, factor_blocks);
 }
-
 }  // namespace
 
 extern "C" {
 
 int chol_factor_solve_lane_blocked_f32(const void* a, const void* b, void* x, void* l,
-                                       int batch, int n, int kb, void* stream) {
-  return launch_factor_solve_blocked(a, b, x, l, batch, n, kb, stream);
+                                       int batch, int n, int kb, int threads, void* stream) {
+  return launch_factor_solve_blocked(a, b, x, l, batch, n, kb, threads, stream);
 }
 int chol_solve_batched_f32(const void* a, const void* b, void* x, int batch, int n,
                            int block_batch, void* stream) {
-  return launch_warp_solve(a, b, x, batch, n, block_batch, 0, stream);
+  return launch_column_solve(a, b, x, batch, n, block_batch, stream);
 }
 int chol_solve_blocked_f32(const void* a, const void* b, void* x, int batch, int n,
                            int block_batch, int nb, void* stream) {
-  if (nb < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_warp_solve(a, b, x, batch, n, block_batch, nb, stream);
+  return launch_blocked_solve(a, b, x, batch, n, block_batch, nb, stream);
 }
 int smem_sol_f32(const void* a, void* o, int batch, int n, int threads, void* stream) {
   int probe_blocks, factor_blocks;

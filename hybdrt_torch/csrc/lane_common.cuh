@@ -1,9 +1,9 @@
 // Device helpers shared by the lane kernels (chol_lane.cu, ip_lane.cu,
-// chol_layouts.cu, and lane_regs.cuh): the refined pivot; for the layout
-// kernels that keep one (n, n) matrix per thread block in shared memory (row
-// stride ld = n | 1, odd, so that column walks hit distinct banks) its load
-// and store; and the one-warp substitution, which chol_solve_factored_lane
-// runs on a packed lower triangle.
+// chol_layouts.cu, and lane_regs.cuh): the refined pivot; where the rows of
+// a lower triangle in shared memory start (a whole matrix at the odd row
+// stride ld = n | 1, so that column walks hit distinct banks, as the layout
+// study's blocked solve keeps it, or packed); and the one-warp substitution,
+// which chol_solve_factored_lane runs on a packed lower triangle.
 //
 // The factor's contract is the TPU kernels' (hybdrt_tpu/ops/pallas_chol_lane.py):
 // only the lower triangle of the factor is valid, the upper triangle keeps
@@ -17,8 +17,6 @@
 
 namespace hybdrt_lane {
 
-constexpr int kThreads = 256;
-
 __device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
 
@@ -28,24 +26,6 @@ __device__ __forceinline__ T refined_rsqrt(T x) {
   T r = rsqrt_t(xm);
   r = r * (T(1.5) - T(0.5) * xm * r * r);
   return x > T(0) ? r : T(NAN);
-}
-
-template <typename T>
-__device__ __forceinline__ void load_matrix(const T* __restrict__ g, T* s, int n, int ld) {
-  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-    int r = idx / n;
-    int c = idx - r * n;
-    s[r * ld + c] = g[idx];
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store_matrix(const T* s, T* __restrict__ g, int n, int ld) {
-  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-    int r = idx / n;
-    int c = idx - r * n;
-    g[idx] = s[r * ld + c];
-  }
 }
 
 // Where row r of a lower triangle in shared memory starts: rows of ld

@@ -2,9 +2,12 @@
 // lower triangle held in registers for the whole factorization and for the
 // substitutions against it. Used by chol_factor_solve_lane, chol_solve_lane
 // and chol_factor_lane (chol_lane.cu), by the fused interior-point steps
-// (ip_lane.cu), and by the layout study's speed-of-light probe
-// (chol_layouts.cu::sol_kernel), which runs factor_regs with its arithmetic
-// (CholMath) swapped out. chol_solve_factored_lane substitutes with one warp
+// (ip_lane.cu), and by two kernels of the layout study (chol_layouts.cu): the
+// speed-of-light probe (sol_kernel), which runs factor_regs with its
+// arithmetic (CholMath) swapped out, and the panel-blocked factor-solve
+// (factor_solve_kb_kernel), which runs these tiles, their loads and stores,
+// the upper triangle's stage and backward_regs with a panel loop of its own
+// (panels of kb columns). chol_solve_factored_lane substitutes with one warp
 // instead (chol_lane.cu).
 //
 // Layout. The lower triangle is cut into 4x4 tiles (I, K), K <= I < nt =

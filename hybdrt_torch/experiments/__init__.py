@@ -7,9 +7,11 @@ production lane kernel (``hybdrt_torch/ops/chol_lane.py``) in another layout:
 
 - ``chol_lane_blocked``: the panel-blocked factor and solve
   (``experiments/pallas_chol_lane_blocked.py``), ``chol_factor_solve_lane``'s
-  function and contract;
-- ``chol_column``: the column loop with one warp per matrix and several
-  matrices per block (``experiments/pallas_chol_column.py``);
+  function and contract, on that kernel's register tiles with panels of kb
+  columns;
+- ``chol_column``: the column Cholesky with one warp per matrix on its
+  packed lower triangle and several matrices per block
+  (``experiments/pallas_chol_column.py``);
 - ``chol_blocked``: the same in panels, with the trailing update as one
   product per panel (``experiments/pallas_chol_blocked.py``);
 - ``smem_sol``: the speed-of-light probe of the lane factor

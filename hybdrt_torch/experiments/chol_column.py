@@ -1,11 +1,13 @@
 """Column-loop factor and solve, several matrices per block: the port of
 ``experiments/pallas_chol_column.py::chol_solve_batched``.
 
-``chol_solve_batched(a, b, block_batch=None) -> x`` solves a x = b by an
-unblocked right-looking Cholesky column loop and both substitutions, one
-warp per matrix and ``block_batch`` matrices per thread block, with no
-block barrier (CUDA kernel ``warp_solve_kernel`` in
-``hybdrt_torch/csrc/chol_layouts.cu``).
+``chol_solve_batched(a, b, block_batch=None) -> x`` solves a x = b by the
+column Cholesky and both substitutions, one warp per matrix and
+``block_batch`` matrices per thread block, with no block barrier (CUDA
+kernel ``column_solve_kernel`` in ``hybdrt_torch/csrc/chol_layouts.cu``).
+Each warp keeps its matrix's lower triangle packed by rows in shared memory
+(``smem_bytes``) and factors it left-looking, each element written once, in
+the order of the TPU kernel's right-looking column loop.
 
 Its contract is the TPU experiment's, not the lane kernels': the pivot is a
 plain rsqrt, ``where(ajj > 0, rsqrt(max(ajj, 1e-30)), 0)``
@@ -14,7 +16,7 @@ and no update, and the substitutions divide by ``where(ljj != 0, ljj, 1)``
 (``:89``, ``:102``). A failed lane returns finite numbers: x = b where every
 pivot fails. ``torch.linalg.cholesky_ex`` would give NaN there, so the plain
 version is its own column loop. ``block_batch`` changes no result; shared
-memory bounds it (6 matrices of n = 93).
+memory bounds it (``max_block_batch``: 12 matrices of n = 93 in one block).
 
 ``a`` is (B, n, n) and ``b`` is (B, n), contiguous float32. A CPU tensor runs
 the plain version; a CUDA tensor launches the kernel or raises, and each
@@ -36,24 +38,39 @@ def reset_launch_counts():
     LAUNCHES[NAME] = 0
 
 
+def packed_row4(r):
+    """Where row r of the packed lower triangle starts, in 16-byte vectors
+    (mirrors the CUDA source): row 4 m + i takes (m + 1) | 1 vectors, m + 1
+    rounded up to odd."""
+    m = r >> 2
+    return 4 * (m * (m + 1) // 2 + m // 2) + (r & 3) * ((m + 1) | 1)
+
+
 def smem_bytes(n, block_batch):
     """Shared memory of one block (mirrors the CUDA source): per matrix, the
-    matrix at row stride n | 1 and its right-hand side."""
-    return 4 * block_batch * (n * (n | 1) + n)
+    padded packed lower triangle and its right-hand side rounded up to 4
+    floats."""
+    return 4 * block_batch * 4 * (packed_row4(n) + -(-n // 4))
 
 
-def block_batch_for(n, block_batch=None):
-    """The matrices per block: ``block_batch`` if its shared memory fits one
-    block, else ValueError; None takes the most that fit, at most the TPU
-    kernel's 8."""
+def max_block_batch(n, smem=smem_bytes):
+    """The most matrices of size n one block's shared memory holds by the
+    rule ``smem(n, block_batch)`` (default this kernel's), at most
+    MAX_BLOCK_BATCH (0 where not even one fits)."""
+    return min(MAX_BLOCK_BATCH, chol_lane.MAX_SMEM_BYTES // smem(n, 1))
+
+
+def block_batch_for(n, block_batch=None, smem=smem_bytes):
+    """The matrices per block: ``block_batch`` if its shared memory by the
+    rule ``smem`` fits one block, else ValueError; None takes the TPU
+    kernel's 8, or the most that fit where 8 do not."""
     if block_batch is None:
-        fits = chol_lane.MAX_SMEM_BYTES // smem_bytes(n, 1)
-        block_batch = min(DEFAULT_BLOCK_BATCH, fits)
+        block_batch = min(DEFAULT_BLOCK_BATCH, max_block_batch(n, smem))
     if not 1 <= block_batch <= MAX_BLOCK_BATCH:
-        raise ValueError(f"block_batch={block_batch} outside 1..{MAX_BLOCK_BATCH}")
-    if smem_bytes(n, block_batch) > chol_lane.MAX_SMEM_BYTES:
+        raise ValueError(f"block_batch={block_batch} at n={n} outside 1..{MAX_BLOCK_BATCH}")
+    if smem(n, block_batch) > chol_lane.MAX_SMEM_BYTES:
         raise ValueError(f"block_batch={block_batch} at n={n} needs "
-                         f"{smem_bytes(n, block_batch)} bytes of shared memory, more than "
+                         f"{smem(n, block_batch)} bytes of shared memory, more than "
                          f"one block has ({chol_lane.MAX_SMEM_BYTES})")
     return block_batch
 

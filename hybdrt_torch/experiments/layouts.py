@@ -16,11 +16,12 @@ on seeded SPD matrices (``spd_batch``), float32:
    events, mean of 20 after a warm-up):
 
    - ``chol_factor_solve_lane_blocked`` at kb in {4, 8, 16}, against
-     ``chol_factor_solve_lane``;
-   - ``chol_solve_batched`` at block_batch in {1, 2, 4, 6} and the most
-     that fit (6 at n = 93 in float32), against ``chol_solve_lane``;
+     ``chol_factor_solve_lane`` (the same skeleton with panels of 4);
+   - ``chol_solve_batched`` at block_batch in {1, 2, 4, 6}, the default
+     (the TPU kernel's 8) and the most that fit (12 at n = 93 in float32),
+     against ``chol_solve_lane``;
    - ``chol_solve_blocked`` at nb in {8, 16} with the most matrices per block
-     that fit, against ``chol_solve_lane``;
+     that fit (6 at n = 93), against ``chol_solve_lane``;
    - ``smem_sol`` against ``chol_factor_lane`` and ``chol_factor_solve_lane``
      (``smem_sol.sol_ratios``).
 
@@ -56,9 +57,10 @@ YARDSTICK = {"chol_factor_solve_lane_blocked": "chol_factor_solve_lane",
 
 def variants(n):
     """{kernel: {label: fn(a, b)}}: the layout variants the study times at n."""
-    bb = chol_column.block_batch_for(n)
-    fits = [k for k in sorted({*BLOCK_BATCH, bb})
-            if chol_column.smem_bytes(n, k) <= chol_lane.MAX_SMEM_BYTES]
+    bb = chol_blocked.block_batch_for(n)
+    most = chol_column.max_block_batch(n)
+    fits = [k for k in sorted({*BLOCK_BATCH, chol_column.block_batch_for(n), most})
+            if k <= most]
     return {
         "chol_factor_solve_lane_blocked": {
             f"kb={kb}": (lambda a, b, kb=kb:
@@ -77,7 +79,8 @@ def variants(n):
 
 
 def default_label(kernel, n):
-    return DEFAULT[kernel].format(bb=chol_column.block_batch_for(n))
+    bb = (chol_column if kernel == "chol_solve_batched" else chol_blocked).block_batch_for(n)
+    return DEFAULT[kernel].format(bb=bb)
 
 
 def plain(kernel, a, b):

@@ -5,12 +5,16 @@ the instructions that make the skeleton in ``sol_kernel`` (the probe,
 their registers as ``ptxas`` reports them, and the blocks of each one SM of
 the card holds (``smem_sol.occupancy``). The probe should show the factor's
 16-byte shared loads, shuffles and barriers, one multiply where the factor
-has one fma, and the factor's blocks per SM. Run from the repository root on
-a machine with a CUDA card and the CUDA toolkit:
+has one fma, and the factor's blocks per SM. Beside them, the same counts
+for ``chol_factor_solve_lane``'s kernel (``factor_solve_kernel``) and the
+layout study's panel-blocked factor-solve on its skeleton
+(``factor_solve_kb_kernel``), with the adds and the local-memory traffic
+of spilled registers. Static counts: a loop's body counts once. Run from the
+repository root on a machine with a CUDA card and the CUDA toolkit:
 
     python -m hybdrt_torch.experiments.probe_sass [--n 93] [--sass FILE]
 
-``--sass`` writes the two kernels' SASS to FILE.
+``--sass`` writes the kernels' SASS to FILE.
 """
 import argparse
 import re
@@ -23,12 +27,13 @@ from ..csrc import build
 from ..ops import chol_lane
 from . import smem_sol
 
-# fma, multiply, reciprocal square root, shared loads of 4, 8 and 16 bytes,
-# shuffles, block barriers
-OPS = {"FFMA": r"\bFFMA\b", "FMUL": r"\bFMUL\b", "MUFU.RSQ": r"\bMUFU\.RSQ\b",
+# fma, add, multiply, reciprocal square root, shared loads of 4, 8 and 16
+# bytes, shuffles, block barriers, local (spill) loads and stores
+OPS = {"FFMA": r"\bFFMA\b", "FADD": r"\bFADD\b", "FMUL": r"\bFMUL\b",
+       "MUFU.RSQ": r"\bMUFU\.RSQ\b",
        "LDS": r"\bLDS\b(?![.\w])", "LDS.64": r"\bLDS(?:\.\w+)*\.64\b",
        "LDS.128": r"\bLDS(?:\.\w+)*\.128\b", "SHFL.IDX": r"\bSHFL\.IDX\b",
-       "BAR.SYNC": r"\bBAR\.SYNC\b"}
+       "BAR.SYNC": r"\bBAR\.SYNC\b", "LDL": r"\bLDL\b", "STL": r"\bSTL\b"}
 
 
 def label(mangled):
@@ -46,7 +51,8 @@ def main():
     ap.add_argument("--sass", type=Path, default=None)
     args = ap.parse_args()
     threads, tpt, _ = chol_lane.reg_geometry(args.n, torch.float32)
-    names = (f"sol_kernel<{tpt}>", f"factor_kernel<f,{tpt}>")
+    names = (f"sol_kernel<{tpt}>", f"factor_kernel<f,{tpt}>", f"factor_solve_kernel<f,{tpt},1>",
+             f"factor_solve_kb_kernel<{tpt}>")
     lib = build.build()
     cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,

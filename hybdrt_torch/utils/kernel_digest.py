@@ -19,8 +19,14 @@ n) at the fused fit's (8192, 93, 4 steps), the IP-loop experiment's (1024,
 kernel's time, the mean of 20 calls by CUDA events after a warm-up. The
 layout study's probe ``smem_sol`` (``experiments/smem_sol.py``) runs on
 ``spd_batch`` matrices (seed B + n) at (8192, 93), timed, and (130, 17),
-float32; its line prints the digest of its output. Run from the repository
-root on a machine with a CUDA card:
+float32; its line prints the digest of its output. The other three layout
+kernels (``hybdrt_torch/experiments/``) run on ``spd_batch`` matrices (seed
+B + n) with lane 7 given a non-positive pivot in column n // 2, at (8192,
+93), timed, and (130, 17), float32: ``chol_factor_solve_lane_blocked`` (x and
+L) at kb = 3, 4, 8 and 16, ``chol_solve_batched`` (x) at block_batch = 1 and
+its default, and ``chol_solve_blocked`` (x) at nb = 16; each line calls a
+wrapper signature that every tree since the layout study's port has. Run
+from the repository root on a machine with a CUDA card:
 
     python hybdrt_torch/utils/kernel_digest.py [ROOT]
 
@@ -47,6 +53,10 @@ IP_TIMED = {(8192, 93, 4), (1024, 95, 8)}
 LOOP_CASES = {(8192, 93, 4)}
 SOL_CASES = ((8192, 93), (130, 17))
 SOL_TIMED = {(8192, 93)}
+LAYOUT_CASES = ((8192, 93), (130, 17))
+LAYOUT_TIMED = {(8192, 93)}
+LAYOUT_BAD = 7
+KB = (3, 4, 8, 16)
 FROZEN = {130: 7}
 
 
@@ -106,6 +116,25 @@ def sol_lines(probe, smem_sol):
         print(f"smem_sol ({b}, {n}) float32: sha256 {sha(out)}{timing}")
 
 
+def layout_lines(probe, lane_blocked, column, blocked):
+    for b, n in LAYOUT_CASES:
+        a, rhs = probe.spd_batch(b, n, torch.float32, b + n)
+        a[LAYOUT_BAD, n // 2, n // 2] = -1.0
+        calls = {f"{lane_blocked.NAME} kb={kb}":
+                 (lambda kb=kb: lane_blocked.chol_factor_solve_lane_blocked(a, rhs, kb=kb))
+                 for kb in KB}
+        calls[f"{column.NAME} block_batch=1"] = lambda: column.chol_solve_batched(a, rhs,
+                                                                                  block_batch=1)
+        calls[f"{column.NAME} default"] = lambda: column.chol_solve_batched(a, rhs)
+        calls[f"{blocked.NAME} nb=16"] = lambda: blocked.chol_solve_blocked(a, rhs, nb=16)
+        for label, fn in calls.items():
+            out = fn()
+            out = out if isinstance(out, tuple) else (out,)
+            timing = f", {probe.cuda_ms(fn):.4f} ms" if (b, n) in LAYOUT_TIMED else ""
+            print(f"{label} ({b}, {n}) float32, lane {LAYOUT_BAD} bad pivot: "
+                  f"sha256 {sha(*out)}{timing}")
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -113,7 +142,8 @@ def main(argv=None):
     root = Path(argv[0]).resolve() if argv else HERE.parents[1]
     probe = _probe()
     sys.path.insert(0, str(root))
-    from hybdrt_torch.experiments import ip_loop, smem_sol
+    from hybdrt_torch.experiments import (chol_blocked, chol_column, chol_lane_blocked, ip_loop,
+                                          smem_sol)
     from hybdrt_torch.ops import chol_lane, ip_lane
 
     print(probe.card_line())
@@ -121,6 +151,7 @@ def main(argv=None):
     chol_lines(probe, chol_lane)
     ip_lines(probe, ip_lane, ip_loop)
     sol_lines(probe, smem_sol)
+    layout_lines(probe, chol_lane_blocked, chol_column, chol_blocked)
 
 
 if __name__ == "__main__":

@@ -419,12 +419,14 @@ def test_probe_at_every_tile_count(cuda, tpt):
 
 def test_layout_pivot_contracts(cuda):
     """The panel-blocked factor keeps the lane kernels' NaN from a
-    non-positive pivot on; the column and blocked solves give a zero column,
-    finite x as their plain version, and x = b where every pivot fails."""
+    non-positive pivot on, at every panel width the tests take; the column
+    and blocked solves give a zero column, finite x as their plain version,
+    and x = b where every pivot fails, at every block_batch the column solve
+    is tested at."""
     a, rhs = spd_batch(4, 17, torch.float32, 7, cuda)
     a[1, 5, 5] = -1.0
     a[2] = -a[2]
-    for kb in (4, 8, 16):
+    for kb in LANE_BLOCKED_KB:
         x, l = chol_lane_blocked.chol_factor_solve_lane_blocked(a, rhs, kb=kb)
         assert torch.isnan(x[1]).all() and torch.isnan(x[2]).all()
         assert torch.isfinite(x[0]).all() and torch.isfinite(x[3]).all()
@@ -432,9 +434,11 @@ def test_layout_pivot_contracts(cuda):
         assert torch.isfinite(torch.diagonal(l[1])[:5]).all()
         assert torch.isnan(torch.diagonal(l[2])).all()
         assert torch.isfinite(torch.tril(l[0])).all() and torch.isfinite(torch.tril(l[3])).all()
+        assert torch.equal(torch.triu(l, 1), torch.triu(a, 1))
     want = chol_column.chol_solve_batched_plain(a, rhs)
     assert torch.equal(want[2], rhs[2])
-    solves = [lambda k=k: chol_column.chol_solve_batched(a, rhs, block_batch=k) for k in (1, 3)]
+    solves = [lambda k=k: chol_column.chol_solve_batched(a, rhs, block_batch=k)
+              for k in _column_block_batches(17)]
     solves += [lambda nb=nb: chol_blocked.chol_solve_blocked(a, rhs, nb=nb) for nb in (4, 5, 16)]
     for solve in solves:
         x = solve()
@@ -459,9 +463,83 @@ def test_layout_bad_inputs(cuda):
                 fn(a, rhs.cpu())
         out = fn(a[:0], rhs[:0])
         assert (out[0] if name == chol_lane_blocked.NAME else out).shape[0] == 0
+    # at n = 93, 12 packed triangles fit one block, 13 do not; 6 whole
+    # matrices of the blocked solve fit, 7 do not
     big, rhs_big = spd_batch(1, 93, torch.float32, 0, cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        chol_column.chol_solve_batched(big, rhs_big, block_batch=7)
+        chol_column.chol_solve_batched(big, rhs_big, block_batch=13)
+    with pytest.raises(ValueError, match="shared memory"):
+        chol_blocked.chol_solve_blocked(big, rhs_big, block_batch=7)
+    # both launchers refuse what their wrappers refuse
+    x = torch.empty_like(rhs_big)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.launch(chol_column.NAME, (big, rhs_big, x), (1, 93, 33), big.device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.launch(chol_lane_blocked.NAME, (big, rhs_big, x, big.clone()), (1, 93, 33, 64),
+                      big.device)
+
+
+LANE_BLOCKED_KB = (1, 3, 4, 5, 8, 16, 32)
+
+
+def _column_block_batches(n):
+    """1, 3, the default and the most that fit, as far as they fit."""
+    most = chol_column.max_block_batch(n)
+    return sorted(k for k in {1, 3, chol_column.block_batch_for(n), most} if k <= most)
+
+
+def _largest_layout_n(kernel):
+    if kernel == chol_column.NAME:
+        return max(n for n in range(1, 400) if chol_column.max_block_batch(n) >= 1)
+    return _largest_admitted(torch.float32)
+
+
+@pytest.mark.parametrize("b", [1, 133])
+@pytest.mark.parametrize("n", [1, 4, 5, 17, 33, 93, 94, "max"])
+def test_column_solve_kernel(cuda, n, b):
+    """chol_solve_batched (a warp per matrix, the packed lower triangle)
+    against its plain version on either side of a 4-column group and of a
+    warp's 32 rows, at 93/94 and the largest n one block's shared memory
+    takes (335): x within the tolerance at every block_batch tested, the
+    same bits at each (block_batch changes no result), the input
+    unchanged, one launch a call."""
+    n = _largest_layout_n(chol_column.NAME) if n == "max" else n
+    a, rhs = spd_batch(b, n, torch.float32, 13 * n + b, cuda)
+    a_in = a.clone()
+    want = chol_column.chol_solve_batched_plain(a, rhs)
+    chol_column.reset_launch_counts()
+    block_batches = _column_block_batches(n)
+    xs = [chol_column.chol_solve_batched(a, rhs, block_batch=k) for k in block_batches]
+    torch.cuda.synchronize()
+    for x in xs:
+        torch.testing.assert_close(x, want, rtol=TOL, atol=TOL)
+        assert torch.equal(x, xs[0])
+    assert torch.equal(a, a_in)
+    assert chol_column.LAUNCHES == {chol_column.NAME: len(block_batches)}
+
+
+@pytest.mark.parametrize("b", [1, 133])
+@pytest.mark.parametrize("n", [1, 4, 5, 17, 33, 93, 94, "max"])
+@pytest.mark.parametrize("kb", LANE_BLOCKED_KB)
+def test_lane_blocked_kernel(cuda, kb, n, b):
+    """chol_factor_solve_lane_blocked (chol_factor_solve_lane's register
+    tiles, panels of kb columns; panels ending inside a tile column where kb
+    is not a multiple of 4) against its plain version up to the largest n
+    the tile rule takes (268): x and L's lower triangle within the
+    tolerance, L's upper triangle the input's, the input unchanged, one
+    launch."""
+    n = _largest_layout_n(chol_lane_blocked.NAME) if n == "max" else n
+    a, rhs = spd_batch(b, n, torch.float32, 17 * n + b, cuda)
+    a_in = a.clone()
+    x_p, l_p = chol_lane_blocked.chol_factor_solve_lane_blocked_plain(a, rhs)
+    chol_lane_blocked.reset_launch_counts()
+    x, l = chol_lane_blocked.chol_factor_solve_lane_blocked(a, rhs, kb=kb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(x, x_p, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(torch.tril(l), l_p, rtol=TOL, atol=TOL)
+    assert torch.equal(torch.triu(l, 1), torch.triu(a, 1))
+    assert torch.equal(a, a_in)
+    assert chol_lane_blocked.LAUNCHES == {chol_lane_blocked.NAME: 1}
 
 
 @pytest.mark.parametrize("b,n,n_steps", [(8192, 93, 4), (1024, 95, 8), (130, 17, 8)])

@@ -9,6 +9,7 @@ on a GPU by tests/test_torch_cuda.py.
 """
 import hashlib
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -175,7 +176,9 @@ def test_study_variants_match_pallas_interpret():
     x_solve = _jax("column", None, a, rhs)
     table = layouts.variants(17)
     assert set(table["chol_factor_solve_lane_blocked"]) == {"kb=4", "kb=8", "kb=16"}
-    assert set(table["chol_solve_batched"]) == {f"block_batch={k}" for k in (1, 2, 4, 6, 8)}
+    # 1, 2, 4, 6, the default 8 and the most that fit, 32 (MAX_BLOCK_BATCH)
+    assert set(table["chol_solve_batched"]) == {f"block_batch={k}"
+                                                for k in (1, 2, 4, 6, 8, 32)}
     for label, fn in table["chol_factor_solve_lane_blocked"].items():
         x, l = fn(at, rt)
         _close(x.numpy(), x_lane)
@@ -229,14 +232,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         chol_lane.check_args(smem_sol.NAME, torch.zeros(1, 269, 269), dtypes=smem_sol.DTYPES)
     with pytest.raises(TypeError):
         chol_lane.check_args(smem_sol.NAME, a.double(), dtypes=smem_sol.DTYPES)
-    # one warp per matrix at row stride n | 1: 6 matrices of n = 93 fit one
-    # block's shared memory, 7 do not
-    assert chol_column.block_batch_for(93) == 6
+    # chol_solve_batched: one warp per matrix on its padded packed lower
+    # triangle, 12 matrices of n = 93 fit one block's shared memory, 13 do
+    # not; the default is the TPU kernel's 8. chol_solve_blocked keeps the
+    # whole matrix at row stride n | 1: 6 fit, 7 do not
+    assert chol_column.block_batch_for(93) == 8 and chol_column.max_block_batch(93) == 12
     assert chol_column.block_batch_for(37) == 8
-    assert chol_column.smem_bytes(93, 6) <= chol_lane.MAX_SMEM_BYTES < chol_column.smem_bytes(93, 7)
-    for fn in (chol_column.chol_solve_batched, chol_blocked.chol_solve_blocked):
+    assert (chol_column.smem_bytes(93, 12) <= chol_lane.MAX_SMEM_BYTES
+            < chol_column.smem_bytes(93, 13))
+    assert chol_blocked.block_batch_for(93) == 6
+    assert chol_blocked.block_batch_for(37) == 8
+    assert (chol_blocked.smem_bytes(93, 6) <= chol_lane.MAX_SMEM_BYTES
+            < chol_blocked.smem_bytes(93, 7))
+    for fn, refused in ((chol_column.chol_solve_batched, 13), (chol_blocked.chol_solve_blocked, 7)):
         with pytest.raises(ValueError, match="shared memory"):
-            fn(a, b, block_batch=7)
+            fn(a, b, block_batch=refused)
         with pytest.raises(ValueError):
             fn(a, b, block_batch=0)
     with pytest.raises(ValueError):
@@ -244,4 +254,137 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     for kb in (0, 33):
         with pytest.raises(ValueError):
             chol_lane_blocked.chol_factor_solve_lane_blocked(a, b, kb=kb)
-    assert chol_lane_blocked.smem_bytes(93) < chol_lane.MAX_SMEM_BYTES
+    # the panel-blocked factor-solve takes chol_factor_solve_lane's n: its
+    # shared memory fits one block at every kb, so the tile rule binds
+    for kb in range(1, chol_lane_blocked.MAX_PANEL + 1):
+        assert chol_lane_blocked.smem_bytes(268, kb) < chol_lane.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="lower tiles"):
+        chol_lane.check_args(chol_lane_blocked.NAME, torch.zeros(1, 269, 269),
+                             torch.zeros(1, 269),
+                             smem=lambda n, dt: chol_lane_blocked.smem_bytes(n, 8),
+                             dtypes=chol_lane_blocked.DTYPES)
+
+
+_LAYOUT_SOURCE = (Path(__file__).resolve().parents[1] / "hybdrt_torch" / "csrc"
+                  / "chol_layouts.cu")
+
+
+def _c_int_expr(expr, **names):
+    """Evaluate a C integer expression of the source with Python's integers
+    (its divisions are of non-negative ints, so // is C's /)."""
+    expr = expr.replace("static_cast<size_t>", "").replace("kTile", "4").replace("/", "//")
+    return eval(expr, {}, names)
+
+
+def test_column_shared_memory_mirrors_the_source():
+    """``chol_column.smem_bytes`` is the launcher's: per matrix
+    column_matrix_floats(n) floats, 4 (packed_row4(n) + ceil(n / 4)), with
+    the row starts of packed_row4 (each row of 4 m + i an odd count of
+    16-byte vectors, at least its m + 1), read from csrc/chol_layouts.cu;
+    19,152 bytes at n = 93."""
+    src = _LAYOUT_SOURCE.read_text()
+    row4 = re.search(r"int packed_row4\(int r\) \{\s*const int m = r >> 2;\s*return ([^;]+);",
+                     src).group(1)
+    floats = re.search(r"int column_matrix_floats\(int n\) \{\s*return ([^;]+);",
+                       src).group(1)
+    assert ("sizeof(float) * block_batch * static_cast<size_t>(column_matrix_floats(n))"
+            in src)
+    for r in range(400):
+        assert _c_int_expr(row4, r=r, m=r >> 2) == chol_column.packed_row4(r)
+        # row r holds its r + 1 values, from a 16-byte boundary
+        length = chol_column.packed_row4(r + 1) - chol_column.packed_row4(r)
+        assert length % 2 == 1 and 4 * length >= r + 1
+    for n in range(1, 400):
+        packed = chol_column.packed_row4(n)
+        per_matrix = _c_int_expr(floats.replace("packed_row4(n)", str(packed)), n=n)
+        for bb in (1, 8, 32):
+            assert chol_column.smem_bytes(n, bb) == 4 * bb * per_matrix
+    assert chol_column.smem_bytes(93, 1) == 19152
+
+
+def _parent_column_rule(n, block_batch):
+    """The rule chol_solve_batched admitted (n, block_batch) by while it kept
+    the whole matrix at row stride n | 1: that matrix and w per warp in one
+    block's 232448 bytes."""
+    return 4 * block_batch * (n * (n | 1) + n) <= 232448
+
+
+def test_column_admission_takes_every_pair_the_parent_rule_took():
+    """Every (n, block_batch) the parent rule took is taken, and more: the
+    packed triangle takes n up to 335 at block_batch = 1, against 240."""
+    taken = parent = 0
+    for n in range(1, 400):
+        for bb in range(1, chol_column.MAX_BLOCK_BATCH + 1):
+            try:
+                ok = chol_column.block_batch_for(n, bb) == bb
+            except ValueError:
+                ok = False
+            taken += ok
+            parent += _parent_column_rule(n, bb)
+            if _parent_column_rule(n, bb):
+                assert ok, (n, bb)
+        assert chol_column.max_block_batch(n) == sum(
+            chol_column.smem_bytes(n, bb) <= chol_lane.MAX_SMEM_BYTES
+            for bb in range(1, chol_column.MAX_BLOCK_BATCH + 1))
+    assert taken > parent
+    assert max(n for n in range(1, 400) if chol_column.max_block_batch(n) >= 1) == 335
+    assert max(n for n in range(1, 400) if _parent_column_rule(n, 1)) == 240
+
+
+def test_lane_blocked_shared_memory_mirrors_the_source():
+    """``chol_lane_blocked.smem_bytes`` and ``panel_stride`` are the
+    launcher's (csrc/chol_layouts.cu): two panel buffers of 4 ceil(n / 4)
+    rows at an odd count of 16-byte vectors a row, w, and the upper
+    triangle's stage."""
+    src = _LAYOUT_SOURCE.read_text()
+    stride = re.search(r"int panel_stride\(int kb\) \{\s*return ([^;]+);", src).group(1)
+    total = re.search(r"inline size_t kb_smem_bytes\(int n, int kb\) \{\s*"
+                      r"const size_t np = ([^;]+);\s*return sizeof\(float\) \* ([^;]+);",
+                      src, re.S)
+    for kb in range(1, chol_lane_blocked.MAX_PANEL + 1):
+        ld = _c_int_expr(stride, kb=kb)
+        assert ld == chol_lane_blocked.panel_stride(kb) and ld % 4 == 0 and (ld // 4) % 2 == 1
+        assert ld >= kb
+        for n in (1, 17, 93, 94, 268):
+            np_ = _c_int_expr(total.group(1), n=n)
+            body = total.group(2).replace("panel_stride(kb)", str(ld))
+            assert chol_lane_blocked.smem_bytes(n, kb) == 4 * _c_int_expr(body, n=n, np=np_)
+    assert chol_lane_blocked.panel_stride(4) == 4 and chol_lane_blocked.panel_stride(8) == 12
+
+
+def _parent_lane_blocked_rule(n):
+    """The rule chol_factor_solve_lane_blocked admitted n by while it kept
+    the whole matrix in shared memory: that matrix at row stride n | 1, w and
+    32 inverse pivots in one block's 232448 bytes, at every kb."""
+    return 4 * (n * (n | 1) + n + 32) <= 232448
+
+
+def test_lane_blocked_admission_takes_every_pair_the_parent_rule_took():
+    """Every (n, kb) the parent rule took is taken; now chol_factor_solve_lane's
+    tile rule decides, n up to 268 at every kb."""
+    for kb in range(1, chol_lane_blocked.MAX_PANEL + 1):
+        ns = [n for n in range(1, 400)
+              if chol_lane.admitted(n, torch.float32,
+                                    smem=lambda n, dt: chol_lane_blocked.smem_bytes(n, kb))]
+        assert ns == list(range(1, 269))
+        assert all(n in ns for n in range(1, 400) if _parent_lane_blocked_rule(n))
+    assert max(n for n in range(1, 400) if _parent_lane_blocked_rule(n)) == 240
+
+
+@pytest.mark.parametrize("n", [17, 93, 94, 200])
+def test_study_variants_include_the_default_and_the_most_that_fit(n):
+    """The study times chol_solve_batched at its default block_batch (the TPU
+    kernel's 8) and at the most that fit, beside 1, 2, 4 and 6; the blocked
+    solve keeps its own rule (6 at n = 93), so it times the calls it timed
+    before."""
+    table = layouts.variants(n)
+    labels = set(table["chol_solve_batched"])
+    default, most = chol_column.block_batch_for(n), chol_column.max_block_batch(n)
+    assert default == min(8, most)
+    assert {f"block_batch={k}" for k in (default, most)} <= labels
+    assert {f"block_batch={k}" for k in (1, 2, 4, 6) if k <= most} <= labels
+    assert layouts.default_label("chol_solve_batched", n) == f"block_batch={default}"
+    bb = chol_blocked.block_batch_for(n)
+    assert set(table["chol_solve_blocked"]) == {f"nb={nb} block_batch={bb}" for nb in (8, 16)}
+    if n == 93:
+        assert (default, most, bb) == (8, 12, 6)
