@@ -67,12 +67,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    the same CUDA tensors at (8192, 93) and (130, 17), float32, within rtol =
    atol = 2e-4, and the probe against its closed form; the pivot contracts
    (NaN in the panel-blocked factor's failed lanes, finite x = b from the
-   column and blocked solves where every pivot fails); then
-   ``experiments.layouts.study`` once at (8192, 93) with the launch counters
-   reset just before it: kernel, plain, library and bound times, the
-   panel-blocked factor-solve's kb variants beside ``chol_factor_solve_lane``
-   and the column solve's block_batch variants beside ``chol_solve_lane``,
-   and t_probe / t_factor for ``chol_factor_lane`` and
+   column solve and from the blocked solve at nb = 3, 4 and n where every
+   pivot fails); then ``experiments.layouts.study`` once at (8192, 93) with
+   the launch counters reset just before it: kernel, plain, library and
+   bound times, the panel-blocked factor-solve's kb variants beside
+   ``chol_factor_solve_lane``, the column solve's block_batch variants and
+   the blocked solve's (nb, block_batch) variants beside
+   ``chol_solve_lane``, and t_probe / t_factor for ``chol_factor_lane`` and
    ``chol_factor_solve_lane``;
 10. the IP-loop experiment (``hybdrt_torch/experiments/ip_loop.py``): its
     kernel ``ip_steps_loop`` (the fused steps with the TPU kernels' full-step
@@ -635,14 +636,16 @@ def phase_layouts():
                and torch.isfinite(torch.diagonal(l[1])[:5]).all()),
           "chol_factor_solve_lane_blocked: NaN from a non-positive pivot on, in its lane only")
     want = chol_column.chol_solve_batched_plain(a, rhs)
-    for name, got in ((chol_column.NAME, chol_column.chol_solve_batched(a, rhs)),
-                      (chol_blocked.NAME, chol_blocked.chol_solve_blocked(a, rhs, nb=4))):
+    solves = [(chol_column.NAME, chol_column.chol_solve_batched(a, rhs))]
+    solves += [(f"{chol_blocked.NAME} nb={nb}", chol_blocked.chol_solve_blocked(a, rhs, nb=nb))
+               for nb in (3, 4, 17)]
+    for name, got in solves:
         check(bool(torch.isfinite(got).all()
                    and torch.all((got - want).abs() <= TOL + TOL * want.abs())
                    and torch.equal(got[2], rhs[2])),
               f"{name}: finite x as the plain version, x = b where every pivot fails")
     print("layout pivot contracts: the panel-blocked factor NaN in its failed lanes; the "
-          "column and blocked solves finite, x = b where every pivot fails")
+          "column and blocked (nb = 3, 4, n) solves finite, x = b where every pivot fails")
 
     for m in modules.values():
         m.reset_launch_counts()
@@ -650,7 +653,7 @@ def phase_layouts():
     torch.cuda.synchronize()
     launches = {k: m.LAUNCHES[k] for k, m in modules.items()}
     check(all(v > 0 for v in launches.values()), f"every layout kernel launched: {launches}")
-    for kernel in (chol_lane_blocked.NAME, chol_column.NAME):
+    for kernel in (chol_lane_blocked.NAME, chol_column.NAME, chol_blocked.NAME):
         ms = {k: sum(v) / len(v) for k, v in res["kernels"][kernel]["variants_ms"].items()}
         print(f"{kernel} beside {layouts.YARDSTICK[kernel]} at B={B_BENCH} n=93 (means in "
               "turns): " + ", ".join(f"{k} {t:.4f} ms" for k, t in ms.items()))

@@ -21,10 +21,10 @@
 //     factor's register-tiled skeleton (lane_regs.cuh): a block per matrix,
 //     the lower triangle in registers, panels factored by warp 0 from a
 //     shared panel buffer;
-//   * the column solve keeps each matrix's lower triangle packed by rows in
-//     shared memory (row starts padded, below), one warp per matrix;
-//   * the blocked solve keeps each whole matrix in shared memory at the odd
-//     row stride ld = n | 1 (lane_common.cuh), one warp per matrix.
+//   * the column solve and the blocked solve are one kernel, one warp per
+//     matrix on its lower triangle packed by rows in shared memory (row
+//     starts padded, below); the blocked solve is its instantiation in panels
+//     of nb columns.
 //
 // What bounds them on an H100 (3.35 TB/s, 67 TFLOP/s float32) at B=8192,
 // n=93: device memory, by a wide margin: 0.1710 ms for the factor-solve
@@ -32,9 +32,9 @@
 // lower triangle and b, write x), 0.169 ms for the probe (read A, write the
 // result), against about 0.04 ms for the n^3/6 multiply-adds. The layouts
 // test answers to the question of what holds the lane kernels back (block
-// barriers, the warp-serial panel pass, one matrix per block, the shared
-// read-modify-write of the trailing block), and the probe measures the
-// skeleton of the production factor without its math.
+// barriers, the warp-serial panel pass, one matrix per block, the order of
+// the sums), and the probe measures the skeleton of the production factor
+// without its math.
 //
 // Each launcher returns cudaGetLastError() so that the Python wrapper can
 // raise on a refused launch.
@@ -57,7 +57,7 @@ constexpr int kMaxTPT = 6;
 constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
-// The warp layouts: chol_solve_batched and chol_solve_blocked.
+// The warp layouts: chol_solve_batched and chol_solve_blocked, one kernel.
 //
 // Several matrices per block, one warp per matrix, no block barrier at all:
 // each warp loads its matrix, factors it, solves and stores x, synchronised
@@ -90,31 +90,53 @@ __device__ __forceinline__ void backward_guarded_warp(const float* l, float* w, 
   }
 }
 
-// chol_solve_batched: a warp per matrix on its lower triangle, packed by rows
-// in shared memory, factored left-looking.
+// A warp per matrix on its lower triangle, packed by rows in shared memory,
+// factored left-looking.
 //
-// The TPU kernel's right-looking column loop, run on a whole (n, n | 1)
-// matrix in shared memory, reads and rewrites the trailing triangle once
-// per column, and at 35 KB a matrix only six matrices share an SM. Here
-// each warp copies only the lower triangle in by cp.async, row r at
-// 4 packed_row4(r) (the rows' starts padded below: 19.2 KB at n = 93 with w,
-// so twelve matrices fit one block), and factors it in groups of 4 columns,
-// a lane per row (kColSlots rows a lane at a time): each of its 4 elements
-// starts from a_rc, takes a_rc -= l_rj l_cj for every earlier column j in
-// ascending order in a register (16-byte loads: l_rj per lane, l_cj
-// broadcast), then the group's own columns as #1's panel (pivot rows by
-// shuffles), and is scaled once by its column's inverse pivot and written
-// once. That is the right-looking loop's order for every element, so x is
-// bitwise the right-looking loop's. The forward substitution runs behind
-// each group on its rows (w_i -= y_j l_ij, ascending j, then the guarded
-// division); the backward one reads the rows of L (backward_guarded_warp),
-// both in substitute_guarded_warp's order.
+// The TPU kernels' column loops, run on a whole (n, n | 1) matrix in shared
+// memory, read and rewrite the trailing triangle once per column (or, in
+// panels, once per panel column and once per panel), and at 35 KB a matrix
+// only six matrices share an SM. Here each warp copies only the lower
+// triangle in by cp.async, row r at 4 packed_row4(r) (the rows' starts
+// padded below: 19.2 KB at n = 93 with w, so twelve matrices fit one block),
+// and factors it in groups of 4 columns, a lane per row (kColSlots rows a
+// lane at a time): each of its 4 elements starts from a_rc, takes the terms
+// l_rj l_cj of every earlier column j in ascending order in a register
+// (16-byte loads: l_rj per lane, l_cj broadcast), then the group's own
+// columns as #1's panel (pivot rows by shuffles), and is scaled once by its
+// column's inverse pivot and written once. The forward substitution runs
+// behind each group on its rows (w_i -= y_j l_ij, ascending j, then the
+// guarded division); the backward one reads the rows of L
+// (backward_guarded_warp).
+//
+// The order of the terms is each TPU kernel's, so x is bitwise the order's:
+//   * chol_solve_batched (Panels = false): a_rc -= l_rj l_cj, one fma per
+//     term, for every j < c, the right-looking column loop's order;
+//   * chol_solve_blocked (Panels = true, panels of nb columns): an element of
+//     column c in the panel [j0, j0 + nb) first loses, for each earlier panel
+//     [k0, k1) in ascending order, that panel's sum of l_rk l_ck (from +0,
+//     ascending k: the TPU kernel's trailing product), then l_rj l_cj one fma
+//     at a time for j0 <= j < c (its panel's column loop). Each element keeps
+//     its current panel sum beside it (acc) and loses it at the panel's last
+//     column. A panel that ends inside a group of 4 columns (nb not a
+//     multiple of 4) ends after the group's column there has been scaled: the
+//     group's columns past it take that column's term into their sums, lose
+//     them, and go on in their own panel. With one panel (nb >= n) the order
+//     is chol_solve_batched's, and so is x.
 //
 // The row starts: row r = 4 m + i needs ceil((r + 1) / 4) = m + 1 vectors of
 // 4 floats; it gets (m + 1) | 1, an odd count, so that 16-byte row starts
 // are aligned and the 8 lanes of each quarter-warp's 16-byte loads (8 rows)
 // mostly land on distinct banks. packed_row4(r) is the sum over the rows
 // before r, in vectors.
+//
+// Registers: both hold kColSlots = 2 rows a lane (1 was slower for both, 3
+// for chol_solve_batched). A warp layout launches up to kMaxWarps warps a
+// block, which caps a thread at 64 registers; the panel sums add a 2 x 4
+// block of accumulators, which still fit there (60, no spill), but
+// chol_solve_blocked ran about 5 % faster with more (94 under the 512-thread
+// bound, PERF.md), so blocks of up to kMaxWarps / 2 matrices take that
+// instantiation.
 // ---------------------------------------------------------------------------
 constexpr int kColSlots = 2;
 
@@ -124,7 +146,7 @@ __host__ __device__ __forceinline__ int packed_row4(int r) {
 }
 
 // Floats of one warp's matrix: the padded triangle and w (rounded up to 4,
-// so that the next warp's triangle starts aligned). The wrapper's
+// so that the next warp's triangle starts aligned). The wrappers'
 // smem_bytes mirrors it.
 __host__ __device__ __forceinline__ int column_matrix_floats(int n) {
   return kTile * (packed_row4(n) + (n + kTile - 1) / kTile);
@@ -134,9 +156,39 @@ struct PaddedRows {
   __device__ __forceinline__ int operator()(int r) const { return kTile * packed_row4(r); }
 };
 
+// The 4 terms l_rj l_cj, j ascending, of element kk of each of the lane's
+// rows, straight into the element.
+__device__ __forceinline__ void own_terms4(float (&v)[kColSlots][kTile],
+                                           const float (&lr)[kColSlots][kTile],
+                                           const float (&lc)[kTile], int kk) {
+#pragma unroll
+  for (int k = 0; k < kTile; ++k)
+#pragma unroll
+    for (int q = 0; q < kColSlots; ++q) v[q][kk] = fmaf(-lr[q][k], lc[k], v[q][kk]);
+}
+
+// One term l_rj l_cj of the element v, panelled: straight into v in the
+// element's own panel (own), else into the sum acc of j's panel, which v
+// loses at the panel's last column (end). Each term is one fma, written out:
+// a product shared by the two branches would otherwise be rounded apart.
+__device__ __forceinline__ void panel_term(float& v, float& acc, float lr, float lc, bool own,
+                                           bool end) {
+  if (own) {
+    v = fmaf(-lr, lc, v);
+  } else {
+    acc = fmaf(lr, lc, acc);
+    if (end) {
+      v -= acc;
+      acc = 0.f;
+    }
+  }
+}
+
 // Columns c0 .. c0 + 3 of the factor, and rows c0 .. c0 + 3 of the forward
-// substitution, on the warp's matrix s.
-__device__ __forceinline__ void column_group_warp(float* s, float* w, int c0, int n, int lane) {
+// substitution, on the warp's matrix s; Panels: in panels of nb columns.
+template <bool Panels>
+__device__ __forceinline__ void column_group_warp(float* s, float* w, int c0, int n, int nb,
+                                                  int lane) {
   const int kend = min(kTile, n - c0);
   float inv[kTile];
   float d[kTile][kTile];  // d[k2][k] = l(c0 + k2, c0 + k), k <= k2
@@ -146,8 +198,20 @@ __device__ __forceinline__ void column_group_warp(float* s, float* w, int c0, in
   const float* pc[kTile];  // the group's rows
 #pragma unroll
   for (int k = 0; k < kTile; ++k) pc[k] = s + kTile * packed_row4(min(c0 + k, n - 1));
+  // Panels: the first column of each group column's own panel, and the group
+  // columns that end a panel (bit k for column c0 + k)
+  int own[kTile];
+  int ends = 0;
+  if constexpr (Panels) {
+#pragma unroll
+    for (int k = 0; k < kTile; ++k) {
+      own[k] = (c0 + k) / nb * nb;
+      if ((c0 + k + 1) % nb == 0) ends |= 1 << k;
+    }
+  }
   for (int base = c0; base < n; base += 32 * kColSlots) {
     float v[kColSlots][kTile];
+    float acc[kColSlots][kTile];  // Panels: each element's sum over an earlier panel
     float* row[kColSlots];
 #pragma unroll
     for (int q = 0; q < kColSlots; ++q) {
@@ -162,8 +226,13 @@ __device__ __forceinline__ void column_group_warp(float* s, float* w, int c0, in
 #pragma unroll
         for (int k = 0; k < kTile; ++k) v[q][k] = 0.f;
       }
+      if constexpr (Panels) {
+#pragma unroll
+        for (int k = 0; k < kTile; ++k) acc[q][k] = 0.f;
+      }
     }
     // every earlier column, ascending
+    int pend = nb;  // Panels: the end of the panel that holds column j
     for (int j = 0; j < c0; j += kTile) {
       float lr[kColSlots][kTile];
 #pragma unroll
@@ -175,15 +244,42 @@ __device__ __forceinline__ void column_group_warp(float* s, float* w, int c0, in
           for (int k = 0; k < kTile; ++k) lr[q][k] = 0.f;
         }
       }
+      int chunk_ends = 0;  // Panels: bit k where column j + k ends a panel
+      if constexpr (Panels) {
+        while (pend <= j) pend += nb;
+        if (pend < j + kTile)  // only the general path below reads it
+          for (int e = pend; e <= j + kTile; e += nb) chunk_ends |= 1 << (e - j - 1);
+      }
 #pragma unroll
       for (int kk = 0; kk < kTile; ++kk) {
         if (kk < kend) {
           float lc[kTile];
           load4(pc[kk] + j, lc);
+          if constexpr (!Panels) {
+            own_terms4(v, lr, lc, kk);
+          } else if (j >= own[kk]) {
+            own_terms4(v, lr, lc, kk);
+          } else if (j + kTile <= pend) {  // 4 columns of one earlier panel
 #pragma unroll
-          for (int k = 0; k < kTile; ++k)
+            for (int k = 0; k < kTile; ++k)
 #pragma unroll
-            for (int q = 0; q < kColSlots; ++q) v[q][kk] -= lr[q][k] * lc[k];
+              for (int q = 0; q < kColSlots; ++q) acc[q][kk] = fmaf(lr[q][k], lc[k], acc[q][kk]);
+            if (j + kTile == pend) {
+#pragma unroll
+              for (int q = 0; q < kColSlots; ++q) {
+                v[q][kk] -= acc[q][kk];
+                acc[q][kk] = 0.f;
+              }
+            }
+          } else {  // a panel boundary among the 4 columns
+#pragma unroll
+            for (int k = 0; k < kTile; ++k) {
+              const bool mine = j + k >= own[kk], end = (chunk_ends >> k) & 1;
+#pragma unroll
+              for (int q = 0; q < kColSlots; ++q)
+                panel_term(v[q][kk], acc[q][kk], lr[q][k], lc[k], mine, end);
+            }
+          }
         }
       }
     }
@@ -201,8 +297,15 @@ __device__ __forceinline__ void column_group_warp(float* s, float* w, int c0, in
 #pragma unroll
       for (int k2 = k + 1; k2 < kTile; ++k2) {
         if (k2 < kend) {
+          if constexpr (Panels) {
+            const bool mine = c0 + k >= own[k2], end = (ends >> k) & 1;
 #pragma unroll
-          for (int q = 0; q < kColSlots; ++q) v[q][k2] -= v[q][k] * d[k2][k];
+            for (int q = 0; q < kColSlots; ++q)
+              panel_term(v[q][k2], acc[q][k2], v[q][k], d[k2][k], mine, end);
+          } else {
+#pragma unroll
+            for (int q = 0; q < kColSlots; ++q) v[q][k2] -= v[q][k] * d[k2][k];
+          }
         }
       }
     }
@@ -241,9 +344,11 @@ __device__ __forceinline__ void column_group_warp(float* s, float* w, int c0, in
   __syncwarp();
 }
 
-__global__ void __launch_bounds__(kMaxWarps * 32)
+// nb: the panel width (Panels only).
+template <bool Panels, int MaxWarps>
+__global__ void __launch_bounds__(MaxWarps * 32)
 column_solve_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                    float* __restrict__ x, int batch, int n) {
+                    float* __restrict__ x, int batch, int n, int nb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -261,120 +366,8 @@ column_solve_kernel(const float* __restrict__ a, const float* __restrict__ b,
   for (int i = lane; i < n; i += 32) w[i] = b[v_off + i];
   __pipeline_wait_prior(0);
   __syncwarp();
-  for (int c0 = 0; c0 < n; c0 += kTile) column_group_warp(s, w, c0, n, lane);
+  for (int c0 = 0; c0 < n; c0 += kTile) column_group_warp<Panels>(s, w, c0, n, nb, lane);
   backward_guarded_warp(s, w, n, PaddedRows{}, lane);
-  for (int i = lane; i < n; i += 32) x[v_off + i] = w[i];
-}
-
-// ---------------------------------------------------------------------------
-// chol_solve_blocked: the whole matrix at row stride ld = n | 1, a warp per
-// matrix, panels of nb columns: each panel factored column by column
-// (scale_column_warp, update_panel_warp), then applied to the trailing block
-// as one product in register tiles (panel_product_warp); both substitutions
-// after the factor (substitute_guarded_warp).
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void load_matrix_warp(const float* __restrict__ g, float* s, int n,
-                                                 int ld, int lane) {
-  for (int idx = lane; idx < n * n; idx += 32) {
-    const int r = idx / n;
-    s[r * ld + idx - r * n] = g[idx];
-  }
-}
-
-// Column j of the column loop on the warp's matrix, first half: scale column
-// j (rows j..n-1) by the inverse pivot.
-__device__ __forceinline__ void scale_column_warp(float* s, int j, int n, int ld, int lane) {
-  const float inv = zero_pivot_inv(s[j * ld + j]);
-  __syncwarp();
-  for (int i = j + lane; i < n; i += 32) s[i * ld + j] *= inv;
-  __syncwarp();
-}
-
-// Second half: subtract column j's rank-1 term from the panel's columns
-// right of it (j < c < j1, c <= r), a lane per row, since a panel is
-// narrower than a warp.
-__device__ __forceinline__ void update_panel_warp(float* s, int j, int j1, int n, int ld,
-                                                  int lane) {
-  for (int r = j + 1 + lane; r < n; r += 32) {
-    const float lr = s[r * ld + j];
-    const int ce = min(r + 1, j1);
-    for (int c = j + 1; c < ce; ++c) s[r * ld + c] -= lr * s[c * ld + j];
-  }
-  __syncwarp();
-}
-
-// The blocked layout's trailing update A22 -= U U^T, U = L[j1:, j0:j1], on
-// the lower triangle of rows and columns j1..n-1: one lane per 4 x 4 tile of
-// the output, the tile's 16 sums in registers over the panel's columns.
-__device__ void panel_product_warp(float* s, int j0, int j1, int n, int ld, int lane) {
-  const int tiles = (n - j1 + 3) / 4;
-  const int n_tiles = tiles * (tiles + 1) / 2;
-  for (int t = lane; t < n_tiles; t += 32) {
-    // t = ti (ti + 1) / 2 + tj with tj <= ti
-    int ti = static_cast<int>((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
-    while (ti * (ti + 1) / 2 > t) --ti;
-    while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
-    const int r0 = j1 + 4 * ti;
-    const int c0 = j1 + 4 * (t - ti * (ti + 1) / 2);
-    float acc[4][4] = {};
-    for (int k = j0; k < j1; ++k) {
-      float ur[4], uc[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ur[i] = r0 + i < n ? s[(r0 + i) * ld + k] : 0.f;
-        uc[i] = c0 + i < n ? s[(c0 + i) * ld + k] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] += ur[i] * uc[q];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int r = r0 + i, c = c0 + q;
-        if (r < n && c <= r) s[r * ld + c] -= acc[i][q];
-      }
-  }
-  __syncwarp();
-}
-// (L L^T) x = w in place with the division guard, on the warp's matrix.
-__device__ void substitute_guarded_warp(const float* l, float* w, int n, int ld, int lane) {
-  for (int j = 0; j < n; ++j) {
-    const float yj = w[j] / pivot_guard(l[j * ld + j]);
-    __syncwarp();
-    if (lane == 0) w[j] = yj;
-    for (int i = j + 1 + lane; i < n; i += 32) w[i] -= yj * l[i * ld + j];
-    __syncwarp();
-  }
-  backward_guarded_warp(l, w, n, StridedRows{ld}, lane);
-}
-
-__global__ void __launch_bounds__(kMaxWarps * 32)
-blocked_solve_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                     float* __restrict__ x, int batch, int n, int ld, int nb) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int m = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (m >= batch) return;  // whole warps leave; nothing below waits for them
-  float* s = reinterpret_cast<float*>(smem_raw) + warp * (n * ld + n);
-  float* w = s + n * ld;
-  const size_t m_off = static_cast<size_t>(m) * n * n;
-  const size_t v_off = static_cast<size_t>(m) * n;
-  load_matrix_warp(a + m_off, s, n, ld, lane);
-  for (int i = lane; i < n; i += 32) w[i] = b[v_off + i];
-  __syncwarp();
-  for (int j0 = 0; j0 < n; j0 += nb) {
-    const int j1 = min(j0 + nb, n);
-    for (int j = j0; j < j1; ++j) {
-      scale_column_warp(s, j, n, ld, lane);
-      update_panel_warp(s, j, j1, n, ld, lane);
-    }
-    if (j1 < n) panel_product_warp(s, j0, j1, n, ld, lane);
-  }
-  substitute_guarded_warp(s, w, n, ld, lane);
   for (int i = lane; i < n; i += 32) x[v_off + i] = w[i];
 }
 
@@ -791,19 +784,27 @@ int launch_factor_solve_blocked(const void* a, const void* b, void* x, void* l, 
                            static_cast<cudaStream_t>(stream));
 }
 
+// Both warp layouts: block_batch matrices a block.
+template <bool Panels, int MaxWarps>
+int launch_warp_solve(const void* a, const void* b, void* x, int batch, int n, int block_batch,
+                      int nb, void* stream) {
+  const size_t bytes = sizeof(float) * block_batch * static_cast<size_t>(column_matrix_floats(n));
+  int err = allow_smem(column_solve_kernel<Panels, MaxWarps>, bytes);
+  if (err) return err;
+  const int blocks = (batch + block_batch - 1) / block_batch;
+  column_solve_kernel<Panels, MaxWarps>
+      <<<blocks, 32 * block_batch, bytes, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(x),
+          batch, n, nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_column_solve(const void* a, const void* b, void* x, int batch, int n,
                         int block_batch, void* stream) {
   if (batch == 0) return 0;
   if (n < 1 || block_batch < 1 || block_batch > kMaxWarps)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = sizeof(float) * block_batch * static_cast<size_t>(column_matrix_floats(n));
-  int err = allow_smem(column_solve_kernel, bytes);
-  if (err) return err;
-  const int blocks = (batch + block_batch - 1) / block_batch;
-  column_solve_kernel<<<blocks, 32 * block_batch, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(x), batch,
-      n);
-  return static_cast<int>(cudaGetLastError());
+  return launch_warp_solve<false, kMaxWarps>(a, b, x, batch, n, block_batch, n, stream);
 }
 
 int launch_blocked_solve(const void* a, const void* b, void* x, int batch, int n,
@@ -811,15 +812,9 @@ int launch_blocked_solve(const void* a, const void* b, void* x, int batch, int n
   if (batch == 0) return 0;
   if (block_batch < 1 || block_batch > kMaxWarps || nb < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int ld = row_stride(n);
-  const size_t bytes = sizeof(float) * block_batch * (static_cast<size_t>(n) * ld + n);
-  int err = allow_smem(blocked_solve_kernel, bytes);
-  if (err) return err;
-  const int blocks = (batch + block_batch - 1) / block_batch;
-  blocked_solve_kernel<<<blocks, 32 * block_batch, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(x), batch,
-      n, ld, nb);
-  return static_cast<int>(cudaGetLastError());
+  if (block_batch <= kMaxWarps / 2)
+    return launch_warp_solve<true, kMaxWarps / 2>(a, b, x, batch, n, block_batch, nb, stream);
+  return launch_warp_solve<true, kMaxWarps>(a, b, x, batch, n, block_batch, nb, stream);
 }
 
 // a == nullptr: no launch, only the occupancy of the probe and of the factor.

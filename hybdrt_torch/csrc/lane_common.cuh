@@ -1,9 +1,7 @@
 // Device helpers shared by the lane kernels (chol_lane.cu, ip_lane.cu,
 // chol_layouts.cu, and lane_regs.cuh): the refined pivot; where the rows of
-// a lower triangle in shared memory start (a whole matrix at the odd row
-// stride ld = n | 1, so that column walks hit distinct banks, as the layout
-// study's blocked solve keeps it, or packed); and the one-warp substitution,
-// which chol_solve_factored_lane runs on a packed lower triangle.
+// a packed lower triangle in shared memory start; and the one-warp
+// substitution, which chol_solve_factored_lane runs on it.
 //
 // The factor's contract is the TPU kernels' (hybdrt_tpu/ops/pallas_chol_lane.py):
 // only the lower triangle of the factor is valid, the upper triangle keeps
@@ -28,12 +26,7 @@ __device__ __forceinline__ T refined_rsqrt(T x) {
   return x > T(0) ? r : T(NAN);
 }
 
-// Where row r of a lower triangle in shared memory starts: rows of ld
-// values (a whole matrix), or packed one after the other (r (r + 1) / 2).
-struct StridedRows {
-  int ld;
-  __device__ __forceinline__ int operator()(int r) const { return r * ld; }
-};
+// Where row r of a lower triangle packed by rows in shared memory starts.
 struct PackedRows {
   __device__ __forceinline__ int operator()(int r) const { return r * (r + 1) / 2; }
 };
@@ -62,8 +55,6 @@ __device__ void substitute_warp(const T* l, T* w, int n, Rows rows) {
     __syncwarp();
   }
 }
-
-inline int row_stride(int n) { return n | 1; }
 
 template <typename K>
 inline int allow_smem(K kernel, size_t bytes) {

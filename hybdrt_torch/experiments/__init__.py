@@ -12,8 +12,9 @@ production lane kernel (``hybdrt_torch/ops/chol_lane.py``) in another layout:
 - ``chol_column``: the column Cholesky with one warp per matrix on its
   packed lower triangle and several matrices per block
   (``experiments/pallas_chol_column.py``);
-- ``chol_blocked``: the same in panels, with the trailing update as one
-  product per panel (``experiments/pallas_chol_blocked.py``);
+- ``chol_blocked``: the same kernel in the TPU kernel's order of panels of
+  nb columns, each earlier panel's products summed apart
+  (``experiments/pallas_chol_blocked.py``);
 - ``smem_sol``: the speed-of-light probe of the lane factor
   (``experiments/vmem_sol.py``).
 

@@ -3,16 +3,19 @@ of ``experiments/pallas_chol_blocked.py::chol_solve_blocked``.
 
 ``chol_solve_blocked(a, b, block_batch=None, nb=16) -> x`` computes what
 ``chol_column.chol_solve_batched`` computes, under the same contract (plain
-rsqrt, a zero column on a non-positive pivot, the division guard), with the
-factor in panels of ``nb`` columns: each panel is factored column by column,
-then its rank-``nb`` term leaves the trailing block as one product
-``A22 -= U U^T``, in 4 x 4 register tiles (CUDA kernel
-``blocked_solve_kernel`` in ``hybdrt_torch/csrc/chol_layouts.cu``). Each warp
-keeps its whole matrix in shared memory at row stride n | 1 (``smem_bytes``:
-6 matrices of n = 93 fit one block).
-``nb`` need not divide n: the last panel is ragged (the TPU padded n to 128).
-``nb`` and ``block_batch`` change no result, so the plain version is the
-column loop's.
+rsqrt, a zero column on a non-positive pivot, the division guard), in the
+TPU kernel's panel order: each element of a panel of ``nb`` columns first
+loses, per earlier panel, that panel's products summed apart, then its own
+panel's terms one at a time, then takes its column's scale. It is the
+column solve's kernel in its panelled instantiation (CUDA kernel
+``column_solve_kernel`` in ``hybdrt_torch/csrc/chol_layouts.cu``): one warp
+per matrix on its padded packed lower triangle, each element's sums in
+registers and the element written once, so its shared memory is the column
+solve's (``smem_bytes``: 12 matrices of n = 93 fit one block, default the
+TPU kernel's 8). ``nb`` need not divide n: the last panel is ragged (the TPU
+padded n to 128); with one panel (``nb >= n``) x is the column solve's, bit
+for bit. ``block_batch`` changes no bit of x and ``nb`` none beyond the
+tolerance, so the plain version is the column loop's.
 
 ``a`` is (B, n, n) and ``b`` is (B, n), contiguous float32. A CPU tensor runs
 the plain version; a CUDA tensor launches the kernel or raises, and each
@@ -32,15 +35,9 @@ def reset_launch_counts():
     LAUNCHES[NAME] = 0
 
 
-def smem_bytes(n, block_batch):
-    """Shared memory of one block (mirrors the CUDA source): per matrix, the
-    matrix at row stride n | 1 and its right-hand side."""
-    return 4 * block_batch * (n * (n | 1) + n)
-
-
-def block_batch_for(n, block_batch=None):
-    """``chol_column.block_batch_for`` by this kernel's shared-memory rule."""
-    return chol_column.block_batch_for(n, block_batch, smem_bytes)
+# One kernel with the column solve: its shared memory and block_batch rule
+smem_bytes = chol_column.smem_bytes
+block_batch_for = chol_column.block_batch_for
 
 
 def chol_solve_blocked(a, b, block_batch=None, nb=16):

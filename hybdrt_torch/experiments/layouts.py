@@ -20,8 +20,9 @@ on seeded SPD matrices (``spd_batch``), float32:
    - ``chol_solve_batched`` at block_batch in {1, 2, 4, 6}, the default
      (the TPU kernel's 8) and the most that fit (12 at n = 93 in float32),
      against ``chol_solve_lane``;
-   - ``chol_solve_blocked`` at nb in {8, 16} with the most matrices per block
-     that fit (6 at n = 93), against ``chol_solve_lane``;
+   - ``chol_solve_blocked`` (the same kernel in panels) at nb in {8, 16},
+     each at block_batch in {1, 4, 6}, the default 8 and the most that fit,
+     against ``chol_solve_lane``;
    - ``smem_sol`` against ``chol_factor_lane`` and ``chol_factor_solve_lane``
      (``smem_sol.sol_ratios``).
 
@@ -46,9 +47,10 @@ TOL = 2e-4
 SHAPES = ((8192, 93), (1024, 93))
 KB = (4, 8, 16)
 BLOCK_BATCH = (1, 2, 4, 6)
+BLOCKED_BLOCK_BATCH = (1, 4, 6)
 NB = (8, 16)
 # The variant each kernel's headline numbers come from (the TPU kernels'
-# defaults, with the most matrices per block that fit)
+# defaults: 8 matrices per block, or the most that fit)
 DEFAULT = {"chol_factor_solve_lane_blocked": "kb=8", "chol_solve_batched": "block_batch={bb}",
            "chol_solve_blocked": "nb=16 block_batch={bb}", "smem_sol": "probe"}
 YARDSTICK = {"chol_factor_solve_lane_blocked": "chol_factor_solve_lane",
@@ -57,10 +59,12 @@ YARDSTICK = {"chol_factor_solve_lane_blocked": "chol_factor_solve_lane",
 
 def variants(n):
     """{kernel: {label: fn(a, b)}}: the layout variants the study times at n."""
-    bb = chol_blocked.block_batch_for(n)
     most = chol_column.max_block_batch(n)
-    fits = [k for k in sorted({*BLOCK_BATCH, chol_column.block_batch_for(n), most})
-            if k <= most]
+
+    def fits(block_batches):
+        return [k for k in sorted({*block_batches, chol_column.block_batch_for(n), most})
+                if k <= most]
+
     return {
         "chol_factor_solve_lane_blocked": {
             f"kb={kb}": (lambda a, b, kb=kb:
@@ -69,18 +73,17 @@ def variants(n):
         "chol_solve_batched": {
             f"block_batch={k}": (lambda a, b, k=k:
                                  chol_column.chol_solve_batched(a, b, block_batch=k))
-            for k in fits},
+            for k in fits(BLOCK_BATCH)},
         "chol_solve_blocked": {
-            f"nb={nb} block_batch={bb}": (lambda a, b, nb=nb:
-                                          chol_blocked.chol_solve_blocked(a, b, bb, nb))
-            for nb in NB},
+            f"nb={nb} block_batch={k}": (lambda a, b, nb=nb, k=k:
+                                         chol_blocked.chol_solve_blocked(a, b, k, nb))
+            for nb in NB for k in fits(BLOCKED_BLOCK_BATCH)},
         "smem_sol": {"probe": lambda a, b: smem_sol.smem_sol(a)},
     }
 
 
 def default_label(kernel, n):
-    bb = (chol_column if kernel == "chol_solve_batched" else chol_blocked).block_batch_for(n)
-    return DEFAULT[kernel].format(bb=bb)
+    return DEFAULT[kernel].format(bb=chol_column.block_batch_for(n))
 
 
 def plain(kernel, a, b):

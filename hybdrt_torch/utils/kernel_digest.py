@@ -24,9 +24,13 @@ kernels (``hybdrt_torch/experiments/``) run on ``spd_batch`` matrices (seed
 B + n) with lane 7 given a non-positive pivot in column n // 2, at (8192,
 93), timed, and (130, 17), float32: ``chol_factor_solve_lane_blocked`` (x and
 L) at kb = 3, 4, 8 and 16, ``chol_solve_batched`` (x) at block_batch = 1 and
-its default, and ``chol_solve_blocked`` (x) at nb = 16; each line calls a
-wrapper signature that every tree since the layout study's port has. Run
-from the repository root on a machine with a CUDA card:
+its default, and ``chol_solve_blocked`` (x) at nb = 3, 5, 8, 16 and n (one
+panel), each at its default block_batch, at 1 and at the most that fit by
+the rule of ROOT's wrapper (the label does not name that count, which the
+rule sets); each line calls a wrapper signature that every tree since the
+layout study's port has. A line after each shape's says whether
+``chol_solve_blocked`` at nb = n gave ``chol_solve_batched``'s x bit for
+bit. Run from the repository root on a machine with a CUDA card:
 
     python hybdrt_torch/utils/kernel_digest.py [ROOT]
 
@@ -57,6 +61,7 @@ LAYOUT_CASES = ((8192, 93), (130, 17))
 LAYOUT_TIMED = {(8192, 93)}
 LAYOUT_BAD = 7
 KB = (3, 4, 8, 16)
+NB = (3, 5, 8, 16, "n")
 FROZEN = {130: 7}
 
 
@@ -126,13 +131,22 @@ def layout_lines(probe, lane_blocked, column, blocked):
         calls[f"{column.NAME} block_batch=1"] = lambda: column.chol_solve_batched(a, rhs,
                                                                                   block_batch=1)
         calls[f"{column.NAME} default"] = lambda: column.chol_solve_batched(a, rhs)
-        calls[f"{blocked.NAME} nb=16"] = lambda: blocked.chol_solve_blocked(a, rhs, nb=16)
+        most = column.max_block_batch(n, blocked.smem_bytes)
+        for nb in NB:
+            for bb, tag in ((None, ""), (1, " block_batch=1"), (most, " block_batch=most")):
+                calls[f"{blocked.NAME} nb={nb}{tag}"] = (
+                    lambda nb=n if nb == "n" else nb, bb=bb:
+                    blocked.chol_solve_blocked(a, rhs, block_batch=bb, nb=nb))
+        digests = {}
         for label, fn in calls.items():
             out = fn()
             out = out if isinstance(out, tuple) else (out,)
+            digests[label] = sha(*out)
             timing = f", {probe.cuda_ms(fn):.4f} ms" if (b, n) in LAYOUT_TIMED else ""
             print(f"{label} ({b}, {n}) float32, lane {LAYOUT_BAD} bad pivot: "
-                  f"sha256 {sha(*out)}{timing}")
+                  f"sha256 {digests[label]}{timing}")
+        same = digests[f"{blocked.NAME} nb=n"] == digests[f"{column.NAME} default"]
+        print(f"{blocked.NAME} nb=n equals {column.NAME} ({b}, {n}): {same}")
 
 
 def main(argv=None):

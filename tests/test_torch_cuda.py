@@ -422,7 +422,8 @@ def test_layout_pivot_contracts(cuda):
     non-positive pivot on, at every panel width the tests take; the column
     and blocked solves give a zero column, finite x as their plain version,
     and x = b where every pivot fails, at every block_batch the column solve
-    is tested at."""
+    is tested at, and the blocked solve at nb = 3, 5, 16 and n with a pivot
+    failing inside a panel and at a panel's first column."""
     a, rhs = spd_batch(4, 17, torch.float32, 7, cuda)
     a[1, 5, 5] = -1.0
     a[2] = -a[2]
@@ -445,6 +446,21 @@ def test_layout_pivot_contracts(cuda):
         assert torch.isfinite(x).all()
         torch.testing.assert_close(x, want, rtol=TOL, atol=TOL)
         assert torch.equal(x[2], rhs[2])
+    for nb in (3, 5, 16, 17):
+        # lane 1 fails inside a panel, lane 3 at a panel's first column
+        first = nb if nb < 17 else 0
+        inside = first + 1 if first + 1 < 17 else 8
+        a, rhs = spd_batch(4, 17, torch.float32, 7, cuda)
+        a[1, inside, inside] = -1.0
+        a[2] = -a[2]
+        a[3, first, first] = -1.0
+        want = chol_column.chol_solve_batched_plain(a, rhs)
+        assert torch.equal(want[2], rhs[2])
+        for k in _column_block_batches(17):
+            x = chol_blocked.chol_solve_blocked(a, rhs, block_batch=k, nb=nb)
+            assert torch.isfinite(x).all()
+            torch.testing.assert_close(x, want, rtol=TOL, atol=TOL)
+            assert torch.equal(x[2], rhs[2])
 
 
 def test_layout_bad_inputs(cuda):
@@ -463,17 +479,20 @@ def test_layout_bad_inputs(cuda):
                 fn(a, rhs.cpu())
         out = fn(a[:0], rhs[:0])
         assert (out[0] if name == chol_lane_blocked.NAME else out).shape[0] == 0
-    # at n = 93, 12 packed triangles fit one block, 13 do not; 6 whole
-    # matrices of the blocked solve fit, 7 do not
+    # at n = 93, 12 packed triangles fit one block, 13 do not, in both warp
+    # layouts
     big, rhs_big = spd_batch(1, 93, torch.float32, 0, cuda)
     with pytest.raises(ValueError, match="shared memory"):
         chol_column.chol_solve_batched(big, rhs_big, block_batch=13)
     with pytest.raises(ValueError, match="shared memory"):
-        chol_blocked.chol_solve_blocked(big, rhs_big, block_batch=7)
-    # both launchers refuse what their wrappers refuse
+        chol_blocked.chol_solve_blocked(big, rhs_big, block_batch=13)
+    # the launchers refuse what their wrappers refuse
     x = torch.empty_like(rhs_big)
     with pytest.raises(RuntimeError, match="launch failed"):
         _build.launch(chol_column.NAME, (big, rhs_big, x), (1, 93, 33), big.device)
+    for ints in ((1, 93, 33, 16), (1, 93, 8, 0)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _build.launch(chol_blocked.NAME, (big, rhs_big, x), ints, big.device)
     with pytest.raises(RuntimeError, match="launch failed"):
         _build.launch(chol_lane_blocked.NAME, (big, rhs_big, x, big.clone()), (1, 93, 33, 64),
                       big.device)
@@ -489,7 +508,7 @@ def _column_block_batches(n):
 
 
 def _largest_layout_n(kernel):
-    if kernel == chol_column.NAME:
+    if kernel in (chol_column.NAME, chol_blocked.NAME):
         return max(n for n in range(1, 400) if chol_column.max_block_batch(n) >= 1)
     return _largest_admitted(torch.float32)
 
@@ -516,6 +535,36 @@ def test_column_solve_kernel(cuda, n, b):
         assert torch.equal(x, xs[0])
     assert torch.equal(a, a_in)
     assert chol_column.LAUNCHES == {chol_column.NAME: len(block_batches)}
+
+
+@pytest.mark.parametrize("b", [1, 133])
+@pytest.mark.parametrize("n", [1, 4, 5, 17, 31, 32, 33, 93, "max"])
+@pytest.mark.parametrize("nb", [1, 3, 4, 5, 8, 16, "n"])
+def test_blocked_solve_kernel(cuda, nb, n, b):
+    """chol_solve_blocked (the column solve's kernel in panels of nb columns;
+    panels ending inside a group of 4 columns where nb is not a multiple of
+    4) against its plain version up to the largest n one block's shared
+    memory takes (335): x within the tolerance at block_batch 1, the default
+    and the most that fit, the same bits at each (block_batch changes no
+    result), and at one panel (nb = n) chol_solve_batched's bits; the input
+    unchanged, one launch a call."""
+    n = _largest_layout_n(chol_blocked.NAME) if n == "max" else n
+    nb = n if nb == "n" else nb
+    a, rhs = spd_batch(b, n, torch.float32, 19 * n + b, cuda)
+    a_in = a.clone()
+    want = chol_blocked.chol_solve_blocked_plain(a, rhs)
+    chol_blocked.reset_launch_counts()
+    most = chol_column.max_block_batch(n)
+    block_batches = sorted({1, chol_blocked.block_batch_for(n), most})
+    xs = [chol_blocked.chol_solve_blocked(a, rhs, block_batch=k, nb=nb) for k in block_batches]
+    torch.cuda.synchronize()
+    for x in xs:
+        torch.testing.assert_close(x, want, rtol=TOL, atol=TOL)
+        assert torch.equal(x, xs[0])
+    if nb >= n:
+        assert torch.equal(xs[0], chol_column.chol_solve_batched(a, rhs))
+    assert torch.equal(a, a_in)
+    assert chol_blocked.LAUNCHES == {chol_blocked.NAME: len(block_batches)}
 
 
 @pytest.mark.parametrize("b", [1, 133])

@@ -200,7 +200,7 @@ def test_bounds_at_the_fit_shape():
     assert round(bnd["chol_factor_solve_lane_blocked"][0], 4) == 0.1710
     assert round(bnd["chol_solve_batched"][0], 4) == round(bnd["chol_solve_blocked"][0], 4) == 0.0446
     assert round(bnd["smem_sol"][0], 3) == 0.169
-    assert layouts.default_label("chol_solve_blocked", 93) == "nb=16 block_batch=6"
+    assert layouts.default_label("chol_solve_blocked", 93) == "nb=16 block_batch=8"
 
 
 def test_cpu_calls_do_not_count_launches():
@@ -234,17 +234,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         chol_lane.check_args(smem_sol.NAME, a.double(), dtypes=smem_sol.DTYPES)
     # chol_solve_batched: one warp per matrix on its padded packed lower
     # triangle, 12 matrices of n = 93 fit one block's shared memory, 13 do
-    # not; the default is the TPU kernel's 8. chol_solve_blocked keeps the
-    # whole matrix at row stride n | 1: 6 fit, 7 do not
+    # not; the default is the TPU kernel's 8. chol_solve_blocked is the same
+    # kernel in panels: the same 8, 12 and 13
     assert chol_column.block_batch_for(93) == 8 and chol_column.max_block_batch(93) == 12
     assert chol_column.block_batch_for(37) == 8
     assert (chol_column.smem_bytes(93, 12) <= chol_lane.MAX_SMEM_BYTES
             < chol_column.smem_bytes(93, 13))
-    assert chol_blocked.block_batch_for(93) == 6
+    assert chol_blocked.block_batch_for(93) == 8
+    assert chol_column.max_block_batch(93, chol_blocked.smem_bytes) == 12
     assert chol_blocked.block_batch_for(37) == 8
-    assert (chol_blocked.smem_bytes(93, 6) <= chol_lane.MAX_SMEM_BYTES
-            < chol_blocked.smem_bytes(93, 7))
-    for fn, refused in ((chol_column.chol_solve_batched, 13), (chol_blocked.chol_solve_blocked, 7)):
+    assert (chol_blocked.smem_bytes(93, 12) <= chol_lane.MAX_SMEM_BYTES
+            < chol_blocked.smem_bytes(93, 13))
+    for fn, refused in ((chol_column.chol_solve_batched, 13), (chol_blocked.chol_solve_blocked, 13)):
         with pytest.raises(ValueError, match="shared memory"):
             fn(a, b, block_batch=refused)
         with pytest.raises(ValueError):
@@ -309,16 +310,20 @@ def _parent_column_rule(n, block_batch):
     return 4 * block_batch * (n * (n | 1) + n) <= 232448
 
 
+def _admitted(module, n, block_batch):
+    try:
+        return module.block_batch_for(n, block_batch) == block_batch
+    except ValueError:
+        return False
+
+
 def test_column_admission_takes_every_pair_the_parent_rule_took():
     """Every (n, block_batch) the parent rule took is taken, and more: the
     packed triangle takes n up to 335 at block_batch = 1, against 240."""
     taken = parent = 0
     for n in range(1, 400):
         for bb in range(1, chol_column.MAX_BLOCK_BATCH + 1):
-            try:
-                ok = chol_column.block_batch_for(n, bb) == bb
-            except ValueError:
-                ok = False
+            ok = _admitted(chol_column, n, bb)
             taken += ok
             parent += _parent_column_rule(n, bb)
             if _parent_column_rule(n, bb):
@@ -329,6 +334,43 @@ def test_column_admission_takes_every_pair_the_parent_rule_took():
     assert taken > parent
     assert max(n for n in range(1, 400) if chol_column.max_block_batch(n) >= 1) == 335
     assert max(n for n in range(1, 400) if _parent_column_rule(n, 1)) == 240
+
+
+def test_blocked_shared_memory_mirrors_the_source():
+    """chol_solve_blocked's launcher is the column solve's kernel in panels
+    (csrc/chol_layouts.cu: launch_blocked_solve calls launch_warp_solve with
+    Panels = true, whose shared memory is column_matrix_floats(n) floats a
+    matrix), so ``chol_blocked.smem_bytes`` is ``chol_column.smem_bytes``:
+    19,152 bytes a matrix at n = 93."""
+    src = _LAYOUT_SOURCE.read_text()
+    launcher = re.search(r"int launch_blocked_solve\(.*?\n\}", src, re.S).group(0)
+    assert "launch_warp_solve<true," in launcher and "launch_warp_solve<false" not in launcher
+    warp = re.search(r"int launch_warp_solve\(.*?\n\}", src, re.S).group(0)
+    assert ("sizeof(float) * block_batch * static_cast<size_t>(column_matrix_floats(n))"
+            in warp)
+    for n in range(1, 400):
+        for bb in (1, 8, 12, 32):
+            assert chol_blocked.smem_bytes(n, bb) == chol_column.smem_bytes(n, bb)
+    assert chol_blocked.smem_bytes(93, 1) == 19152
+
+
+def test_blocked_admission_takes_every_pair_the_parent_rule_took():
+    """Every (n, block_batch) the parent rule took (the whole matrix at row
+    stride n | 1 and w per warp, the column solve's old rule) is taken now,
+    at every n up to the parent's largest (240) and every block_batch; the
+    default stays the TPU kernel's 8 wherever the parent's was, and is at
+    least the parent's elsewhere (8 against 6 at n = 93)."""
+    for n in range(1, 241):
+        parent_most = sum(_parent_column_rule(n, bb)
+                          for bb in range(1, chol_column.MAX_BLOCK_BATCH + 1))
+        for bb in range(1, chol_column.MAX_BLOCK_BATCH + 1):
+            if _parent_column_rule(n, bb):
+                assert _admitted(chol_blocked, n, bb), (n, bb)
+        assert chol_blocked.block_batch_for(n) >= min(8, parent_most)
+        assert chol_blocked.block_batch_for(n) == min(8, chol_column.max_block_batch(n))
+    assert max(n for n in range(1, 400) if _parent_column_rule(n, 1)) == 240
+    assert chol_blocked.block_batch_for(93) == 8 and min(8, sum(
+        _parent_column_rule(93, bb) for bb in range(1, 33))) == 6
 
 
 def test_lane_blocked_shared_memory_mirrors_the_source():
@@ -375,8 +417,8 @@ def test_lane_blocked_admission_takes_every_pair_the_parent_rule_took():
 def test_study_variants_include_the_default_and_the_most_that_fit(n):
     """The study times chol_solve_batched at its default block_batch (the TPU
     kernel's 8) and at the most that fit, beside 1, 2, 4 and 6; the blocked
-    solve keeps its own rule (6 at n = 93), so it times the calls it timed
-    before."""
+    solve, the same kernel in panels, at nb = 8 and 16, each at 1, 4, 6, the
+    same default and the most that fit."""
     table = layouts.variants(n)
     labels = set(table["chol_solve_batched"])
     default, most = chol_column.block_batch_for(n), chol_column.max_block_batch(n)
@@ -385,6 +427,8 @@ def test_study_variants_include_the_default_and_the_most_that_fit(n):
     assert {f"block_batch={k}" for k in (1, 2, 4, 6) if k <= most} <= labels
     assert layouts.default_label("chol_solve_batched", n) == f"block_batch={default}"
     bb = chol_blocked.block_batch_for(n)
-    assert set(table["chol_solve_blocked"]) == {f"nb={nb} block_batch={bb}" for nb in (8, 16)}
+    assert set(table["chol_solve_blocked"]) == {
+        f"nb={nb} block_batch={k}" for nb in (8, 16) for k in {1, 4, 6, bb, most} if k <= most}
+    assert layouts.default_label("chol_solve_blocked", n) == f"nb=16 block_batch={bb}"
     if n == 93:
-        assert (default, most, bb) == (8, 12, 6)
+        assert (default, most, bb) == (8, 12, 8)
