@@ -39,6 +39,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    once per outer pass; the CPU float64 reference is the port's fused fit,
    and the Rp max and R_inf bounds are held on the lanes that stop at the
    same iteration in both precisions (see the comment in ``phase_slice``);
+6b. operando frames (run after 6, plain and then fused): ``make_frames(8192,
+   71, 4, 0.02)`` of ``hybdrt_torch/utils/probe.py`` with the benchmark's
+   settings in float32, frame 0 cold and frames 1-3 each warm from the
+   previous frame's lazy result (``fit(z, warm_from=prev, collect="lazy")``),
+   then frame 3 cold, every fit called twice and the second call timed with
+   the launch counters reset just before it. Each warm frame prints its
+   wall, iteration counts and lane kernel launches; the plain path must run
+   the three fit kernels and no fused steps, the fused path
+   ``ip_steps_lane`` once per outer pass (no cold iteration 0), and on the
+   fused path an untimed first call counts the lanes the fused steps latch
+   (``LatchWatch``). Every frame's coefficients finite and median relative
+   residual < 0.02; on frame 3 the warm fit takes fewer mean iterations than
+   the cold one, its median |z - z_obs| is within 1.5x the cold fit's, and
+   on the plain path it converges at least as many lanes; each warm frame of
+   the first 64 lanes against the same chain fitted in float64 on the CPU
+   within the Rp median and p95 and functional-fit bounds of phase 5 (the
+   Rp max and R_inf are reported; see the comment in ``phase_frames``);
 7. the factor-only kernel ``chol_factor_lane`` against its plain version on
    the same CUDA tensors, on the lower triangle, within rtol = atol = 2e-4,
    at the resolve's shape (B=1435, n=94: 205 windows of 7) and at (130, 17)
@@ -104,9 +121,15 @@ import torch
 
 from hybdrt_torch.utils.probe import (bound, card_line, check_steps, chol_ops, cuda_ms,
                                       freeze_lane, in_turns, ip_steps_bound, lower_bytes,
-                                      make_batch, qp_batch, resolve_map, solve_ops, spd_batch)
+                                      make_batch, make_frames, qp_batch, resolve_map,
+                                      solve_ops, spd_batch)
 
 B_BENCH, N_FREQ, MAX_ITER = 8192, 71, 50
+# The benchmark's fit knobs (bench.py:458-483)
+FIT_KW = dict(max_iter=MAX_ITER, qp_max_iter=20, qp_max_iter_warm=4, pred_stop=True,
+              pred_rtol=3e-2)
+# The frames phase: an operando sequence drifting by 0.02 a frame
+N_FRAMES, DRIFT = 4, 0.02
 # tests/test_pallas_lane_kernels.py: f32 lane kernels vs a dense solve. For
 # ip_steps_lane it is 6x the f32-vs-f64 spread of the plain steps on these
 # problems (3.4e-5 at B=1024, n=93, 4 steps, on a CPU)
@@ -341,8 +364,7 @@ def phase_slice(fused):
 
     label = "fused slice" if fused else "slice"
     freq, z = make_batch(B_BENCH, N_FREQ)
-    kw = dict(max_iter=MAX_ITER, qp_max_iter=20, qp_max_iter_warm=4, pred_stop=True,
-              pred_rtol=3e-2, qp_fused=fused)
+    kw = dict(FIT_KW, qp_fused=fused)
     fitter = hybdrt_torch.BatchedEISFitter(freq, dtype=torch.float32, device="cuda", **kw)
     t0 = time.time()
     fitter.fit(z, adaptive="staged", collect="lazy")
@@ -389,7 +411,179 @@ def phase_slice(fused):
     ref = hybdrt_torch.BatchedEISFitter(freq, dtype=torch.float64, device="cpu", **kw)
     t0 = time.time()
     r64 = ref.fit(z[:64], adaptive="staged")
-    cpu_s = time.time() - t0
+    # tests/test_f32_accuracy.py's bounds. The Rp max and R_inf are held on
+    # all lanes of the plain path; on the fused path on the lanes that stop
+    # at the same iteration in both precisions: there a lane that settles an
+    # iteration later in float32 lands elsewhere on its settled plateau, as
+    # in the JAX package's own float32 fused fit, which breaks the all-lane
+    # Rp max on these spectra (PERF.md, Findings)
+    hold_to_f64(f"{label}: f32 card vs f64 CPU (64 spectra, CPU fit {time.time() - t0:.1f} s)",
+                fitter, res, ref, r64, z, "same" if fused else "all")
+    return launches, wall
+
+
+class LatchWatch:
+    """Inside ``with``, every call of the fused steps by the QP
+    (``hybdrt_torch.ops.qp.ip_steps_lane``) also runs one step fewer on the
+    same inputs and records how many lanes came out the same: a lane whose
+    iterate after n steps equals the one after n - 1 has latched (a step gave
+    it a non-finite x or z, and the kernel keeps its last iterate,
+    ``ops/ip_lane.py``). ``counts`` holds one count per call (one call per
+    outer pass), ``first`` the lanes of the first pass, where every lane is
+    live, so positions are lane numbers. For an untimed call only: it
+    launches the kernel twice per pass."""
+
+    def __init__(self):
+        from hybdrt_torch.ops import qp
+        self.qp, self.counts, self.first = qp, [], []
+
+    def __enter__(self):
+        real = self.fused = self.qp.ip_steps_lane
+
+        def watched(P, q, lb, x0, s0, z0, n_steps):
+            out = real(P, q, lb, x0, s0, z0, n_steps)
+            short = real(P, q, lb, x0, s0, z0, n_steps - 1)
+            held = torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
+            for a, b in zip(out, short):
+                held &= (a == b).all(dim=1)
+            lanes = torch.nonzero(held).squeeze(1).tolist()
+            if not self.counts:
+                self.first = lanes
+            self.counts.append(len(lanes))
+            return out
+
+        self.qp.ip_steps_lane = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.qp.ip_steps_lane = self.fused
+
+
+def phase_frames(fused):
+    """An operando sequence on the card: ``make_frames(8192, 71, 4, 0.02)``,
+    frame 0 fitted cold and frames 1-3 each warm from the previous frame's
+    lazy result (``fit(z, warm_from=prev, collect="lazy")``), then frame 3
+    cold for comparison, every fit called twice and the second call timed
+    with the launch counters reset just before it. Returns the walls
+    {"warm": [frames 1-3], "cold": frame 3's} in s."""
+    import hybdrt_torch
+    from hybdrt_torch.ops import chol_lane as cl, ip_lane
+
+    t_phase = time.time()
+    label = "fused frames" if fused else "frames"
+    freq, frames = make_frames(B_BENCH, N_FREQ, N_FRAMES, DRIFT)
+    kw = dict(FIT_KW, qp_fused=fused)
+    fitter = hybdrt_torch.BatchedEISFitter(freq, dtype=torch.float32, device="cuda", **kw)
+
+    def fit_twice(z, prev):
+        opts = dict(collect="lazy", warm_from=prev)
+        watch = LatchWatch() if fused and prev is not None else None
+        if watch is None:
+            fitter.fit(z, **opts)
+        else:
+            with watch:
+                fitter.fit(z, **opts)
+        torch.cuda.synchronize()
+        cl.reset_launch_counts()
+        ip_lane.reset_launch_counts()
+        t0 = time.time()
+        res = fitter.fit(z, **opts)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        check(bool(np.all(np.isfinite(res.x)) and np.all(np.isfinite(res.r_inf))),
+              "finite coefficients")
+        rel = float(np.median(np.abs(fitter.predict_z(res) - z) / np.abs(z)))
+        check(rel < 0.02, f"median relative residual {rel}")
+        return res, wall, {**cl.LAUNCHES, **ip_lane.LAUNCHES}, watch
+
+    def n_iter(res):
+        pct = np.percentile(res.n_iter, [50, 90, 100]).tolist()
+        return (f"n_iter p50/p90/max {pct} mean {res.n_iter.mean():.4g}, converged "
+                f"{int(res.converged.sum())}/{len(res.n_iter)}")
+
+    prev, wall0, _, _ = fit_twice(frames[0], None)
+    print(f"{label}: B={B_BENCH} n_freq={N_FREQ} drift {DRIFT} f32 lazy: frame 0 cold "
+          f"{wall0:.4f} s, {n_iter(prev)}")
+    warm, walls = [], []
+    for f in range(1, N_FRAMES):
+        res, wall, launches, watch = fit_twice(frames[f], prev)
+        passes = int(res.n_iter.max())
+        lane_launches = {k: launches[k] for k in (*FIT_KERNELS, "ip_steps_lane")}
+        print(f"{label}: frame {f} warm {wall:.4f} s, {n_iter(res)}; launches {lane_launches} "
+              f"in {passes} passes")
+        if not res.converged.all():
+            print(f"  unconverged lanes {np.flatnonzero(~res.converged).tolist()}")
+        if fused:
+            first = np.array(watch.first, dtype=int)
+            print(f"  lanes latched by the fused steps, {{pass: count}}: "
+                  f"{ {i + 1: c for i, c in enumerate(watch.counts) if c} }; at pass 1 (iteration "
+                  f"0) lanes {first.tolist()}, which end with n_iter {res.n_iter[first].tolist()}, "
+                  f"converged {int(res.converged[first].sum())}/{first.size}")
+            # every pass of a warm frame runs the fused steps, iteration 0
+            # included: no cold peel
+            check(launches["ip_steps_lane"] == passes,
+                  f"ip_steps_lane launched {launches['ip_steps_lane']} times in {passes} passes")
+        else:
+            check(all(launches[k] > 0 for k in FIT_KERNELS) and launches["ip_steps_lane"] == 0,
+                  f"the plain warm path runs the three fit kernels and no fused steps: {launches}")
+        warm.append(res)
+        walls.append(wall)
+        prev = res
+    cold, cold_wall, _, _ = fit_twice(frames[-1], None)
+    last = warm[-1]
+    print(f"{label}: frame {N_FRAMES - 1} cold {cold_wall:.4f} s, {n_iter(cold)}; warm frame "
+          f"walls / cold wall {[round(w / cold_wall, 4) for w in walls]}")
+
+    z_obs = frames[-1]
+    z_w, z_c = fitter.predict_z(last), fitter.predict_z(cold)
+    rp_w, rp_c = fitter.predict_r_p(last), fitter.predict_r_p(cold)
+    d_rp = np.abs(rp_w - rp_c) / rp_c
+    resid_w, resid_c = np.median(np.abs(z_w - z_obs)), np.median(np.abs(z_c - z_obs))
+    print(f"{label}: frame {N_FRAMES - 1} warm vs cold: max |z_warm - z_cold| "
+          f"{np.max(np.abs(z_w - z_c)):.4g}, rel dRp p50/p95/max "
+          f"{np.percentile(d_rp, [50, 95, 100]).tolist()}; median |z - z_obs| warm "
+          f"{resid_w:.4g} cold {resid_c:.4g}")
+    lost = np.flatnonzero(cold.converged & ~last.converged)
+    if lost.size:
+        print(f"  lanes converged cold and not warm: {lost.tolist()}")
+    # tests/test_parallel.py::test_warm_from_previous_frame's criteria
+    check(last.n_iter.mean() < cold.n_iter.mean(), "fewer mean iterations warm than cold")
+    check(resid_w < 1.5 * resid_c, "warm residual within 1.5x the cold fit's")
+    if not fused:
+        check(last.converged.sum() >= cold.converged.sum(),
+              "as many lanes converged warm as cold")
+
+    # The same chain in float64 on the CPU for the first 64 lanes, each warm
+    # frame held to the card's: the functional fit and the Rp median and p95.
+    # The Rp max and R_inf are reported: a warm lane can land elsewhere along
+    # its R_inf-Rp trade in float32 than in float64 at the same iteration,
+    # and the JAX package's own float32 warm frames break both bounds against
+    # its float64 ones on these 64 lanes (plain, frame 1) and on 64 lanes of
+    # make_frames(64, ...) (fused, frames 1-2) in a CPU run (PERF.md,
+    # Findings)
+    ref = hybdrt_torch.BatchedEISFitter(freq, dtype=torch.float64, device="cpu", **kw)
+    t0 = time.time()
+    r64 = ref.fit(frames[0][:64])
+    chain = []
+    for f in range(1, N_FRAMES):
+        r64 = ref.fit(frames[f][:64], warm_from=r64)
+        chain.append(r64)
+    print(f"{label}: the first 64 lanes' frames in f64 on the CPU: {time.time() - t0:.1f} s")
+    for f, (res, r64) in enumerate(zip(warm, chain), start=1):
+        hold_to_f64(f"{label}: frame {f} warm, f32 card vs f64 CPU", fitter, res, ref, r64,
+                    frames[f], None)
+    print(f"{label}: phase {time.time() - t_phase:.1f} s")
+    return {"warm": walls, "cold": cold_wall}
+
+
+def hold_to_f64(label, fitter, res, ref, r64, z, hold_max):
+    """The card's float32 result ``res`` of ``fitter`` against the CPU's
+    float64 ``r64`` of ``ref`` on the first 64 spectra of ``z``, within the
+    bounds of tests/test_f32_accuracy.py: the functional fit (predicted
+    impedance) and the Rp median and p95 on all 64 lanes; the Rp max and
+    R_inf on all lanes (``hold_max="all"``), on the lanes that stop at the
+    same iteration in both precisions (``"same"``), or reported only
+    (``None``). Prints every number before the checks."""
     rp32 = fitter.predict_r_p(res)[:64]
     rp64 = ref.predict_r_p(r64)
     rel_rp = np.abs(rp32 - rp64) / np.abs(rp64)
@@ -398,32 +592,27 @@ def phase_slice(fused):
     # f32 than in f64 lands elsewhere on its settled plateau; the lanes that
     # stop at the same iteration show the float32 arithmetic alone
     same = res.n_iter[:64] == r64.n_iter
-    print(f"{label}: f32 card vs f64 CPU (64 spectra, CPU fit {cpu_s:.1f} s): Rp rel err "
-          f"median {np.median(rel_rp):.3g} p95 {np.percentile(rel_rp, 95):.3g} max "
-          f"{np.max(rel_rp):.3g}, max |dR_inf| {np.max(d_rinf):.3g}")
+    print(f"{label}: Rp rel err median {np.median(rel_rp):.3g} p95 "
+          f"{np.percentile(rel_rp, 95):.3g} max {np.max(rel_rp):.3g}, max |dR_inf| "
+          f"{np.max(d_rinf):.3g}")
     if same.any():
         print(f"  {int(same.sum())} lanes stopped at the same iteration: Rp rel err max "
               f"{np.max(rel_rp[same]):.3g}, max |dR_inf| {np.max(d_rinf[same]):.3g}")
     worst = np.argsort(-rel_rp)[:4]
     print(f"  worst Rp lanes {worst.tolist()}: rel err {rel_rp[worst].tolist()}, n_iter f32 "
           f"{res.n_iter[:64][worst].tolist()} f64 {r64.n_iter[worst].tolist()}")
-    # tests/test_f32_accuracy.py's bounds. The functional fit (predicted
-    # impedance) and the Rp median and p95 are held on all 64 lanes. The Rp
-    # max and R_inf are held on all lanes of the plain path; on the fused path
-    # on the lanes that stop at the same iteration in both precisions: there
-    # a lane that settles an iteration later in float32 lands elsewhere on its
-    # settled plateau, as in the JAX package's own float32 fused fit, which
-    # breaks the all-lane Rp max on these spectra (PERF.md, Findings)
-    zrel = np.max(np.abs(z_hat[:64] - ref.predict_z(r64)), axis=1) / np.max(np.abs(z[:64]), axis=1)
+    z_hat = fitter.predict_z(res)[:64]
+    zrel = np.max(np.abs(z_hat - ref.predict_z(r64)), axis=1) / np.max(np.abs(z[:64]), axis=1)
     print(f"  functional fit: sup |z_hat32 - z_hat64| / max |z| max {np.max(zrel):.3g}")
     check(np.median(rel_rp) < 1e-3, "Rp median rel err < 1e-3")
     check(np.percentile(rel_rp, 95) < 3e-3, "Rp p95 rel err < 3e-3")
     check(np.max(zrel) < 1.5e-2, "functional fit rel err < 1.5e-2")
-    held = same if fused else np.ones(64, dtype=bool)
+    if hold_max is None:
+        return
+    held = same if hold_max == "same" else np.ones(64, dtype=bool)
     check(held.sum() >= 16, f"{int(held.sum())} lanes stopped at the same iteration")
     check(np.max(rel_rp[held]) < 5e-3, "Rp max rel err < 5e-3")
     check(np.max(d_rinf[held]) < 5e-3, "max |dR_inf| < 5e-3")
-    return launches, wall
 
 
 def compare_factor_kernel():
@@ -715,6 +904,7 @@ def main():
     launches, wall = phase_slice(fused=False)
     fused_launches, fused_wall = phase_slice(fused=True)
     launches["ip_steps_lane"] = fused_launches["ip_steps_lane"]
+    frame_walls = {"plain": phase_frames(fused=False), "fused": phase_frames(fused=True)}
     max_err["chol_factor_lane"], times["chol_factor_lane"] = compare_factor_kernel()
     launches["chol_factor_lane"] = phase_resolve()
     layout_err, layout_launches, layout_times = phase_layouts()
@@ -724,6 +914,9 @@ def main():
     max_err["ip_steps_loop"], launches["ip_steps_loop"], times["ip_steps_loop"] = phase_ip_loop()
     print(f"second-call wall, B={B_BENCH}: plain {wall:.4f} s ({B_BENCH / wall:.1f} spectra/s), "
           f"fused {fused_wall:.4f} s ({B_BENCH / fused_wall:.1f} spectra/s)")
+    for name, w in frame_walls.items():
+        print(f"frames, {name}: warm frames 1-{N_FRAMES - 1} "
+              f"{[round(v, 4) for v in w['warm']]} s, cold frame {N_FRAMES - 1} {w['cold']:.4f} s")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu, "launches": launches[k],
          "max_abs_err": max_err[k], "ms": times[k]["ms"], "plain_ms": times[k]["plain_ms"],

@@ -5,6 +5,7 @@ problem matrices are assembled once on the host (``models/drt.py``) and
 uploaded to ``device``; the weight-initialization QP and the outer loop run
 batched on the device, and ``collect`` brings the coefficients back.
 """
+from dataclasses import replace
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -52,7 +53,8 @@ class BatchedEISFitter:
     The fitter runs on the CUDA card unless ``device="cpu"`` is given, and
     raises ``RuntimeError`` where no card is present. ``qp_fused=True`` runs
     every warm-started QP as ``qp_max_iter_warm`` (default 8) fixed Mehrotra
-    steps in one fused kernel call, after a cold iteration 0.
+    steps in one fused kernel call, after a cold iteration 0 (none in a frame
+    fitted ``warm_from`` a previous one).
 
     With ``tau_supergrid`` the basis is the slice of that grid covering the
     data, and ``tau_indices`` is its (left, right) on the supergrid (the
@@ -165,6 +167,64 @@ class BatchedEISFitter:
                                      inp["outlier_t0"], self.fcfg)
 
     # ------------------------------------------------------------------
+    # Frame-to-frame warm starts (fit(warm_from=...), hybdrt_tpu/parallel/
+    # batch.py:343-400): operando and time-series maps fit the same lanes
+    # every frame, drifting slowly. Each lane's solver state (x, the penalty
+    # scales s and rho, the penalty norms) is seeded from the previous
+    # frame's fit and the loop runs in continuation mode; the data weights
+    # are estimated afresh from this frame's data.
+    def _warm_fcfg(self):
+        return replace(self.fcfg, continue_mode=True)
+
+    def _fit_warm(self, rzv, warm):
+        """Every lane seeded from ``warm`` (``_warm_arrays``), in one loop that
+        steps only the lanes still live (``_fit_single_warm``, :356-382).
+        No iteration is peeled off cold: with qp_fused every QP of the loop,
+        iteration 0 included, runs the fused steps from the seed iterate and
+        zero duals; without it iteration 0's QP starts cold, as in a fresh
+        fit."""
+        fcfg = self._warm_fcfg()
+        inp = self._loop_inputs(rzv)
+        x0, s0, rho0, dop_rho0, xmx0, dop_xmx0 = warm
+        b = rzv.shape[0]
+        state0 = qphb_mod.QPHBState(
+            x=x0, s_vectors=s0, rho_vector=rho0, dop_rho_vector=dop_rho0,
+            weights=inp["init_weights"], outlier_t=inp["outlier_t0"], xmx_norms=xmx0,
+            dop_xmx_norms=dop_xmx0, it=torch.zeros(b, dtype=torch.int32, device=self.device),
+            converged=torch.zeros(b, dtype=torch.bool, device=self.device),
+            qp_dual=torch.zeros_like(x0))
+        return fitcore.qphb_fit_loop_from_state(
+            state0, self.rzm, rzv, self.vmm, self.m_stack, self.l1v, self.lb, self.hyp,
+            inp["est_weights"], fcfg, seed_pred_history=fcfg.pred_stop)
+
+    def _warm_arrays(self, warm_from, b, scale):
+        """Per-lane seed tensors from a previous frame's BatchFitResult (this
+        package's, lazy or full, or the JAX package's), on this fitter's
+        device in its dtype: [x, s_vectors, rho, dop_rho, xmx_norms,
+        dop_xmx_norms] (:384-400). x is rescaled from the old frame's lane
+        scales to the new ones, over the whole vector, special columns
+        included: the loop's x is the physical solution divided by the lane
+        scale. The cast to this fitter's dtype here is the only one: a
+        float64 seed's norms, held fixed by continuation mode, enter a
+        float32 fit rounded once."""
+        prev_x = np.asarray(warm_from.x_raw)
+        if prev_x.shape[0] != b:
+            raise ValueError(f"warm_from has {prev_x.shape[0]} lanes; this batch has {b} "
+                             f"(warm seeding is lane-aligned: fit the same observations in "
+                             f"the same order each frame)")
+        ratio = np.asarray(warm_from.scale) / np.asarray(scale)
+
+        def on_device(a):
+            # a lazy seed's s_vectors is a tensor already: no host round trip
+            if isinstance(a, torch.Tensor):
+                return a.to(device=self.device, dtype=self.dtype)
+            return torch.tensor(np.asarray(a), dtype=self.dtype, device=self.device)
+
+        return [on_device(a) for a in (prev_x * ratio[:, None], warm_from.s_vectors,
+                                        warm_from.rho, warm_from.dop_rho, warm_from.xmx_norms,
+                                        warm_from.dop_xmx_norms)]
+
+    # ------------------------------------------------------------------
     def scale_batch(self, z_batch):
         """Per-spectrum Rp estimate and scaling (hybdrt_tpu/parallel/batch.py:612)."""
         z_batch = np.asarray(z_batch)
@@ -183,20 +243,30 @@ class BatchedEISFitter:
         The JAX package's staged compaction schedule existed because a vmapped
         while_loop runs every lane to the slowest one; this loop needs none.
         collect="lazy" leaves result.weights and result.s_vectors as device
-        tensors."""
+        tensors.
+
+        warm_from=<the previous frame's BatchFitResult> seeds each lane's
+        solver state from that frame's fit and runs the loop in continuation
+        mode (penalty norms held at the seed's, at least ``min_iter``
+        iterations); the lanes must be the same observations in the same
+        order. Results agree with a cold fit to the solver's tolerance, not
+        bitwise. It combines with neither ``adaptive`` nor
+        ``return_history``: a frame is ``fit(z, warm_from=prev,
+        collect="lazy")``."""
         if collect not in ("full", "lazy"):
             raise ValueError(f"collect={collect!r}: expected 'full' or 'lazy'")
         if not (adaptive is False or adaptive is True
                 or (isinstance(adaptive, str) and adaptive == "staged")):
             raise ValueError(f"adaptive={adaptive!r}: expected False, True or 'staged'")
+        if warm_from is not None and (adaptive or return_history):
+            raise ValueError("warm_from seeds a plain whole-batch fit; it cannot be combined "
+                             "with adaptive scheduling or return_history")
         if adaptive is True:
             raise NotImplementedError("adaptive=True (host-driven compaction) is not ported "
                                       "yet (ROADMAP Queue 1 item 3); use adaptive='staged'")
         if phase_budgets is not None:
             raise ValueError("phase_budgets: this fitter has no staged schedule to budget; "
                              "adaptive='staged' runs the live-lane loop")
-        if warm_from is not None:
-            raise NotImplementedError("warm_from is not ported yet (ROADMAP Queue 1 item 3)")
         if return_history:
             raise NotImplementedError("return_history (qphb_fit_scan) is not ported yet "
                                       "(ROADMAP Queue 1 item 3)")
@@ -208,8 +278,9 @@ class BatchedEISFitter:
             raise ValueError(f"z_batch shape {z_batch.shape}: expected (B, "
                              f"{len(self.frequencies)})")
         rzv, scale = self.scale_batch(z_batch)
+        warm = None if warm_from is None else self._warm_arrays(warm_from, len(scale), scale)
         rzv = torch.as_tensor(rzv, dtype=self.dtype, device=self.device)
-        states = self._fit_plain(rzv)
+        states = self._fit_plain(rzv) if warm is None else self._fit_warm(rzv, warm)
         return self.collect(states, scale, return_states=return_states,
                             lazy=(collect == "lazy"))
 

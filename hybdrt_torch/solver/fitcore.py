@@ -30,15 +30,18 @@ class FitConfig:
     # iterations back falling below pred_rtol
     pred_stop: bool = False
     pred_rtol: float = 1e-2
-    # Fused warm QP path: iteration 0 is peeled off as one cold pass over
-    # every lane, and every later QP is statically warm-started and runs
-    # qp_max_iter_warm fixed Mehrotra steps in one ip_steps_lane call
+    # Fused warm QP path: every QP of the loop is statically warm-started
+    # and runs qp_max_iter_warm fixed Mehrotra steps in one ip_steps_lane
+    # call; a fresh fit peels iteration 0 off as one cold pass over every
+    # lane, a fit seeded from another frame (continuation) does not
     qp_fused: bool = False
-
-
-# pred_stop settles a lane no earlier than this iteration (max(min_iter=2, 3)
-# in the JAX package, whose min_iter matters only in continuation mode)
-PRED_STOP_MIN_ITER = 3
+    # Continuation mode (frame-to-frame warm starts,
+    # hybdrt_tpu/solver/fitcore.py:41-42): the seed's xmx_norms are held
+    # fixed, and convergence stops a lane no earlier than min_iter
+    # iterations. pred_stop settles a lane no earlier than max(min_iter, 3)
+    # in either mode
+    continue_mode: bool = False
+    min_iter: int = 2
 
 
 @dataclass
@@ -65,6 +68,10 @@ class FitCarry:
 
 def _loop_body(carry: FitCarry, rzm, rzv, vmm, m_stack, l1v, lb, est_weights, hyp,
                fcfg: FitConfig, warm_mode="auto"):
+    # The JAX package scales the weights by a global weight factor, from
+    # iteration 1 in a fresh fit and from iteration 0 in continuation mode;
+    # the batched EIS fit passes a factor of 1 (hybdrt_tpu/parallel/batch.py:
+    # 380), so there is nothing to scale here
     st = carry.state
     fused = fcfg.qp_max_iter_warm if fcfg.qp_fused and warm_mode == "warm" else None
     st_new, _ = qphb.iterate_qphb(st, rzv, rzm, vmm, m_stack, m_stack[1], l1v, lb,
@@ -73,20 +80,25 @@ def _loop_body(carry: FitCarry, rzm, rzv, vmm, m_stack, l1v, lb, est_weights, hy
                                   qp_max_iter_warm=fcfg.qp_max_iter_warm,
                                   warm_mode=warm_mode, qp_fused_steps=fused)
 
-    # Normalize the rho update scale to the iteration-0 ridge solution, on the
-    # lanes that just ran their iteration 0
-    ns = fcfg.cfg.num_special
-    x_drt = st_new.x[:, ns:]
-    xmx = torch.stack([torch.sum(torch.matmul(x_drt, m_stack[k, ns:, ns:]) * x_drt, dim=-1)
-                       for k in range(fcfg.cfg.k_range)], dim=1)
-    st_new.xmx_norms = torch.where((st.it == 0)[:, None], xmx, st_new.xmx_norms)
+    if fcfg.continue_mode:
+        # The seed's norms stay fixed, and convergence cannot stop a lane
+        # before min_iter iterations (hybdrt_tpu/solver/fitcore.py:126-130)
+        st_new.converged = st_new.converged & (st_new.it >= fcfg.min_iter)
+    else:
+        # Normalize the rho update scale to the iteration-0 ridge solution,
+        # on the lanes that just ran their iteration 0
+        ns = fcfg.cfg.num_special
+        x_drt = st_new.x[:, ns:]
+        xmx = torch.stack([torch.sum(torch.matmul(x_drt, m_stack[k, ns:, ns:]) * x_drt, dim=-1)
+                           for k in range(fcfg.cfg.k_range)], dim=1)
+        st_new.xmx_norms = torch.where((st.it == 0)[:, None], xmx, st_new.xmx_norms)
 
     y_prev, y_prev2 = carry.y_prev, carry.y_prev2
     if fcfg.pred_stop:
         y_new = qphb._mv(rzm, st_new.x)
         delta = (y_new - y_prev2) * st_new.weights
         ms = torch.mean(delta ** 2, dim=-1)
-        settled = (st_new.it >= PRED_STOP_MIN_ITER) & (torch.sqrt(ms) < fcfg.pred_rtol)
+        settled = (st_new.it >= max(fcfg.min_iter, 3)) & (torch.sqrt(ms) < fcfg.pred_rtol)
         st_new.converged = st_new.converged | settled
         y_prev2 = y_prev
         y_prev = y_new
@@ -130,7 +142,8 @@ def qphb_fit_loop(rzm, rzv, vmm, m_stack, l1v, lb, hyp, x0, s0, rho0, dop_rho0,
 
 def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_weights,
                              fcfg: FitConfig, y_prev0=None, y_prev2_0=None,
-                             peel_cold_start=False, return_pred_history=False):
+                             peel_cold_start=False, seed_pred_history=False,
+                             return_pred_history=False):
     """Run (or resume) the QPHB outer loop from an explicit per-lane state.
 
     The loop body is Markovian in the state, so resuming a loop that stopped
@@ -138,7 +151,11 @@ def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_w
     one uninterrupted run. With pred_stop the prediction history is part of
     that state: pass y_prev0/y_prev2_0 from a run with
     return_pred_history=True (without them the history starts at zero, as in
-    a fresh fit).
+    a fresh fit). Where no history was kept, as for a state seeded from
+    another frame's fit, seed_pred_history seeds both slots with the
+    prediction of state0.x (``hybdrt_tpu/solver/fitcore.py:275-276``): a
+    lane may then settle one iteration earlier or later than with a carried
+    history.
 
     With fcfg.qp_fused the loop's QPs are statically warm-started and fused
     (``warm_mode="warm"``). peel_cold_start first runs one cold pass
@@ -154,6 +171,8 @@ def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_w
     elif y_prev0 is not None:
         y0 = y_prev0
         y02 = y_prev2_0 if y_prev2_0 is not None else y_prev0
+    elif seed_pred_history:
+        y0 = y02 = qphb._mv(rzm, state0.x)
     else:
         y0 = y02 = torch.zeros_like(rzv)
     carry = FitCarry(state=state0, y_prev=y0, y_prev2=y02)

@@ -83,6 +83,30 @@ def make_batch(batch, n_freq, seed=1):
     return freq, z + noise * 0.004
 
 
+def make_frames(batch, n_freq, n_frames, drift, seed=1):
+    """An operando sequence of ``n_frames`` frames of ``batch`` spectra of
+    ``make_batch``'s kind: each lane draws ``make_batch``'s parameters once
+    (two ZARCs and a series inductance on ``logspace(6, -1, n_freq)``), and
+    in frame f its R1 is scaled by 1 + drift f, log10 tau1 moves by
+    +drift f and log10 tau2 by -drift f, with fresh complex noise of 0.004
+    in every frame, all from one numpy seed. Frame 0 is of ``make_batch``'s
+    distribution but not its draws. Returns (freq, z) with z of shape
+    (n_frames, batch, n_freq)."""
+    rng = np.random.default_rng(seed)
+    freq = np.logspace(6, -1, n_freq)
+    r1, r2 = rng.uniform(0.3, 1.5, (2, batch, 1))
+    lt1, lt2 = rng.uniform(-5, -2, (batch, 1)), rng.uniform(-2, 0.5, (batch, 1))
+    a1, a2 = rng.uniform(0.8, 0.95, (2, batch, 1))
+    jw = 2j * np.pi * freq
+    frames = []
+    for f in range(n_frames):
+        z = (0.5 + r1 * (1 + drift * f) / (1 + (jw * 10 ** (lt1 + drift * f)) ** a1)
+             + r2 / (1 + (jw * 10 ** (lt2 - drift * f)) ** a2) + jw * 1e-7)
+        noise = rng.normal(size=z.shape) + 1j * rng.normal(size=z.shape)
+        frames.append(z + noise * 0.004)
+    return freq, np.stack(frames)
+
+
 def spd_batch(b, n, dtype, seed, device="cuda"):
     """b seeded SPD matrices G G^T + n I of size n and b right-hand sides."""
     rng = np.random.default_rng(seed)

@@ -1,7 +1,8 @@
 """GPU tests of the port: the CUDA kernels against their plain versions (the
 kernels of hybdrt_torch/experiments/ too), the batched fit
-(plain and fused warm QPs) and the group resolve (coupled and windowed) on
-the card against the same computations on the CPU.
+(plain and fused warm QPs, cold and warm from a previous frame) and the group
+resolve (coupled and windowed) on the card against the same computations on
+the CPU.
 
 Every test here is marked ``cuda`` and skips where no CUDA device is present.
 The file imports no JAX, so it also runs on a machine without it:
@@ -17,7 +18,7 @@ from hybdrt_torch.csrc import build as _build
 from hybdrt_torch.experiments import (chol_blocked, chol_column, chol_lane_blocked, ip_loop,
                                       layouts, smem_sol)
 from hybdrt_torch.ops import chol_lane, ip_lane
-from hybdrt_torch.utils.probe import freeze_lane, qp_batch, spd_batch
+from hybdrt_torch.utils.probe import freeze_lane, make_frames, qp_batch, spd_batch
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-4  # float32 kernel vs plain, as tests/test_pallas_lane_kernels.py
@@ -311,6 +312,33 @@ def test_fused_fit_on_card_matches_cpu(cuda):
     r_gpu = BatchedEISFitter(freq, dtype=torch.float64, **kw).fit(z, adaptive="staged")
     assert 0 < ip_lane.LAUNCHES["ip_steps_lane"] <= int(r_gpu.n_iter.max())
     np.testing.assert_array_equal(r_gpu.n_iter, r_cpu.n_iter)
+    np.testing.assert_allclose(r_gpu.x, r_cpu.x, rtol=1e-6, atol=1e-10)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+def test_warm_frame_on_card_matches_cpu(cuda, fused):
+    """A float64 frame fitted warm from the previous frame's CPU result, on the
+    card (f64 kernels) and on the CPU (plain): same iterations and flags, x
+    within rtol=1e-6. The plain path runs the three fit kernels and no fused
+    steps; the fused path runs ip_steps_lane once per outer pass, iteration 0
+    included."""
+    freq, frames = make_frames(16, 31, 2, 0.02)
+    kw = dict(qp_max_iter=20, qp_max_iter_warm=4, pred_stop=True, pred_rtol=3e-2,
+              qp_fused=fused)
+    cpu = BatchedEISFitter(freq, dtype=torch.float64, device="cpu", **kw)
+    seed = cpu.fit(frames[0])
+    r_cpu = cpu.fit(frames[1], warm_from=seed)
+    chol_lane.reset_launch_counts()
+    ip_lane.reset_launch_counts()
+    r_gpu = BatchedEISFitter(freq, dtype=torch.float64, device=cuda, **kw).fit(
+        frames[1], warm_from=seed, collect="lazy")
+    fit_kernels = ("chol_factor_solve_lane", "chol_solve_factored_lane", "chol_solve_lane")
+    assert all(chol_lane.LAUNCHES[k] > 0 for k in fit_kernels)
+    passes = int(r_gpu.n_iter.max())
+    assert ip_lane.LAUNCHES["ip_steps_lane"] == (passes if fused else 0)
+    assert r_gpu.s_vectors.is_cuda
+    np.testing.assert_array_equal(r_gpu.n_iter, r_cpu.n_iter)
+    np.testing.assert_array_equal(r_gpu.converged, r_cpu.converged)
     np.testing.assert_allclose(r_gpu.x, r_cpu.x, rtol=1e-6, atol=1e-10)
 
 
