@@ -56,6 +56,37 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    the first 64 lanes against the same chain fitted in float64 on the CPU
    within the Rp median and p95 and functional-fit bounds of phase 5 (the
    Rp max and R_inf are reported; see the comment in ``phase_frames``);
+6c. a stream of batches (run after 6b, plain and then fused):
+   ``make_stream(8192, 71)`` of ``hybdrt_torch/utils/probe.py`` (four
+   batches of 8192, 8192, 4096 and 8192 lanes) fitted one after another,
+   each ``fit`` called twice and the second call timed, then
+   ``fit_stream`` over the four twice, with the results dropped as they
+   come and then held; the launch counters are reset just before the
+   second stream. Every result bitwise its sequential fit's, each batch's
+   lane kernel launches in the stream those of its sequential fit; the
+   card's allocated memory back at its level before the stream once the
+   results are dropped, and grown by the lazy fields' bytes while they are
+   held; the stream's wall against the sum of the sequential walls;
+6d. the parameter covariance: a B=8192 float32 fit of phase 5's kind, then
+   ``param_cov`` with ``refine_iters`` 0 and 3 (float64 on the card, the
+   refinement's QPs through the float64 fit kernels), every covariance
+   finite, walls and launches; the first 64 lanes' scaled covariance on the
+   card against the port's on the CPU from the same result, within the
+   bounds of ``tests/test_torch_cov.py``: P within 1e-6 of each lane's max
+   |P|, the covariance within max(1e-6, cond(P) max(eps, dP)) of each lane's
+   max |cov|, each CI-band point and sigma(R_inf) (as variances) within its
+   own first-order bound (``probe.readout_errors``), and the card's inverse
+   within N eps backward error of the card's P; reported, not held, the
+   CI-band and sigma(R_inf) errors of the
+   float32 fit, with and without 3 refinement steps, against a float64 fit
+   of the 64 lanes on the CPU (the quantities of
+   ``tests/test_f32_accuracy.py::test_f32_covariance_and_ci_certification``);
+6e. the history: ``fit(z, return_history=True)`` of the B=8192 plain
+   float32 fit, called twice, the second timed with the launch counters
+   reset just before it: (B, 50, ...) arrays whose entries from a lane's
+   last iteration on repeat its final state, whose last x is ``x_raw``, and
+   a result bitwise the plain ``fit``'s; its wall against the plain fit's
+   and its bytes;
 7. the factor-only kernel ``chol_factor_lane`` against its plain version on
    the same CUDA tensors, on the lower triangle, within rtol = atol = 2e-4,
    at the resolve's shape (B=1435, n=94: 205 windows of 7) and at (130, 17)
@@ -119,10 +150,11 @@ import time
 import numpy as np
 import torch
 
-from hybdrt_torch.utils.probe import (bound, card_line, check_steps, chol_ops, cuda_ms,
-                                      freeze_lane, in_turns, ip_steps_bound, lower_bytes,
-                                      make_batch, make_frames, qp_batch, resolve_map,
-                                      solve_ops, spd_batch)
+from hybdrt_torch.utils.probe import (FitLaunches, bound, card_line, check_steps, chol_ops,
+                                      cov_readouts, cuda_ms, freeze_lane, in_turns,
+                                      inverse_residual, ip_steps_bound, lower_bytes,
+                                      make_batch, make_frames, make_stream, qp_batch,
+                                      readout_errors, resolve_map, solve_ops, spd_batch)
 
 B_BENCH, N_FREQ, MAX_ITER = 8192, 71, 50
 # The benchmark's fit knobs (bench.py:458-483)
@@ -576,6 +608,237 @@ def phase_frames(fused):
     return {"warm": walls, "cold": cold_wall}
 
 
+def same_result(a, b):
+    """Every field of two BatchFitResults bit for bit (lazy fields as tensors
+    on the card)."""
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if x is None:
+            if y is not None:
+                return False
+        elif isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and torch.equal(x, y)):
+                return False
+        elif not np.array_equal(x, y):
+            return False
+    return True
+
+
+def phase_stream(fused):
+    """A stream of four batches on the card: sequential fits against
+    ``fit_stream``. Returns (sequential walls, stream wall) in s."""
+    import hybdrt_torch
+    from hybdrt_torch.ops import chol_lane as cl, ip_lane
+
+    t_phase = time.time()
+    label = "fused stream" if fused else "stream"
+    freq, batches = make_stream(B_BENCH, N_FREQ)
+    fitter = hybdrt_torch.BatchedEISFitter(freq, dtype=torch.float32, device="cuda",
+                                           qp_fused=fused, **FIT_KW)
+    opts = dict(adaptive="staged", collect="lazy")
+    seq, walls = [], []
+    with FitLaunches(fitter) as seq_counts:
+        for z in batches:
+            fitter.fit(z, **opts)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            seq.append(fitter.fit(z, **opts))
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+    seq_launches = seq_counts.per_fit[1::2]  # the second, timed call of each batch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for res in fitter.fit_stream(batches):
+        check(res.weights.is_cuda, "lazy weights on the card")
+    del res
+    torch.cuda.synchronize()
+    after_dropped = torch.cuda.memory_allocated()
+
+    cl.reset_launch_counts()
+    ip_lane.reset_launch_counts()
+    t0 = time.time()
+    with FitLaunches(fitter) as stream_launches:
+        held = list(fitter.fit_stream(batches))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {**cl.LAUNCHES, **ip_lane.LAUNCHES}
+    grown = torch.cuda.memory_allocated() - before
+    lazy = sum(t.numel() * t.element_size() for r in held for t in (r.weights, r.s_vectors))
+    same = [same_result(a, b) for a, b in zip(seq, held)]
+    del held
+    torch.cuda.synchronize()
+    after_held = torch.cuda.memory_allocated()
+    lane = {k: [c[k] for c in stream_launches.per_fit] for k in (*FIT_KERNELS, "ip_steps_lane")}
+    print(f"{label}: batches {[len(z) for z in batches]} f32 lazy: sequential second-call walls "
+          f"{[round(w, 4) for w in walls]} s, sum {sum(walls):.4f} s; fit_stream {wall:.4f} s "
+          f"(stream / sequential {wall / sum(walls):.4f}); n_iter max "
+          f"{[int(r.n_iter.max()) for r in seq]}")
+    print(f"{label}: lane kernel launches per batch in the stream {lane}; in the timed stream "
+          f"{launches}")
+    print(f"{label}: memory allocated before {before} B, after the stream with its results "
+          f"dropped {after_dropped} B; results held: +{grown} B for {lazy} B of lazy fields "
+          f"({lazy * B_BENCH / sum(len(z) for z in batches) / 1e6:.2f} MB per {B_BENCH} lanes); "
+          f"after dropping them {after_held} B")
+    check(all(same), f"every stream result bitwise its sequential fit's: {same}")
+    check(stream_launches.per_fit == seq_launches,
+          "each batch's launches in the stream equal its sequential fit's")
+    check(all(launches[k] > 0 for k in FIT_KERNELS)
+          and (launches["ip_steps_lane"] > 0) == fused, f"the path's kernels launched: {launches}")
+    check(after_dropped == before and after_held == before,
+          "allocated memory back at its level once the results are dropped")
+    # the allocator may keep up to 1 MiB of an unsplit block with each lazy field
+    check(lazy <= grown <= lazy + (1 << 20) * 2 * len(batches),
+          "held results grow the allocated memory by their lazy fields")
+    print(f"{label}: phase {time.time() - t_phase:.1f} s")
+    return walls, wall
+
+
+def phase_cov():
+    """param_cov of a B=8192 float32 fit on the card, refine_iters 0 and 3,
+    the first 64 lanes against the CPU; returns the walls {refine_iters: s}
+    and the lane kernels' launches of the refined call."""
+    import hybdrt_torch
+    from hybdrt_torch.ops import basis as basis_mod, chol_lane as cl, ip_lane
+
+    t_phase = time.time()
+    freq, z = make_batch(B_BENCH, N_FREQ)
+    fitter = hybdrt_torch.BatchedEISFitter(freq, dtype=torch.float32, device="cuda", **FIT_KW)
+    res = fitter.fit(z, adaptive="staged", collect="lazy")
+    covs, walls = {}, {}
+    for r in (0, 3):
+        fitter.param_cov(res, z, refine_iters=r)
+        torch.cuda.synchronize()
+        cl.reset_launch_counts()
+        ip_lane.reset_launch_counts()
+        t0 = time.time()
+        covs[r] = fitter.param_cov(res, z, refine_iters=r)
+        torch.cuda.synchronize()
+        walls[r] = time.time() - t0
+        launches = {**cl.LAUNCHES, **ip_lane.LAUNCHES}
+        print(f"param_cov B={B_BENCH} refine_iters={r}: {walls[r]:.4f} s (second call), "
+              f"{covs[r].nbytes / 1e6:.0f} MB float64; launches {launches}")
+        check(covs[r].shape == (B_BENCH, 93, 93) and bool(np.all(np.isfinite(covs[r]))),
+              f"every covariance finite, refine_iters={r}")
+        check(all((launches[k] > 0) == (r > 0) for k in FIT_KERNELS)
+              and launches["ip_steps_lane"] == 0,
+              "the refinement runs the three fit kernels in float64, no fused steps")
+    refine_launches = launches
+
+    # the first 64 lanes, float64 on the card against the CPU
+    sub = res._replace(**{f: getattr(res, f)[:64] for f in res._fields
+                          if getattr(res, f) is not None})
+    cpu = hybdrt_torch.BatchedEISFitter(freq, dtype=torch.float64, device="cpu", **FIT_KW)
+    eps = np.finfo(float).eps
+    lane_max = lambda a: np.max(np.abs(a), axis=(1, 2))
+    for r in (0, 3):
+        t0 = time.time()
+        c_cpu = cpu.param_cov(sub, z[:64], scaled=True, refine_iters=r)
+        t_cpu = time.time() - t0
+        c_gpu = fitter.param_cov(sub, z[:64], scaled=True, refine_iters=r)
+        p_gpu = fitter._posterior(sub, z[:64], r)[0].cpu().numpy()
+        p_cpu = cpu._posterior(sub, z[:64], r)[0].numpy()
+        d_p = lane_max(p_gpu - p_cpu) / lane_max(p_cpu)
+        cond = np.linalg.cond(p_cpu)
+        bnd = np.maximum(1e-6, cond * np.maximum(eps, d_p))
+        err = lane_max(c_gpu - c_cpu) / lane_max(c_cpu)
+        r_err, r_bnd = readout_errors(c_gpu, p_gpu, c_cpu, p_cpu, cov_readouts(cpu))
+        resid = inverse_residual(p_gpu, c_gpu)
+        print(f"param_cov refine_iters={r}, 64 lanes, card vs CPU (CPU {t_cpu:.1f} s): max dP "
+              f"{d_p.max():.3g}, cond(P) median {np.median(cond):.3g} max {cond.max():.3g}; "
+              f"cov err max {err.max():.3g}, err / bound max {(err / bnd).max():.3g}, lanes held "
+              f"to 1e-6 {int((bnd == 1e-6).sum())} (their err max "
+              f"{err[bnd == 1e-6].max() if (bnd == 1e-6).any() else 0:.3g})")
+        tight = r_bnd < 1e-6
+        print(f"  readouts (CI band, sigma(R_inf)): {r_err.size}, err / bound max "
+              f"{(r_err / r_bnd).max():.3g}; bound below 1e-6 on {tight.mean():.4f} (err max "
+              f"there {r_err[tight].max() if tight.any() else 0:.3g}), below 1e-2 on "
+              f"{(r_bnd < 1e-2).mean():.4f}, max {r_bnd.max():.3g}; card inverse backward error "
+              f"max {resid.max():.3g} (N eps {p_gpu.shape[-1] * eps:.3g})")
+        check(bool(np.all(d_p <= 1e-6)), "P on the card within 1e-6 of the CPU's")
+        check(bool(np.all(err <= bnd)), "covariance on the card within the bound of the CPU's")
+        check(bool(np.all(r_err <= r_bnd)), "CI band and sigma(R_inf) on the card within their "
+              "bounds of the CPU's")
+        check(bool(np.all(resid <= p_gpu.shape[-1] * eps)),
+              "the card's covariance a backward-stable inverse of the card's P")
+
+    # Reported: the f32 fit's CI bands and sigma(R_inf), with and without 3
+    # refinement steps, against a float64 fit's, unrefined and refined alike
+    # (the certification set and quantities of tests/test_f32_accuracy.py:
+    # 120-175)
+    t0 = time.time()
+    r64 = cpu.fit(z[:64], adaptive="staged")
+    c64 = {r: cpu.param_cov(r64, z[:64], refine_iters=r) for r in (0, 3)}
+    ns = fitter.num_special
+    tau_eval = np.logspace(np.log10(fitter.basis_tau[0]), np.log10(fitter.basis_tau[-1]), 56)
+    em = basis_mod.construct_func_eval_matrix(np.log(fitter.basis_tau), np.log(tau_eval),
+                                              epsilon=fitter.tau_epsilon)
+    band = lambda c: np.sqrt(np.maximum(np.einsum("ij,bjk,ik->bi", em, c[:, ns:, ns:], em), 0))
+    i_rinf = fitter.special_qp_params["R_inf"]["index"]
+    sigma = lambda c: np.sqrt(c[:, i_rinf, i_rinf])
+    gpk = np.max(np.abs(r64.x @ em.T), axis=1)
+    ok = (np.max(band(c64[0]), axis=1) < gpk) & (sigma(c64[0]) < 0.05 * cpu.predict_r_p(r64))
+    print(f"param_cov f32 vs f64 fit (64 lanes; f64 CPU fit and covs {time.time() - t0:.1f} s): "
+          f"{int(ok.sum())} lanes certified (f64 band below the peak, sigma(R_inf) < 0.05 Rp)")
+    for r32, r64_ in ((0, 0), (3, 0), (3, 3)):
+        c32, ref = covs[r32][:64], c64[r64_]
+        band_rel = (np.abs(band(c32) - band(ref)) / gpk[:, None])[ok].ravel()
+        sig_rel = (np.abs(sigma(c32) - sigma(ref)) / sigma(ref))[ok]
+        if ok.any():
+            print(f"  f32 refine_iters={r32} vs f64 refine_iters={r64_}: CI band err / peak median "
+                  f"{np.median(band_rel):.3g} p95 {np.percentile(band_rel, 95):.3g} max "
+                  f"{band_rel.max():.3g}; sigma(R_inf) rel err median {np.median(sig_rel):.3g} "
+                  f"p95 {np.percentile(sig_rel, 95):.3g} max {sig_rel.max():.3g} (not held; "
+                  f"test_f32_accuracy bounds 1e-3 / 3e-2 / 1.0 and 1e-2 / 1.5e-1 / 1.0)")
+    print(f"param_cov: phase {time.time() - t_phase:.1f} s")
+    return walls, refine_launches
+
+
+def phase_history():
+    """The B=8192 plain float32 fit with return_history; returns (history
+    wall, plain wall, launches of the history fit)."""
+    import hybdrt_torch
+    from hybdrt_torch.ops import chol_lane as cl, ip_lane
+    from hybdrt_torch.solver.fitcore import HISTORY_FIELDS
+
+    t_phase = time.time()
+    freq, z = make_batch(B_BENCH, N_FREQ)
+    fitter = hybdrt_torch.BatchedEISFitter(freq, dtype=torch.float32, device="cuda", **FIT_KW)
+    fitter.fit(z, return_history=True)
+    torch.cuda.synchronize()
+    cl.reset_launch_counts()
+    ip_lane.reset_launch_counts()
+    t0 = time.time()
+    res, hist = fitter.fit(z, return_history=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {**cl.LAUNCHES, **ip_lane.LAUNCHES}
+    fitter.fit(z)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    plain = fitter.fit(z)
+    torch.cuda.synchronize()
+    plain_wall = time.time() - t0
+    t_len = fitter.fcfg.max_iter
+    n_bytes = sum(v.nbytes for v in hist.values())
+    shapes = {k: v.shape for k, v in hist.items()}
+    print(f"history: B={B_BENCH} f32 plain: second call {wall:.4f} s against the plain fit's "
+          f"{plain_wall:.4f} s; {n_bytes / 1e6:.1f} MB of history {shapes}; launches {launches}")
+    check(set(hist) == set(HISTORY_FIELDS) and all(v.shape[:2] == (B_BENCH, t_len)
+                                                   for v in hist.values()),
+          "history arrays of shape (B, max_iter, ...)")
+    last = np.take_along_axis(hist["x"], (res.n_iter - 1)[:, None, None], axis=1)
+    after = np.arange(t_len)[None, :] >= (res.n_iter - 1)[:, None]
+    check(bool(np.all((hist["x"] == last) | ~after[:, :, None])),
+          "entries from a lane's last iteration on repeat its final state")
+    check(bool(np.array_equal(hist["x"][:, -1], res.x_raw)), "the last entry is x_raw")
+    check(bool(np.array_equal(hist["it"][:, -1], res.n_iter)), "the last it is n_iter")
+    check(same_result(res, plain), "the history fit's result is bitwise the plain fit's")
+    check(all(launches[k] > 0 for k in FIT_KERNELS) and launches["ip_steps_lane"] == 0,
+          f"the history fit runs the plain path's kernels: {launches}")
+    print(f"history: phase {time.time() - t_phase:.1f} s")
+    return wall, plain_wall, launches
+
+
 def hold_to_f64(label, fitter, res, ref, r64, z, hold_max):
     """The card's float32 result ``res`` of ``fitter`` against the CPU's
     float64 ``r64`` of ``ref`` on the first 64 spectra of ``z``, within the
@@ -905,6 +1168,9 @@ def main():
     fused_launches, fused_wall = phase_slice(fused=True)
     launches["ip_steps_lane"] = fused_launches["ip_steps_lane"]
     frame_walls = {"plain": phase_frames(fused=False), "fused": phase_frames(fused=True)}
+    stream_walls = {"plain": phase_stream(fused=False), "fused": phase_stream(fused=True)}
+    cov_walls, _ = phase_cov()
+    history_wall, history_plain_wall, _ = phase_history()
     max_err["chol_factor_lane"], times["chol_factor_lane"] = compare_factor_kernel()
     launches["chol_factor_lane"] = phase_resolve()
     layout_err, layout_launches, layout_times = phase_layouts()
@@ -917,6 +1183,11 @@ def main():
     for name, w in frame_walls.items():
         print(f"frames, {name}: warm frames 1-{N_FRAMES - 1} "
               f"{[round(v, 4) for v in w['warm']]} s, cold frame {N_FRAMES - 1} {w['cold']:.4f} s")
+    for name, (seq, wall) in stream_walls.items():
+        print(f"stream, {name}: fit_stream {wall:.4f} s against {sum(seq):.4f} s of sequential "
+              f"fits")
+    print(f"param_cov, B={B_BENCH}: refine_iters 0 {cov_walls[0]:.4f} s, 3 {cov_walls[3]:.4f} s; "
+          f"history fit {history_wall:.4f} s against the plain fit's {history_plain_wall:.4f} s")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu, "launches": launches[k],
          "max_abs_err": max_err[k], "ms": times[k]["ms"], "plain_ms": times[k]["plain_ms"],

@@ -16,7 +16,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..solver import qphb as qphb_mod
 from . import resolve as resolve_mod
 
 
@@ -35,14 +34,7 @@ def uniform_pq(fitter, result, z_batch):
     fitter's device from ``result`` (rho, s_vectors, weights, scale; device
     tensors with ``collect="lazy"``) and the spectra (drtmd.py:1036). Returns
     host float64 (B, N, N), (B, N)."""
-    dev, f64 = fitter.device, torch.float64
-    t = lambda a: torch.as_tensor(a, dtype=f64, device=dev)
-    rzv, _ = fitter.scale_batch(z_batch)
-    host = fitter.host_arrays
-    p, q = qphb_mod.calculate_pq(
-        t(host["rzm"]), t(rzv), t(host["m_stack"]),
-        qphb_mod.hypers_to_tensors(fitter.hypers, dev, f64), t(host["l1v"]),
-        t(result.rho), t(result.s_vectors), t(result.weights), fitter.cfg)
+    p, q, _ = fitter._posterior(result, z_batch)
     return p.cpu().numpy(), q.cpu().numpy()
 
 

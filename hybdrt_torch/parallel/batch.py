@@ -5,7 +5,7 @@ problem matrices are assembled once on the host (``models/drt.py``) and
 uploaded to ``device``; the weight-initialization QP and the outer loop run
 batched on the device, and ``collect`` brings the coefficients back.
 """
-from dataclasses import replace
+from dataclasses import fields, replace
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -41,6 +41,10 @@ class BatchFitResult(NamedTuple):
 
 def _numpy(t):
     return t.detach().cpu().numpy()
+
+
+# The state fields that collect="lazy" leaves on the device
+_LAZY = ("weights", "s_vectors")
 
 
 class BatchedEISFitter:
@@ -121,10 +125,11 @@ class BatchedEISFitter:
         if self.tau_supergrid is not None:
             self.tau_indices = (pp.nearest_index(self.tau_supergrid, self.basis_tau[0]),
                                 pp.nearest_index(self.tau_supergrid, self.basis_tau[-1]) + 1)
-        # float64 host copies for the posterior (P, q) rebuild, which runs in
-        # float64 whatever the fit's dtype (hybdrt_tpu/mapping/drtmd.py:1036)
+        # float64 host copies for the posterior (P, q) rebuild and param_cov's
+        # refinement, which run in float64 whatever the fit's dtype
+        # (hybdrt_tpu/mapping/drtmd.py:1036, hybdrt_tpu/parallel/batch.py:883-904)
         self.host_arrays = {k: np.array(problem[k], dtype=float)
-                            for k in ("rzm", "m_stack", "l1v")}
+                            for k in ("rzm", "m_stack", "l1v", "vmm", "lb")}
 
         cast = lambda a: torch.as_tensor(np.array(a, dtype=float), dtype=dtype,
                                          device=self.device)
@@ -158,13 +163,21 @@ class BatchedEISFitter:
         return dict(x0=x0, s0=lanes(s0), rho0=lanes(rho0), dop_rho0=lanes(dop_rho0),
                     init_weights=init_w, est_weights=est, outlier_t0=out_t)
 
+    def _loop_args(self, rzv):
+        """The positional arguments of fitcore.qphb_fit_loop and qphb_fit_scan."""
+        inp = self._loop_inputs(rzv)
+        return (self.rzm, rzv, self.vmm, self.m_stack, self.l1v, self.lb, self.hyp, inp["x0"],
+                inp["s0"], inp["rho0"], inp["dop_rho0"], inp["init_weights"],
+                inp["est_weights"], inp["outlier_t0"], self.fcfg)
+
     def _fit_plain(self, rzv):
         """Every lane in one loop; the loop steps only the lanes still live."""
-        inp = self._loop_inputs(rzv)
-        return fitcore.qphb_fit_loop(self.rzm, rzv, self.vmm, self.m_stack, self.l1v, self.lb,
-                                     self.hyp, inp["x0"], inp["s0"], inp["rho0"],
-                                     inp["dop_rho0"], inp["init_weights"], inp["est_weights"],
-                                     inp["outlier_t0"], self.fcfg)
+        return fitcore.qphb_fit_loop(*self._loop_args(rzv))
+
+    def _fit_history(self, rzv):
+        """(final states, history) of fitcore.qphb_fit_scan
+        (``_fit_single_history``, hybdrt_tpu/parallel/batch.py:274)."""
+        return fitcore.qphb_fit_scan(*self._loop_args(rzv))
 
     # ------------------------------------------------------------------
     # Frame-to-frame warm starts (fit(warm_from=...), hybdrt_tpu/parallel/
@@ -238,12 +251,24 @@ class BatchedEISFitter:
             return_history=False, warm_from=None, collect="full"):
         """Fit a (B, n_freq) batch of complex spectra; returns BatchFitResult.
 
-        adaptive=False and adaptive="staged" both run every lane in one loop
-        that steps only the lanes still live, so no lane waits on another.
-        The JAX package's staged compaction schedule existed because a vmapped
-        while_loop runs every lane to the slowest one; this loop needs none.
-        collect="lazy" leaves result.weights and result.s_vectors as device
-        tensors.
+        adaptive=False, True and "staged" all run every lane in one loop that
+        steps only the lanes still live, so no lane waits on another, and
+        their results are bitwise the same. The JAX package's compaction
+        schedules (host-driven for True, one dispatch for "staged") existed
+        because a vmapped while_loop runs every lane to the slowest one;
+        this loop needs none, so ``phase_budgets``, which budgets those
+        schedules, raises ValueError. collect="lazy" leaves result.weights
+        and result.s_vectors as device tensors, each its own allocation.
+
+        return_history=True also records every iteration's state
+        (``fitcore.qphb_fit_scan``, the batched qphb_history) and returns
+        (result, history), or (result, states, history) with
+        return_states: a dict of numpy arrays of shape (B, max_iter, ...)
+        whose entries after a lane stops repeat its final state (mask with
+        history['it']). Without qp_fused it runs the same loop as a plain
+        fit, so the result is bitwise that fit's; with qp_fused its QPs run
+        unfused, as the JAX package's history scan runs them. It combines
+        with neither adaptive, collect="lazy" nor warm_from.
 
         warm_from=<the previous frame's BatchFitResult> seeds each lane's
         solver state from that frame's fit and runs the loop in continuation
@@ -253,36 +278,156 @@ class BatchedEISFitter:
         bitwise. It combines with neither ``adaptive`` nor
         ``return_history``: a frame is ``fit(z, warm_from=prev,
         collect="lazy")``."""
+        self._check_options(adaptive, collect)
+        if warm_from is not None and (adaptive or return_history):
+            raise ValueError("warm_from seeds a plain whole-batch fit; it cannot be combined "
+                             "with adaptive scheduling or return_history")
+        if phase_budgets is not None:
+            raise ValueError("phase_budgets: this fitter has no compaction schedule to budget; "
+                             "every adaptive mode runs the live-lane loop")
+        if return_history and adaptive:
+            raise ValueError("return_history records a whole-batch fit; use it without "
+                             "adaptive scheduling")
+        if collect == "lazy" and (return_states or return_history):
+            raise ValueError("collect='lazy' cannot be combined with return_states or "
+                             "return_history: they return every field in full")
+        rzv, scale = self.scale_batch(self._check_batch(z_batch))
+        warm = None if warm_from is None else self._warm_arrays(warm_from, len(scale), scale)
+        rzv = torch.as_tensor(rzv, dtype=self.dtype, device=self.device)
+        if return_history:
+            states, history = self._fit_history(rzv)
+            out = self.collect(states, scale, return_states=return_states)
+            return (*out, history) if return_states else (out, history)
+        states = self._fit_plain(rzv) if warm is None else self._fit_warm(rzv, warm)
+        return self.collect(states, scale, return_states=return_states,
+                            lazy=(collect == "lazy"))
+
+    @staticmethod
+    def _check_options(adaptive, collect):
         if collect not in ("full", "lazy"):
             raise ValueError(f"collect={collect!r}: expected 'full' or 'lazy'")
         if not (adaptive is False or adaptive is True
                 or (isinstance(adaptive, str) and adaptive == "staged")):
             raise ValueError(f"adaptive={adaptive!r}: expected False, True or 'staged'")
-        if warm_from is not None and (adaptive or return_history):
-            raise ValueError("warm_from seeds a plain whole-batch fit; it cannot be combined "
-                             "with adaptive scheduling or return_history")
-        if adaptive is True:
-            raise NotImplementedError("adaptive=True (host-driven compaction) is not ported "
-                                      "yet (ROADMAP Queue 1 item 3); use adaptive='staged'")
-        if phase_budgets is not None:
-            raise ValueError("phase_budgets: this fitter has no staged schedule to budget; "
-                             "adaptive='staged' runs the live-lane loop")
-        if return_history:
-            raise NotImplementedError("return_history (qphb_fit_scan) is not ported yet "
-                                      "(ROADMAP Queue 1 item 3)")
-        if collect == "lazy" and return_states:
-            raise ValueError("collect='lazy' cannot be combined with return_states: "
-                             "return_states returns every field in full")
+
+    def _check_batch(self, z_batch):
         z_batch = np.asarray(z_batch)
         if z_batch.ndim != 2 or z_batch.shape[1] != len(self.frequencies):
             raise ValueError(f"z_batch shape {z_batch.shape}: expected (B, "
                              f"{len(self.frequencies)})")
-        rzv, scale = self.scale_batch(z_batch)
-        warm = None if warm_from is None else self._warm_arrays(warm_from, len(scale), scale)
-        rzv = torch.as_tensor(rzv, dtype=self.dtype, device=self.device)
-        states = self._fit_plain(rzv) if warm is None else self._fit_warm(rzv, warm)
-        return self.collect(states, scale, return_states=return_states,
-                            lazy=(collect == "lazy"))
+        return z_batch
+
+    # ------------------------------------------------------------------
+    # Streams of batches (hybdrt_tpu/parallel/batch.py:749-804): an operando
+    # or mapping user fits batch after batch. The fit loop drives the card
+    # from the host, one sync per pass, so what a second CUDA stream can take
+    # off the loop's way is the copies: batch k+1's upload and batch k-1's
+    # readback run on a side stream, through pinned host memory, while batch
+    # k's loop runs on the caller's stream.
+    def fit_stream(self, z_batches, adaptive="staged", collect="lazy"):
+        """A generator over an iterable of (B, n_freq) complex batches that
+        yields one BatchFitResult per batch, in input order, each bitwise
+        what ``fit(z, adaptive=adaptive, collect=collect)`` returns for that
+        batch. Batches may differ in size.
+
+        On a CUDA device, batch k+1 is scaled on the host and uploaded from
+        pinned memory on a side stream, and batch k-1's fields are read back
+        into pinned memory on the side stream, both while batch k's loop
+        runs on the caller's current stream; a result is yielded once the
+        next batch's loop has run (the last one at the end).
+
+        With collect="lazy" (the default) each result keeps its weights
+        (B, 2 n_freq) and s_vectors (B, 3, N) on the device, each its own
+        allocation, (2 n_freq + 3 N) B itemsize bytes (13.8 MB at B = 8192,
+        71 frequencies, N = 93, float32), until the caller drops it; the
+        generator keeps nothing of a batch once it has yielded its result.
+        A consumer that stops early (``break``, ``close()``) leaves no copy
+        in flight. A batch that fails its shape check, or an input iterable
+        that raises, raises out of the generator once the results of the
+        batches before it are yielded. adaptive may be False or "staged"
+        (the same loop); adaptive=True raises ValueError, as in the JAX
+        package."""
+        self._check_options(adaptive, collect)
+        if adaptive is True:
+            raise ValueError("adaptive=True: fit_stream takes False or 'staged' (the same loop)")
+        return self._stream(iter(z_batches), collect == "lazy")
+
+    def _stream(self, batches, lazy):
+        side = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        err = None
+        try:
+            nxt = self._stream_upload(next(batches, None), side)
+            # the one batch fitted and not yet yielded: [(states, scale)]; no
+            # name of this frame holds a batch once its result is yielded
+            prev = []
+            while nxt is not None:
+                rzv, scale, ready = nxt
+                fetch = [self._stream_fetch(*prev.pop(), lazy, side)] if prev else []
+                if ready is not None:
+                    torch.cuda.current_stream(self.device).wait_event(ready)
+                try:
+                    nxt = self._stream_upload(next(batches, None), side)
+                except Exception as e:  # raised once the batches before it are yielded
+                    nxt, err = None, e
+                prev.append((self._fit_plain(rzv), scale))
+                del rzv, ready
+                if fetch:
+                    yield self._stream_result(*fetch.pop(), lazy)
+            if prev:
+                yield self._stream_result(*self._stream_fetch(*prev.pop(), lazy, side), lazy)
+            if err is not None:
+                raise err
+        finally:
+            if side is not None:
+                side.synchronize()
+
+    def _stream_upload(self, z_batch, side):
+        """(rzv on the device, scale, event the upload completes, or None)."""
+        if z_batch is None:
+            return None
+        rzv, scale = self.scale_batch(self._check_batch(z_batch))
+        host = torch.from_numpy(rzv).to(self.dtype)
+        if side is None:
+            return host.to(self.device), scale, None
+        host = host.pin_memory()
+        with torch.cuda.stream(side):
+            rzv = torch.empty(host.shape, dtype=host.dtype, device=self.device)
+            rzv.copy_(host, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(side)
+        # allocated on the side stream, read on the caller's
+        rzv.record_stream(torch.cuda.current_stream(self.device))
+        return rzv, scale, ready
+
+    def _stream_fetch(self, states, scale, lazy, side):
+        """Start the readback of every state field (but the lazy ones with
+        ``lazy``) into pinned host memory on the side stream, behind the
+        caller's stream; returns (states, scale, {field: pinned tensor},
+        event the copies complete). ``states`` stays referenced until the
+        event: the copies read its tensors."""
+        if side is None:
+            return states, scale, {}, None
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        side.wait_event(done)
+        host = {}
+        with torch.cuda.stream(side):
+            for f in fields(states):
+                t = getattr(states, f.name)
+                if t is not None and not (lazy and f.name in _LAZY):
+                    host[f.name] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    host[f.name].copy_(t, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(side)
+        return states, scale, host, copied
+
+    def _stream_result(self, states, scale, host, copied, lazy):
+        """collect() of a fetched batch: the lazy fields from the device, the
+        others from their host copies, moved out of pinned memory."""
+        if copied is not None:
+            copied.synchronize()
+            states = replace(states, **{f: t.clone() for f, t in host.items()})
+        return self.collect(states, scale, lazy=lazy)
 
     def collect(self, states, scale, return_states=False, lazy=False):
         """Per-lane states -> BatchFitResult in physical units."""
@@ -318,11 +463,82 @@ class BatchedEISFitter:
         return result
 
     # ------------------------------------------------------------------
-    def param_cov(self, *args, **kwargs):
-        raise NotImplementedError("param_cov is not ported yet (ROADMAP Queue 1 item 3)")
+    def param_cov(self, result, z_batch, scaled=False, refine_iters=0):
+        """Laplace parameter covariance per spectrum
+        (hybdrt_tpu/parallel/batch.py:858-969): the inverse of the posterior
+        precision P, rebuilt in float64 from each lane's final (rho, s,
+        weights) by ``calculate_pq``. Runs on the fitter's device in float64
+        whatever the fit's dtype; ``result`` may be this package's (lazy or
+        full) or the JAX package's BatchFitResult, and ``z_batch`` the
+        spectra it was fitted to.
 
-    def fit_stream(self, *args, **kwargs):
-        raise NotImplementedError("fit_stream is not ported yet (ROADMAP Queue 1 item 3)")
+        ``refine_iters > 0`` first continues each lane in float64 for exactly
+        that many outer iterations from its final state (continuation mode,
+        ``max_iter = min_iter = 1 + refine_iters``, no ``pred_stop``, the
+        state at ``it = 1`` with zero duals, the lane's own weights as the
+        weight estimate), washing float32 drift out of the state P is built
+        from. Its QPs run ``qp_max_iter`` unfused Mehrotra steps from the
+        lane's x on every fitter: a qp_fused fitter runs them warm without
+        a step count to fuse (``qp_max_iter_warm=None``), as in the JAX
+        package, which makes them the same QPs as a plain fitter's.
+
+        Returns a float64 numpy array (B, N, N), in physical units unless
+        ``scaled=True``: each row and column times the lane's scale, the
+        inductance's also times the inductance scale, as
+        ``DRT.estimate_param_cov``."""
+        p, _, scale = self._posterior(result, z_batch, refine_iters)
+        cov = torch.linalg.inv(p)
+        if not scaled:
+            dev, f64 = self.device, torch.float64
+            col = torch.ones(cov.shape[-1], dtype=f64, device=dev)
+            if "inductance" in self.special_qp_params:
+                col[self.special_qp_params["inductance"]["index"]] = self.inductance_scale
+            sv = torch.as_tensor(scale, dtype=f64, device=dev)[:, None] * col[None, :]
+            cov = cov * sv[:, :, None] * sv[:, None, :]
+        return cov.cpu().numpy()
+
+    def _host_tensors(self):
+        """``host_arrays`` on the fitter's device in float64."""
+        return {k: torch.as_tensor(v, dtype=torch.float64, device=self.device)
+                for k, v in self.host_arrays.items()}
+
+    def _posterior(self, result, z_batch, refine_iters=0):
+        """(P (B, N, N), q (B, N), scale): each lane's weighted QP at its
+        final state, float64 on the fitter's device, built from the result's
+        (rho, s_vectors, weights; device tensors with collect="lazy") or from
+        their refinement's (drtmd.py:1036). P is the scaled-space posterior
+        precision that param_cov inverts."""
+        dev, f64 = self.device, torch.float64
+        hyp = qphb_mod.hypers_to_tensors(self.hypers, dev, f64)
+        h = self._host_tensors()
+
+        def t(a):
+            if isinstance(a, torch.Tensor):
+                return a.to(device=dev, dtype=f64)
+            return torch.as_tensor(np.array(a, dtype=float), dtype=f64, device=dev)
+
+        rzv, scale = self.scale_batch(self._check_batch(z_batch))
+        rzv = t(rzv)
+        b, k_range = rzv.shape[0], self.cfg.k_range
+        opt = lambda a: torch.ones(b, k_range, dtype=f64, device=dev) if a is None else t(a)
+        rho, s, w = t(result.rho), t(result.s_vectors), t(result.weights)
+        if refine_iters > 0:
+            x = t(result.x_raw)
+            state = qphb_mod.QPHBState(
+                x=x, s_vectors=s, rho_vector=rho, dop_rho_vector=opt(result.dop_rho),
+                weights=w, outlier_t=torch.ones_like(rzv), xmx_norms=opt(result.xmx_norms),
+                dop_xmx_norms=opt(result.dop_xmx_norms),
+                it=torch.ones(b, dtype=torch.int32, device=dev),
+                converged=torch.zeros(b, dtype=torch.bool, device=dev),
+                qp_dual=torch.zeros_like(x))
+            fcfg = replace(self.fcfg, max_iter=1 + refine_iters, continue_mode=True,
+                           min_iter=1 + refine_iters, pred_stop=False, qp_max_iter_warm=None)
+            st = fitcore.qphb_fit_loop_from_state(
+                state, h["rzm"], rzv, h["vmm"], h["m_stack"], h["l1v"], h["lb"], hyp, w, fcfg)
+            rho, s, w = st.rho_vector, st.s_vectors, st.weights
+        p, q = qphb_mod.calculate_pq(h["rzm"], rzv, h["m_stack"], hyp, h["l1v"], rho, s, w,
+                                     self.cfg)
+        return p, q, scale
 
     def predict_r_p(self, result: BatchFitResult):
         area = basis_mod.get_basis_func_area("gaussian", self.tau_epsilon)

@@ -7,9 +7,10 @@ one iteration per pass, over the lanes whose own loop condition
 stepped and scattered back, so every lane stops at the iteration it stops at
 in JAX and a finished lane is never touched (one host sync per iteration).
 """
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import qphb
@@ -143,7 +144,7 @@ def qphb_fit_loop(rzm, rzv, vmm, m_stack, l1v, lb, hyp, x0, s0, rho0, dop_rho0,
 def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_weights,
                              fcfg: FitConfig, y_prev0=None, y_prev2_0=None,
                              peel_cold_start=False, seed_pred_history=False,
-                             return_pred_history=False):
+                             return_pred_history=False, on_pass=None):
     """Run (or resume) the QPHB outer loop from an explicit per-lane state.
 
     The loop body is Markovian in the state, so resuming a loop that stopped
@@ -162,7 +163,10 @@ def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_w
     (``warm_mode="cold"``: the damped unconstrained start and up to
     qp_max_iter steps) over every lane, as a fresh fused fit does for its
     iteration 0 (``hybdrt_tpu/solver/fitcore.py:280-282``); a resumed fused
-    fit leaves it False and continues warm."""
+    fit leaves it False and continues warm.
+
+    ``on_pass(state)``, if given, is called with the whole batch's state
+    after every pass of the loop (the peeled cold pass included)."""
     _check_config(fcfg)
     if return_pred_history and not fcfg.pred_stop:
         raise ValueError("return_pred_history requires fcfg.pred_stop")
@@ -179,6 +183,8 @@ def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_w
     if peel_cold_start:
         carry = _loop_body(carry, rzm, rzv, vmm, m_stack, l1v, lb, est_weights, hyp, fcfg,
                            warm_mode="cold")
+        if on_pass is not None:
+            on_pass(carry.state)
     loop_mode = "warm" if fcfg.qp_fused else "auto"
     bsz = rzv.shape[0]
     while True:
@@ -195,6 +201,75 @@ def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_w
             part = _loop_body(carry.take(idx), rzm, rzv[idx], vmm, m_stack, l1v, lb,
                               est_weights[idx], hyp, fcfg, warm_mode=loop_mode)
             carry = carry.put(idx, part)
+        if on_pass is not None:
+            on_pass(carry.state)
     if return_pred_history:
         return carry.state, carry.y_prev, carry.y_prev2
     return carry.state
+
+
+# The fields of the per-iteration history (hybdrt_tpu/solver/fitcore.py:328-332)
+HISTORY_FIELDS = ("x", "s_vectors", "rho_vector", "dop_rho_vector", "weights", "outlier_t",
+                  "it", "converged")
+
+
+class History:
+    """Per-iteration record of a batch's state, entry t the state after
+    pass t. The buffers are allocated once, iteration-major (T, B, ...) so
+    that each pass writes one contiguous slice. For a state on a CUDA device
+    they are pinned host memory that each pass's slice is copied into
+    without a sync, which beat buffers on the card with one transfer per
+    field at the end (PERF.md §5, ``torch_fit_walls.py --history``);
+    otherwise they lie on the state's device."""
+
+    def __init__(self, state, max_iter):
+        self.pinned = pinned = state.x.is_cuda
+        self.t = 0
+        self.bufs = {}
+        for f in HISTORY_FIELDS:
+            v = getattr(state, f)
+            kw = dict(pin_memory=True) if pinned else dict(device=v.device)
+            self.bufs[f] = torch.empty((max_iter, *v.shape), dtype=v.dtype, **kw)
+
+    def record(self, state):
+        for f, buf in self.bufs.items():
+            buf[self.t].copy_(getattr(state, f), non_blocking=self.pinned)
+        self.t += 1
+
+    def finish(self, state):
+        """{field: (B, max_iter, ...) numpy array}, the entries after the
+        last pass filled with the final state (the last one recorded) on the
+        host. The arrays are views of the (T, B, ...) buffers."""
+        if self.t == 0:
+            self.record(state)
+        if self.pinned:
+            torch.cuda.current_stream(state.x.device).synchronize()
+        out = {}
+        for f, buf in self.bufs.items():
+            a = buf.cpu().numpy()
+            a[self.t:] = a[self.t - 1]
+            out[f] = np.swapaxes(a, 0, 1)
+        return out
+
+
+def qphb_fit_scan(rzm, rzv, vmm, m_stack, l1v, lb, hyp, x0, s0, rho0, dop_rho0, init_weights,
+                  est_weights, outlier_t0, fcfg: FitConfig):
+    """The fit loop that records every iteration's state: the batched
+    counterpart of ``hybdrt_tpu/solver/fitcore.py::qphb_fit_scan``. Returns
+    (final_state, history), history a dict of numpy arrays of shape (B,
+    fcfg.max_iter, ...) with the keys ``HISTORY_FIELDS``; entry t is the
+    state after iteration t, and the entries after a lane stops repeat its
+    final state (mask with history['it']).
+
+    Every live lane has ``it == p`` at pass p of a fresh fit, so the whole
+    batch's state after pass p is entry p. The JAX scan runs its loop body
+    with ``warm_mode="auto"`` and peels no cold pass, so with ``qp_fused``
+    every QP here runs the unfused solver (the warm ones capped at
+    qp_max_iter_warm), as there; without it this is ``qphb_fit_loop``'s
+    loop exactly."""
+    fcfg = replace(fcfg, qp_fused=False)
+    state0 = initial_state(x0, s0, rho0, dop_rho0, init_weights, outlier_t0, fcfg.cfg.k_range)
+    hist = History(state0, fcfg.max_iter)
+    final = qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_weights,
+                                     fcfg, on_pass=hist.record)
+    return final, hist.finish(final)

@@ -4,8 +4,9 @@ a CUDA card (``chip_smoke.py``, ``torch_fit_walls.py``,
 layouts`` and ``ip_loop``, ``utils/kernel_digest.py``) and by its tests.
 
 Nothing here is on a fitting path: it makes seeded test inputs, reads the
-card's name and power limit, times calls, and computes a call's bound (the
-least time the card could take for its bytes and operations).
+card's name and power limit, times calls, computes a call's bound (the
+least time the card could take for its bytes and operations), and holds one
+parameter covariance against another by the readouts users take from it.
 """
 import subprocess
 import time
@@ -105,6 +106,62 @@ def make_frames(batch, n_freq, n_frames, drift, seed=1):
         noise = rng.normal(size=z.shape) + 1j * rng.normal(size=z.shape)
         frames.append(z + noise * 0.004)
     return freq, np.stack(frames)
+
+
+def make_stream(batch, n_freq):
+    """A stream of four batches of ``make_batch``'s spectra, of batch, batch,
+    batch // 2 and batch lanes, each from its own seed (11 to 14). Returns
+    (freq, [z, ...])."""
+    sizes = (batch, batch, batch // 2, batch)
+    return (make_batch(1, n_freq)[0],
+            [make_batch(n, n_freq, seed=11 + i)[1] for i, n in enumerate(sizes)])
+
+
+def cov_readouts(fitter, n_tau=56):
+    """(Q, N) rows u of the variances a user reads off a parameter covariance
+    C as u^T C u: the DRT at ``n_tau`` log-spaced points over the basis (the
+    CI band squared, on the grid of tests/test_f32_accuracy.py) and R_inf
+    (sigma(R_inf) squared)."""
+    from ..ops import basis as basis_mod
+
+    tau = np.logspace(np.log10(fitter.basis_tau[0]), np.log10(fitter.basis_tau[-1]), n_tau)
+    em = basis_mod.construct_func_eval_matrix(np.log(fitter.basis_tau), np.log(tau),
+                                              epsilon=fitter.tau_epsilon)
+    ns = fitter.num_special
+    u = np.zeros((n_tau + 1, ns + em.shape[1]))
+    u[:n_tau, ns:] = em
+    u[n_tau, fitter.special_qp_params["R_inf"]["index"]] = 1.0
+    return u
+
+
+def readout_errors(cov, p, cov_ref, p_ref, u):
+    """The readouts u^T C u (rows of ``u``) of the scaled covariance ``cov``
+    against those of ``cov_ref``, both (B, N, N) float64 inverses of the
+    posterior precisions ``p`` and ``p_ref``: (relative error, bound), each
+    (B, Q). The bound is first order in the perturbation of P behind the
+    difference: each inverse's rounding, a componentwise perturbation of
+    sqrt(N) eps |P| (the probabilistic backward error of an LU inverse, in
+    place of the worst case's 3 N eps), and |p - p_ref|. With C = cov_ref,
+
+        |C u|^T (sqrt(N) eps |P| + |p - p_ref|) |C u| / |u^T C u|,
+
+    the readout's own sensitivity: near eps on a well-conditioned lane, and
+    as loose along P's near-null directions as float64 leaves them."""
+    v = np.einsum("qi,bij,qj->bq", u, cov, u)
+    v_ref = np.einsum("qi,bij,qj->bq", u, cov_ref, u)
+    cu = np.abs(np.einsum("bij,qj->bqi", cov_ref, u))
+    pert = np.sqrt(p.shape[-1]) * np.finfo(float).eps * np.abs(p_ref) + np.abs(p - p_ref)
+    bound = np.einsum("bqi,bij,bqj->bq", cu, pert, cu) / np.abs(v_ref)
+    return np.abs(v - v_ref) / np.abs(v_ref), bound
+
+
+def inverse_residual(p, cov):
+    """Per lane ||P C - I||_2 / (||P||_2 ||C||_2): the normwise backward
+    error of C as the inverse of P, which a stable inverse keeps below
+    N eps however ill-conditioned P is."""
+    eye = np.eye(p.shape[-1])
+    norm = lambda a: np.linalg.norm(a, 2, axis=(1, 2))
+    return norm(p @ cov - eye) / (norm(p) * norm(cov))
 
 
 def spd_batch(b, n, dtype, seed, device="cuda"):
@@ -207,6 +264,34 @@ def in_turns(fns, reps=20):
     for k in [*fns, *reversed(fns)]:
         ms[k].append(cuda_ms(fns[k], reps))
     return ms
+
+
+class FitLaunches:
+    """Inside ``with``, records the lane kernels' launches made by each call
+    of ``fitter._fit_plain`` (the fit of one batch, by ``fit`` or
+    ``fit_stream``) in ``per_fit``, one dict per call, as the difference of
+    the wrappers' counts around the call (no count is reset)."""
+
+    def __init__(self, fitter):
+        self.fitter, self.per_fit = fitter, []
+
+    def __enter__(self):
+        from ..ops import chol_lane, ip_lane
+
+        real = self.fitter._fit_plain
+        counts = lambda: {**chol_lane.LAUNCHES, **ip_lane.LAUNCHES}
+
+        def counted(rzv):
+            before = counts()
+            out = real(rzv)
+            self.per_fit.append({k: v - before[k] for k, v in counts().items()})
+            return out
+
+        self.fitter._fit_plain = counted
+        return self
+
+    def __exit__(self, *exc):
+        del self.fitter._fit_plain
 
 
 def timed(fn):

@@ -201,7 +201,8 @@ def test_bucket_pad_and_state_shapes(data):
     ({"adaptive": "staged", "phase_budgets": (14, 8)}, ValueError),
     ({"collect": "lazy", "return_states": True}, ValueError),
     ({"collect": "eager"}, ValueError),
-    ({"adaptive": True}, NotImplementedError), ({"return_history": True}, NotImplementedError),
+    ({"adaptive": True, "phase_budgets": (8, 20)}, ValueError),
+    ({"return_history": True, "collect": "lazy"}, ValueError),
 ])
 def test_fit_rejects_bad_options(data, kw, exc):
     _, tf, _, _ = data[False]

@@ -1,8 +1,9 @@
 """GPU tests of the port: the CUDA kernels against their plain versions (the
 kernels of hybdrt_torch/experiments/ too), the batched fit
-(plain and fused warm QPs, cold and warm from a previous frame) and the group
-resolve (coupled and windowed) on the card against the same computations on
-the CPU.
+(plain and fused warm QPs, cold and warm from a previous frame, the stream
+of batches, the history and the parameter covariance) and the group resolve
+(coupled and windowed) on the card against the same computations on the
+CPU.
 
 Every test here is marked ``cuda`` and skips where no CUDA device is present.
 The file imports no JAX, so it also runs on a machine without it:
@@ -18,7 +19,9 @@ from hybdrt_torch.csrc import build as _build
 from hybdrt_torch.experiments import (chol_blocked, chol_column, chol_lane_blocked, ip_loop,
                                       layouts, smem_sol)
 from hybdrt_torch.ops import chol_lane, ip_lane
-from hybdrt_torch.utils.probe import freeze_lane, make_frames, qp_batch, spd_batch
+from hybdrt_torch.utils.probe import (FitLaunches, cov_readouts, freeze_lane, inverse_residual,
+                                      make_batch, make_frames, qp_batch, readout_errors,
+                                      spd_batch)
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-4  # float32 kernel vs plain, as tests/test_pallas_lane_kernels.py
@@ -340,6 +343,135 @@ def test_warm_frame_on_card_matches_cpu(cuda, fused):
     np.testing.assert_array_equal(r_gpu.n_iter, r_cpu.n_iter)
     np.testing.assert_array_equal(r_gpu.converged, r_cpu.converged)
     np.testing.assert_allclose(r_gpu.x, r_cpu.x, rtol=1e-6, atol=1e-10)
+
+
+BENCH_KW = dict(qp_max_iter=20, qp_max_iter_warm=4, pred_stop=True, pred_rtol=3e-2)
+
+
+def _assert_same(a, b):
+    """Every field of two BatchFitResults bit for bit."""
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if x is None:
+            assert y is None, f
+        elif isinstance(x, torch.Tensor):
+            assert isinstance(y, torch.Tensor) and torch.equal(x, y), f
+        else:
+            np.testing.assert_array_equal(x, y, err_msg=f)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+def test_stream_on_card_matches_sequential(cuda, fused):
+    """fit_stream on the card, float32, batches of 1024, 512 and 1024 lanes:
+    every result bitwise the sequential fit's on the card, lazy fields on the
+    card, and each batch's lane kernel launches those of its sequential
+    fit."""
+    freq = make_batch(1, 71)[0]
+    batches = [make_batch(n, 71, seed=20 + i)[1] for i, n in enumerate((1024, 512, 1024))]
+    fitter = BatchedEISFitter(freq, dtype=torch.float32, device=cuda, qp_fused=fused,
+                              **BENCH_KW)
+    with FitLaunches(fitter) as seq_counts:
+        seq = [fitter.fit(z, adaptive="staged", collect="lazy") for z in batches]
+    with FitLaunches(fitter) as stream_counts:
+        stream = list(fitter.fit_stream(batches))
+    assert len(stream) == 3
+    for a, b in zip(seq, stream):
+        _assert_same(a, b)
+        assert b.weights.is_cuda and b.s_vectors.is_cuda
+    assert stream_counts.per_fit == seq_counts.per_fit
+    assert all(c["chol_factor_solve_lane"] > 0 for c in seq_counts.per_fit)
+    assert all((c["ip_steps_lane"] > 0) == fused for c in seq_counts.per_fit)
+    full = list(fitter.fit_stream(batches[1:], adaptive=False, collect="full"))
+    for a, b in zip([fitter.fit(z) for z in batches[1:]], full):
+        _assert_same(a, b)
+
+
+def test_stream_on_card_releases_memory(cuda):
+    """Once the stream's results are dropped, the card's allocated memory is
+    back where it was; a consumer that stops early leaves no copy in
+    flight."""
+    freq = make_batch(1, 71)[0]
+    batches = [make_batch(n, 71, seed=30 + i)[1] for i, n in enumerate((256, 128, 256))]
+    fitter = BatchedEISFitter(freq, dtype=torch.float32, device=cuda, **BENCH_KW)
+    fitter.fit(batches[0], collect="lazy")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    held = list(fitter.fit_stream(batches))
+    lazy = sum(t.numel() * t.element_size() for r in held for t in (r.weights, r.s_vectors))
+    grown = torch.cuda.memory_allocated(cuda) - before
+    assert lazy <= grown <= lazy + (1 << 20) * 2 * len(held)
+    del held
+    assert torch.cuda.memory_allocated(cuda) == before
+    gen = fitter.fit_stream(batches)
+    first = next(gen)
+    gen.close()
+    del first, gen
+    assert torch.cuda.memory_allocated(cuda) == before
+
+
+def _f64_batch(b=16, seed=0):
+    freq = np.logspace(5, -1, 31)
+    rng = np.random.default_rng(seed)
+    taus = 10 ** rng.uniform(-3, 0, b)
+    z = 0.5 + np.stack([1 / (1 + (2j * np.pi * freq * t) ** 0.9) for t in taus])
+    return freq, z + (rng.normal(size=z.shape) + 1j * rng.normal(size=z.shape)) * 0.003
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+def test_history_on_card_matches_cpu(cuda, fused):
+    """The float64 history fit on the card against the CPU's: the same
+    n_iter and flags at every iteration, every float field of every entry
+    within 1e-6 of that entry's max |value| (a lane's x, s, rho or weights at
+    one iteration), and the fused fitter's history launches no fused
+    steps."""
+    freq, z = _f64_batch()
+    kw = dict(BENCH_KW, qp_fused=fused)
+    r_cpu, h_cpu = BatchedEISFitter(freq, dtype=torch.float64, device="cpu", **kw).fit(
+        z, return_history=True)
+    gpu = BatchedEISFitter(freq, dtype=torch.float64, device=cuda, **kw)
+    ip_lane.reset_launch_counts()
+    r_gpu, h_gpu = gpu.fit(z, return_history=True)
+    assert ip_lane.LAUNCHES["ip_steps_lane"] == 0
+    np.testing.assert_array_equal(r_gpu.n_iter, r_cpu.n_iter)
+    for k, want in h_cpu.items():
+        if want.dtype.kind == "f":
+            entry_max = np.max(np.abs(want), axis=tuple(range(2, want.ndim)), keepdims=True)
+            assert np.all(np.abs(h_gpu[k] - want) <= 1e-6 * entry_max + 1e-12), k
+        else:
+            np.testing.assert_array_equal(h_gpu[k], want, err_msg=k)
+
+
+@pytest.mark.parametrize("refine_iters", [0, 3])
+def test_param_cov_on_card_matches_cpu(cuda, refine_iters):
+    """param_cov in float64 on the card against the CPU's from one result
+    (a float32 fit on the card, lazy), within the bounds of
+    tests/test_torch_cov.py: P within 1e-6 of each lane's max |P|, the
+    covariance within max(1e-6, cond(P) max(eps, dP)) of each lane's max
+    |cov|, the CI band and sigma(R_inf) readouts within their first-order
+    bounds, and the card's inverse within N eps backward error of the
+    card's P."""
+    freq, z = _f64_batch(seed=2)
+    res = BatchedEISFitter(freq, dtype=torch.float32, device=cuda, **BENCH_KW).fit(
+        z, collect="lazy")
+    gpu = BatchedEISFitter(freq, dtype=torch.float32, device=cuda, **BENCH_KW)
+    cpu = BatchedEISFitter(freq, dtype=torch.float64, device="cpu", **BENCH_KW)
+    chol_lane.reset_launch_counts()
+    cov_gpu = gpu.param_cov(res, z, scaled=True, refine_iters=refine_iters)
+    fit_kernels = ("chol_factor_solve_lane", "chol_solve_factored_lane", "chol_solve_lane")
+    assert all((chol_lane.LAUNCHES[k] > 0) == (refine_iters > 0) for k in fit_kernels)
+    cov_cpu = cpu.param_cov(res, z, scaled=True, refine_iters=refine_iters)
+    p_gpu = gpu._posterior(res, z, refine_iters)[0].cpu().numpy()
+    p_cpu = cpu._posterior(res, z, refine_iters)[0].numpy()
+    lane_max = lambda a: np.max(np.abs(a), axis=(1, 2))
+    eps = np.finfo(float).eps
+    d_p = lane_max(p_gpu - p_cpu) / lane_max(p_cpu)
+    assert np.all(d_p <= 1e-6)
+    bound = np.maximum(1e-6, np.linalg.cond(p_cpu) * np.maximum(eps, d_p))
+    err = lane_max(cov_gpu - cov_cpu) / lane_max(cov_cpu)
+    assert np.all(np.isfinite(cov_gpu)) and np.all(err <= bound), (err, bound)
+    err, bound = readout_errors(cov_gpu, p_gpu, cov_cpu, p_cpu, cov_readouts(cpu))
+    assert np.all(err <= bound), (err / bound).max()
+    assert np.all(inverse_residual(p_gpu, cov_gpu) <= p_gpu.shape[-1] * eps)
 
 
 @pytest.fixture(scope="module")

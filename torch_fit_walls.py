@@ -3,7 +3,8 @@ warm QPs (``qp_fused``), taken in turns in one process, and one profiled call.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 torch_fit_walls.py [--rounds 3] [--batch 8192] [--no-profile] [--frames]
+    python3 torch_fit_walls.py [--rounds 3] [--batch 8192] [--no-profile]
+                               [--frames | --stream | --history]
 
 The fit is ``chip_smoke.py``'s main path: ``make_batch(batch, 71)``
 (``hybdrt_torch/utils/probe.py``, the benchmark's spectra),
@@ -20,15 +21,36 @@ lazy result (``fit(z, warm_from=prev, collect="lazy")``), each round cold,
 warm, warm, cold, for the plain and then the fused fitter, with the
 iteration counts of both fits, and one profiled warm call per fitter with
 the lane kernels' launches.
+
+With ``--stream`` it times a stream of four batches, ``make_stream(batch,
+71)`` (``make_batch``'s spectra, batch, batch, batch / 2 and batch lanes,
+the batches of ``chip_smoke.py`` phase 6c): the four fitted one after
+another (``fit(z, adaptive="staged", collect="lazy")``) against
+``fit_stream`` over them, in its design (a) (the package's: copies on a side
+stream, the loops in this thread) and in design (b) (``stream_threaded``
+here: a worker thread fits every other batch on its own stream while this
+thread fits the one before it), each round sequential, (a), (b), (b), (a),
+sequential, plain and then fused. Each design's results are first checked
+bitwise against the sequential fits'; then one profiled run of each prints
+its summed device time against its wall.
+
+With ``--history`` it times ``fit(z, return_history=True)`` of the plain
+fitter with the package's history buffers (``fitcore.History``: pinned host
+memory copied into each pass) against buffers on the card with one transfer
+per field at the end (``CardHistory`` here), each round device, pinned,
+pinned, device, beside the plain fit, and prints the history's bytes.
 """
 import argparse
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 import hybdrt_torch
 from hybdrt_torch.ops import chol_lane, ip_lane
-from hybdrt_torch.utils.probe import card_line, make_batch, make_frames, profile, timed
+from hybdrt_torch.solver import fitcore
+from hybdrt_torch.utils.probe import (card_line, make_batch, make_frames, make_stream, profile,
+                                      timed)
 
 KW = dict(max_iter=50, qp_max_iter=20, qp_max_iter_warm=4, pred_stop=True, pred_rtol=3e-2)
 
@@ -38,14 +60,18 @@ def main():
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--batch", type=int, default=8192)
     ap.add_argument("--no-profile", action="store_true")
-    ap.add_argument("--frames", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--frames", action="store_true")
+    mode.add_argument("--stream", action="store_true")
+    mode.add_argument("--history", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_fit_walls.py needs a CUDA card")
     print(card_line())
-    if args.frames:
-        frames(args)
-        return
+    for flag, fn in (("frames", frames), ("stream", stream), ("history", history)):
+        if getattr(args, flag):
+            fn(args)
+            return
 
     freq, z = make_batch(args.batch, 71)
     fitters = {name: hybdrt_torch.BatchedEISFitter(freq, dtype=torch.float32, device="cuda",
@@ -98,6 +124,127 @@ def frames(args):
             profile(f"{name} warm", fits["warm"], top=12)
             launches = dict(chol_lane.LAUNCHES, **ip_lane.LAUNCHES)
             print(f"{name} warm, lane kernel launches: {launches}")
+
+
+def stream_threaded(fitter, batches, collect="lazy"):
+    """Design (b) of a stream: a worker thread fits batch k+1 with ``fit`` on
+    its own CUDA stream while this thread fits batch k on the current one;
+    yields the results in input order. The kernels' ctypes launchers and the
+    loop's syncs take the calling thread's current stream."""
+    dev = fitter.device
+    side = torch.cuda.Stream(dev)
+
+    def on_side(z):
+        with torch.cuda.stream(side):
+            res = fitter.fit(z, adaptive="staged", collect=collect)
+        side.synchronize()
+        return res
+
+    pending = iter(batches)
+    with ThreadPoolExecutor(1) as pool:
+        for z in pending:
+            nxt = next(pending, None)
+            job = None if nxt is None else pool.submit(on_side, nxt)
+            yield fitter.fit(z, adaptive="staged", collect=collect)
+            if job is not None:
+                res = job.result()
+                # the lazy fields were allocated on the side stream
+                if collect == "lazy":
+                    for t in (res.weights, res.s_vectors):
+                        t.record_stream(torch.cuda.current_stream(dev))
+                yield res
+
+
+def assert_same(a, b, label):
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        same = (x is None and y is None) or (
+            torch.equal(x, y) if isinstance(x, torch.Tensor) else np.array_equal(x, y))
+        if not same:
+            raise SystemExit(f"{label}: field {f} differs from the sequential fit's")
+
+
+def stream(args):
+    """Four sequential fits against fit_stream (a) and the threaded (b)."""
+    freq, batches = make_stream(args.batch, 71)
+    lanes = sum(len(z) for z in batches)
+    for name, fused in (("plain", False), ("fused", True)):
+        fitter = hybdrt_torch.BatchedEISFitter(freq, dtype=torch.float32, device="cuda",
+                                               qp_fused=fused, **KW)
+        runs = {"sequential": lambda: [fitter.fit(z, adaptive="staged", collect="lazy")
+                                       for z in batches],
+                "a": lambda: list(fitter.fit_stream(batches)),
+                "b": lambda: list(stream_threaded(fitter, batches))}
+        first = {k: fn() for k, fn in runs.items()}
+        torch.cuda.synchronize()
+        for k in ("a", "b"):
+            for want, got in zip(first["sequential"], first[k]):
+                assert_same(want, got, f"{name} design ({k})")
+        print(f"{name}: designs (a) and (b) give the sequential fits' results bitwise "
+              f"(batches {[len(z) for z in batches]}, n_iter max "
+              f"{[int(r.n_iter.max()) for r in first['sequential']]})")
+        del first
+        walls = {k: [] for k in runs}
+        for _ in range(args.rounds):
+            for k in ("sequential", "a", "b", "b", "a", "sequential"):
+                walls[k].append(timed(runs[k]))
+        for k, w in walls.items():
+            print(f"{name} {k}: {lanes} lanes in 4 batches, walls {[round(v, 4) for v in w]} s, "
+                  f"median {np.median(w):.4f} s -> {lanes / np.median(w):.1f} spectra/s")
+        seq = np.median(walls["sequential"])
+        print(f"{name} median wall / sequential: (a) {np.median(walls['a']) / seq:.4f}, "
+              f"(b) {np.median(walls['b']) / seq:.4f}")
+        if not args.no_profile:
+            for k, fn in runs.items():
+                profile(f"{name} {k}", fn, top=6)
+
+
+class CardHistory(fitcore.History):
+    """The history's buffers on the card, one transfer per field at the end:
+    the variant that the package's pinned host buffers were chosen over."""
+
+    def __init__(self, state, max_iter):
+        self.pinned, self.t = False, 0
+        self.bufs = {f: torch.empty((max_iter, *getattr(state, f).shape),
+                                    dtype=getattr(state, f).dtype, device=state.x.device)
+                     for f in fitcore.HISTORY_FIELDS}
+
+
+def history(args):
+    """The history fit with device against pinned-host buffers."""
+    from hybdrt_torch.solver.fitcore import HISTORY_FIELDS
+
+    freq, z = make_batch(args.batch, 71)
+    fitter = hybdrt_torch.BatchedEISFitter(freq, dtype=torch.float32, device="cuda", **KW)
+
+    def fit_history(history_cls):
+        package_cls, fitcore.History = fitcore.History, history_cls
+        try:
+            return fitter.fit(z, adaptive=False, return_history=True)
+        finally:
+            fitcore.History = package_cls
+
+    fits = {"device": lambda: fit_history(CardHistory),
+            "pinned": lambda: fit_history(fitcore.History),
+            "plain fit": lambda: fitter.fit(z)}
+    out = {k: fn() for k, fn in fits.items()}
+    hist = out["device"][1]
+    for k in HISTORY_FIELDS:
+        if not np.array_equal(hist[k], out["pinned"][1][k]):
+            raise SystemExit(f"history field {k} differs between device and pinned buffers")
+    n_bytes = sum(hist[k].nbytes for k in HISTORY_FIELDS)
+    print(f"history: B={args.batch}, max_iter {fitter.fcfg.max_iter}, {n_bytes / 1e6:.1f} MB "
+          f"({', '.join(f'{k} {hist[k].nbytes / 1e6:.1f}' for k in HISTORY_FIELDS)}); "
+          f"device and pinned buffers give the same history")
+    walls = {k: [] for k in fits}
+    for _ in range(args.rounds):
+        for k in ("device", "pinned", "plain fit", "plain fit", "pinned", "device"):
+            walls[k].append(timed(fits[k]))
+    for k, w in walls.items():
+        print(f"history {k}: walls {[round(v, 4) for v in w]} s, median {np.median(w):.4f} s")
+    if not args.no_profile:
+        for k in ("device", "pinned"):
+            profile(f"history {k}", fits[k], top=6)
 
 
 if __name__ == "__main__":
