@@ -133,7 +133,33 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
     counter reset just before it: the kernel against its plain version on
     the inputs it times, the experiment's own check against its reference,
     kernel and ``ip_steps_lane`` times in turns, plain, reference and bound
-    times.
+    times;
+11. the single fit: ``hybdrt_torch.DRT().fit_eis`` on the golden spectrum of
+    ``tests/test_drt_fit_golden.py`` (``utils/probe.py::golden_fit``) on the
+    card in float64 (n = 93, the lane kernels at one lane), called twice with
+    the launch counters reset before the second, in which #1-#3 must all
+    launch; x, R_inf, inductance, z_sigma_tot and q_vector within the golden
+    test's tolerances; against the port's float64 fit on the CPU the same
+    n_iter and converged flag, x within 1e-6 of max |x|; the warm
+    ``fit_eis`` wall (min of 10) and its launches; then the B = 1 float32
+    ``BatchedEISFitter.fit`` of the benchmark's single-fit leg
+    (``bench.py:394-402``, ``make_batch(1, 71, seed=9)``), its warm wall (min
+    of 10) and launches;
+12. the ragged fit: the het leg's 768 EIS spectra on three grids
+    (``make_het_eis``) through ``BatchedRaggedFitter(TAU_SUPER, float32,
+    qp_max_iter=20, qp_max_iter_warm=4)`` with ``fit(adaptive="staged")``
+    (``bench.py:183-190``), twice, the launch counters reset before the
+    second, in which #1-#3 must all launch: finite coefficients, padded
+    coefficient tails exactly zero, the median over observations of the
+    relative residual on each observation's own grid below 0.02, the
+    converged lanes reported; ``prepare`` and the loop timed apart; the first
+    64 observations against a float64 fit on the card: Rp median, p95 and
+    max, max |dR_inf| and the functional fit within phase 5's bounds; #1 and
+    #2 against their plain versions at TOL on their first calls, the first
+    QP's first Mehrotra step, and #3 on the system #1 solved there; #3's own
+    first call, the cold start of the weight initialization's overfit ridge,
+    too ill-conditioned in float32 for two solvers to agree at TOL, held to
+    a backward error of 10 n eps, kernel and plain alike.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches from the path it serves: phase 5 for the three fit Cholesky
@@ -150,11 +176,12 @@ import time
 import numpy as np
 import torch
 
-from hybdrt_torch.utils.probe import (FitLaunches, bound, card_line, check_steps, chol_ops,
-                                      cov_readouts, cuda_ms, freeze_lane, in_turns,
-                                      inverse_residual, ip_steps_bound, lower_bytes,
-                                      make_batch, make_frames, make_stream, qp_batch,
-                                      readout_errors, resolve_map, solve_ops, spd_batch)
+from hybdrt_torch.utils.probe import (GOLDEN_HYPERS, FitLaunches, bound, card_line,
+                                      check_steps, chol_ops, cov_readouts, cuda_ms, freeze_lane,
+                                      golden_fit, in_turns, inverse_residual, ip_steps_bound,
+                                      lower_bytes, make_batch, make_frames, make_het_eis,
+                                      make_stream, qp_batch, readout_errors, resolve_map,
+                                      solve_ops, spd_batch, timed)
 
 B_BENCH, N_FREQ, MAX_ITER = 8192, 71, 50
 # The benchmark's fit knobs (bench.py:458-483)
@@ -1158,6 +1185,256 @@ def phase_ip_loop():
                   bound=(res["bound_ms"], res["bound_by"]))
     return max(max_err, res["max_abs_err"]), launches, timing
 
+def launch_counts():
+    """The three fit kernels' launch counts now."""
+    from hybdrt_torch.ops import chol_lane as cl
+    return {k: cl.LAUNCHES[k] for k in FIT_KERNELS}
+
+
+def phase_single_fit():
+    """Phase 11: ``DRT().fit_eis`` on the golden spectrum on the card in
+    float64, against the golden values and the port's float64 fit on the
+    CPU; its warm wall and launches; and the B = 1 float32
+    ``BatchedEISFitter`` fit of the benchmark's single-fit leg. Returns
+    (warm fit_eis wall, B = 1 f32 warm wall) in s."""
+    import hybdrt_torch
+    from hybdrt_torch.ops import chol_lane as cl
+
+    t_phase = time.time()
+    freq, z, want = golden_fit()
+    drt = hybdrt_torch.DRT()
+    drt.fit_eis(freq, z, **GOLDEN_HYPERS)
+    cl.reset_launch_counts()
+    drt.fit_eis(freq, z, **GOLDEN_HYPERS)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    fp, qp = drt.fit_parameters, drt.qphb_params
+    n_par = len(fp["x"]) + 2
+    print(f"single fit: DRT.fit_eis golden spectrum, f64 on the card, n = {n_par}: n_iter "
+          f"{qp['n_iter']}, converged {qp['converged']}; launches per fit {launches}")
+    check(all(launches[k] > 0 for k in FIT_KERNELS), f"DRT.fit_eis launched #1-#3: {launches}")
+    errs = {"x (atol 5e-4)": float(np.max(np.abs(fp["x"] - want["x"]))),
+            "R_inf (rtol 5e-3)": abs(fp["R_inf"] / want["R_inf"] - 1),
+            "inductance (rtol 5e-3)": abs(fp["inductance"] / want["inductance"] - 1),
+            "z_sigma_tot (rtol 2e-2)": float(np.max(np.abs(fp["z_sigma_tot"] - want["z_sigma_tot"])
+                                                    / np.abs(want["z_sigma_tot"]))),
+            "q_vector (rtol 3e-2)": float(np.max(np.abs(fp["q_vector"] - want["q_vector"])
+                                                 / np.abs(want["q_vector"])))}
+    print("  against the golden values: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    # tests/test_drt_fit_golden.py:187-194
+    check(np.allclose(want["x"], fp["x"], rtol=0, atol=5e-4), "golden x")
+    check(np.allclose(want["R_inf"], fp["R_inf"], rtol=5e-3), "golden R_inf")
+    check(np.allclose(want["inductance"], fp["inductance"], rtol=5e-3), "golden inductance")
+    check(np.allclose(want["z_sigma_tot"], fp["z_sigma_tot"], rtol=2e-2), "golden z_sigma_tot")
+    check(np.allclose(want["q_vector"], fp["q_vector"], rtol=3e-2), "golden q_vector")
+
+    cpu = hybdrt_torch.DRT(device="cpu").fit_eis(freq, z, **GOLDEN_HYPERS)
+    dx = float(np.max(np.abs(fp["x"] - cpu.fit_parameters["x"]))
+               / np.max(np.abs(cpu.fit_parameters["x"])))
+    print(f"  card f64 vs CPU f64: n_iter {qp['n_iter']} / {cpu.qphb_params['n_iter']}, "
+          f"converged {qp['converged']} / {cpu.qphb_params['converged']}, max |dx| / max |x| "
+          f"{dx:.3g}, |dR_inf| {abs(fp['R_inf'] - cpu.fit_parameters['R_inf']):.3g}")
+    check(qp["n_iter"] == cpu.qphb_params["n_iter"], "same n_iter on the card and the CPU")
+    check(qp["converged"] == cpu.qphb_params["converged"], "same converged flag")
+    check(dx < 1e-6, f"card x within 1e-6 of max |x| of the CPU's: {dx}")
+
+    walls = [timed(lambda: drt.fit_eis(freq, z, **GOLDEN_HYPERS)) for _ in range(10)]
+    print(f"  warm fit_eis wall: min {min(walls):.4f} s, median {np.median(walls):.4f} s "
+          f"(10 calls, host clock)")
+
+    # The benchmark's single-fit leg on the card: a B = 1 f32 batched fit
+    # (bench.py:394-402, tpu_b1_warm_s)
+    freq1, z1 = make_batch(1, N_FREQ, seed=9)
+    b1 = hybdrt_torch.BatchedEISFitter(freq1, dtype=torch.float32, max_iter=MAX_ITER,
+                                       qp_max_iter=20, qp_max_iter_warm=4, pred_stop=True,
+                                       pred_rtol=3e-2)
+    cold = timed(lambda: b1.fit(z1))
+    cl.reset_launch_counts()
+    r1 = b1.fit(z1)
+    torch.cuda.synchronize()
+    b1_launches = launch_counts()
+    b1_walls = [timed(lambda: b1.fit(z1)) for _ in range(10)]
+    print(f"  B=1 f32 BatchedEISFitter.fit (bench single-fit settings): first call {cold:.3f} s, "
+          f"warm min {min(b1_walls):.4f} s, median {np.median(b1_walls):.4f} s (10 calls); "
+          f"n_iter {int(r1.n_iter[0])}, converged {bool(r1.converged[0])}; launches {b1_launches}")
+    check(bool(np.all(np.isfinite(r1.x))), "B=1 f32 fit finite")
+    print(f"single fit: phase {time.time() - t_phase:.1f} s")
+    return min(walls), min(b1_walls)
+
+
+class FirstKernelInputs:
+    """Inside ``with``, records a copy of the inputs of the first call of
+    each SPD routine of the QP (``hybdrt_torch.ops.qp``: spd_factor_solve
+    #1, spd_solve_factored #2, spd_solve #3), which the first QP of a fit
+    makes: its cold start (#3), its Mehrotra steps (#1, #2) and its polish."""
+
+    NAMES = {"spd_factor_solve": "chol_factor_solve_lane",
+             "spd_solve_factored": "chol_solve_factored_lane", "spd_solve": "chol_solve_lane"}
+
+    def __init__(self):
+        from hybdrt_torch.ops import qp
+        self.qp, self.inputs, self.real = qp, {}, {}
+
+    def __enter__(self):
+        for fn, kernel in self.NAMES.items():
+            real = self.real[fn] = getattr(self.qp, fn)
+
+            def recorded(*args, _real=real, _kernel=kernel):
+                if _kernel not in self.inputs:
+                    self.inputs[_kernel] = [a.clone() for a in args]
+                return _real(*args)
+
+            setattr(self.qp, fn, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        for fn, real in self.real.items():
+            setattr(self.qp, fn, real)
+
+
+def phase_ragged():
+    """Phase 12: the het leg's 768 EIS spectra (``make_het_eis``) on three
+    grids through ``BatchedRaggedFitter`` in float32 on the card with the het
+    leg's settings, ``fit(adaptive="staged")`` twice, the launch counters
+    reset just before the second; its checks, the first 64 observations
+    against a float64 fit on the card, and #1-#3 against their plain versions
+    on the first QP's inputs. Returns (second-call wall, prepare wall, loop
+    wall) in s."""
+    import hybdrt_torch
+    from hybdrt_torch.ops import basis, chol_lane as cl
+    from hybdrt_torch.solver import fitcore
+
+    t_phase = time.time()
+    obs, tau = make_het_eis()
+    kw = dict(qp_max_iter=20, qp_max_iter_warm=4)
+    fitter = hybdrt_torch.BatchedRaggedFitter(tau, dtype=torch.float32, **kw)
+    with FirstKernelInputs() as first:
+        t0 = time.time()
+        fitter.fit(obs, adaptive="staged")
+        torch.cuda.synchronize()
+        first_s = time.time() - t0
+    cl.reset_launch_counts()
+    t0 = time.time()
+    res = fitter.fit(obs, adaptive="staged")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = launch_counts()
+    b = len(obs)
+    n_max = res.x_raw.shape[1]
+    grids = sorted({len(f) for _, (f, _) in obs})
+    print(f"ragged: {b} EIS spectra on grids of {grids} frequencies, f32 staged, N_max {n_max}: "
+          f"first call {first_s:.2f} s, second call {wall:.4f} s -> {b / wall:.1f} spectra/s; "
+          f"converged {int(res.converged.sum())}/{b}; passes {int(res.n_iter.max())}; "
+          f"n_iter mean {res.n_iter.mean():.2f}; launches {launches}")
+    check(all(launches[k] > 0 for k in FIT_KERNELS), f"the ragged fit launched #1-#3: {launches}")
+    check(bool(np.all(np.isfinite(res.x_raw))), "finite ragged coefficients")
+    tails = [res.x[k][r - l:] for k, (l, r) in enumerate(res.tau_indices)]
+    check(all(np.all(t == 0.0) for t in tails), "padded coefficient tails exactly zero")
+    y = fitter.final_predictions(res)
+    rel = []
+    for k, (_, (f, zk)) in enumerate(obs):
+        nf = len(f)
+        z_hat = (y[k, :nf] + 1j * y[k, nf:2 * nf]) * res.scale[k]
+        rel.append(np.median(np.abs(z_hat - zk) / np.abs(zk)))
+    med_rel = float(np.median(rel))
+    print(f"  median over observations of the median |z_hat - z|/|z|: {med_rel:.4g} "
+          f"(max {max(rel):.4g})")
+    check(med_rel < 0.02, f"ragged median relative residual {med_rel}")
+    # The converged count is reported, not held: without pred_stop a lane
+    # converges when every coefficient moves by under 1e-2 of itself, and the
+    # JAX package's own float32 ragged fit of this map on a CPU converges few
+    # of the 768 lanes within 50 iterations (PERF.md, Findings)
+
+    # prepare and the loop (upload, weight initialization, passes) apart
+    t_prep = timed(lambda: fitter.prepare(obs))
+    batch = fitter._last_batch
+
+    def loop():
+        args, loop_kw = fitter._loop_args(fitter._device_arrays(batch))
+        return fitcore.qphb_fit_loop(*args, **loop_kw)
+
+    t_loop = timed(loop)
+    print(f"  prepare {t_prep:.4f} s, loop (upload, weight init, passes) {t_loop:.4f} s")
+
+    # f32 on the card vs f64 on the card, first 64 observations
+    ref = hybdrt_torch.BatchedRaggedFitter(tau, dtype=torch.float64, **kw)
+    r64 = ref.fit(obs[:64], adaptive="staged")
+    area = basis.get_basis_func_area("gaussian", 1 / np.mean(np.diff(np.log(tau))))
+    rp32 = np.sum(np.abs(res.x[:64]), axis=1) * area
+    rp64 = np.sum(np.abs(r64.x), axis=1) * area
+    rel_rp = np.abs(rp32 - rp64) / np.abs(rp64)
+    d_rinf = np.abs(res.r_inf[:64] - r64.r_inf)
+    y32, y64 = y[:64], ref.final_predictions(r64)
+    zrel = []
+    for k in range(64):
+        f, zk = obs[k][1]
+        nf = len(f)
+        dz = (y32[k, :nf] - y64[k, :nf]) * res.scale[k] \
+            + 1j * (y32[k, nf:2 * nf] - y64[k, nf:2 * nf]) * res.scale[k]
+        zrel.append(np.max(np.abs(dz)) / np.max(np.abs(zk)))
+    same = res.n_iter[:64] == r64.n_iter
+    print(f"  f32 vs f64 on the card, 64 observations: Rp rel err median {np.median(rel_rp):.3g} "
+          f"p95 {np.percentile(rel_rp, 95):.3g} max {np.max(rel_rp):.3g}, max |dR_inf| "
+          f"{np.max(d_rinf):.3g}; functional fit max {max(zrel):.3g}; {int(same.sum())} lanes "
+          f"at the same n_iter")
+    check(np.median(rel_rp) < 1e-3, "ragged Rp median rel err < 1e-3")
+    check(np.percentile(rel_rp, 95) < 3e-3, "ragged Rp p95 rel err < 3e-3")
+    check(max(zrel) < 1.5e-2, "ragged functional fit rel err < 1.5e-2")
+
+    check(np.max(rel_rp) < 5e-3, "ragged Rp max rel err < 5e-3")
+    check(np.max(d_rinf) < 5e-3, "ragged max |dR_inf| < 5e-3")
+
+    # #1-#3 against their plain versions on the first QP's inputs. #1 and #2
+    # are held at TOL on their first calls, the QP's first Mehrotra step,
+    # and #3 on the system #1 solved there. #3's own calls in that QP, the
+    # cold start and the polish of the weight initialization's overfit
+    # ridge, are too ill-conditioned in float32 for any two solvers to agree
+    # at TOL (the kernel and cuSOLVER differ by up to 5 % of a lane's max
+    # there at backward errors of 1e-7, PERF.md, Findings): that call is held
+    # to a backward error of 10 n eps, kernel and plain alike
+    inp = first.inputs
+    check(set(inp) == set(FIT_KERNELS), f"the first QP called #1-#3: {sorted(inp)}")
+    h, rhs = inp["chol_factor_solve_lane"]
+    cases = {"chol_factor_solve_lane": (cl.chol_factor_solve_lane(h, rhs),
+                                        cl.chol_factor_solve_lane_plain(h, rhs)),
+             "chol_solve_factored_lane": (cl.chol_solve_factored_lane(*inp[
+                 "chol_solve_factored_lane"]), cl.chol_solve_factored_lane_plain(
+                 *inp["chol_solve_factored_lane"])),
+             "chol_solve_lane": (cl.chol_solve_lane(h, rhs), cl.chol_solve_lane_plain(h, rhs))}
+    errs = {}
+    for name, (got, want) in cases.items():
+        if name == "chol_factor_solve_lane":
+            got, want = (got[0], torch.tril(got[1])), want
+        else:
+            got, want = (got,), (want,)
+        err = 0.0
+        for g, w in zip(got, want):
+            d = (g - w).abs()
+            check(bool(torch.all(d <= TOL + TOL * w.abs())),
+                  f"{name} vs plain on the first ragged QP: err {float(d.max())}")
+            err = max(err, float(d.max()))
+        errs[name] = err
+    print(f"  kernels vs plain on the first ragged QP's first Mehrotra step "
+          f"{tuple(h.shape)}: " + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
+    a, b0 = inp["chol_solve_lane"]
+    x3, x3_p = cl.chol_solve_lane(a, b0), cl.chol_solve_lane_plain(a, b0)
+
+    def backward(x):
+        r = torch.linalg.norm(a @ x[..., None] - b0[..., None], dim=(1, 2))
+        return float(torch.max(r / (torch.linalg.norm(a, dim=(1, 2)) * torch.linalg.norm(x, dim=1)
+                                    + torch.linalg.norm(b0, dim=1))))
+
+    bound_back = 10 * a.shape[-1] * torch.finfo(a.dtype).eps
+    back, back_p = backward(x3), backward(x3_p)
+    fwd = float(torch.max((x3 - x3_p).abs().amax(1) / x3_p.abs().amax(1)))
+    print(f"  chol_solve_lane on the first QP's cold start: backward error {back:.3g} (plain "
+          f"{back_p:.3g}, bound {bound_back:.3g}); max |x - x_plain| / max |x_plain| per lane "
+          f"{fwd:.3g}")
+    check(back < bound_back and back_p < bound_back,
+          f"cold-start backward errors {back}, {back_p} within {bound_back}")
+    print(f"ragged: phase {time.time() - t_phase:.1f} s")
+    return wall, t_prep, t_loop
+
 
 def main():
     phase_card()
@@ -1178,6 +1455,8 @@ def main():
     launches.update(layout_launches)
     times.update(layout_times)
     max_err["ip_steps_loop"], launches["ip_steps_loop"], times["ip_steps_loop"] = phase_ip_loop()
+    single_walls = phase_single_fit()
+    ragged_walls = phase_ragged()
     print(f"second-call wall, B={B_BENCH}: plain {wall:.4f} s ({B_BENCH / wall:.1f} spectra/s), "
           f"fused {fused_wall:.4f} s ({B_BENCH / fused_wall:.1f} spectra/s)")
     for name, w in frame_walls.items():
@@ -1188,6 +1467,9 @@ def main():
               f"fits")
     print(f"param_cov, B={B_BENCH}: refine_iters 0 {cov_walls[0]:.4f} s, 3 {cov_walls[3]:.4f} s; "
           f"history fit {history_wall:.4f} s against the plain fit's {history_plain_wall:.4f} s")
+    print(f"single fit: DRT.fit_eis f64 warm {single_walls[0]:.4f} s, B=1 f32 batched fit "
+          f"{single_walls[1]:.4f} s; ragged 768 f32: {ragged_walls[0]:.4f} s (prepare "
+          f"{ragged_walls[1]:.4f} s, loop {ragged_walls[2]:.4f} s)")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu, "launches": launches[k],
          "max_abs_err": max_err[k], "ms": times[k]["ms"], "plain_ms": times[k]["plain_ms"],

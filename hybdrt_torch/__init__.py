@@ -5,11 +5,12 @@ A port of ``hybdrt_tpu`` (the JAX reference, kept beside it). It mirrors that
 package's layout and function names: ``ops/`` (basis, matrix assembly, the
 batched box QP, its Cholesky kernels and the fused interior-point kernel),
 ``csrc/`` (the CUDA sources and their build), ``solver/`` (QPHB updates and the
-outer fit loop), ``models/`` (EIS problem assembly), ``parallel/`` (the
-batched fitter), ``mapping/`` (the group resolve of a fitted map), and
-``experiments/`` (the Cholesky layout study, the counterpart of the repo's
-``experiments/`` directory; on no fit or resolve path). The port
-imports torch, numpy and scipy, never JAX.
+outer fit loop), ``models/`` (the single-spectrum ``DRT`` and the EIS problem
+assembly), ``parallel/`` (the batched fitters: ``batch`` for spectra on one
+frequency grid, ``ragged`` for spectra on their own), ``mapping/`` (the group
+resolve of a fitted map), and ``experiments/`` (the Cholesky layout study, the
+counterpart of the repo's ``experiments/`` directory; on no fit or resolve
+path). The port imports torch, numpy and scipy, never JAX.
 
 Importing the package turns off TF32 for float32 matrix products and
 convolutions, as the JAX package forced true-float32 matmuls: the QP normal
@@ -22,6 +23,9 @@ _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
 from .mapping.drtmd import GroupResolveResult, resolve_group  # noqa: E402
+from .models.drt import DRT  # noqa: E402
 from .parallel.batch import BatchedEISFitter, BatchFitResult  # noqa: E402
+from .parallel.ragged import BatchedRaggedFitter, RaggedFitResult  # noqa: E402
 
-__all__ = ["BatchedEISFitter", "BatchFitResult", "GroupResolveResult", "resolve_group"]
+__all__ = ["BatchedEISFitter", "BatchFitResult", "BatchedRaggedFitter", "DRT",
+           "GroupResolveResult", "RaggedFitResult", "resolve_group"]

@@ -1,10 +1,33 @@
-"""Basis-grid helpers (subset of ``hybdrt_tpu/preprocessing.py:292-337``,
-and ``nearest_index`` of ``hybdrt_tpu/utils/array.py:39``).
+"""Basis-grid and data helpers (subset of ``hybdrt_tpu/preprocessing.py``:
+``estimate_rp`` :152, ``identify_extreme_values`` :262-271, the grid helpers
+:292-337; and ``nearest_index`` of ``hybdrt_tpu/utils/array.py:39``).
 
-EIS only: the chrono branches of the JAX module (time since step) belong to
-the hybrid port.
+EIS only: the chrono branches of the JAX module (steps, time since step)
+belong to the hybrid port.
 """
 import numpy as np
+
+
+def estimate_rp(z):
+    """Polarization resistance estimate of an EIS spectrum: the range of
+    Re(z), taken against 0 and inf as the JAX function takes it when no
+    chrono data are given (hybdrt_tpu/preprocessing.py:152)."""
+    zr = np.asarray(z).real
+    return max(0.0, np.max(zr)) - min(np.inf, np.min(zr))
+
+
+def get_quantile_limits(y, qr_size=0.5, qr_thresh=1.5):
+    q_lo = np.percentile(y, 50 - 100 * qr_size / 2)
+    q_hi = np.percentile(y, 50 + 100 * qr_size / 2)
+    qr = q_hi - q_lo
+    return q_lo - qr * qr_thresh, q_hi + qr * qr_thresh
+
+
+def identify_extreme_values(y, qr_size=0.5, qr_thresh=1.5):
+    """True where y lies more than qr_thresh inter-quantile ranges (of the
+    central qr_size of y) outside that range."""
+    y_min, y_max = get_quantile_limits(y, qr_size, qr_thresh)
+    return (y < y_min) | (y > y_max)
 
 
 def get_tau_lim(frequencies):

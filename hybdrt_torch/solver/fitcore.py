@@ -6,6 +6,9 @@ one iteration per pass, over the lanes whose own loop condition
 ``it < max_iter and not converged`` still holds. Those lanes are gathered,
 stepped and scattered back, so every lane stops at the iteration it stops at
 in JAX and a finished lane is never touched (one host sync per iteration).
+
+The problem arrays are shared by all lanes, or each lane has its own
+(``LaneSystem``, the ragged fitter's), gathered with the live lanes' state.
 """
 from dataclasses import dataclass, replace
 from typing import Optional
@@ -67,19 +70,55 @@ class FitCarry:
                         None if self.y_prev2 is None else put(self.y_prev2, part.y_prev2))
 
 
-def _loop_body(carry: FitCarry, rzm, rzv, vmm, m_stack, l1v, lb, est_weights, hyp,
-               fcfg: FitConfig, warm_mode="auto"):
+@dataclass
+class LaneSystem:
+    """The problem arrays of the fit loop. Per-lane (``rzm`` 3-D): rzm, vmm,
+    l1v, lb and the masks have the lane dimension first, and m_stack too
+    where it is 4-D; ``col_mask`` (B, N) is 1 on a lane's real columns,
+    ``row_mask`` (B, M) on its real rows, and ``var_floor`` (B,) its unpadded
+    data variance times 1e-7 (``hybdrt_tpu/parallel/ragged.py:431-518``).
+    Shared: the masks are None."""
+    rzm: torch.Tensor
+    vmm: torch.Tensor
+    m_stack: torch.Tensor
+    l1v: torch.Tensor
+    lb: torch.Tensor
+    col_mask: Optional[torch.Tensor] = None
+    row_mask: Optional[torch.Tensor] = None
+    var_floor: Optional[torch.Tensor] = None
+
+    @property
+    def per_lane(self):
+        return self.rzm.dim() == 3
+
+    def take(self, idx):
+        """The system of lanes ``idx``: the per-lane arrays gathered, the
+        shared ones as they are."""
+        if not self.per_lane:
+            return self
+        pick = lambda a: None if a is None else a[idx]
+        return LaneSystem(self.rzm[idx], self.vmm[idx],
+                          self.m_stack[idx] if self.m_stack.dim() == 4 else self.m_stack,
+                          self.l1v[idx], self.lb[idx], pick(self.col_mask), pick(self.row_mask),
+                          pick(self.var_floor))
+
+
+def _loop_body(carry: FitCarry, sys_: LaneSystem, rzv, est_weights, hyp, fcfg: FitConfig,
+               warm_mode="auto"):
     # The JAX package scales the weights by a global weight factor, from
     # iteration 1 in a fresh fit and from iteration 0 in continuation mode;
-    # the batched EIS fit passes a factor of 1 (hybdrt_tpu/parallel/batch.py:
-    # 380), so there is nothing to scale here
+    # the port's fits take a factor of 1 (hybdrt_tpu/parallel/batch.py:380;
+    # models/drt.py and parallel/ragged.py raise for another), so there is
+    # nothing to scale here
     st = carry.state
+    rzm, m_stack = sys_.rzm, sys_.m_stack
     fused = fcfg.qp_max_iter_warm if fcfg.qp_fused and warm_mode == "warm" else None
-    st_new, _ = qphb.iterate_qphb(st, rzv, rzm, vmm, m_stack, m_stack[1], l1v, lb,
-                                  est_weights, hyp, fcfg.cfg, x_rtol=fcfg.x_rtol,
-                                  qp_max_iter=fcfg.qp_max_iter,
+    st_new, _ = qphb.iterate_qphb(st, rzv, rzm, sys_.vmm, m_stack, m_stack[..., 1, :, :],
+                                  sys_.l1v, sys_.lb, est_weights, hyp, fcfg.cfg,
+                                  x_rtol=fcfg.x_rtol, qp_max_iter=fcfg.qp_max_iter,
                                   qp_max_iter_warm=fcfg.qp_max_iter_warm,
-                                  warm_mode=warm_mode, qp_fused_steps=fused)
+                                  warm_mode=warm_mode, qp_fused_steps=fused,
+                                  col_mask=sys_.col_mask, var_floor=sys_.var_floor)
 
     if fcfg.continue_mode:
         # The seed's norms stay fixed, and convergence cannot stop a lane
@@ -90,7 +129,7 @@ def _loop_body(carry: FitCarry, rzm, rzv, vmm, m_stack, l1v, lb, est_weights, hy
         # on the lanes that just ran their iteration 0
         ns = fcfg.cfg.num_special
         x_drt = st_new.x[:, ns:]
-        xmx = torch.stack([torch.sum(torch.matmul(x_drt, m_stack[k, ns:, ns:]) * x_drt, dim=-1)
+        xmx = torch.stack([qphb._xmx(x_drt, m_stack[..., k, ns:, ns:])
                            for k in range(fcfg.cfg.k_range)], dim=1)
         st_new.xmx_norms = torch.where((st.it == 0)[:, None], xmx, st_new.xmx_norms)
 
@@ -98,7 +137,14 @@ def _loop_body(carry: FitCarry, rzm, rzv, vmm, m_stack, l1v, lb, est_weights, hy
     if fcfg.pred_stop:
         y_new = qphb._mv(rzm, st_new.x)
         delta = (y_new - y_prev2) * st_new.weights
-        ms = torch.mean(delta ** 2, dim=-1)
+        if sys_.row_mask is None:
+            ms = torch.mean(delta ** 2, dim=-1)
+        else:
+            # padded rows would dilute a plain mean: average over real rows
+            # only (hybdrt_tpu/solver/fitcore.py:151-159)
+            rm_ = sys_.row_mask
+            ms = torch.sum((delta * rm_) ** 2, dim=-1) / torch.clamp(torch.sum(rm_, dim=-1),
+                                                                     min=1.0)
         settled = (st_new.it >= max(fcfg.min_iter, 3)) & (torch.sqrt(ms) < fcfg.pred_rtol)
         st_new.converged = st_new.converged | settled
         y_prev2 = y_prev
@@ -126,25 +172,28 @@ def initial_state(x0, s0, rho0, dop_rho0, init_weights, outlier_t0, k_range):
 
 def qphb_fit_loop(rzm, rzv, vmm, m_stack, l1v, lb, hyp, x0, s0, rho0, dop_rho0,
                   init_weights, est_weights, outlier_t0, fcfg: FitConfig,
-                  return_pred_history=False):
+                  return_pred_history=False, col_mask=None, row_mask=None, var_floor=None):
     """Run the full QPHB outer loop over a batch; returns the final state.
 
     Per-lane inputs have the lane dimension first: rzv (B, M), x0 (B, N),
     s0 (B, K, N), rho0/dop_rho0 (B, K), weights (B, M). With
     return_pred_history (requires pred_stop) also returns (y_prev, y_prev2),
     so that qphb_fit_loop_from_state can resume the exact trajectory. With
-    fcfg.qp_fused, iteration 0 is peeled off (peel_cold_start)."""
+    fcfg.qp_fused, iteration 0 is peeled off (peel_cold_start). A 3-D
+    ``rzm`` is a per-lane system, with its masks and floor (``LaneSystem``)."""
     state0 = initial_state(x0, s0, rho0, dop_rho0, init_weights, outlier_t0,
                            fcfg.cfg.k_range)
     return qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp,
                                     est_weights, fcfg, peel_cold_start=fcfg.qp_fused,
-                                    return_pred_history=return_pred_history)
+                                    return_pred_history=return_pred_history,
+                                    col_mask=col_mask, row_mask=row_mask, var_floor=var_floor)
 
 
 def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_weights,
                              fcfg: FitConfig, y_prev0=None, y_prev2_0=None,
                              peel_cold_start=False, seed_pred_history=False,
-                             return_pred_history=False, on_pass=None):
+                             return_pred_history=False, on_pass=None, col_mask=None,
+                             row_mask=None, var_floor=None):
     """Run (or resume) the QPHB outer loop from an explicit per-lane state.
 
     The loop body is Markovian in the state, so resuming a loop that stopped
@@ -166,8 +215,15 @@ def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_w
     fit leaves it False and continues warm.
 
     ``on_pass(state)``, if given, is called with the whole batch's state
-    after every pass of the loop (the peeled cold pass included)."""
+    after every pass of the loop (the peeled cold pass included).
+
+    A 3-D ``rzm`` (B, M, N) is a per-lane system (``LaneSystem``), whose
+    arrays each pass gathers for the live lanes with their state."""
     _check_config(fcfg)
+    sys_ = LaneSystem(rzm, vmm, m_stack, l1v, lb, col_mask, row_mask, var_floor)
+    if not sys_.per_lane and not (col_mask is None and row_mask is None and var_floor is None):
+        raise ValueError("col_mask, row_mask and var_floor belong to per-lane systems "
+                         "(a 3-D rzm)")
     if return_pred_history and not fcfg.pred_stop:
         raise ValueError("return_pred_history requires fcfg.pred_stop")
     if not fcfg.pred_stop:
@@ -181,8 +237,7 @@ def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_w
         y0 = y02 = torch.zeros_like(rzv)
     carry = FitCarry(state=state0, y_prev=y0, y_prev2=y02)
     if peel_cold_start:
-        carry = _loop_body(carry, rzm, rzv, vmm, m_stack, l1v, lb, est_weights, hyp, fcfg,
-                           warm_mode="cold")
+        carry = _loop_body(carry, sys_, rzv, est_weights, hyp, fcfg, warm_mode="cold")
         if on_pass is not None:
             on_pass(carry.state)
     loop_mode = "warm" if fcfg.qp_fused else "auto"
@@ -195,11 +250,10 @@ def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_w
         if n_live == 0:
             break
         if n_live == bsz:
-            carry = _loop_body(carry, rzm, rzv, vmm, m_stack, l1v, lb, est_weights, hyp,
-                               fcfg, warm_mode=loop_mode)
+            carry = _loop_body(carry, sys_, rzv, est_weights, hyp, fcfg, warm_mode=loop_mode)
         else:
-            part = _loop_body(carry.take(idx), rzm, rzv[idx], vmm, m_stack, l1v, lb,
-                              est_weights[idx], hyp, fcfg, warm_mode=loop_mode)
+            part = _loop_body(carry.take(idx), sys_.take(idx), rzv[idx], est_weights[idx], hyp,
+                              fcfg, warm_mode=loop_mode)
             carry = carry.put(idx, part)
         if on_pass is not None:
             on_pass(carry.state)

@@ -1,9 +1,9 @@
 """GPU tests of the port: the CUDA kernels against their plain versions (the
 kernels of hybdrt_torch/experiments/ too), the batched fit
 (plain and fused warm QPs, cold and warm from a previous frame, the stream
-of batches, the history and the parameter covariance) and the group resolve
-(coupled and windowed) on the card against the same computations on the
-CPU.
+of batches, the history and the parameter covariance), the single-spectrum
+DRT, the ragged fit and the group resolve (coupled and windowed) on the card
+against the same computations on the CPU.
 
 Every test here is marked ``cuda`` and skips where no CUDA device is present.
 The file imports no JAX, so it also runs on a machine without it:
@@ -14,13 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from hybdrt_torch import BatchedEISFitter, resolve_group
+from hybdrt_torch import DRT, BatchedEISFitter, BatchedRaggedFitter, resolve_group
 from hybdrt_torch.csrc import build as _build
 from hybdrt_torch.experiments import (chol_blocked, chol_column, chol_lane_blocked, ip_loop,
                                       layouts, smem_sol)
 from hybdrt_torch.ops import chol_lane, ip_lane
-from hybdrt_torch.utils.probe import (FitLaunches, cov_readouts, freeze_lane, inverse_residual,
-                                      make_batch, make_frames, qp_batch, readout_errors,
+from hybdrt_torch.utils.probe import (GOLDEN_HYPERS, TAU_SUPER, FitLaunches, cov_readouts,
+                                      freeze_lane, golden_fit, inverse_residual, make_batch,
+                                      make_frames, make_het_eis, qp_batch, readout_errors,
                                       spd_batch)
 
 pytestmark = pytest.mark.cuda
@@ -813,3 +814,107 @@ def test_ip_steps_lane_at_the_fused_fit_shape(cuda):
     capped_p = ip_lane.ip_steps_lane_plain(*args, 1)
     for f, c, fp, cp in zip(full, capped, full_p, capped_p):
         torch.testing.assert_close(f - c, fp - cp, rtol=TOL, atol=TOL)
+
+
+FIT_KERNELS = ("chol_factor_solve_lane", "chol_solve_factored_lane", "chol_solve_lane")
+
+
+def test_kernels_on_ragged_shaped_lanes(cuda):
+    """#1-#3 on the ragged fit's shape (B = 768, n = 94, float32) with each
+    lane's padded columns pinned as the ragged fit pins them (zero coupling,
+    unit diagonal, zero right-hand side): within TOL of the plain versions,
+    and the padded tail of x exactly zero."""
+    b, n = 768, 94
+    a, rhs = spd_batch(b, n, torch.float64, 768 + 94, cuda)
+    d = torch.diagonal(a, dim1=-2, dim2=-1).rsqrt()
+    a = a * d[:, :, None] * d[:, None, :]
+    widths = torch.tensor([85, 89, 94], device=cuda)[torch.arange(b, device=cuda) % 3]
+    col = (torch.arange(n, device=cuda)[None, :] < widths[:, None]).to(a.dtype)
+    a = a * col[:, :, None] * col[:, None, :] + torch.diag_embed(1.0 - col)
+    a, rhs, col = a.float(), (rhs * col).float(), col.float()
+    x, l = chol_lane.chol_factor_solve_lane(a, rhs)
+    x_p, l_p = chol_lane.chol_factor_solve_lane_plain(a, rhs)
+    torch.testing.assert_close(x, x_p, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(torch.tril(l), l_p, rtol=TOL, atol=TOL)
+    x2 = chol_lane.chol_solve_factored_lane(l, rhs)
+    torch.testing.assert_close(x2, chol_lane.chol_solve_factored_lane_plain(l_p, rhs),
+                               rtol=TOL, atol=TOL)
+    x3 = chol_lane.chol_solve_lane(a, rhs)
+    torch.testing.assert_close(x3, chol_lane.chol_solve_lane_plain(a, rhs), rtol=TOL, atol=TOL)
+    for xs in (x, x2, x3):
+        assert torch.all(xs[col == 0] == 0)
+
+
+def _drt_qp(n_tau):
+    """The equilibrated final QP of a CPU float64 DRT fit of the golden
+    spectrum on a basis of n_tau points (n = n_tau + 2), as (P, q) of one
+    lane in float64."""
+    freq, z, _ = golden_fit()
+    kw = {} if n_tau == 91 else {"fixed_basis_tau": np.logspace(-8, 3, n_tau)}
+    drt = DRT(device="cpu", **kw).fit_eis(freq, z, **GOLDEN_HYPERS)
+    p = torch.as_tensor(drt.qphb_params["p_matrix"])[None]
+    q = torch.as_tensor(drt.qphb_params["q_vector"])[None]
+    d = torch.diagonal(p, dim1=-2, dim2=-1).rsqrt()
+    return p * d[:, :, None] * d[:, None, :], q * d
+
+
+@pytest.mark.parametrize("n_tau", [91, 186], ids=["n93", "n188"])
+def test_kernels_on_one_drt_lane(cuda, n_tau):
+    """#1-#3 at B = 1 in float64 on a single-spectrum DRT's own QP (n = 93 at
+    the default 10 points a decade; n = 188, the largest the float64 tile
+    rule admits). These P reach cond 1e9, so each kernel is held to what a
+    backward-stable solve guarantees: its factor and x backward errors below
+    10 n eps, and x within 10 n eps cond(P) of the plain version's."""
+    p, q = (t.to(cuda) for t in _drt_qp(n_tau))
+    n = n_tau + 2
+    assert p.shape == (1, n, n) and chol_lane.admitted(n, p.dtype)
+    eps = torch.finfo(p.dtype).eps
+    cond = float(torch.linalg.cond(p[0].cpu()))
+    x, l = chol_lane.chol_factor_solve_lane(p, q)
+    x_p, _ = chol_lane.chol_factor_solve_lane_plain(p, q)
+    lo = torch.tril(l[0])
+    assert float(torch.linalg.norm(lo @ lo.T - p[0]) / torch.linalg.norm(p[0])) < 10 * n * eps
+    for xs in (x, chol_lane.chol_solve_factored_lane(l, q), chol_lane.chol_solve_lane(p, q)):
+        back = torch.linalg.norm(p[0] @ xs[0] - q[0]) / (
+            torch.linalg.norm(p[0]) * torch.linalg.norm(xs[0]) + torch.linalg.norm(q[0]))
+        assert float(back) < 10 * n * eps
+        assert float((xs - x_p).abs().max() / x_p.abs().max()) < 10 * n * eps * cond
+
+
+def test_drt_on_card_matches_cpu(cuda):
+    """DRT.fit_eis on the card (float64, the lane kernels at one lane)
+    against the CPU: the same iterations and flag, x within 1e-6 of max |x|;
+    every fit kernel launched. A basis whose QP exceeds the float64 tile rule
+    raises on the card."""
+    freq, z, _ = golden_fit()
+    cpu = DRT(device="cpu").fit_eis(freq, z, **GOLDEN_HYPERS)
+    chol_lane.reset_launch_counts()
+    card = DRT().fit_eis(freq, z, **GOLDEN_HYPERS)
+    assert all(chol_lane.LAUNCHES[k] > 0 for k in FIT_KERNELS)
+    assert card.qphb_params["n_iter"] == cpu.qphb_params["n_iter"]
+    assert card.qphb_params["converged"] == cpu.qphb_params["converged"]
+    x, x_c = card.fit_parameters["x"], cpu.fit_parameters["x"]
+    assert np.max(np.abs(x - x_c)) <= 1e-6 * np.max(np.abs(x_c))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        DRT(fixed_basis_tau=np.logspace(-8, 3, 187)).fit_eis(freq, z)
+
+
+def test_ragged_on_card_matches_cpu(cuda):
+    """The ragged fit in float64 on the card against the CPU on 24 of the het
+    leg's spectra (three grids): the same iterations, x within 1e-6 of each
+    observation's max, padded tails exactly zero; in float32 the tails are
+    exactly zero too and every fit kernel launched."""
+    obs = make_het_eis()[0][:24]
+    kw = dict(qp_max_iter=20, qp_max_iter_warm=4)
+    r_cpu = BatchedRaggedFitter(TAU_SUPER, device="cpu", **kw).fit(obs)
+    r_gpu = BatchedRaggedFitter(TAU_SUPER, **kw).fit(obs)
+    np.testing.assert_array_equal(r_gpu.n_iter, r_cpu.n_iter)
+    for k in range(len(obs)):
+        assert np.max(np.abs(r_gpu.x[k] - r_cpu.x[k])) <= 1e-6 * np.max(np.abs(r_cpu.x[k]))
+    chol_lane.reset_launch_counts()
+    r32 = BatchedRaggedFitter(TAU_SUPER, dtype=torch.float32, **kw).fit(obs, adaptive="staged")
+    assert all(chol_lane.LAUNCHES[k] > 0 for k in FIT_KERNELS)
+    assert np.all(np.isfinite(r32.x_raw))
+    for res in (r_gpu, r32):
+        for k, (left, right) in enumerate(res.tau_indices):
+            assert np.all(res.x[k][right - left:] == 0.0)

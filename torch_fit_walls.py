@@ -39,6 +39,14 @@ fitter with the package's history buffers (``fitcore.History``: pinned host
 memory copied into each pass) against buffers on the card with one transfer
 per field at the end (``CardHistory`` here), each round device, pinned,
 pinned, device, beside the plain fit, and prints the history's bytes.
+
+With ``--single`` it times the single-spectrum and ragged fits of
+``chip_smoke.py`` phases 11 and 12: ``DRT().fit_eis`` on the golden spectrum
+(float64), the B = 1 float32 ``BatchedEISFitter`` fit of the benchmark's
+single-fit leg, and the het leg's 768 EIS spectra (``make_het_eis``) through
+``BatchedRaggedFitter`` in float32 with its settings, each round DRT, B = 1,
+ragged, ragged, B = 1, DRT; then the ragged fit's ``prepare`` and loop apart,
+and one profiled call of each with the lane kernels' launches.
 """
 import argparse
 from concurrent.futures import ThreadPoolExecutor
@@ -49,8 +57,8 @@ import torch
 import hybdrt_torch
 from hybdrt_torch.ops import chol_lane, ip_lane
 from hybdrt_torch.solver import fitcore
-from hybdrt_torch.utils.probe import (card_line, make_batch, make_frames, make_stream, profile,
-                                      timed)
+from hybdrt_torch.utils.probe import (GOLDEN_HYPERS, card_line, golden_fit, make_batch,
+                                      make_frames, make_het_eis, make_stream, profile, timed)
 
 KW = dict(max_iter=50, qp_max_iter=20, qp_max_iter_warm=4, pred_stop=True, pred_rtol=3e-2)
 
@@ -64,11 +72,13 @@ def main():
     mode.add_argument("--frames", action="store_true")
     mode.add_argument("--stream", action="store_true")
     mode.add_argument("--history", action="store_true")
+    mode.add_argument("--single", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_fit_walls.py needs a CUDA card")
     print(card_line())
-    for flag, fn in (("frames", frames), ("stream", stream), ("history", history)):
+    for flag, fn in (("frames", frames), ("stream", stream), ("history", history),
+                     ("single", single)):
         if getattr(args, flag):
             fn(args)
             return
@@ -124,6 +134,41 @@ def frames(args):
             profile(f"{name} warm", fits["warm"], top=12)
             launches = dict(chol_lane.LAUNCHES, **ip_lane.LAUNCHES)
             print(f"{name} warm, lane kernel launches: {launches}")
+
+
+def single(args):
+    """The single DRT fit, the B = 1 batched fit and the ragged fit, in turns."""
+    freq, z, _ = golden_fit()
+    drt = hybdrt_torch.DRT()
+    freq1, z1 = make_batch(1, 71, seed=9)
+    b1 = hybdrt_torch.BatchedEISFitter(freq1, dtype=torch.float32, **KW)
+    obs, tau = make_het_eis()
+    ragged = hybdrt_torch.BatchedRaggedFitter(tau, dtype=torch.float32, qp_max_iter=20,
+                                              qp_max_iter_warm=4)
+    fits = {"drt": lambda: drt.fit_eis(freq, z, **GOLDEN_HYPERS), "b1": lambda: b1.fit(z1),
+            "ragged": lambda: ragged.fit(obs, adaptive="staged")}
+    for fn in fits.values():
+        fn()
+    walls = {k: [] for k in fits}
+    for _ in range(args.rounds):
+        for k in ("drt", "b1", "ragged", "ragged", "b1", "drt"):
+            walls[k].append(timed(fits[k]))
+    for k, w in walls.items():
+        print(f"{k}: walls {[round(v, 4) for v in w]} s, median {np.median(w):.4f} s")
+    prep = [timed(lambda: ragged.prepare(obs)) for _ in range(5)]
+
+    def loop():
+        loop_args, loop_kw = ragged._loop_args(ragged._device_arrays(ragged._last_batch))
+        return fitcore.qphb_fit_loop(*loop_args, **loop_kw)
+
+    loops = [timed(loop) for _ in range(5)]
+    print(f"ragged prepare: median {np.median(prep):.4f} s; loop (upload, weight init, passes): "
+          f"median {np.median(loops):.4f} s (five calls each)")
+    if not args.no_profile:
+        for k, fn in fits.items():
+            chol_lane.reset_launch_counts()
+            profile(k, fn, top=10)
+            print(f"{k}, lane kernel launches: {dict(chol_lane.LAUNCHES)}")
 
 
 def stream_threaded(fitter, batches, collect="lazy"):
