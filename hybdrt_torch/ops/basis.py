@@ -1,9 +1,9 @@
 """Gaussian radial basis functions in ln(tau) space, host-side float64.
 
 Counterpart of ``hybdrt_tpu/ops/basis.py`` for the gaussian basis only (the
-basis of the batched EIS fit). Matrix assembly runs once per frequency grid,
-so it stays in numpy/scipy float64 on the host; only the fit loop runs on
-the device.
+basis of the EIS, chrono and hybrid fits). Matrix assembly runs once per
+frequency grid or chrono protocol, so it stays in numpy/scipy float64 on the
+host; only the fit loop runs on the device.
 """
 import numpy as np
 
@@ -77,4 +77,22 @@ def get_impedance_func(part, basis_type="gaussian"):
                 / (1 + np.exp(2 * (y + np.log(w_n * t_m))))
     else:
         raise ValueError(f"Invalid part {part!r}; options: real, imag")
+    return func
+
+
+def get_response_func(basis_type, op_mode="galv", step_model="ideal"):
+    """Quadrature integrand func(y, tau_m, t_n, epsilon, tau_rise) of the
+    chrono step-response matrix, y = ln(tau / tau_m): the response of one
+    basis function to a unit ideal current step (hybdrt_tpu/ops/basis.py:367;
+    galvanostatic mode and ideal steps only, ROADMAP Queue 1 item 11)."""
+    if op_mode != "galv":
+        raise NotImplementedError(f"op_mode={op_mode!r}: potentiostatic chrono data are not "
+                                  f"ported yet (ROADMAP Queue 1 item 11)")
+    if step_model != "ideal":
+        raise NotImplementedError(f"step_model={step_model!r}: non-ideal steps are not "
+                                  f"ported yet (ROADMAP Queue 1 item 11)")
+    f_basis = get_basis_func(basis_type)
+
+    def func(y, tau_m, t_n, epsilon, tau_rise):
+        return f_basis(y, epsilon) * (1 - np.exp(-t_n / (tau_m * np.exp(y))))
     return func

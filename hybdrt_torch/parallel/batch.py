@@ -1,9 +1,11 @@
-"""Batched self-tuning QPHB fits of many EIS spectra on one frequency grid.
+"""Batched self-tuning QPHB fits of many EIS spectra on one frequency grid,
+or of many hybrid (chrono + EIS) observations on one measurement protocol.
 
-Counterpart of ``hybdrt_tpu/parallel/batch.py::BatchedEISFitter``. The
-problem matrices are assembled once on the host (``models/drt.py``) and
-uploaded to ``device``; the weight-initialization QP and the outer loop run
-batched on the device, and ``collect`` brings the coefficients back.
+Counterpart of ``hybdrt_tpu/parallel/batch.py::BatchedEISFitter`` and
+``BatchedHybridFitter``. The problem matrices are assembled once on the host
+(``models/drt.py``) and uploaded to ``device``; the weight-initialization QP
+and the outer loop run batched on the device, and ``collect`` brings the
+coefficients back.
 """
 from dataclasses import fields, replace
 from typing import NamedTuple, Optional
@@ -12,7 +14,7 @@ import numpy as np
 import torch
 
 from .. import preprocessing as pp
-from ..models.drt import build_eis_problem
+from ..models.drt import build_eis_problem, build_hybrid_problem
 from ..ops import basis as basis_mod
 from ..ops import mat1d
 from ..solver import fitcore, qphb as qphb_mod
@@ -557,3 +559,223 @@ class BatchedEISFitter:
         z = z + result.r_inf[:, None]
         z = z + result.inductance[:, None] * 2j * np.pi * frequencies[None, :]
         return z
+
+
+class BatchedHybridFitter:
+    """Self-tuning QPHB fits of many hybrid (chrono + EIS) observations that
+    share one measurement protocol: one time grid, one input signal (so one
+    step sequence) and one frequency grid, the DRT mapping acquisition
+    pattern (``hybdrt_tpu/parallel/batch.py:1005``).
+
+    Usage:
+        fitter = BatchedHybridFitter(times, i_signal, freq, dtype=torch.float32)
+        result = fitter.fit(v_batch, z_batch)  # (B, n_times), (B, n_freq)
+
+    The design, penalty, variance and vz-offset structures are built once
+    (``build_hybrid_problem``), with the vz-offset column zero; the weight
+    initialization and the loop, with its per-pass vz-offset column rewrite,
+    run batched on the device. Galvanostatic mode and ideal steps. The
+    fitter runs on the CUDA card unless ``device="cpu"`` is given.
+    ``qp_fused=True`` runs every warm-started QP as ``qp_max_iter_warm``
+    (default 8) fixed Mehrotra steps in one fused kernel call, after a cold
+    iteration 0. Results are ``BatchFitResult``s: ``x``, ``r_inf`` and
+    ``inductance`` in physical units; the baseline and vz-offset columns are
+    in ``x_raw``.
+    """
+
+    def __init__(self, times, i_signal, frequencies, step_times=None, step_sizes=None,
+                 basis_tau=None, tau_supergrid=None, fit_ohmic=True, fit_inductance=True,
+                 nonneg=True, vz_offset=True, dtype=torch.float64, device=None, max_iter=50,
+                 xtol=1e-2, qp_max_iter=60, qp_max_iter_warm=None, mesh=None, pred_stop=False,
+                 pred_rtol=1e-2, qp_fused=False, **hyper_kw):
+        if "batch_bucket" in hyper_kw:
+            raise TypeError("batch_bucket is not taken: it padded the batch only so that XLA "
+                            "would not recompile, and nothing here compiles per shape")
+        problem = build_hybrid_problem(times, i_signal, frequencies, step_times=step_times,
+                                       step_sizes=step_sizes, basis_tau=basis_tau,
+                                       tau_supergrid=tau_supergrid, fit_ohmic=fit_ohmic,
+                                       fit_inductance=fit_inductance, nonneg=nonneg,
+                                       vz_offset=vz_offset, **hyper_kw)
+        self._setup(problem, dtype=dtype, device=device, max_iter=max_iter, xtol=xtol,
+                    qp_max_iter=qp_max_iter, qp_max_iter_warm=qp_max_iter_warm, mesh=mesh,
+                    pred_stop=pred_stop, pred_rtol=pred_rtol, qp_fused=qp_fused)
+
+    @classmethod
+    def from_arrays(cls, problem, device=None, dtype=torch.float64, **fit_kw):
+        """Fitter over a problem given as arrays: a dict with the keys that
+        ``build_hybrid_problem`` returns, as numpy arrays (a JAX
+        ``BatchedHybridFitter``'s arrays and its template's metadata carry
+        over as they are). ``cfg`` may be a QPHBConfig or a dict of its
+        fields. ``fit_kw`` are the constructor's loop options."""
+        self = cls.__new__(cls)
+        problem = dict(problem)
+        if not isinstance(problem["cfg"], qphb_mod.QPHBConfig):
+            problem["cfg"] = qphb_mod.QPHBConfig(**dict(problem["cfg"]))
+        self._setup(problem, dtype=dtype, device=device, **fit_kw)
+        return self
+
+    def _setup(self, problem, dtype=torch.float64, device=None, max_iter=50, xtol=1e-2,
+               qp_max_iter=60, qp_max_iter_warm=None, mesh=None, pred_stop=False,
+               pred_rtol=1e-2, qp_fused=False):
+        if mesh is not None:
+            raise NotImplementedError("mesh: multi-GPU sharding is not ported yet "
+                                      "(ROADMAP Queue 1 item 10)")
+        if qp_fused and qp_max_iter_warm is None:
+            qp_max_iter_warm = 8
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.times = np.asarray(problem["times"], dtype=float)
+        self.i_signal = np.asarray(problem["i_signal"], dtype=float)
+        self.frequencies = np.asarray(problem["frequencies"], dtype=float)
+        self.step_times = np.atleast_1d(np.asarray(problem["step_times"], dtype=float))
+        self.step_sizes = np.atleast_1d(np.asarray(problem["step_sizes"], dtype=float))
+        self.hypers = problem["hypers"]
+        self.rp_scale = problem["rp_scale"]
+        self.cfg = problem["cfg"]
+        if self.cfg.fit_dop or self.cfg.has_outlier:
+            raise NotImplementedError("DOP and outlier fits are not ported yet")
+        self.num_special = self.cfg.num_special
+        self.num_chrono = int(problem["num_chrono"])
+        self.vz_index = int(problem["vz_index"])
+        self.vz_offset = self.vz_index >= 0
+        self.basis_tau = np.asarray(problem["basis_tau"], dtype=float)
+        self.tau_epsilon = float(problem["tau_epsilon"])
+        self.special_qp_params = problem["special_qp_params"]
+        self.inductance_scale = problem["inductance_scale"]
+        self.input_signal_scale = float(problem["input_signal_scale"])
+
+        cast = lambda a: torch.as_tensor(np.array(a, dtype=float), dtype=dtype,
+                                         device=self.device)
+        self.rzm = cast(problem["rzm"])
+        self.vmm = cast(problem["vmm"])
+        self.m_stack = cast(problem["m_stack"])
+        self.l1v = cast(problem["l1v"])
+        self.lb = cast(problem["lb"])
+        self.hyp = qphb_mod.hypers_to_tensors(self.hypers, self.device, dtype)
+        self.iw_hyp = qphb_mod.hypers_to_tensors(problem["iw_hypers"], self.device, dtype)
+        # The vz-offset column's sources (hybdrt_tpu/solver/fitcore.py:166-175);
+        # the loop signs it by the chrono/EIS split of fcfg.num_chrono
+        self.hybrid = {}
+        if self.vz_offset:
+            self.hybrid = dict(rzm_vz=cast(problem["rzm_vz"]),
+                               vz_strength=cast(problem["vz_strength_vec"]))
+        self.fcfg = fitcore.FitConfig(cfg=self.cfg, data_type="hybrid",
+                                      num_chrono=self.num_chrono, vz_offset=self.vz_offset,
+                                      vz_index=self.vz_index, max_iter=max_iter, x_rtol=xtol,
+                                      qp_max_iter=qp_max_iter,
+                                      qp_max_iter_warm=qp_max_iter_warm,
+                                      pred_stop=bool(pred_stop), pred_rtol=float(pred_rtol),
+                                      qp_fused=bool(qp_fused))
+
+    # The EIS fitter's weight initialization, physical-units extraction, Rp
+    # and seed arrays serve hybrid lanes unchanged (as in the JAX package,
+    # hybdrt_tpu/parallel/batch.py:1234-1255); the chrono/EIS weight factors
+    # are 1 here, so the loop multiplies by none
+    _loop_inputs = BatchedEISFitter._loop_inputs
+    _warm_arrays = BatchedEISFitter._warm_arrays
+    _check_options = staticmethod(BatchedEISFitter._check_options)
+    collect = BatchedEISFitter.collect
+    predict_r_p = BatchedEISFitter.predict_r_p
+
+    def _fit_plain(self, rzv):
+        inp = self._loop_inputs(rzv)
+        return fitcore.qphb_fit_loop(
+            self.rzm, rzv, self.vmm, self.m_stack, self.l1v, self.lb, self.hyp, inp["x0"],
+            inp["s0"], inp["rho0"], inp["dop_rho0"], inp["init_weights"], inp["est_weights"],
+            inp["outlier_t0"], self.fcfg, **self.hybrid)
+
+    def _fit_warm(self, rzv, warm):
+        """Every lane seeded from ``warm`` in continuation mode, the vz-offset
+        column rebuilt from the seed iterate (``_fit_single_warm``,
+        hybdrt_tpu/parallel/batch.py:356-382); see BatchedEISFitter._fit_warm."""
+        fcfg = replace(self.fcfg, continue_mode=True)
+        inp = self._loop_inputs(rzv)
+        x0, s0, rho0, dop_rho0, xmx0, dop_xmx0 = warm
+        b = rzv.shape[0]
+        state0 = qphb_mod.QPHBState(
+            x=x0, s_vectors=s0, rho_vector=rho0, dop_rho_vector=dop_rho0,
+            weights=inp["init_weights"], outlier_t=inp["outlier_t0"], xmx_norms=xmx0,
+            dop_xmx_norms=dop_xmx0, it=torch.zeros(b, dtype=torch.int32, device=self.device),
+            converged=torch.zeros(b, dtype=torch.bool, device=self.device),
+            qp_dual=torch.zeros_like(x0))
+        return fitcore.qphb_fit_loop_from_state(
+            state0, self.rzm, rzv, self.vmm, self.m_stack, self.l1v, self.lb, self.hyp,
+            inp["est_weights"], fcfg, seed_pred_history=fcfg.pred_stop,
+            rebuild_vz=self.vz_offset, **self.hybrid)
+
+    def scale_batch(self, v_batch, z_batch):
+        """Per-observation Rp scaling and baseline offsets
+        (hybdrt_tpu/parallel/batch.py:1123): the stacked scaled data (B, T +
+        2F) and the coefficient scales (B,). The Rp estimates are
+        ``estimate_rp_batch``'s, row for row ``estimate_rp``'s."""
+        v_batch, z_batch = self._check_batch(v_batch, z_batch)
+        scale = pp.estimate_rp_batch(self.times, self.step_times, self.step_sizes, v_batch,
+                                     "ideal", z_batch) / self.rp_scale
+        v_s = v_batch / (self.input_signal_scale * scale)[:, None]
+        pre = self.times < self.step_times[0]
+        # No sample before the first step: no baseline to subtract (:1137)
+        if pre.any():
+            v_s = v_s - np.median(v_s[:, pre], axis=1)[:, None]
+        z_s = z_batch / scale[:, None]
+        return np.concatenate([v_s, z_s.real, z_s.imag], axis=1), scale
+
+    def _check_batch(self, v_batch, z_batch):
+        v_batch = np.asarray(v_batch, dtype=float)
+        z_batch = np.asarray(z_batch)
+        if v_batch.ndim != 2 or v_batch.shape[1] != len(self.times):
+            raise ValueError(f"v_batch shape {v_batch.shape}: expected (B, {len(self.times)})")
+        if z_batch.shape != (v_batch.shape[0], len(self.frequencies)):
+            raise ValueError(f"z_batch shape {z_batch.shape}: expected ({v_batch.shape[0]}, "
+                             f"{len(self.frequencies)})")
+        return v_batch, z_batch
+
+    def fit(self, v_batch, z_batch, return_states=False, return_history=False, adaptive=False,
+            phase_budgets=None, staged_capacities=None, staged_buckets=None, warm_from=None,
+            collect="full"):
+        """Fit (B, n_times) responses and (B, n_freq) spectra; returns
+        BatchFitResult (with ``return_states``, also the final states).
+
+        adaptive=False, True and "staged" all run every lane in the live-lane
+        loop, bitwise the same (see BatchedEISFitter.fit), so
+        ``phase_budgets``, ``staged_capacities`` and ``staged_buckets``
+        raise ValueError. collect="lazy" leaves result.weights and
+        result.s_vectors as device tensors. warm_from=<the previous frame's
+        BatchFitResult> seeds each lane from that frame's fit, with the
+        vz-offset column rebuilt from the seed iterate; it combines with
+        neither ``adaptive`` nor ``return_history``. ``return_history`` is
+        not ported (ROADMAP Queue 1 item 7)."""
+        self._check_options(adaptive, collect)
+        if warm_from is not None and (adaptive or return_history):
+            raise ValueError("warm_from seeds a plain whole-batch fit; it cannot be combined "
+                             "with adaptive scheduling or return_history")
+        for name, v in (("phase_budgets", phase_budgets),
+                        ("staged_capacities", staged_capacities),
+                        ("staged_buckets", staged_buckets)):
+            if v is not None:
+                raise ValueError(f"{name}: this fitter has no compaction schedule to budget; "
+                                 f"every adaptive mode runs the live-lane loop")
+        if return_history:
+            raise NotImplementedError("return_history on the hybrid fitter is not ported yet "
+                                      "(ROADMAP Queue 1 item 7)")
+        if collect == "lazy" and return_states:
+            raise ValueError("collect='lazy' cannot be combined with return_states: it "
+                             "returns every field in full")
+        rzv, scale = self.scale_batch(v_batch, z_batch)
+        warm = None if warm_from is None else self._warm_arrays(warm_from, len(scale), scale)
+        rzv = torch.as_tensor(rzv, dtype=self.dtype, device=self.device)
+        states = self._fit_plain(rzv) if warm is None else self._fit_warm(rzv, warm)
+        return self.collect(states, scale, return_states=return_states,
+                            lazy=(collect == "lazy"))
+
+    def final_design_matrices(self, result):
+        """The per-lane design matrices (B, M, N) as the loop left them: the
+        vz-offset column rewritten from each lane's final iterate (host
+        float64)."""
+        rzm = np.broadcast_to(np.asarray(self.rzm.cpu(), dtype=float),
+                              (len(result.scale), *self.rzm.shape)).copy()
+        if self.vz_offset:
+            h = {k: np.asarray(v.cpu(), dtype=float) for k, v in self.hybrid.items()}
+            sign = fitcore.chrono_eis_sign(self.num_chrono, rzm.shape[1], torch.zeros(1)).numpy()
+            rzm[:, :, self.vz_index] = (np.asarray(result.x_raw) @ h["rzm_vz"].T) * sign \
+                * h["vz_strength"]
+        return rzm

@@ -125,6 +125,112 @@ def make_het_eis(n_eis=768, n_hybrid=256, seed=3):
     return obs, TAU_SUPER
 
 
+
+# The het map's two chrono protocols (bench.py:166-174): (times, step time,
+# current step, frequencies)
+HET_PROTOCOLS = [
+    (np.concatenate([np.linspace(-0.05, -0.001, 10), np.geomspace(1e-4, 1.0, 80)]), 0.0, 0.1,
+     np.logspace(5, 1, 33)),
+    (np.concatenate([np.linspace(-0.02, -0.001, 6), np.geomspace(2e-4, 0.5, 60)]), 0.0, -0.08,
+     np.logspace(4, 0, 41)),
+]
+
+
+def _rc_v(t, ts, amp, r, tau0):
+    dt = t - ts
+    return amp * r * np.where(dt > 0, 1 - np.exp(-np.maximum(dt, 0) / tau0), 0.0)
+
+
+def _het_hybrid_obs(proto, p, rng):
+    """One hybrid observation of the het map at map position p in [0, 1]
+    (bench.py:196-222): two RC/ZARC elements, R_inf and the first element
+    drifting with p, the draws in the map's order."""
+    r1 = 0.8 + 0.5 * p + rng.uniform(-0.05, 0.05)
+    t1 = 10 ** (-2.8 + 1.2 * p)
+    r2, t2 = 1.2, 1e-4
+    r_inf = 0.4 + 0.1 * p
+    times, st, amp, freq = HET_PROTOCOLS[proto]
+    i_sig = np.where(times >= st, amp, 0.0)
+    v = r_inf * i_sig + _rc_v(times, st, amp, r1, t1) + _rc_v(times, st, amp, r2, t2)
+    v = v + 5e-4 * rng.normal(size=len(times))
+    z = (r_inf + r1 / (1 + (2j * np.pi * freq * t1) ** 0.99)
+         + r2 / (1 + (2j * np.pi * freq * t2) ** 0.99))
+    z = z + (rng.normal(size=len(freq)) + 1j * rng.normal(size=len(freq))) * 0.003
+    return (times, i_sig, v), (freq, z)
+
+
+def make_het_hybrid(n_eis=768, n_hybrid=256, seed=3):
+    """The hybrid observations of the benchmark's heterogeneous map
+    (``bench.py::make_het_map``, copied as ``make_het_eis`` is): the same
+    random numbers drawn in the same order, the EIS observations' draws
+    consumed and discarded, so the ``n_hybrid`` observations are the map's,
+    on its two chrono protocols (90 samples and 33 frequencies, 66 and 41),
+    in the map's order. Returns (observations, TAU_SUPER), each observation
+    ((times, i_signal, v_signal), (freq, z)) as the ragged fitter takes
+    it."""
+    rng = np.random.default_rng(seed)
+    eis_sizes = [57, 71, 49]
+    n_tot = n_eis + n_hybrid
+    kinds = np.array(["eis"] * n_eis + ["hyb"] * n_hybrid)
+    rng.shuffle(kinds)
+    obs = []
+    for i, kind in enumerate(kinds):
+        p = i / max(n_tot - 1, 1)
+        if kind == "eis":
+            rng.uniform(-0.05, 0.05)          # r1's jitter
+            rng.normal(size=eis_sizes[i % 3])  # the impedance noise, real
+            rng.normal(size=eis_sizes[i % 3])  # and imaginary
+        else:
+            obs.append(_het_hybrid_obs(i % 2, p, rng))
+    return obs, TAU_SUPER
+
+
+def make_hybrid_batch(batch, proto=0, seed=3):
+    """``batch`` hybrid observations on het protocol ``proto``, their
+    parameters drifting over the map as in ``bench.py::make_het_map``
+    (observation k at map position k / (batch - 1)). Returns (times,
+    i_signal, freq, v (batch, n_times), z (batch, n_freq)), as
+    ``BatchedHybridFitter`` takes them."""
+    rng = np.random.default_rng(seed)
+    obs = [_het_hybrid_obs(proto, k / max(batch - 1, 1), rng) for k in range(batch)]
+    (times, i_sig, _), (freq, _) = obs[0]
+    return (times, i_sig, freq, np.stack([c[2] for c, _ in obs]),
+            np.stack([e[1] for _, e in obs]))
+
+
+def simulate_chrono(rng, r_inf=0.3, rcs=((1.0, 1e-3), (0.8, 1e-1)), v_base=0.05, i_step=0.1,
+                    noise=2e-4):
+    """A noisy chronopotentiometry record of R_inf and RC elements after one
+    current step at t = 0, 20 samples before it (the generator of
+    tests/test_chrono_hybrid.py:12-21): (times, i_signal, v_signal)."""
+    t_pre = np.linspace(-0.01, -0.0005, 20)
+    t_post = np.logspace(-5, 0.5, 150)
+    times = np.concatenate([t_pre, t_post])
+    i_sig = np.where(times >= 0, i_step, 0.0)
+    v = v_base + r_inf * i_sig
+    for r, tau in rcs:
+        v = v + i_step * np.where(times >= 0, r * (1 - np.exp(-np.maximum(times, 0) / tau)), 0.0)
+    v = v + rng.normal(size=len(times)) * noise
+    return times, i_sig, v
+
+
+def simulate_eis(rng, r_inf=0.3, rcs=((1.0, 1e-3), (0.8, 1e-1)), induc=1e-7, noise=2e-3):
+    """The noisy spectrum of the same elements and an inductance on
+    logspace(5, -1, 41) (tests/test_chrono_hybrid.py:24-31): (freq, z)."""
+    freq = np.logspace(5, -1, 41)
+    z = r_inf + 2j * np.pi * freq * induc
+    for r, tau in rcs:
+        z = z + r / (1 + 2j * np.pi * freq * tau)
+    z = z + (rng.normal(size=len(freq)) + 1j * rng.normal(size=len(freq))) * noise
+    return freq, z
+
+
+def hybrid_data(seed=0):
+    """simulate_chrono then simulate_eis from one seeded generator, as
+    tests/test_chrono_hybrid.py draws them: (times, i, v, freq, z)."""
+    rng = np.random.default_rng(seed)
+    return (*simulate_chrono(rng), *simulate_eis(rng))
+
 # The single-spectrum fit's golden spectrum and values
 # (tests/test_drt_fit_golden.py, the reference implementation's own test): a
 # noisy 71-point spectrum of a 3-HN model on logspace(6, -1, 71), fitted with

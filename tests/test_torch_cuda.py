@@ -1,8 +1,9 @@
 """GPU tests of the port: the CUDA kernels against their plain versions (the
 kernels of hybdrt_torch/experiments/ too), the batched fit
 (plain and fused warm QPs, cold and warm from a previous frame, the stream
-of batches, the history and the parameter covariance), the single-spectrum
-DRT, the ragged fit and the group resolve (coupled and windowed) on the card
+of batches, the history and the parameter covariance), the single DRT (EIS,
+chrono and hybrid fits), the batched hybrid fit, the ragged fit (EIS and
+hybrid rows) and the group resolve (coupled and windowed) on the card
 against the same computations on the CPU.
 
 Every test here is marked ``cuda`` and skips where no CUDA device is present.
@@ -14,15 +15,16 @@ import numpy as np
 import pytest
 import torch
 
-from hybdrt_torch import DRT, BatchedEISFitter, BatchedRaggedFitter, resolve_group
+from hybdrt_torch import (DRT, BatchedEISFitter, BatchedHybridFitter, BatchedRaggedFitter,
+                          resolve_group)
 from hybdrt_torch.csrc import build as _build
 from hybdrt_torch.experiments import (chol_blocked, chol_column, chol_lane_blocked, ip_loop,
                                       layouts, smem_sol)
 from hybdrt_torch.ops import chol_lane, ip_lane
 from hybdrt_torch.utils.probe import (GOLDEN_HYPERS, TAU_SUPER, FitLaunches, cov_readouts,
-                                      freeze_lane, golden_fit, inverse_residual, make_batch,
-                                      make_frames, make_het_eis, qp_batch, readout_errors,
-                                      spd_batch)
+                                      freeze_lane, golden_fit, hybrid_data, inverse_residual,
+                                      make_batch, make_frames, make_het_eis, make_het_hybrid,
+                                      make_hybrid_batch, qp_batch, readout_errors, spd_batch)
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-4  # float32 kernel vs plain, as tests/test_pallas_lane_kernels.py
@@ -918,3 +920,93 @@ def test_ragged_on_card_matches_cpu(cuda):
     for res in (r_gpu, r32):
         for k, (left, right) in enumerate(res.tau_indices):
             assert np.all(res.x[k][right - left:] == 0.0)
+
+
+@pytest.mark.parametrize("kw", [{}, {"hybrid_weight_factor_method": "weight"},
+                                {"hybrid_weight_factor_method": "rp"}],
+                         ids=["none", "weight", "rp"])
+def test_hybrid_drt_on_card_matches_cpu(cuda, kw):
+    """DRT.fit_hybrid on the card (float64, n = 91, the lane kernels at one
+    lane) against the CPU on tests/test_chrono_hybrid.py's data: the same
+    iterations and flag, x within 1e-6 of max |x|; every fit kernel
+    launched; and fit_chrono the same way."""
+    t, i, v, f, z = hybrid_data(seed=0)
+    for fit, data in (("fit_hybrid", (t, i, v, f, z)), ("fit_chrono", (t, i, v))):
+        cpu = getattr(DRT(warn=False, device="cpu"), fit)(*data, **kw)
+        chol_lane.reset_launch_counts()
+        card = getattr(DRT(warn=False), fit)(*data, **kw)
+        assert all(chol_lane.LAUNCHES[k] > 0 for k in FIT_KERNELS)
+        assert card.qphb_params["n_iter"] == cpu.qphb_params["n_iter"]
+        assert card.qphb_params["converged"] == cpu.qphb_params["converged"]
+        x, x_c = card.qphb_params["x_raw"], cpu.qphb_params["x_raw"]
+        assert np.max(np.abs(x - x_c)) <= 1e-6 * np.max(np.abs(x_c))
+        if kw:
+            break
+
+
+def _held_to_sensitivity(got, want, want_ulp):
+    """A card fit ``got`` against the CPU fit ``want``, each lane held by its
+    own sensitivity: x within max(1e-6, 10 d) of the lane's max |x|, where d
+    is how far the CPU fit of the data moved by one ulp (``want_ulp``) lands
+    from ``want``; the same n_iter on the lanes whose n_iter that move
+    keeps. A lane that ends on a limit cycle at max_iter moves by percents
+    under any rounding change, in the JAX package too (PERF.md, Findings PR
+    15); a converged lane moves by 1e-13. Returns the number of lanes held
+    at 1e-6."""
+    tight = 0
+    for k in range(len(want.n_iter)):
+        scale = np.max(np.abs(want.x_raw[k]))
+        d = np.max(np.abs(want_ulp.x_raw[k] - want.x_raw[k])) / scale
+        assert np.max(np.abs(got.x_raw[k] - want.x_raw[k])) <= max(1e-6, 10 * d) * scale, k
+        if want_ulp.n_iter[k] == want.n_iter[k]:
+            assert got.n_iter[k] == want.n_iter[k], k
+        tight += 10 * d <= 1e-6
+    return tight
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+def test_hybrid_fitter_on_card_matches_cpu(cuda, fused):
+    """BatchedHybridFitter in float64 on the card against the CPU on 32 of
+    make_hybrid_batch's observations, cold and warm from the CPU's cold fit
+    on a next frame (the same lanes, new noise; one seed for both, as
+    test_warm_frame_on_card_matches_cpu), each lane held by its one-ulp
+    sensitivity (``_held_to_sensitivity``), most of them at 1e-6; in float32
+    every fit kernel (and #5 on the fused path) launched, and the
+    coefficients finite."""
+    t, i, f, v, z = make_hybrid_batch(32)
+    v1, z1 = make_hybrid_batch(32, seed=4)[3:]
+    ulp = 1 + np.finfo(float).eps
+    kw = dict(qp_max_iter=20, qp_max_iter_warm=4, qp_fused=fused, pred_stop=True,
+              pred_rtol=3e-2)
+    cpu = BatchedHybridFitter(t, i, f, device="cpu", **kw)
+    card = BatchedHybridFitter(t, i, f, **kw)
+    r_cpu = cpu.fit(v, z)
+    assert _held_to_sensitivity(card.fit(v, z), r_cpu, cpu.fit(v * ulp, z * ulp)) >= 24
+    w_cpu = cpu.fit(v1, z1, warm_from=r_cpu)
+    w_ulp = cpu.fit(v1 * ulp, z1 * ulp, warm_from=r_cpu)
+    assert _held_to_sensitivity(card.fit(v1, z1, warm_from=r_cpu), w_cpu, w_ulp) >= 24
+    chol_lane.reset_launch_counts()
+    ip_lane.reset_launch_counts()
+    r32 = BatchedHybridFitter(t, i, f, dtype=torch.float32, **kw).fit(v, z, collect="lazy")
+    assert all(chol_lane.LAUNCHES[k] > 0 for k in FIT_KERNELS)
+    assert (ip_lane.LAUNCHES["ip_steps_lane"] > 0) == fused
+    assert np.all(np.isfinite(r32.x_raw)) and r32.weights.is_cuda
+
+
+def test_ragged_hybrid_on_card_matches_cpu(cuda):
+    """The ragged fit of 16 of the het leg's hybrid observations (two
+    protocols) in float64 on the card against the CPU: the same iterations,
+    x within 1e-6 of each observation's max, padded tails exactly zero; in
+    float32 every fit kernel launched and the tails exactly zero."""
+    obs = make_het_hybrid()[0][:16]
+    kw = dict(qp_max_iter=20, qp_max_iter_warm=4)
+    r_cpu = BatchedRaggedFitter(TAU_SUPER, device="cpu", **kw).fit(obs)
+    r_gpu = BatchedRaggedFitter(TAU_SUPER, **kw).fit(obs)
+    np.testing.assert_array_equal(r_gpu.n_iter, r_cpu.n_iter)
+    for k in range(len(obs)):
+        assert np.max(np.abs(r_gpu.x[k] - r_cpu.x[k])) <= 1e-6 * np.max(np.abs(r_cpu.x[k]))
+    chol_lane.reset_launch_counts()
+    r32 = BatchedRaggedFitter(TAU_SUPER, dtype=torch.float32, **kw).fit(obs)
+    assert all(chol_lane.LAUNCHES[k] > 0 for k in FIT_KERNELS)
+    for res in (r_gpu, r32):
+        assert all(np.all(res.x[k][r - l:] == 0.0) for k, (l, r) in enumerate(res.tau_indices))

@@ -19,6 +19,7 @@ import hybdrt_tpu
 import hybdrt_torch
 from hybdrt_torch.utils import probe
 from hybdrt_torch.utils.device import resolve_device
+from hybdrt_torch.utils.probe import hybrid_data
 
 torch.set_num_threads(1)
 
@@ -179,12 +180,13 @@ def _refits(**fit_kw):
     (_refits(remove_outliers=True, outlier_p=0.05), "item 9"),
     (_refits(outlier_p=0.05), "item 9"),
     (_refits(return_outlier_index=True), "item 9"),
-    (_refits(vz_offset=True), "item 6"),
-    (_refits(subtract_background=True), "item 6"),
+    (lambda: hybdrt_torch.DRT(step_model="expdecay", device="cpu"), "item 11"),
+    (_refits(subtract_background=True), "item 11"),
     (lambda: hybdrt_torch.DRT(device="cpu")._qphb_fit_core(
-        np.linspace(0, 1, 5), np.ones(5), np.ones(5), None, None), "item 6"),
-    (lambda: hybdrt_torch.DRT(device="cpu").fit_hybrid(None, None, None, None, None), "item 6"),
-    (lambda: hybdrt_torch.DRT(device="cpu").fit_chrono(None, None, None), "item 6"),
+        *hybrid_data()[:3], None, None, downsample=True), "item 11"),
+    (lambda: hybdrt_torch.DRT(chrono_mode="pot", device="cpu"), "item 11"),
+    (lambda: hybdrt_torch.DRT(device="cpu").fit_chrono(*hybrid_data()[:3], outlier_p=0.05),
+     "item 9"),
     (_refits(series_neg=True), "series_neg"),
     (_refits(weight_factor=2.0), "weight_factor"),
 ], ids=["dop", "capacitance", "cole_cole", "trapz", "remove_outliers", "outlier_p",

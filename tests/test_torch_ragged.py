@@ -4,7 +4,8 @@ the CPU (``device="cpu"``; the fitter's default is the card). The
 counterparts of tests/test_ragged.py's EIS tests, at their tolerances:
 coefficients within 1e-6 of each observation's max, R_inf within 1e-6, the
 same n_iter, padded coefficient tails exactly zero. The JAX fitter runs with
-``batch_bucket=False`` where its padding lanes would only cost time."""
+``batch_bucket=False`` where its padding lanes would only cost time. Its
+hybrid rows are held in tests/test_torch_ragged_hybrid.py."""
 import numpy as np
 import pytest
 import torch
@@ -15,7 +16,7 @@ import hybdrt_tpu
 import hybdrt_torch
 from hybdrt_tpu.parallel.ragged import BatchedRaggedFitter as JaxRagged
 from hybdrt_torch import BatchedEISFitter, BatchedRaggedFitter
-from hybdrt_torch.utils.probe import make_het_eis
+from hybdrt_torch.utils.probe import hybrid_data, make_het_eis
 
 torch.set_num_threads(1)
 
@@ -219,8 +220,8 @@ def test_final_predictions(mixed):
     (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu", qp_fused=True), NotImplementedError),
     (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu", mesh=object()), NotImplementedError),
     (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu", fit_dop=True), NotImplementedError),
-    (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu").fit(
-        [((np.linspace(0, 1, 5), np.ones(5), np.ones(5)), o[0][1])]), NotImplementedError),
+    (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu", fit_kw={"downsample": True}).fit(
+        [(hybrid_data()[:3], o[0][1])]), NotImplementedError),
     (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu", batch_bucket=True), TypeError),
     (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu", l2_lambda=1.0), ValueError),
 ], ids=["phase_budgets", "capacities", "buckets", "adaptive", "history", "fused", "mesh",
@@ -243,3 +244,4 @@ def test_make_het_eis_is_the_bench_map():
         np.testing.assert_array_equal(f, fw)
         np.testing.assert_array_equal(z, zw)
     np.testing.assert_array_equal(tau, np.logspace(-8, 3, 111))
+

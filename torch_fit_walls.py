@@ -4,7 +4,7 @@ warm QPs (``qp_fused``), taken in turns in one process, and one profiled call.
 Run from the repository root on a machine with a CUDA card:
 
     python3 torch_fit_walls.py [--rounds 3] [--batch 8192] [--no-profile]
-                               [--frames | --stream | --history]
+                               [--frames | --stream | --history | --single | --hybrid]
 
 The fit is ``chip_smoke.py``'s main path: ``make_batch(batch, 71)``
 (``hybdrt_torch/utils/probe.py``, the benchmark's spectra),
@@ -47,6 +47,15 @@ single-fit leg, and the het leg's 768 EIS spectra (``make_het_eis``) through
 ``BatchedRaggedFitter`` in float32 with its settings, each round DRT, B = 1,
 ragged, ragged, B = 1, DRT; then the ragged fit's ``prepare`` and loop apart,
 and one profiled call of each with the lane kernels' launches.
+
+With ``--hybrid`` it times the hybrid fits of ``chip_smoke.py`` phase 13:
+``BatchedHybridFitter`` on ``make_hybrid_batch(1024)`` (het protocol 0,
+float32, the het leg's QP caps, ``fit(adaptive="staged", collect="lazy")``),
+plain and ``qp_fused``, and the het leg's 256 hybrid observations
+(``make_het_hybrid``) through ``BatchedRaggedFitter`` in float32 with
+``fit(adaptive="staged")``, each round plain, fused, ragged, ragged, fused,
+plain; then the ragged fit's ``prepare`` and loop apart, and one profiled
+call of each with the lane kernels' launches.
 """
 import argparse
 from concurrent.futures import ThreadPoolExecutor
@@ -58,7 +67,8 @@ import hybdrt_torch
 from hybdrt_torch.ops import chol_lane, ip_lane
 from hybdrt_torch.solver import fitcore
 from hybdrt_torch.utils.probe import (GOLDEN_HYPERS, card_line, golden_fit, make_batch,
-                                      make_frames, make_het_eis, make_stream, profile, timed)
+                                      make_frames, make_het_eis, make_het_hybrid,
+                                      make_hybrid_batch, make_stream, profile, timed)
 
 KW = dict(max_iter=50, qp_max_iter=20, qp_max_iter_warm=4, pred_stop=True, pred_rtol=3e-2)
 
@@ -73,12 +83,13 @@ def main():
     mode.add_argument("--stream", action="store_true")
     mode.add_argument("--history", action="store_true")
     mode.add_argument("--single", action="store_true")
+    mode.add_argument("--hybrid", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_fit_walls.py needs a CUDA card")
     print(card_line())
     for flag, fn in (("frames", frames), ("stream", stream), ("history", history),
-                     ("single", single)):
+                     ("single", single), ("hybrid", hybrid)):
         if getattr(args, flag):
             fn(args)
             return
@@ -169,6 +180,46 @@ def single(args):
             chol_lane.reset_launch_counts()
             profile(k, fn, top=10)
             print(f"{k}, lane kernel launches: {dict(chol_lane.LAUNCHES)}")
+
+
+def hybrid(args):
+    """The uniform hybrid fit, plain and fused, and the ragged hybrid fit, in
+    turns."""
+    knobs = dict(qp_max_iter=20, qp_max_iter_warm=4)
+    t, i, f, v, z = make_hybrid_batch(1024, proto=0)
+    uniform = {name: hybdrt_torch.BatchedHybridFitter(t, i, f, dtype=torch.float32,
+                                                      qp_fused=fused, **knobs)
+               for name, fused in (("plain", False), ("fused", True))}
+    obs, tau = make_het_hybrid()
+    ragged = hybdrt_torch.BatchedRaggedFitter(tau, dtype=torch.float32, **knobs)
+    fits = {"plain": lambda: uniform["plain"].fit(v, z, adaptive="staged", collect="lazy"),
+            "fused": lambda: uniform["fused"].fit(v, z, adaptive="staged", collect="lazy"),
+            "ragged": lambda: ragged.fit(obs, adaptive="staged")}
+    res = {k: fn() for k, fn in fits.items()}
+    walls = {k: [] for k in fits}
+    for _ in range(args.rounds):
+        for k in ("plain", "fused", "ragged", "ragged", "fused", "plain"):
+            walls[k].append(timed(fits[k]))
+    for k, w in walls.items():
+        r, b = res[k], len(res[k].n_iter)
+        print(f"{k}: B={b} walls {[round(x, 4) for x in w]} s, median {np.median(w):.4f} s -> "
+              f"{b / np.median(w):.1f} obs/s; passes {int(r.n_iter.max())}, n_iter mean "
+              f"{r.n_iter.mean():.4g}, converged {int(r.converged.sum())}/{b}")
+    prep = [timed(lambda: ragged.prepare(obs)) for _ in range(5)]
+
+    def loop():
+        loop_args, loop_kw = ragged._loop_args(ragged._device_arrays(ragged._last_batch))
+        return fitcore.qphb_fit_loop(*loop_args, **loop_kw)
+
+    loops = [timed(loop) for _ in range(5)]
+    print(f"ragged prepare: median {np.median(prep):.4f} s; loop (upload, weight init, passes): "
+          f"median {np.median(loops):.4f} s (five calls each)")
+    if not args.no_profile:
+        for k, fn in fits.items():
+            chol_lane.reset_launch_counts()
+            ip_lane.reset_launch_counts()
+            profile(k, fn, top=10)
+            print(f"{k}, lane kernel launches: {dict(chol_lane.LAUNCHES, **ip_lane.LAUNCHES)}")
 
 
 def stream_threaded(fitter, batches, collect="lazy"):
