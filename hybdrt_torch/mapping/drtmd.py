@@ -1,21 +1,37 @@
-"""Group resolve of a uniform EIS map (counterpart of the uniform-group body
-of ``hybdrt_tpu/mapping/drtmd.py::DRTMD.resolve_group``, ``:1427-1585``).
+"""DRTMD: a map of DRT fits over operating-condition coordinates psi, and
+the group resolve (counterpart of ``hybdrt_tpu/mapping/drtmd.py``).
 
-A map fitted by one ``BatchedEISFitter`` on one frequency grid with a
-``tau_supergrid`` (what ``DRTMD.fit_all(batched=True)`` does for a uniform
-EIS group) is re-optimized jointly: each observation's posterior (P, q) is
-rebuilt from its final fit state, the observations are sorted by psi, and
-either the whole group is solved as one coupled QP (``coupled=True``) or
-overlapping windows of ``batch_size`` are solved together and averaged over
-their overlaps (``batched=True``). The ``DRTMD`` class itself is not ported
-yet (ROADMAP Queue 1 item 7); its ``resolve_group`` will call this.
+``DRTMD`` stores observations (EIS spectra, chrono records or both) at
+coordinates psi on a shared tau supergrid, fits them all with
+``fit_all(batched=True)`` (a uniform EIS grid through one
+``BatchedEISFitter``, a uniform hybrid protocol through one
+``BatchedHybridFitter``, everything else through the ``BatchedRaggedFitter``),
+rebuilds each fit's posterior (P, q) on the device (``get_fits_batched``) and
+re-optimizes a group jointly (``resolve_group``): the observations are sorted
+by psi and either the whole group is solved as one coupled QP
+(``coupled=True``) or overlapping windows of ``batch_size`` are solved
+together and averaged over their overlaps (``batched=True``).
+
+The free function ``resolve_group(fitter, result, z_batch, ...)`` is the
+uniform-group body of ``DRTMD.resolve_group`` for a map fitted by one
+``BatchedEISFitter``, without the class.
 """
+import time
 import warnings
+from copy import deepcopy
+from pathlib import Path
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from scipy.special import gammaln
 
+from .. import preprocessing as pp
+from ..models.drt import DRT, data_offset_parameters
+from ..parallel.batch import BatchedEISFitter, BatchedHybridFitter
+from ..parallel.ragged import BatchedRaggedFitter
+from ..utils.device import resolve_device
 from . import resolve as resolve_mod
 
 
@@ -78,6 +94,12 @@ def group_objective(fitter, result, z_batch, psi, out):
     for key, info in special.items():
         unit = fitter.inductance_scale if key == "inductance" else 1.0
         x[:, info["index"]] = out.special[key][order] / (scale * unit)
+    return block_objective(p, q, my, cmat, x)
+
+
+def block_objective(p, q, my, cmat, x):
+    """1/2 x.Hx + q.x of the group blocks of ``prepare_group_blocks`` at x
+    (nr, nc), H = blockdiag(P_i) + My (x) Cmat (host float64)."""
     hx = np.einsum("bij,bj->bi", p, x) + (my @ x) @ cmat
     return float(0.5 * np.vdot(x, hx) + np.vdot(q, x))
 
@@ -199,3 +221,965 @@ def resolve_group(fitter, result, z_batch, psi=None, coupled=False, batched=True
             w_k = weights if val.ndim == 2 else np.broadcast_to(weights[..., None], val.shape)
             sp_res[key][order] = np.average(val, axis=0, weights=w_k)
     return GroupResolveResult(x_res, sp_res, tau_indices, order, info)
+
+
+# ---------------------------------------------------------------------------
+# The map class (hybdrt_tpu/mapping/drtmd.py:32-1585, its batched parts)
+# ---------------------------------------------------------------------------
+# Marks a fitter cache key component that cannot be hashed reliably
+# (non-primitive fit kwargs): the fitter is built fresh and never cached
+_UNCACHEABLE = object()
+
+
+def _unported(what, item):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+def _no_reader(file):
+    raise NotImplementedError(f"reading {file!r}: the file readers (fileload) are not ported yet "
+                              f"(ROADMAP, Host modules); pass the data as arrays")
+
+
+class DRTMD:
+    """Observations at coordinates psi on one tau supergrid, their batched
+    fits and the group resolve.
+
+    Usage:
+        md = DRTMD(tau_supergrid, psi_dim_names=["T"])   # on the CUDA card
+        md.add_observation([t], None, (freq, z), group_id="g")
+        md.add_observation([t], (times, i_signal, v_signal), (freq, z), group_id="g")
+        md.fit_all(batched=True, dtype=torch.float32)
+        md.resolve_group("g", psi_sort_dims=["T"], coupled=True)
+        md.obs_x, md.obs_special, md.obs_x_resolved, md.obs_special_resolved
+
+    ``device`` is the card unless ``device="cpu"``; the fits run there in
+    ``fit_all``'s ``dtype`` (float64 by default), the (P, q) rebuild in
+    float64, the resolve in ``resolve_group``'s ``dtype``. ``batch_fit_kw``
+    goes to every batched fitter: the constructor knobs (``qp_max_iter``,
+    ``qp_max_iter_warm``, ``pred_stop``, ...) and the fit calls' ``adaptive``
+    (every mode runs the port's live-lane loop). The serial fits
+    (``fit_all(batched=False)``, ``fit_observation``), PFRT, the mesh and the
+    prediction, QC and persistence methods are not ported; each raises
+    ``NotImplementedError`` naming its ROADMAP item, or is absent. So does a
+    ``store_attr_categories`` other than ``["config", "fit_core"]``, which
+    only the serial fit reads (item 5): the batched fits store those two.
+    ``print_diagnostics`` and ``print_progress`` are kept for the JAX
+    class's signature and have no effect (they print from the serial fit);
+    ``nu_basis_type``, ``nu_epsilon`` and ``normalize_dop`` configure the
+    DOP, which raises (item 4), and ``pfrt_factors`` the PFRT (item 9).
+    """
+
+    def __init__(self, tau_supergrid, psi_dim_names=None, store_attr_categories=None,
+                 extend_basis_decades=1, tau_basis_type="gaussian", tau_epsilon=None,
+                 step_model="ideal", chrono_mode="galv", fit_inductance=True, fit_ohmic=True,
+                 fit_capacitance=False, fixed_basis_nu=None, fit_dop=False, normalize_dop=True,
+                 nu_basis_type="gaussian", nu_epsilon=None, chrono_reader=None, eis_reader=None,
+                 fit_kw=None, fit_type="drt", pfrt_factors=None, batch_fit_kw=None,
+                 print_diagnostics=False, print_progress=True, warn=False, device=None):
+        if fit_type not in ("drt", "pfrt"):
+            raise ValueError(f"Invalid fit_type {fit_type}. Options: ['drt', 'pfrt']")
+        if fit_type == "pfrt":
+            raise _unported("fit_type='pfrt': the PFRT sweep", 9)
+        if fixed_basis_nu is not None:
+            raise _unported("fixed_basis_nu: the distribution of phasances", 4)
+        if store_attr_categories not in (None, ["config", "fit_core"]):
+            raise _unported(f"store_attr_categories={store_attr_categories!r}: the serial fit "
+                            f"that reads it", 5)
+        self.device = resolve_device(device)
+        self.drt1d = DRT(tau_supergrid=tau_supergrid, tau_basis_type=tau_basis_type,
+                         extend_basis_decades=extend_basis_decades, step_model=step_model,
+                         chrono_mode=chrono_mode, fit_inductance=fit_inductance,
+                         fit_ohmic=fit_ohmic, fit_capacitance=fit_capacitance, fit_dop=fit_dop,
+                         warn=warn, device=self.device)
+        if tau_epsilon is not None:
+            self.drt1d.tau_epsilon = tau_epsilon
+
+        self.psi_dim_names = psi_dim_names
+        self.store_attr_categories = ["config", "fit_core"]
+        self.tau_supergrid = np.asarray(tau_supergrid)
+        self.tau_basis_type = tau_basis_type
+        self.tau_epsilon = self.drt1d.tau_epsilon
+        self.fit_inductance = fit_inductance
+        self.fit_ohmic = fit_ohmic
+        self.fit_capacitance = fit_capacitance
+        self.fixed_basis_nu = fixed_basis_nu
+        self.nu_basis_type = nu_basis_type
+        self.nu_epsilon = nu_epsilon
+        self.fit_dop = fit_dop
+        self.normalize_dop = normalize_dop
+        self.step_model = step_model
+        self.chrono_mode = chrono_mode
+        self.batch_fit_kw = dict(batch_fit_kw or {})
+        self.chrono_reader = chrono_reader or _no_reader
+        self.eis_reader = eis_reader or _no_reader
+        self.fit_type = fit_type
+        self.pfrt_factors = pfrt_factors
+        fit_kw = dict(fit_kw or {})
+        fit_kw.setdefault("nonneg", True)
+        self.fit_kw = fit_kw
+
+        # Observation store
+        self.obs_psi = None if psi_dim_names is None else np.zeros((0, len(psi_dim_names)))
+        self.obs_data = []
+        self.obs_group_id = []
+        self.obs_data_badness = np.zeros(0)
+        self.obs_ignore_flag = np.zeros(0, dtype=bool)
+
+        # Fit results
+        self.obs_x = np.zeros((0, *self.drt_param_shape()))
+        self.obs_drt_var = np.zeros((0, len(self.tau_supergrid)))
+        self.obs_special = None
+        self.obs_fit_attr = []
+        self.obs_fit_status = np.zeros(0, dtype=bool)
+        self.obs_fit_errors = []
+        self.obs_fit_badness = np.zeros(0)
+        self.obs_tau_indices = []
+        self.obs_llh = np.zeros(0)
+        self.obs_rss = np.zeros(0)
+
+        # Resolved results; resolve_info holds the last resolve's diagnostics
+        self.obs_resolve_status = np.zeros(0, dtype=bool)
+        self.obs_x_resolved = np.zeros((0, len(self.tau_supergrid)))
+        self.obs_special_resolved = None
+        self.obs_x_filt = np.zeros((0, len(self.tau_supergrid)))
+        self.obs_special_filt = None
+        self.resolve_info = None
+
+        self.print_diagnostics = print_diagnostics
+        self.print_progress = print_progress
+        self.warn = warn
+
+    # ------------------------------------------------------------------
+    # The observation store (:141-232)
+    # ------------------------------------------------------------------
+    @property
+    def num_obs(self):
+        return len(self.obs_data)
+
+    def drt_param_shape(self):
+        return (len(self.tau_supergrid),)
+
+    def special_param_shape(self, key):
+        size = self.drt1d.special_qp_params.get(key, {"size": 1}).get("size", 1)
+        return () if size == 1 else (size,)
+
+    def validate_psi(self, psi):
+        if self.psi_dim_names is not None and len(psi) != len(self.psi_dim_names):
+            raise ValueError(f"psi must have {len(self.psi_dim_names)} entries")
+
+    def add_observation(self, psi, chrono_data, eis_data, group_id=None, fit=False):
+        if fit:
+            raise _unported("add_observation(fit=True): the serial fit_observation", 5)
+        psi = np.atleast_1d(psi).flatten()
+        if self.obs_psi is None:
+            self.obs_psi = np.zeros((0, len(psi)))
+        self.validate_psi(psi)
+        n = self.num_obs
+        self.obs_psi = np.insert(self.obs_psi, n, psi, axis=0)
+        self.obs_data.append((chrono_data, eis_data))
+        self.obs_data_badness = np.append(self.obs_data_badness, 0)
+        self.obs_group_id.append(group_id)
+        self.obs_ignore_flag = np.append(self.obs_ignore_flag, False)
+        self.obs_fit_status = np.append(self.obs_fit_status, False)
+        self.obs_fit_errors.append(None)
+        self.obs_fit_badness = np.append(self.obs_fit_badness, 0)
+        self.obs_fit_attr.append(None)
+        self.obs_tau_indices.append(None)
+        zero_row = np.zeros((1, *self.drt_param_shape()))
+        zero_flat = np.zeros((1, len(self.tau_supergrid)))
+        self.obs_x = np.concatenate([self.obs_x, zero_row])
+        self.obs_drt_var = np.concatenate([self.obs_drt_var, zero_flat])
+        self.obs_x_resolved = np.concatenate([self.obs_x_resolved, zero_flat])
+        self.obs_x_filt = np.concatenate([self.obs_x_filt, zero_flat])
+        self.obs_llh = np.append(self.obs_llh, 0)
+        self.obs_rss = np.append(self.obs_rss, 0)
+        self.obs_resolve_status = np.append(self.obs_resolve_status, False)
+        if self.obs_special is not None:
+            for key in self.obs_special:
+                shape = (1, *self.special_param_shape(key))
+                for d in (self.obs_special, self.obs_special_resolved, self.obs_special_filt):
+                    d[key] = np.concatenate([d[key], np.zeros(shape)])
+
+    def add_observations(self, psi_array, chrono_data_list=None, eis_data_list=None,
+                         group_ids=None):
+        n = len(psi_array)
+        chrono_data_list = chrono_data_list or [None] * n
+        eis_data_list = eis_data_list or [None] * n
+        group_ids = group_ids if group_ids is not None else [None] * n
+        for psi, cd, ed, gid in zip(psi_array, chrono_data_list, eis_data_list, group_ids):
+            self.add_observation(psi, cd, ed, group_id=gid)
+
+    def get_obs_data(self, obs_index):
+        chrono_data, eis_data = self.obs_data[obs_index]
+        if isinstance(chrono_data, (str, Path)):
+            chrono_data = self.chrono_reader(chrono_data)
+        elif chrono_data is None:
+            chrono_data = (None, None, None)
+        if isinstance(eis_data, (str, Path)):
+            eis_data = self.eis_reader(eis_data)
+        elif eis_data is None:
+            eis_data = (None, None)
+        return chrono_data, eis_data
+
+    def initialize_obs_special(self):
+        self.obs_special, self.obs_special_resolved, self.obs_special_filt = {}, {}, {}
+        for key in self.drt1d.special_qp_params:
+            shape = (self.num_obs, *self.special_param_shape(key))
+            for d in (self.obs_special, self.obs_special_resolved, self.obs_special_filt):
+                d[key] = np.zeros(shape)
+
+    # ------------------------------------------------------------------
+    # Batched fits (:467-894)
+    # ------------------------------------------------------------------
+    def estimate_obs_drt_var(self, obs_index=None, refresh=False):
+        raise _unported("estimate_obs_drt_var: the fits' distribution covariance", 5)
+
+    def fit_observation(self, obs_index, ignore_errors=False):
+        raise _unported("fit_observation: the serial fit of one observation", 5)
+
+    def fit_observations(self, obs_index, print_interval=None, ignore_errors=False):
+        raise _unported("fit_observations: the serial fits", 5)
+
+    def fit_all(self, refit=False, print_interval=None, ignore_errors=False, batched=False,
+                mesh=None, dtype=None):
+        """Fit every observation not fitted yet (``refit``: every one) as
+        batches, partitioned by data type (``_fit_batched``). ``dtype`` is a
+        torch dtype, float64 by default. ``batched=False``, the reference's
+        serial loop, is not ported."""
+        if not batched:
+            raise _unported("fit_all(batched=False): the serial fit loop", 5)
+        if mesh is not None:
+            raise _unported("mesh: multi-GPU sharding", 10)
+        if refit:
+            fit_index = np.arange(self.num_obs)
+        else:
+            fit_index = np.where(~self.obs_fit_status & ~self.obs_ignore_flag)[0]
+        self._fit_batched(fit_index, dtype=dtype, ignore_errors=ignore_errors)
+
+    def _fit_batched(self, fit_index, dtype=None, ignore_errors=False):
+        """Partition by data type (:484-555): a uniform EIS grid goes to the
+        shared-grid EIS fitter, a uniform hybrid protocol with the default
+        weight factors to the shared-protocol hybrid fitter, everything else
+        (other grids and protocols, chrono-only data) to the ragged fitter."""
+        if len(fit_index) == 0:
+            return
+        fit_index = np.asarray(fit_index)
+        chronos, eiss, types = [], [], []
+        for i in fit_index:
+            chrono_data, eis_data = self.get_obs_data(i)
+            has_c = chrono_data is not None and chrono_data[0] is not None
+            has_e = eis_data is not None and eis_data[0] is not None
+            if not (has_c or has_e):
+                raise ValueError(f"Observation {i} has no data")
+            chronos.append(chrono_data)
+            eiss.append(eis_data)
+            types.append("hybrid" if (has_c and has_e) else ("eis" if has_e else "chrono"))
+        types = np.array(types)
+        wf_default = (self.fit_kw.get("hybrid_weight_factor_method") is None
+                      and self.fit_kw.get("eis_weight_factor") is None
+                      and self.fit_kw.get("chrono_weight_factor") is None
+                      and not self.fit_dop and not self.fit_capacitance)
+        for type_name in ("eis", "hybrid", "chrono"):
+            sel = types == type_name
+            if not sel.any():
+                continue
+            idx = fit_index[sel]
+            sub_c = [c for c, m in zip(chronos, sel) if m]
+            sub_e = [e for e, m in zip(eiss, sel) if m]
+            if type_name == "eis" and self._eis_grid_uniform(sub_e):
+                self._fit_batched_eis_uniform(idx, sub_e, dtype, ignore_errors)
+            elif type_name == "hybrid" and wf_default \
+                    and self._hybrid_protocol_uniform(sub_c, sub_e):
+                self._fit_batched_hybrid_uniform(idx, sub_c, sub_e, dtype, ignore_errors)
+            else:
+                self._fit_batched_ragged(idx, sub_c, sub_e, dtype, ignore_errors)
+
+    def _batched_obs_failure(self, obs_index, reason, ignore_errors):
+        """A non-finite lane: raise, or with ``ignore_errors`` mark the
+        observation ignored (:557)."""
+        err = ValueError(reason)
+        if not ignore_errors:
+            raise err
+        print(f"Error at obs_index {obs_index}; observation ignored.\n{err}")
+        self.obs_fit_status[obs_index] = False
+        self.obs_ignore_flag[obs_index] = True
+        self.obs_fit_errors[obs_index] = err
+
+    @staticmethod
+    def _eis_grid_uniform(eiss):
+        f0 = np.asarray(eiss[0][0])
+        return all(len(np.asarray(e[0])) == len(f0) and np.allclose(e[0], f0) for e in eiss[1:])
+
+    @staticmethod
+    def _hybrid_protocol_uniform(chronos, eiss):
+        if not DRTMD._eis_grid_uniform(eiss):
+            return False
+        t0, i0 = np.asarray(chronos[0][0]), np.asarray(chronos[0][1])
+        return all(len(np.asarray(c[0])) == len(t0) and np.allclose(c[0], t0)
+                   and np.allclose(c[1], i0) for c in chronos[1:])
+
+    def _fit_batched_eis_uniform(self, fit_index, eiss, dtype, ignore_errors):
+        f0 = np.asarray(eiss[0][0])
+        z_batch = np.stack([np.asarray(e[1]) for e in eiss])
+        fitter = self._eis_fitter(f0, dtype=dtype)
+        result = fitter.fit(z_batch, **self._split_batch_kw()[1])
+        self._batch_fitter = fitter
+        self._register_batch_fitter("eis", fitter)
+        rzv_batch, _ = fitter.scale_batch(z_batch)
+        self._store_uniform_result(fit_index, fitter, result, z_batch, rzv_batch, False,
+                                   ignore_errors)
+
+    def _fit_batched_hybrid_uniform(self, fit_index, chronos, eiss, dtype, ignore_errors):
+        f0 = np.asarray(eiss[0][0])
+        z_batch = np.stack([np.asarray(e[1]) for e in eiss])
+        t0, i0 = np.asarray(chronos[0][0]), np.asarray(chronos[0][1])
+        v_batch = np.stack([np.asarray(c[2]) for c in chronos])
+        fitter = self._hybrid_fitter(t0, i0, f0, dtype=dtype)
+        result = fitter.fit(v_batch, z_batch, **self._split_batch_kw()[1])
+        self._batch_fitter = fitter
+        self._register_batch_fitter("hybrid", fitter)
+        rzv_batch, _ = fitter.scale_batch(v_batch, z_batch)
+        self._store_uniform_result(fit_index, fitter, result, z_batch, rzv_batch, True,
+                                   ignore_errors)
+
+    def _register_batch_fitter(self, key, fitter):
+        """One fitter per batched kind, so that each can rebuild its own
+        observations (:615)."""
+        if not hasattr(self, "_batch_fitters"):
+            self._batch_fitters = {}
+        self._batch_fitters[key] = fitter
+
+    # batch_fit_kw keys taken by the fit calls, not the constructors
+    _SCHEDULE_KEYS = ("adaptive", "phase_budgets", "staged_capacities")
+
+    def _split_batch_kw(self):
+        """(constructor kwargs, fit-call kwargs) of batch_fit_kw."""
+        ctor = {k: v for k, v in self.batch_fit_kw.items() if k not in self._SCHEDULE_KEYS}
+        sched = {k: v for k, v in self.batch_fit_kw.items() if k in self._SCHEDULE_KEYS}
+        return ctor, sched
+
+    def _batch_kw_sig(self):
+        """A hashable signature of batch_fit_kw for the fitter cache key, or
+        _UNCACHEABLE when a value is not a primitive or a flat sequence."""
+        def scalar(x):
+            return isinstance(x, (str, int, float, bool, type(None)))
+
+        def prim(v):
+            return all(scalar(x) for x in v) if isinstance(v, (list, tuple)) else scalar(v)
+
+        kw = self.batch_fit_kw
+        if all(prim(v) for v in kw.values()):
+            return tuple(sorted(((k, tuple(v) if isinstance(v, (list, tuple)) else v)
+                                 for k, v in kw.items()), key=lambda kv: kv[0]))
+        return _UNCACHEABLE
+
+    def _struct_sig(self):
+        """The model configuration the fitters are assembled from: part of
+        every cache key, so that changing it between fit_all calls builds
+        new fitters (:651)."""
+        return (np.asarray(self.tau_supergrid, dtype=float).tobytes(), bool(self.fit_ohmic),
+                bool(self.fit_inductance), bool(self.fit_capacitance), bool(self.fit_dop),
+                str(self.step_model), str(self.chrono_mode))
+
+    def _cached_fitter(self, key, factory):
+        """Reuse a fitter across fit_all calls (its protocol caches and
+        uploaded matrices); a key holding _UNCACHEABLE builds a fresh one,
+        never stored (:664)."""
+        if any(k is _UNCACHEABLE for k in key):
+            return factory()
+        cache = getattr(self, "_fitter_cache", None)
+        if cache is None:
+            cache = self._fitter_cache = {}
+        fitter = cache.get(key)
+        if fitter is None:
+            fitter = cache[key] = factory()
+        return fitter
+
+    def _eis_fitter(self, f0, dtype=None):
+        """The shared-grid EIS fitter of this map's configuration (cached)."""
+        f0 = np.asarray(f0)
+        dtype = torch.float64 if dtype is None else dtype
+        ctor_kw, _ = self._split_batch_kw()
+        nonneg = self.fit_kw.get("nonneg", True)
+        return self._cached_fitter(
+            ("eis", f0.tobytes(), str(dtype), bool(nonneg), self._batch_kw_sig(),
+             self._struct_sig()),
+            lambda: BatchedEISFitter(f0, tau_supergrid=self.tau_supergrid,
+                                     fit_ohmic=self.fit_ohmic, fit_inductance=self.fit_inductance,
+                                     fit_capacitance=self.fit_capacitance, fit_dop=self.fit_dop,
+                                     nonneg=nonneg, dtype=dtype, device=self.device, **ctor_kw))
+
+    def _hybrid_fitter(self, t0, i0, f0, dtype=None):
+        """The shared-protocol hybrid fitter of this map's configuration
+        (cached)."""
+        t0, i0, f0 = (np.asarray(a, dtype=float) for a in (t0, i0, f0))
+        dtype = torch.float64 if dtype is None else dtype
+        ctor_kw, _ = self._split_batch_kw()
+        nonneg = self.fit_kw.get("nonneg", True)
+        return self._cached_fitter(
+            ("hybrid", t0.tobytes(), i0.tobytes(), f0.tobytes(), str(dtype), bool(nonneg),
+             self._batch_kw_sig(), self._struct_sig()),
+            lambda: BatchedHybridFitter(t0, i0, f0, tau_supergrid=self.tau_supergrid,
+                                        fit_ohmic=self.fit_ohmic,
+                                        fit_inductance=self.fit_inductance, nonneg=nonneg,
+                                        dtype=dtype, device=self.device, **ctor_kw))
+
+    def _ragged_fitter_kw(self):
+        return dict(fit_ohmic=self.fit_ohmic, fit_inductance=self.fit_inductance,
+                    fit_capacitance=self.fit_capacitance, fit_dop=self.fit_dop,
+                    nonneg=self.fit_kw.get("nonneg", True), device=self.device,
+                    step_model=self.step_model, chrono_mode=self.chrono_mode,
+                    fit_kw={k: v for k, v in self.fit_kw.items() if k != "nonneg"},
+                    **self._split_batch_kw()[0])
+
+    def _fitter_template(self, fitter, is_hybrid):
+        """A DRT holding the configuration of a shared-grid fitter's problem,
+        where the JAX package reads its fitters' template fit."""
+        drt = DRT(tau_supergrid=self.tau_supergrid, fit_ohmic=self.fit_ohmic,
+                  fit_inductance=self.fit_inductance, step_model=self.step_model,
+                  chrono_mode=self.chrono_mode, warn=False, device=self.device)
+        drt.basis_tau = np.asarray(fitter.basis_tau)
+        drt.tau_epsilon = fitter.tau_epsilon
+        drt.special_qp_params = dict(fitter.special_qp_params)
+        drt.inductance_scale = fitter.inductance_scale
+        drt.f_fit = fitter.frequencies
+        drt.fit_type = "qphb_hybrid" if is_hybrid else "qphb_eis"
+        if is_hybrid:
+            drt.t_fit = fitter.times
+            drt.step_times, drt.step_sizes = fitter.step_times, fitter.step_sizes
+            drt.input_signal_scale = fitter.input_signal_scale
+            drt.v_baseline_scale = fitter.v_baseline_scale
+            drt.v_baseline_deg, drt.v_baseline_sqrt = 0, False
+        return drt
+
+    def _store_uniform_result(self, fit_index, fitter, result, z_batch, rzv_batch, is_hybrid,
+                              ignore_errors=False):
+        """Store a shared-grid fit (:735-802): coefficients on the fitter's
+        window of the supergrid, the per-observation state the (P, q)
+        rebuild needs, and the weighted scaled-space rss and llh, a hybrid
+        fit's model with its final vz-offset column."""
+        left = pp.nearest_index(self.tau_supergrid, fitter.basis_tau[0])
+        right = pp.nearest_index(self.tau_supergrid, fitter.basis_tau[-1]) + 1
+        self.drt1d.set_attributes(self._fitter_template(fitter, is_hybrid).get_attributes(
+            ["config", "fit_core"]))
+        if self.obs_special is None:
+            self.initialize_obs_special()
+        for bi, i in enumerate(fit_index):
+            if not (np.all(np.isfinite(result.x[bi])) and np.isfinite(result.r_inf[bi])):
+                self._batched_obs_failure(i, "Batched fit produced non-finite coefficients",
+                                          ignore_errors)
+                continue
+            self.obs_x[i, left:right] = result.x[bi]
+            self.obs_tau_indices[i] = (left, right)
+            if "R_inf" in self.obs_special:
+                self.obs_special["R_inf"][i] = result.r_inf[bi]
+            if "inductance" in self.obs_special:
+                self.obs_special["inductance"][i] = result.inductance[bi]
+            self.obs_fit_attr[i] = {
+                "batched": True, "x_raw": result.x_raw[bi], "scale": result.scale[bi],
+                "weights": result.weights[bi], "rho": result.rho[bi],
+                "s_vectors": result.s_vectors[bi], "z": z_batch[bi],
+                "rzv": np.asarray(rzv_batch[bi]), "fitter_key": "hybrid" if is_hybrid else "eis",
+                "converged": bool(result.converged[bi]), "n_iter": int(result.n_iter[bi]),
+            }
+            self.obs_fit_status[i] = True
+
+        # The model in the fit's dtype, as the JAX package takes it
+        np_ = lambda a: a.detach().cpu().numpy()
+        x_raw = np.asarray(result.x_raw)
+        y_hat = x_raw @ np_(fitter.rzm).T
+        if is_hybrid and fitter.vz_offset:
+            y_sep = x_raw @ np_(fitter.hybrid["rzm_vz"]).T
+            y_sep[:, fitter.num_chrono:] *= -1.0
+            y_hat = y_hat + x_raw[:, [fitter.vz_index]] * y_sep \
+                * np_(fitter.hybrid["vz_strength"])[None, :]
+        rzv = np.asarray(rzv_batch)
+        weights = np.asarray(result.weights)
+        rss = np.sum((weights * (y_hat - rzv)) ** 2, axis=1)
+        alpha_n = 2.0 - 1 + rzv.shape[1] / 2
+        llh = (-alpha_n * np.log(1.0 + 0.5 * rss) + gammaln(alpha_n) - gammaln(2.0)
+               + np.sum(np.log(np.maximum(weights, 1e-300)), axis=1))
+        ok = self.obs_fit_status[fit_index]
+        self.obs_rss[fit_index[ok]] = rss[ok]
+        self.obs_llh[fit_index[ok]] = llh[ok]
+
+    def _fit_batched_ragged(self, fit_index, chronos, eiss, dtype, ignore_errors):
+        """Observations on grids and protocols of their own, padded and
+        masked into one batch (:804-894)."""
+        fit_kw = {k: v for k, v in self.fit_kw.items() if k != "nonneg"}
+        fitter = self._cached_fitter(
+            ("ragged", None if dtype is None else str(dtype),
+             bool(self.fit_kw.get("nonneg", True)), self._batch_kw_sig(), self._struct_sig(),
+             tuple(sorted(fit_kw.items(), key=lambda kv: kv[0]))
+             if all(isinstance(v, (str, int, float, bool, type(None))) for v in fit_kw.values())
+             else _UNCACHEABLE),
+            lambda: BatchedRaggedFitter(self.tau_supergrid,
+                                        dtype=torch.float64 if dtype is None else dtype,
+                                        **self._ragged_fitter_kw()))
+        result = fitter.fit(list(zip(chronos, eiss)), **self._split_batch_kw()[1])
+        self._ragged_fitter = fitter
+        if self.obs_special is None:
+            self.drt1d.special_qp_params = fitter.special_qp_params
+            self.initialize_obs_special()
+
+        # Scaled-space weighted rss and llh over each observation's own rows
+        ns = fitter.cfg.num_special
+        row_mask = fitter.full("row_mask")
+        wr = result.weights * (fitter.final_predictions(result) - fitter._last_batch["rzv"]) \
+            * row_mask
+        rss = np.sum(wr ** 2, axis=1)
+        alpha_n = 2.0 - 1 + row_mask.sum(axis=1) / 2
+        llh = (-alpha_n * np.log(1.0 + 0.5 * rss) + gammaln(alpha_n) - gammaln(2.0)
+               + np.sum(row_mask * np.log(np.maximum(result.weights, 1e-300)), axis=1))
+
+        for bi, i in enumerate(fit_index):
+            li, ri = result.tau_indices[bi]
+            w_i = ri - li
+            if not (np.all(np.isfinite(result.x[bi][:w_i])) and np.isfinite(result.r_inf[bi])):
+                self._batched_obs_failure(
+                    i, "Batched ragged fit produced non-finite coefficients", ignore_errors)
+                continue
+            self.obs_x[i, li:ri] = result.x[bi][:w_i]
+            self.obs_tau_indices[i] = (li, ri)
+            if "R_inf" in self.obs_special:
+                self.obs_special["R_inf"][i] = result.r_inf[bi]
+            if "inductance" in self.obs_special:
+                self.obs_special["inductance"][i] = result.inductance[bi]
+            n_i = int(result.num_rows[bi])
+            self.obs_fit_attr[i] = {
+                "batched": True, "ragged": True, "x_raw": result.x_raw[bi][:ns + w_i],
+                "scale": result.scale[bi], "weights": result.weights[bi][:n_i],
+                "rho": result.rho[bi], "s_vectors": result.s_vectors[bi][:, :ns + w_i],
+                "chrono_data": chronos[bi], "eis_data": eiss[bi],
+                "converged": bool(result.converged[bi]), "n_iter": int(result.n_iter[bi]),
+            }
+            self.obs_rss[i] = rss[bi]
+            self.obs_llh[i] = llh[bi]
+            self.obs_fit_status[i] = True
+
+    # ------------------------------------------------------------------
+    # The (P, q) rebuild and the fits as DRTs (:933-1133, :1220-1354)
+    # ------------------------------------------------------------------
+    def get_fit(self, obs_index):
+        """A DRT holding one observation's fit, its (P, q) in
+        ``fit_parameters["p_matrix"]`` / ``["q_vector"]``."""
+        return self.get_fits_batched([obs_index])[obs_index]
+
+    def _resolve_batch_fitter(self, obs_index, attr):
+        """The shared-grid fitter of a uniform-batched observation: the
+        registered one if it was built on this observation's grids, else one
+        built from them in float64 (:946)."""
+        fitter = getattr(self, "_batch_fitters", {}).get(attr.get("fitter_key")) \
+            or getattr(self, "_batch_fitter", None)
+        if fitter is not None and not self._fitter_matches_obs(fitter, obs_index, attr):
+            fitter = None
+        if fitter is None:
+            chrono_data, eis_data = self.get_obs_data(obs_index)
+            if attr.get("fitter_key") == "hybrid":
+                fitter = self._hybrid_fitter(chrono_data[0], chrono_data[1], eis_data[0],
+                                             dtype=torch.float64)
+            else:
+                fitter = self._eis_fitter(eis_data[0], dtype=torch.float64)
+        return fitter
+
+    def _uniform_group_key(self, obs_index):
+        """The rebuild group of a fitted uniform-batched observation (its
+        fitter kind and measurement grids), or None (:975)."""
+        if not self.obs_fit_status[obs_index]:
+            return None
+        attr = self.obs_fit_attr[obs_index]
+        if not (isinstance(attr, dict) and attr.get("batched")) or attr.get("ragged") \
+                or attr.get("pfrt"):
+            return None
+        return attr.get("fitter_key"), self._obs_grid_sig(obs_index)
+
+    def _obs_grid_sig(self, obs_index):
+        chrono_data, eis_data = self.get_obs_data(obs_index)
+        parts = []
+        if chrono_data is not None and chrono_data[0] is not None:
+            parts.append(np.asarray(chrono_data[0], dtype=float).tobytes())
+            parts.append(np.asarray(chrono_data[1], dtype=float).tobytes())
+        if eis_data is not None and eis_data[0] is not None:
+            parts.append(np.asarray(eis_data[0], dtype=float).tobytes())
+        return tuple(parts)
+
+    def _fitter_matches_obs(self, fitter, obs_index, attr):
+        """Whether a registered shared-grid fitter was built on this
+        observation's grids (:1004)."""
+        is_hybrid = attr.get("fitter_key") == "hybrid"
+        if isinstance(fitter, BatchedHybridFitter) != is_hybrid:
+            return False
+        chrono_data, eis_data = self.get_obs_data(obs_index)
+        if eis_data is None or eis_data[0] is None:
+            return False
+        freq = np.asarray(eis_data[0], dtype=float)
+        if len(freq) != len(fitter.frequencies) or not np.allclose(freq, fitter.frequencies):
+            return False
+        if is_hybrid:
+            times, i_sig = (np.asarray(a, dtype=float) for a in chrono_data[:2])
+            return (len(times) == len(fitter.times) and np.allclose(times, fitter.times)
+                    and np.allclose(i_sig, fitter.i_signal))
+        return True
+
+    @staticmethod
+    def _uniform_attr_rzv(attr):
+        if attr.get("rzv") is not None:
+            return np.asarray(attr["rzv"])
+        return np.concatenate([attr["z"].real, attr["z"].imag]) / attr["scale"]
+
+    def _uniform_pq(self, fitter, attrs):
+        """(P (B, N, N), q (B, N)) of uniform-batched observations of one
+        fitter, rebuilt in one ``posterior_pq`` in float64 on the fitter's
+        device (:1036); tensors there."""
+        state = SimpleNamespace(**{k: np.stack([np.asarray(a[k], dtype=float) for a in attrs])
+                                   for k in ("x_raw", "rho", "s_vectors", "weights")})
+        rzv = np.stack([self._uniform_attr_rzv(a) for a in attrs])
+        return fitter.posterior_pq(rzv, state)
+
+    def _get_ragged_fitter(self):
+        """The ragged fitter whose protocol cache re-prepares stored ragged
+        observations: the one of this map's last ragged fit, or a float64 one (:1220)."""
+        fitter = getattr(self, "_ragged_fitter", None)
+        if fitter is None:
+            fitter = self._ragged_fitter = BatchedRaggedFitter(self.tau_supergrid,
+                                                               **self._ragged_fitter_kw())
+        return fitter
+
+    def _ragged_pq_batched(self, attrs):
+        """(systems, [P_i], [q_i]) of ragged-batched observations, one
+        ``calculate_pq`` per protocol in float64 on the fitter's device, P
+        and q copied to the host once per protocol
+        (``BatchedRaggedFitter.posterior``, :1238)."""
+        return self._get_ragged_fitter().posterior(
+            [(a["chrono_data"], a["eis_data"]) for a in attrs],
+            *([a[k] for a in attrs] for k in ("x_raw", "rho", "s_vectors", "weights")))
+
+    def _rebuild(self, obs_index):
+        """{i: (P_i, q_i, source)} for fitted batched observations (the JAX
+        package's ``_rebuild_batched_fit`` and ``_rebuild_ragged_fit``, and
+        the grouping of its ``get_fits_batched``): P and q host float64,
+        rebuilt on the device one batch per fitter or protocol group and
+        copied to the host once per group; ``source`` is
+        ("uniform", fitter, attr) or ("ragged", system, attr). An unfitted
+        or failed observation raises ValueError, a serial fit
+        NotImplementedError (item 5)."""
+        groups, ragged, out = {}, [], {}
+        for i in np.atleast_1d(obs_index):
+            i = int(i)
+            if not self.obs_fit_status[i]:
+                raise ValueError(f"Observation {i} has not been fitted")
+            attr = self.obs_fit_attr[i]
+            if not (isinstance(attr, dict) and attr.get("batched")):
+                raise _unported("rebuilding a serial fit", 5)
+            if attr.get("pfrt"):
+                raise _unported("rebuilding a PFRT fit", 9)
+            key = self._uniform_group_key(i)
+            if key is None:
+                ragged.append(i)
+            else:
+                groups.setdefault(key, []).append(i)
+        for idx in groups.values():
+            attrs = [self.obs_fit_attr[i] for i in idx]
+            fitter = self._resolve_batch_fitter(idx[0], attrs[0])
+            p, q = (t.cpu().numpy() for t in self._uniform_pq(fitter, attrs))
+            for bi, i in enumerate(idx):
+                out[i] = (p[bi], q[bi], ("uniform", fitter, attrs[bi]))
+        if ragged:
+            attrs = [self.obs_fit_attr[i] for i in ragged]
+            systems, p_host, q_host = self._ragged_pq_batched(attrs)
+            for k, i in enumerate(ragged):
+                out[i] = (p_host[k], q_host[k], ("ragged", systems[k], attrs[k]))
+        return out
+
+    def _fit_scales(self, obs_index, source):
+        """(special_qp_params, {response_signal_scale, scaled_response_offset,
+        v_baseline_scale}, inductance_scale) of one stored fit."""
+        kind, src, attr = source
+        if kind == "ragged":
+            return (src["special_qp_params"],
+                    {k: src[k] for k in ("response_signal_scale", "v_baseline_scale")}
+                    | {"scaled_response_offset": src["scaled_response_offset"] or 0.0},
+                    src["inductance_scale"])
+        scales = {}
+        if isinstance(src, BatchedHybridFitter):
+            chrono_data, _ = self.get_obs_data(obs_index)
+            scale = np.atleast_1d(float(attr["scale"]))
+            scales = {"response_signal_scale": float(src.input_signal_scale * scale[0]),
+                      "scaled_response_offset":
+                          float(src.response_offsets(np.asarray(chrono_data[2])[None], scale)[0]),
+                      "v_baseline_scale": src.v_baseline_scale}
+        return src.special_qp_params, scales, src.inductance_scale
+
+    def _make_drt(self, obs_index, p, q, source):
+        """A DRT carrying one observation's fit and (P, q): the JAX package's
+        ``_make_uniform_drt`` (:1070) and ``_make_ragged_drt`` (:1327)."""
+        kind, src, attr = source
+        special, scales, inductance_scale = self._fit_scales(obs_index, source)
+        if kind == "uniform":
+            drt = self._fitter_template(src, isinstance(src, BatchedHybridFitter))
+        else:
+            drt = DRT(tau_supergrid=self.tau_supergrid, fit_ohmic=self.fit_ohmic,
+                      fit_inductance=self.fit_inductance, step_model=self.step_model,
+                      chrono_mode=self.chrono_mode, warn=False, device=self.device)
+            drt.basis_tau = src["basis_tau"]
+            drt.tau_epsilon = self.tau_epsilon
+            drt.special_qp_params = special
+            drt.inductance_scale = inductance_scale
+            drt.input_signal_scale = src["input_signal_scale"]
+        drt.coefficient_scale = attr["scale"]
+        drt.impedance_scale = attr["scale"]
+        drt.response_signal_scale = scales.get("response_signal_scale")
+        drt.scaled_response_offset = scales.get("scaled_response_offset", 0.0)
+        drt.v_baseline_scale = scales.get("v_baseline_scale")
+        drt.fit_parameters = drt.extract_qphb_parameters(np.asarray(attr["x_raw"]))
+        drt.fit_parameters["vz_offset_eps"] = self.fit_kw.get("vz_offset_eps", 1)
+        drt.fit_parameters["p_matrix"] = np.asarray(p)
+        drt.fit_parameters["q_vector"] = np.asarray(q)
+        return drt
+
+    def get_fits_batched(self, obs_index):
+        """{i: DRT} for many observations, every (P, q) rebuilt on the device
+        in one batch per fitter or protocol group (:1097)."""
+        return {i: self._make_drt(i, p, q, src) for i, (p, q, src) in
+                self._rebuild(obs_index).items()}
+
+    # ------------------------------------------------------------------
+    # The group resolve (:1359-1585)
+    # ------------------------------------------------------------------
+    def get_group_index(self, group_id):
+        return np.where(np.array([g == group_id for g in self.obs_group_id]))[0]
+
+    def unique_group_ids(self):
+        seen = []
+        for g in self.obs_group_id:
+            if g not in seen:
+                seen.append(g)
+        return seen
+
+    def fitted_obs_index(self):
+        return np.where(self.obs_fit_status & ~self.obs_ignore_flag)[0]
+
+    def _sorted_group(self, group_id, psi_sort_dims=None, psi_distance_dims=None):
+        """The group's fitted, not ignored observations, sorted by psi."""
+        obs_index = self.get_group_index(group_id)
+        obs_index = obs_index[self.obs_fit_status[obs_index] & ~self.obs_ignore_flag[obs_index]]
+        dims = psi_sort_dims or psi_distance_dims
+        if dims is not None:
+            sort_vals = [self.obs_psi[obs_index, self.psi_dim_names.index(d)] for d in dims][::-1]
+            obs_index = obs_index[np.lexsort(sort_vals)]
+        return obs_index
+
+    def _block_inputs(self, obs_index):
+        """The rebuilt (P, q) of ``obs_index`` and the stored fit values
+        ``prepare_group_blocks`` takes, per observation, in order."""
+        rebuilt = self._rebuild(obs_index)
+        cols = {k: [] for k in ("p", "q", "scale", "r_inf", "tau", "special", "params", "scales",
+                                "inductance")}
+        for i in obs_index:
+            p, q, source = rebuilt[int(i)]
+            special, scales, ind = self._fit_scales(int(i), source)
+            attr = source[2]
+            scale = float(attr["scale"])
+            params = data_offset_parameters(np.asarray(attr["x_raw"], dtype=float), special,
+                                            scales.get("v_baseline_scale"),
+                                            scales.get("scaled_response_offset"),
+                                            scales.get("response_signal_scale")) if scales else {}
+            for k, v in (("p", p), ("q", q), ("scale", scale), ("tau", self.obs_tau_indices[i]),
+                         ("r_inf", self.obs_special["R_inf"][i] / scale
+                          if "R_inf" in self.obs_special else 0.0),
+                         ("special", special), ("params", params), ("scales", scales),
+                         ("inductance", ind)):
+                cols[k].append(v)
+        return cols
+
+    def _blocks(self, cols, sel, **kw):
+        """prepare_group_blocks of the observations ``sel`` of ``cols``."""
+        pick = lambda k: [cols[k][j] for j in sel]
+        return resolve_mod.prepare_group_blocks(
+            pick("p"), pick("q"), pick("scale"), pick("r_inf"), pick("tau"), pick("special"),
+            self.fit_kw.get("nonneg", True), fit_parameters=pick("params"),
+            scales=pick("scales"), **kw)
+
+    def resolve_group(self, group_id, batch_size=7, overlap=2, psi_sort_dims=None,
+                      psi_distance_dims=None, truncate=False, sigma=1, lambda_psi=1,
+                      tau_filter_sigma=0, special_filter_sigma=0, batched=False, mesh=None,
+                      coupled=False, dtype=None):
+        """Joint re-optimization of a group (:1408-1585): its observations
+        sorted by psi, their (P, q) rebuilt on the device
+        (``get_fits_batched``'s rebuild), the hybrid fits' v_baseline and
+        vz_offset marginalized, every block resized to the union of the tau
+        windows (the intersection with ``truncate``).
+
+        ``coupled=True`` solves the whole group as one box QP
+        (``resolve.solve_coupled_group``) and warns when its KKT residual is
+        above the JAX package's tolerance; ``batched=True`` solves every
+        overlapping window of ``batch_size`` in one ``solve_resolve_batch``
+        and averages them with the reference's margin weights. The
+        reference's default, neither (one dense solve per window), is not
+        ported. ``dtype`` is the solve's (float64 by default), on this map's
+        device. ``resolve_info`` holds the solver's counts and the walls of
+        the rebuild (``rebuild_s``), the host assembly (``assembly_s``) and
+        the solve (``solve_s``)."""
+        if mesh is not None:
+            raise _unported("mesh: multi-GPU sharding", 10)
+        if not (batched or coupled):
+            raise _unported(
+                "resolve_group(batched=False, coupled=False): the dense per-window solve, the "
+                "reference's default (Queue 3 item 8); pass batched=True or coupled=True", "8(b)")
+        obs_index = self._sorted_group(group_id, psi_sort_dims, psi_distance_dims)
+        self.obs_x_resolved[obs_index] = 0
+        num_obs = len(obs_index)
+        if num_obs == 0:
+            return
+        if num_obs == 1:
+            self.obs_x_resolved[obs_index] = self.obs_x[obs_index]
+            for k, v in (self.obs_special or {}).items():
+                self.obs_special_resolved[k][obs_index] = v[obs_index]
+            self.obs_resolve_status[obs_index] = True
+            return
+        block_kw = dict(truncate=truncate, sigma=sigma, lambda_psi=lambda_psi,
+                        tau_filter_sigma=tau_filter_sigma,
+                        special_filter_sigma=special_filter_sigma)
+        t0 = time.time()
+        cols = self._block_inputs(obs_index)
+        times = {"rebuild_s": time.time() - t0}
+        coef_scale = np.asarray(cols["scale"])
+        ind_scale = np.asarray(cols["inductance"], dtype=float)
+
+        if coupled:
+            t0 = time.time()
+            p_stack, q_stack, lb, my, cmat, (special_dict, mti, _, _) = \
+                self._blocks(cols, range(num_obs), **block_kw)
+            times["assembly_s"] = time.time() - t0
+            t0 = time.time()
+            x, n_iter, kkt, counts = resolve_mod.solve_coupled_group(
+                p_stack, q_stack, lb, my, cmat, dtype=dtype, device=self.device, return_info=True)
+            times["solve_s"] = time.time() - t0
+            kkt_tol = (1e-3 if dtype == torch.float32 else 1e-6) \
+                * max(1.0, float(np.abs(q_stack).max()))
+            self.resolve_info = {"coupled": True, "n_iter": n_iter, "kkt_residual": kkt,
+                                 "kkt_tol": kkt_tol, **counts, **times}
+            if not np.isfinite(kkt) or kkt > kkt_tol:
+                warnings.warn(
+                    f"Coupled group resolve did not fully converge (KKT residual {kkt:.3g} > "
+                    f"{kkt_tol:.3g} after {n_iter} IP iterations); the stored resolved "
+                    f"distributions may be inaccurate. Consider dtype=float64 or the windowed "
+                    f"resolve (coupled=False).")
+            x_drt, x_sp = resolve_mod.unpack_resolved_x(x, coef_scale, special_dict, ind_scale)
+            self.obs_x_resolved[obs_index[:, None], np.arange(mti[0], mti[1])[None, :]] = x_drt
+            for key, val in x_sp.items():
+                if key not in self.obs_special_resolved:
+                    self.obs_special_resolved[key] = np.zeros(
+                        (self.num_obs, *self.special_param_shape(key)))
+                self.obs_special_resolved[key][obs_index] = val
+            self.obs_resolve_status[obs_index] = True
+            return
+
+        # Windowed: every window's block QP assembled on the host and all of
+        # them solved in one matrix-free computation over a window axis
+        windows = resolve_windows(num_obs, batch_size, overlap)
+        batch_size = windows[0][1] - windows[0][0]
+        t0 = time.time()
+        systems, metas = [], []
+        for start, end in windows:
+            p_stack, q_stack, lb, my, cmat, meta = self._blocks(cols, range(start, end),
+                                                                **block_kw)
+            systems.append((p_stack, q_stack, lb, my, cmat))
+            metas.append(meta)
+        times["assembly_s"] = time.time() - t0
+        t0 = time.time()
+        xs, info = resolve_mod.solve_resolve_batch(systems, dtype=dtype, device=self.device,
+                                                   return_info=True)
+        times["solve_s"] = time.time() - t0
+        self.resolve_info = {"coupled": False, "windows": len(windows), **info, **times}
+
+        n_win = len(windows)
+        x_batch = np.zeros((n_win, num_obs, self.obs_x_resolved.shape[1]))
+        x_special = {k: np.zeros((n_win, num_obs, *self.special_param_shape(k)))
+                     for k in (self.obs_special_resolved or {})}
+        margins = np.full((n_win, num_obs), -1.0)
+        for w, (x_win, (special_dict, mti, _, _)) in enumerate(zip(xs, metas)):
+            start, end = windows[w]
+            bidx = obs_index[start:end]
+            x_drt, x_sp = resolve_mod.unpack_resolved_x(
+                np.asarray(x_win), coef_scale[start:end], special_dict, ind_scale[start:end])
+            # columns outside this window's tau span keep what an earlier
+            # window wrote there, as in the reference
+            self.obs_x_resolved[bidx[:, None], np.arange(mti[0], mti[1])[None, :]] = x_drt
+            for key, val in x_sp.items():
+                if key not in self.obs_special_resolved:
+                    self.obs_special_resolved[key] = np.zeros(
+                        (self.num_obs, *self.special_param_shape(key)))
+                    x_special[key] = np.zeros((n_win, num_obs, *self.special_param_shape(key)))
+                self.obs_special_resolved[key][bidx] = val
+            x_batch[w, start:end] = self.obs_x_resolved[bidx]
+            for key in x_special:
+                x_special[key][w, start:end] = self.obs_special_resolved[key][bidx]
+            margins[w, start:end] = np.minimum(np.arange(batch_size),
+                                               np.arange(batch_size)[::-1])
+
+        if overlap > 0:
+            weights = margins + 0.1
+            weights[weights < 0] = 0
+            x_w = np.moveaxis(np.tile(weights, (x_batch.shape[-1], 1, 1)), 0, -1)
+            self.obs_x_resolved[obs_index] = np.average(x_batch, axis=0, weights=x_w)
+            for key, val in x_special.items():
+                w_k = np.moveaxis(np.tile(weights, (val.shape[-1], 1, 1)), 0, -1) \
+                    if val.ndim > 2 else weights
+                self.obs_special_resolved[key][obs_index] = np.average(val, axis=0, weights=w_k)
+        self.obs_resolve_status[obs_index] = True
+
+    def group_objective(self, group_id, psi_sort_dims=None, **block_kw):
+        """The coupled group objective 1/2 x.Hx + q.x (host float64, solver
+        units) of a group at its stored resolved solution
+        (``obs_x_resolved``, ``obs_special_resolved``) on the group's union
+        window, EIS and hybrid fits alike: the coupled resolve minimizes it,
+        so it is no higher there than at the windowed resolve. ``block_kw``
+        are the resolve's block settings (``sigma``, ``lambda_psi``, ...)."""
+        obs_index = self._sorted_group(group_id, psi_sort_dims)
+        cols = self._block_inputs(obs_index)
+        p, q, _, my, cmat, (special_dict, mti, _, _) = self._blocks(
+            cols, range(len(obs_index)), **block_kw)
+        scale = np.asarray(cols["scale"])
+        x = np.zeros(q.shape)
+        x[:, len(special_dict):] = self.obs_x_resolved[obs_index, mti[0]:mti[1]] \
+            / scale[:, None]
+        for key, info in special_dict.items():
+            unit = np.asarray(cols["inductance"], dtype=float) if key == "inductance" else 1.0
+            x[:, info["index"]] = self.obs_special_resolved[key][obs_index] / (scale * unit)
+        return block_objective(p, q, my, cmat, x)
+
+
+# The fit state a map carries between packages: DRTMD attributes
+STATE_KEYS = ("obs_psi", "obs_group_id", "obs_x", "obs_special", "obs_tau_indices",
+              "obs_fit_attr", "obs_fit_status", "obs_rss", "obs_llh")
+
+
+def load_fit_state(md, state):
+    """Put a fitted map's state into ``md``, a DRTMD that holds the same
+    observations in the same order: ``state`` is a dict of numpy arrays and
+    plain Python values under ``STATE_KEYS`` (each observation's psi, group
+    id, coefficients on the supergrid, special parameters by name, tau
+    window, stored fit attributes, fit status, rss and llh), such as the JAX
+    package's DRTMD holds after ``fit_all(batched=True)``. ``md`` can then
+    rebuild and resolve those fits (``get_fits_batched``,
+    ``resolve_group``) without fitting them."""
+    n = len(state["obs_fit_status"])
+    if n != md.num_obs:
+        raise ValueError(f"the state has {n} observations; the map holds {md.num_obs}")
+    md.obs_psi = np.array(state["obs_psi"], dtype=float)
+    md.obs_group_id = list(state["obs_group_id"])
+    md.obs_x = np.array(state["obs_x"], dtype=float)
+    md.obs_special = {k: np.array(v, dtype=float) for k, v in state["obs_special"].items()}
+    md.obs_tau_indices = [None if t is None else (int(t[0]), int(t[1]))
+                          for t in state["obs_tau_indices"]]
+    md.obs_fit_attr = deepcopy(list(state["obs_fit_attr"]))
+    md.obs_fit_status = np.array(state["obs_fit_status"], dtype=bool)
+    md.obs_rss = np.array(state["obs_rss"], dtype=float)
+    md.obs_llh = np.array(state["obs_llh"], dtype=float)
+    # the special parameters' names and sizes, which special_param_shape reads
+    md.drt1d.special_qp_params = {k: {"size": 1 if v.ndim == 1 else v.shape[1]}
+                                  for k, v in md.obs_special.items()}
+    md.obs_special_resolved = {k: np.zeros_like(v) for k, v in md.obs_special.items()}
+    md.obs_special_filt = {k: np.zeros_like(v) for k, v in md.obs_special.items()}
+    return md

@@ -128,7 +128,8 @@ def get_tau_indices(obs_tau_indices, truncate=False):
 
 def prepare_group_blocks(p_list, q_list, coefficient_scale, r_inf_scaled, obs_tau_indices,
                          special_qp_params, nonneg, truncate=False, sigma=1, lambda_psi=1,
-                         tau_filter_sigma=0):
+                         tau_filter_sigma=0, special_filter_sigma=0, fit_parameters=None,
+                         scales=None):
     """Per-observation blocks and psi-coupling factors of the joint resolve
     QP (resolve.py:118), without the (nr*nc)^2 block matrix.
 
@@ -136,26 +137,37 @@ def prepare_group_blocks(p_list, q_list, coefficient_scale, r_inf_scaled, obs_ta
     observation's P and q (``p_list``, ``q_list``), its ``coefficient_scale``,
     its R_inf in scaled units (``r_inf_scaled``, R_inf / coefficient_scale;
     unused without an R_inf column), its (left, right) tau indices on the
-    supergrid, the fit's ``special_qp_params`` and ``nonneg``.
+    supergrid, the fit's ``special_qp_params`` (one dict for the group, or
+    one per observation, as a group of EIS and hybrid fits has; the first
+    observation's names the columns) and ``nonneg``. A hybrid observation's
+    fitted ``v_baseline`` and ``vz_offset`` are marginalized into its q
+    (``get_offset_pq``) from its entry of ``fit_parameters`` and ``scales``
+    (lists aligned with ``p_list``). ``truncate`` takes the intersection of
+    the observations' tau windows instead of their union.
+    ``special_filter_sigma`` smooths the DOP block only (resolve.py:180-186),
+    which no ported fit has, so it changes nothing here.
 
     Returns (p_stack (nr,nc,nc), q_stack (nr,nc), lb (nc,), my (nr,nr),
     cmat (nc,nc), meta) with meta = (special_dict, match_tau_indices, nr, nc).
     """
-    removed = [k for k in ("v_baseline", "vz_offset") if k in special_qp_params]
-    if removed:
-        raise NotImplementedError(
-            f"{', '.join(removed)}: hybrid groups are not ported yet (ROADMAP Queue 1 items "
-            f"6-7); the blocks take no fitted values to marginalize them")
+    nr = len(p_list)
+    sp_list = [special_qp_params] * nr if isinstance(special_qp_params, dict) \
+        else list(special_qp_params)
     match_tau_indices = get_tau_indices(obs_tau_indices, truncate=truncate)
-    special_dict = offset_special_dict(special_qp_params)
+    if fit_parameters is None and any(k in sp for sp in sp_list
+                                      for k in ("v_baseline", "vz_offset")):
+        raise ValueError("v_baseline / vz_offset columns are marginalized at their fitted "
+                         "values: give each observation's fit_parameters and scales")
+    special_dict = offset_special_dict(sp_list[0])
     if "x_dop" in special_dict:
         raise NotImplementedError("x_dop: DOP is not ported yet (ROADMAP Queue 1 item 4)")
     special_offset = int(np.sum([v.get("size", 1) for v in special_dict.values()]))
 
-    nr = len(p_list)
     p_out, q_out = [], []
     for i in range(nr):
-        p, q = get_offset_pq(np.asarray(p_list[i]), np.asarray(q_list[i]), special_qp_params)
+        p, q = get_offset_pq(np.asarray(p_list[i]), np.asarray(q_list[i]), sp_list[i],
+                             None if fit_parameters is None else fit_parameters[i],
+                             None if scales is None else scales[i])
         p, q = resize_pq(p, q, special_offset, obs_tau_indices[i], match_tau_indices)
         p_out.append(p)
         q_out.append(q)
@@ -485,7 +497,8 @@ def _coupled_body(p, q, lb, my, cmat, tol_gap, tol_feas, max_iter, cg_iters):
 
 
 def unpack_resolved_x(x, coefficient_scale, special_dict, inductance_scale=1.0):
-    """Rescale resolved coefficients to physical units (resolve.py:563).
+    """Rescale resolved coefficients to physical units (resolve.py:563);
+    ``inductance_scale`` is one for the group or one per observation.
     Returns (x_drt (nr, n_tau), {name: (nr,) or (nr, size)})."""
     special_offset = int(np.sum([v.get("size", 1) for v in special_dict.values()]))
     coef_scale = np.asarray(coefficient_scale, dtype=float)
@@ -499,7 +512,7 @@ def unpack_resolved_x(x, coefficient_scale, special_dict, inductance_scale=1.0):
         start, size = info["index"], info.get("size", 1)
         x_k = x[:, start:start + size] * coef_scale[:, None]
         if key == "inductance":
-            x_k = x_k * inductance_scale
+            x_k = x_k * np.reshape(np.asarray(inductance_scale, dtype=float), (-1, 1))
         if size == 1:
             x_k = x_k.flatten()
         x_special[key] = x_k

@@ -17,6 +17,7 @@ Options whose code lies in an unported layer raise ``NotImplementedError``
 naming their ROADMAP Queue 1 item.
 """
 import warnings
+from copy import deepcopy
 
 import numpy as np
 import torch
@@ -84,6 +85,21 @@ def special_qp_params(fit_ohmic=True, fit_inductance=True, v_baseline_size=0, vz
         if size:
             special[name] = {"index": num_special(special), "nonneg": nonneg, "size": size}
     return special
+
+
+def data_offset_parameters(x, special, v_baseline_scale, scaled_response_offset,
+                           response_signal_scale):
+    """The fitted voltage baseline (physical units) and vz offset of a chrono
+    or hybrid fit's scaled solver vector ``x``, the ones its special
+    columns hold (:1628); {} for an EIS fit."""
+    out = {}
+    if "v_baseline" in special:
+        vbx = x[special_slice(special, "v_baseline")].copy() * (1.0 / v_baseline_scale)
+        vbx[0] -= scaled_response_offset
+        out["v_baseline"] = vbx * response_signal_scale
+    if "vz_offset" in special:
+        out["vz_offset"] = x[special["vz_offset"]["index"]]
+    return out
 
 
 def num_special(special):
@@ -1046,25 +1062,19 @@ class DRT:
         return self
 
     # ------------------------------------------------------------------
-    def extract_qphb_parameters(self, x, rescale=True):
-        """Physical-unit parameters from a scaled solver vector (:1628)."""
-        def scale_value(value, scale):
-            return value * scale if rescale else scale
-
+    def extract_qphb_parameters(self, x):
+        """Physical-unit parameters from a scaled solver vector (:1628; the
+        reference's ``rescale=True``, the only form the port calls)."""
         x = np.asarray(x)
         special = {k: v["index"] for k, v in self.special_qp_params.items()}
-        out = {"x": scale_value(x[self.get_qp_mat_offset():], self.coefficient_scale)}
-        out["R_inf"] = scale_value(x[special["R_inf"]], self.coefficient_scale) \
+        out = {"x": x[self.get_qp_mat_offset():] * self.coefficient_scale}
+        out["R_inf"] = x[special["R_inf"]] * self.coefficient_scale \
             if "R_inf" in special else 0
-        if "v_baseline" in special:
-            vbx = x[special_slice(self.special_qp_params, "v_baseline")].copy()
-            vbx = scale_value(vbx, 1.0 / self.v_baseline_scale)
-            vbx[0] -= self.scaled_response_offset
-            out["v_baseline"] = scale_value(vbx, self.response_signal_scale)
-        if "vz_offset" in special:
-            out["vz_offset"] = x[special["vz_offset"]]
-        out["inductance"] = scale_value(x[special["inductance"]],
-                                        self.coefficient_scale * self.inductance_scale) \
+        out.update(data_offset_parameters(x, self.special_qp_params, self.v_baseline_scale,
+                                          self.scaled_response_offset,
+                                          self.response_signal_scale))
+        out["inductance"] = x[special["inductance"]] * (self.coefficient_scale
+                                                        * self.inductance_scale) \
             if "inductance" in special else 0
         out["C_inv"] = 0
         return out
@@ -1238,6 +1248,52 @@ class DRT:
     def predict_r_tot(self):
         return self.predict_r_inf() + self.predict_r_p()
 
+    def estimate_param_cov(self, *args, **kwargs):
+        raise _unported("estimate_param_cov: the single fit's posterior covariance", 5)
+
+    def estimate_distribution_cov(self, *args, **kwargs):
+        raise _unported("estimate_distribution_cov: the single fit's posterior covariance", 5)
+
+    # ------------------------------------------------------------------
+    # Attribute persistence (:3886-3925)
+    # ------------------------------------------------------------------
+    @property
+    def attribute_categories(self):
+        return {
+            "config": [
+                "fixed_basis_tau", "tau_supergrid", "basis_tau", "tau_basis_type",
+                "tau_epsilon", "extend_basis_decades", "step_model", "chrono_mode",
+                "fixed_basis_nu", "basis_nu", "nu_basis_type", "nu_epsilon", "fit_dop",
+                "normalize_dop", "fit_inductance", "fit_ohmic", "fit_capacitance",
+                "series_neg", "integrate_method", "v_baseline_deg", "v_baseline_sqrt",
+            ],
+            "fit_core": [
+                "fit_parameters", "fit_type", "fit_kwargs", "special_qp_params",
+                "coefficient_scale", "impedance_scale", "input_signal_scale",
+                "response_signal_scale", "inductance_scale", "capacitance_scale",
+                "dop_scale_vector", "v_baseline_scale", "scaled_response_offset",
+                "qphb_params", "step_times", "step_sizes", "tau_rise",
+                "nonconsec_step_times", "t_fit", "f_fit", "z_fit", "z_fit_scaled",
+                "raw_input_signal", "raw_response_signal",
+            ],
+        }
+
+    def get_attributes(self, which=None):
+        """The attributes of the categories ``which`` (default "config" and
+        "fit_core") as a dict of deep copies; a name this class does not
+        have (DOP, capacitance, nu-basis options) comes back as None."""
+        cats = self.attribute_categories
+        if which is None:
+            which = ["config", "fit_core"]
+        if isinstance(which, str):
+            which = [which]
+        return {name: deepcopy(getattr(self, name, None)) for cat in which for name in cats[cat]}
+
+    def set_attributes(self, att_dict):
+        for k, v in att_dict.items():
+            setattr(self, k, v)
+        return self
+
 
 def build_hybrid_problem(times, i_signal, frequencies, step_times=None, step_sizes=None,
                          basis_tau=None, tau_supergrid=None, fit_ohmic=True, fit_inductance=True,
@@ -1258,7 +1314,7 @@ def build_hybrid_problem(times, i_signal, frequencies, step_times=None, step_siz
     ``vz_strength_vec``, ``vmm``, ``m_stack``, ``l1v``, ``lb``, ``hypers``,
     ``iw_hypers``, ``cfg``, ``num_chrono``, ``vz_index`` (-1 without
     ``vz_offset``), ``special_qp_params``, ``basis_tau``, ``tau_epsilon``,
-    ``inductance_scale``, ``input_signal_scale``, ``rp_scale``."""
+    ``inductance_scale``, ``input_signal_scale``, ``v_baseline_scale``, ``rp_scale``."""
     times = np.asarray(times, dtype=float)
     i_signal = np.asarray(i_signal, dtype=float)
     frequencies = np.asarray(frequencies, dtype=float)
@@ -1286,5 +1342,5 @@ def build_hybrid_problem(times, i_signal, frequencies, step_times=None, step_siz
         "special_qp_params": sys_["special_qp_params"], "basis_tau": sys_["basis_tau"],
         "tau_epsilon": float(template.tau_epsilon), "inductance_scale": sys_["inductance_scale"],
         "input_signal_scale": sys_["input_signal_scale"],
-        "rp_scale": hyper_kw.get("rp_scale", 14.0),
+        "v_baseline_scale": sys_["v_baseline_scale"], "rp_scale": hyper_kw.get("rp_scale", 14.0),
     }

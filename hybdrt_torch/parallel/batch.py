@@ -506,10 +506,23 @@ class BatchedEISFitter:
 
     def _posterior(self, result, z_batch, refine_iters=0):
         """(P (B, N, N), q (B, N), scale): each lane's weighted QP at its
-        final state, float64 on the fitter's device, built from the result's
-        (rho, s_vectors, weights; device tensors with collect="lazy") or from
-        their refinement's (drtmd.py:1036). P is the scaled-space posterior
-        precision that param_cov inverts."""
+        final state, float64 on the fitter's device (``posterior_pq``) for
+        the spectra ``z_batch`` it was fitted to. P is the scaled-space
+        posterior precision that param_cov inverts."""
+        rzv, scale = self.scale_batch(self._check_batch(z_batch))
+        p, q = self.posterior_pq(rzv, result, refine_iters)
+        return p, q, scale
+
+    def _final_design(self, h, result):
+        """The design of each lane's last QP: the shared one."""
+        return h["rzm"]
+
+    def posterior_pq(self, rzv, result, refine_iters=0):
+        """(P (B, N, N), q (B, N)): each lane's weighted QP at its final
+        state, float64 on the fitter's device, built from the scaled data
+        ``rzv`` (B, M) and the result's rho, s_vectors and weights (device
+        tensors with collect="lazy"; any object with these fields) or from
+        their refinement's (drtmd.py:1036, :1238)."""
         dev, f64 = self.device, torch.float64
         hyp = qphb_mod.hypers_to_tensors(self.hypers, dev, f64)
         h = self._host_tensors()
@@ -519,7 +532,6 @@ class BatchedEISFitter:
                 return a.to(device=dev, dtype=f64)
             return torch.as_tensor(np.array(a, dtype=float), dtype=f64, device=dev)
 
-        rzv, scale = self.scale_batch(self._check_batch(z_batch))
         rzv = t(rzv)
         b, k_range = rzv.shape[0], self.cfg.k_range
         opt = lambda a: torch.ones(b, k_range, dtype=f64, device=dev) if a is None else t(a)
@@ -538,9 +550,10 @@ class BatchedEISFitter:
             st = fitcore.qphb_fit_loop_from_state(
                 state, h["rzm"], rzv, h["vmm"], h["m_stack"], h["l1v"], h["lb"], hyp, w, fcfg)
             rho, s, w = st.rho_vector, st.s_vectors, st.weights
-        p, q = qphb_mod.calculate_pq(h["rzm"], rzv, h["m_stack"], hyp, h["l1v"], rho, s, w,
+        else:
+            h["rzm"] = self._final_design(h, result)
+        return qphb_mod.calculate_pq(h["rzm"], rzv, h["m_stack"], hyp, h["l1v"], rho, s, w,
                                      self.cfg)
-        return p, q, scale
 
     def predict_r_p(self, result: BatchFitResult):
         area = basis_mod.get_basis_func_area("gaussian", self.tau_epsilon)
@@ -643,6 +656,7 @@ class BatchedHybridFitter:
         self.special_qp_params = problem["special_qp_params"]
         self.inductance_scale = problem["inductance_scale"]
         self.input_signal_scale = float(problem["input_signal_scale"])
+        self.v_baseline_scale = problem.get("v_baseline_scale")
 
         cast = lambda a: torch.as_tensor(np.array(a, dtype=float), dtype=dtype,
                                          device=self.device)
@@ -659,6 +673,10 @@ class BatchedHybridFitter:
         if self.vz_offset:
             self.hybrid = dict(rzm_vz=cast(problem["rzm_vz"]),
                                vz_strength=cast(problem["vz_strength_vec"]))
+        # float64 host copies for the posterior (P, q) rebuild
+        self.host_arrays = {k: np.array(problem[k], dtype=float)
+                            for k in ("rzm", "m_stack", "l1v", "vmm", "lb", "rzm_vz",
+                                      "vz_strength_vec")}
         self.fcfg = fitcore.FitConfig(cfg=self.cfg, data_type="hybrid",
                                       num_chrono=self.num_chrono, vz_offset=self.vz_offset,
                                       vz_index=self.vz_index, max_iter=max_iter, x_rtol=xtol,
@@ -676,6 +694,44 @@ class BatchedHybridFitter:
     _check_options = staticmethod(BatchedEISFitter._check_options)
     collect = BatchedEISFitter.collect
     predict_r_p = BatchedEISFitter.predict_r_p
+    _host_tensors = BatchedEISFitter._host_tensors
+
+    def _final_design(self, h, result):
+        """The design of each lane's last QP (B, M, N): the vz-offset column
+        rewritten from the lane's final iterate ``result.x_raw``
+        (``fitcore.with_vz_column``), as the loop left it
+        (hybdrt_tpu/mapping/drtmd.py:777-790)."""
+        if not self.vz_offset:
+            return h["rzm"]
+        x = torch.as_tensor(np.asarray(result.x_raw, dtype=float), dtype=torch.float64,
+                            device=self.device)
+        sign = fitcore.chrono_eis_sign(self.num_chrono, h["rzm"].shape[0], x)
+        col = qphb_mod._mv(h["rzm_vz"], x) * sign * h["vz_strength_vec"]
+        return fitcore.with_vz_column(h["rzm"], col, self.vz_index)
+
+    def posterior_pq(self, rzv, result):
+        """(P (B, N, N), q (B, N)): each lane's weighted QP at its final
+        state, float64 on the fitter's device, from the scaled data ``rzv``
+        (B, M) and the result's x_raw, rho, s_vectors and weights, each
+        lane's final vz-offset column in its design (``_final_design``)."""
+        return BatchedEISFitter.posterior_pq(self, rzv, result)
+
+    def _posterior(self, result, v_batch, z_batch):
+        """(P, q, scale) for the data (v_batch, z_batch) ``result`` was
+        fitted to (``posterior_pq``)."""
+        rzv, scale = self.scale_batch(v_batch, z_batch)
+        p, q = self.posterior_pq(rzv, result)
+        return p, q, scale
+
+    def response_offsets(self, v_batch, scale):
+        """Each observation's scaled response offset: minus the median of its
+        scaled response before the first step, or 0 with no sample before it
+        (:1137), which ``scale_batch`` adds."""
+        v_s = np.asarray(v_batch, dtype=float) / (self.input_signal_scale * scale)[:, None]
+        pre = self.times < self.step_times[0]
+        if not pre.any():
+            return np.zeros(len(v_s))
+        return -np.median(v_s[:, pre], axis=1)
 
     def _fit_plain(self, rzv):
         inp = self._loop_inputs(rzv)
@@ -711,11 +767,8 @@ class BatchedHybridFitter:
         v_batch, z_batch = self._check_batch(v_batch, z_batch)
         scale = pp.estimate_rp_batch(self.times, self.step_times, self.step_sizes, v_batch,
                                      "ideal", z_batch) / self.rp_scale
-        v_s = v_batch / (self.input_signal_scale * scale)[:, None]
-        pre = self.times < self.step_times[0]
-        # No sample before the first step: no baseline to subtract (:1137)
-        if pre.any():
-            v_s = v_s - np.median(v_s[:, pre], axis=1)[:, None]
+        v_s = v_batch / (self.input_signal_scale * scale)[:, None] \
+            + self.response_offsets(v_batch, scale)[:, None]
         z_s = z_batch / scale[:, None]
         return np.concatenate([v_s, z_s.real, z_s.imag], axis=1), scale
 

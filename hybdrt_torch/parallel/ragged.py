@@ -498,6 +498,46 @@ class BatchedRaggedFitter:
             rzm[:, :, self.fcfg.vz_index] = y_vz * self.full("vz_sign") * self.full("vz_strength")
         return rzm
 
+    def posterior(self, observations, x_raw, rho, s_vectors, weights):
+        """Each observation's posterior (P, q) at its final fit state: the
+        weighted QP of its last outer iteration, rebuilt in float64 on the
+        fitter's device (``hybdrt_tpu/mapping/drtmd.py:1238-1318``).
+
+        ``observations`` are re-prepared through the protocol cache
+        (``_prep_systems``), so their systems are those the fit solved; the
+        per-observation ``x_raw`` (N_i,), ``rho`` (3,), ``s_vectors`` (3,
+        N_i) and ``weights`` (R_i,) are a fit's, unpadded. One
+        ``calculate_pq`` runs per protocol (observations that share one
+        design-matrix array, hyperparameters and config), a hybrid
+        protocol's design with each lane's final vz-offset column, and each
+        protocol's stacks are copied to the host once. Returns (systems,
+        [P_i (N_i, N_i)], [q_i (N_i,)]), host float64 arrays, aligned with
+        ``observations``."""
+        systems = self._prep_systems(observations)
+        dev, f64 = self.device, torch.float64
+        t = lambda a: torch.as_tensor(np.asarray(a, dtype=float), dtype=f64, device=dev)
+        groups = {}
+        for k, s in enumerate(systems):
+            groups.setdefault((id(s["rzm"]), id(s["hypers"]), s["cfg"]), []).append(k)
+        p_out, q_out = [None] * len(systems), [None] * len(systems)
+        for ks in groups.values():
+            s0 = systems[ks[0]]
+            stack = lambda vals: t(np.stack([vals[k] for k in ks]))
+            rzm = t(s0["rzm"])
+            if s0["vz_offset"]:
+                x = stack(x_raw)
+                sign = fitcore.chrono_eis_sign(s0["num_chrono"], rzm.shape[0], x)
+                col = qphb_mod._mv(t(s0["rzm_vz"]), x) * sign * t(s0["vz_strength_vec"])
+                rzm = fitcore.with_vz_column(rzm, col, s0["vz_index"])
+            p, q = qphb_mod.calculate_pq(
+                rzm, t(np.stack([systems[k]["rzv"] for k in ks])), t(s0["m_stack"]),
+                qphb_mod.hypers_to_tensors(s0["hypers"], dev, f64), t(s0["l1_lambda_vector"]),
+                stack(rho), stack(s_vectors), stack(weights), s0["cfg"])
+            p, q = p.cpu().numpy(), q.cpu().numpy()
+            for bi, k in enumerate(ks):
+                p_out[k], q_out[k] = p[bi], q[bi]
+        return systems, p_out, q_out
+
     # ------------------------------------------------------------------
     def _device_arrays(self, batch):
         """The per-lane arrays on the device: each per-protocol stack uploaded

@@ -185,6 +185,98 @@ def make_het_hybrid(n_eis=768, n_hybrid=256, seed=3):
     return obs, TAU_SUPER
 
 
+def make_het_map(n_eis=768, n_hybrid=256, seed=3, schedule="staged", device=None):
+    """The benchmark's heterogeneous map as the port's ``DRTMD``
+    (``bench.py::make_het_map``, copied as ``make_het_eis`` is): ``n_eis``
+    EIS spectra on three grids and ``n_hybrid`` hybrid observations on two
+    chrono protocols, shuffled, all in group "g" at psi "i" = their index,
+    the random numbers drawn in the benchmark's order; ``batch_fit_kw`` the
+    het leg's (``qp_max_iter=20, qp_max_iter_warm=4``, and
+    ``adaptive="staged"`` with ``schedule="staged"``). ``device`` is the
+    map's (the card by default)."""
+    from ..mapping.drtmd import DRTMD
+
+    rng = np.random.default_rng(seed)
+    grids = [np.logspace(6, -1, 57), np.logspace(5, -1, 71), np.logspace(6, 0, 49)]
+    qp_kw = {"qp_max_iter": 20, "qp_max_iter_warm": 4}
+    md = DRTMD(tau_supergrid=TAU_SUPER, psi_dim_names=["i"], warn=False, print_progress=False,
+               batch_fit_kw={"adaptive": "staged", **qp_kw} if schedule == "staged"
+               else dict(qp_kw), device=device)
+    n_tot = n_eis + n_hybrid
+    kinds = np.array(["eis"] * n_eis + ["hyb"] * n_hybrid)
+    rng.shuffle(kinds)
+    for i, kind in enumerate(kinds):
+        p = i / max(n_tot - 1, 1)
+        if kind == "eis":
+            r1 = 0.8 + 0.5 * p + rng.uniform(-0.05, 0.05)
+            t1, r_inf, freq = 10 ** (-2.8 + 1.2 * p), 0.4 + 0.1 * p, grids[i % 3]
+            z = (r_inf + r1 / (1 + (2j * np.pi * freq * t1) ** 0.88)
+                 + 1.2 / (1 + (2j * np.pi * freq * 1e-4) ** 0.9))
+            z = z + (rng.normal(size=len(freq)) + 1j * rng.normal(size=len(freq))) * 0.003
+            md.add_observation([float(i)], None, (freq, z), group_id="g")
+        else:
+            md.add_observation([float(i)], *_het_hybrid_obs(i % 2, p, rng), group_id="g")
+    return md
+
+
+def _zarc(f, r, tau0, a=0.9):
+    return r / (1 + (2j * np.pi * f * tau0) ** a)
+
+
+def small_map(kind):
+    """A small seeded map for the port's DRTMD tests: (tau_supergrid,
+    [(psi, chrono_data, eis_data)]). ``"mixed"``: 8 observations, EIS on two
+    grids and hybrid on two chrono protocols (the map of
+    tests/test_get_fits_batched.py:141); ``"eis"``: 6 spectra on one grid
+    (tests/test_get_fits_batched.py:30); ``"hybrid"``: 4 hybrid observations
+    on one protocol (tests/test_mapping.py:189)."""
+    if kind == "eis":
+        freq, rng = np.logspace(5, -1, 41), np.random.default_rng(3)
+        obs = []
+        for k in range(6):
+            z = 0.4 + _zarc(freq, 1.0 + 0.1 * k, 10 ** (-3 + 0.2 * k))
+            z = z + (rng.normal(size=len(freq)) + 1j * rng.normal(size=len(freq))) * 0.002
+            obs.append(([float(k)], None, (freq, z)))
+        return np.logspace(-7, 2, 71), obs
+    if kind == "hybrid":
+        times = np.concatenate([np.linspace(-0.005, -0.0005, 8), np.logspace(-5, 0, 60)])
+        i_sig = np.where(times >= 0, 0.1, 0.0)
+        freq = np.logspace(5, -1, 25)
+        obs = []
+        for k in range(4):
+            r = np.random.default_rng(k)
+            tau0, r0 = 10 ** r.uniform(-3, -2), r.uniform(1.0, 2.0)
+            v = 0.3 * i_sig + 0.1 * r0 * (1 - np.exp(-np.maximum(times, 0) / tau0)) \
+                * (times >= 0) + r.normal(0, 2e-4, len(times))
+            z = 0.3 + r0 / (1 + 2j * np.pi * freq * tau0) + r.normal(0, 1e-3, 25) * (1 + 1j)
+            obs.append(([700.0 + k], (times, i_sig, v), (freq, z)))
+        return np.logspace(-7, 2, 91), obs
+    if kind != "mixed":
+        raise ValueError(f"kind {kind!r}: expected 'mixed', 'eis' or 'hybrid'")
+    rng = np.random.default_rng(7)
+    grids = [np.logspace(5, -1, 41), np.logspace(4, 0, 31)]
+    protos = [np.concatenate([np.linspace(-0.05, -0.001, 8), np.geomspace(1e-4, 1.0, 60)]),
+              np.concatenate([np.linspace(-0.02, -0.001, 6), np.geomspace(2e-4, 0.5, 50)])]
+    obs, n_hyb = [], 0
+    for k in range(8):
+        r1 = 0.9 + 0.05 * k
+        if k % 3 == 2:
+            times = protos[n_hyb % 2]
+            n_hyb += 1
+            i_sig = np.where(times >= 0.0, 0.1, 0.0)
+            v = 0.4 * i_sig + _rc_v(times, 0.0, 0.1, r1, 1e-3) + _rc_v(times, 0.0, 0.1, 1.2, 1e-1)
+            v = v + 5e-4 * rng.normal(size=len(times))
+            z = 0.4 + _zarc(grids[0], r1, 1e-3, 0.99) + _zarc(grids[0], 1.2, 1e-1, 0.99)
+            z = z + 0.003 * (rng.normal(size=len(z)) + 1j * rng.normal(size=len(z)))
+            obs.append(([float(k)], (times, i_sig, v), (grids[0], z)))
+        else:
+            f = grids[k % 2]
+            z = 0.4 + _zarc(f, r1, 1e-3) + _zarc(f, 1.2, 1e-1)
+            z = z + 0.003 * (rng.normal(size=len(f)) + 1j * rng.normal(size=len(f)))
+            obs.append(([float(k)], None, (f, z)))
+    return np.logspace(-7, 2, 71), obs
+
+
 def make_hybrid_batch(batch, proto=0, seed=3):
     """``batch`` hybrid observations on het protocol ``proto``, their
     parameters drifting over the map as in ``bench.py::make_het_map``
@@ -550,17 +642,46 @@ def timed(fn):
     return time.time() - t0
 
 
-def profile(label, fn, top=8):
+def device_event_sums(prof):
+    """{name: (device ns, count)} of the CUDA events of a finished
+    ``torch.profiler`` run, summed from the profiler's raw results: the
+    sums of ``key_averages``' CUDA rows without its parse of every event
+    (tens of seconds at 1e5 kernels). ``tests/test_torch_cuda.py::
+    test_device_event_sums_match_key_averages`` holds the two equal."""
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ns, count = rows.get(e.name(), (0, 0))
+            rows[e.name()] = (ns + e.duration_ns(), count + 1)
+    return rows
+
+
+def key_average_sums(prof):
+    """{name: (device ns, count)} of ``key_averages``' CUDA rows."""
+    return {e.key: (e.self_device_time_total * 1e3, e.count) for e in prof.key_averages()
+            if e.device_type.name == "CUDA"}
+
+
+def profile(label, fn, top=8, key_averages=False):
     """One call of ``fn`` under ``torch.profiler`` with CUDA activity: prints
-    its wall, summed kernel time, busy share and the ``top`` kernels by
-    device time."""
+    its wall, summed kernel time (``device_event_sums``), busy share and the
+    ``top`` kernels by device time; with ``key_averages`` also the same
+    sums from ``key_averages``, timed."""
     from torch.profiler import ProfilerActivity, profile as prof
 
     with prof(activities=[ProfilerActivity.CUDA]) as p:
         wall = timed(fn)
-    rows = [e for e in p.key_averages() if e.device_type.name == "CUDA"]
-    total_us = sum(e.self_device_time_total for e in rows)
-    print(f"{label} profiled: wall {wall:.4f} s, kernel time {total_us / 1e6:.4f} s in "
-          f"{sum(e.count for e in rows)} kernels, busy {total_us / 1e6 / wall:.3f}")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"  {e.self_device_time_total / 1e3:10.2f} ms {e.count:6d}x  {e.key[:90]}")
+    rows = device_event_sums(p)
+    total_s = sum(ns for ns, _ in rows.values()) / 1e9
+    print(f"{label} profiled: wall {wall:.4f} s, kernel time {total_s:.4f} s in "
+          f"{sum(c for _, c in rows.values())} kernels, busy {total_s / wall:.3f}")
+    for name, (ns, count) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"  {ns / 1e6:10.2f} ms {count:6d}x  {name[:90]}")
+    if key_averages:
+        t0 = time.time()
+        ka = key_average_sums(p)
+        t_ka = time.time() - t0
+        print(f"{label} profiled, key_averages ({t_ka:.1f} s): kernel time "
+              f"{sum(ns for ns, _ in ka.values()) / 1e9:.6f} s in "
+              f"{sum(c for _, c in ka.values())} kernels, {len(ka)} names; raw events "
+              f"{total_s:.6f} s in {sum(c for _, c in rows.values())} kernels, {len(rows)} names")

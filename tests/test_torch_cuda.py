@@ -4,7 +4,8 @@ kernels of hybdrt_torch/experiments/ too), the batched fit
 of batches, the history and the parameter covariance), the single DRT (EIS,
 chrono and hybrid fits), the batched hybrid fit, the ragged fit (EIS and
 hybrid rows) and the group resolve (coupled and windowed) on the card
-against the same computations on the CPU.
+against the same computations on the CPU; and the profiler sums that the
+chip scripts print (``probe.device_event_sums``) against ``key_averages``.
 
 Every test here is marked ``cuda`` and skips where no CUDA device is present.
 The file imports no JAX, so it also runs on a machine without it:
@@ -21,10 +22,13 @@ from hybdrt_torch.csrc import build as _build
 from hybdrt_torch.experiments import (chol_blocked, chol_column, chol_lane_blocked, ip_loop,
                                       layouts, smem_sol)
 from hybdrt_torch.ops import chol_lane, ip_lane
+from hybdrt_torch.mapping.drtmd import DRTMD, STATE_KEYS, load_fit_state
 from hybdrt_torch.utils.probe import (GOLDEN_HYPERS, TAU_SUPER, FitLaunches, cov_readouts,
-                                      freeze_lane, golden_fit, hybrid_data, inverse_residual,
+                                      device_event_sums, freeze_lane, golden_fit,
+                                      key_average_sums, hybrid_data, inverse_residual,
                                       make_batch, make_frames, make_het_eis, make_het_hybrid,
-                                      make_hybrid_batch, qp_batch, readout_errors, spd_batch)
+                                      make_hybrid_batch, qp_batch, readout_errors, small_map,
+                                      spd_batch)
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-4  # float32 kernel vs plain, as tests/test_pallas_lane_kernels.py
@@ -1010,3 +1014,86 @@ def test_ragged_hybrid_on_card_matches_cpu(cuda):
     assert all(chol_lane.LAUNCHES[k] > 0 for k in FIT_KERNELS)
     for res in (r_gpu, r32):
         assert all(np.all(res.x[k][r - l:] == 0.0) for k, (l, r) in enumerate(res.tau_indices))
+
+
+def _small_drtmd(device):
+    tau, obs = small_map("mixed")
+    md = DRTMD(tau, psi_dim_names=["T"], device=device)
+    for psi, c, e in obs:
+        md.add_observation(psi, c, e, group_id="g")
+    return md
+
+
+def test_drtmd_on_card_matches_cpu(cuda):
+    """The mixed small map (EIS on two grids, hybrid on two protocols)
+    through DRTMD in float64: fit_all on the card against the CPU (the same
+    iterations, x within 1e-6 of each observation's max); then the CPU's
+    fits carried to a card map (load_fit_state): the rebuilt (P, q) within
+    1e-12 and both resolves in float64 at the CPU's IP iterations, x within
+    1e-8 of max |x|; in float32 every fit kernel and, in each resolve, #4
+    and #2 launched."""
+    import warnings
+
+    card, cpu = _small_drtmd(None), _small_drtmd("cpu")
+    card.fit_all(batched=True)
+    cpu.fit_all(batched=True)
+    assert card.obs_fit_status.all()
+    for i in range(cpu.num_obs):
+        assert card.obs_fit_attr[i]["n_iter"] == cpu.obs_fit_attr[i]["n_iter"], i
+        assert np.max(np.abs(card.obs_x[i] - cpu.obs_x[i])) <= 1e-6 * np.max(np.abs(cpu.obs_x[i]))
+    on_card = load_fit_state(_small_drtmd(None), {k: getattr(cpu, k) for k in STATE_KEYS})
+    idx = np.arange(cpu.num_obs)
+    g_card, g_cpu = on_card.get_fits_batched(idx), cpu.get_fits_batched(idx)
+    for i in idx:
+        for key in ("p_matrix", "q_vector"):
+            want = g_cpu[i].fit_parameters[key]
+            assert np.max(np.abs(g_card[i].fit_parameters[key] - want)) \
+                <= 1e-12 * np.max(np.abs(want))
+    for kw in ({"batched": True}, {"batched": True, "batch_size": 4, "overlap": 1},
+               {"coupled": True}):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            cpu.resolve_group("g", psi_sort_dims=["T"], **kw)
+            on_card.resolve_group("g", psi_sort_dims=["T"], **kw)
+        np.testing.assert_array_equal(on_card.resolve_info["n_iter"], cpu.resolve_info["n_iter"])
+        want = cpu.obs_x_resolved
+        assert np.max(np.abs(on_card.obs_x_resolved - want)) <= 1e-8 * np.max(np.abs(want)), kw
+    chol_lane.reset_launch_counts()
+    card.fit_all(refit=True, batched=True, dtype=torch.float32)
+    assert all(chol_lane.LAUNCHES[k] > 0 for k in FIT_KERNELS)
+    assert np.all(np.isfinite(card.obs_x))
+    for kw in ({"batched": True}, {"coupled": True}):
+        chol_lane.reset_launch_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            card.resolve_group("g", psi_sort_dims=["T"], dtype=torch.float32, **kw)
+        assert chol_lane.LAUNCHES["chol_factor_lane"] > 0
+        assert chol_lane.LAUNCHES["chol_solve_factored_lane"] > 0
+        assert np.all(np.isfinite(card.obs_x_resolved))
+
+
+def test_device_event_sums_match_key_averages(cuda):
+    """``probe.profile`` sums the profiler's raw CUDA events by name; on a
+    profiled fit of 64 spectra that gives ``key_averages``' CUDA rows: the
+    same names (``key_averages`` demangles them), counts and device times
+    (its microseconds against the raw nanoseconds, within 1e-3 ns an
+    event)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    freq, z = make_batch(64, 71)
+    fitter = BatchedEISFitter(freq, dtype=torch.float32, qp_max_iter=20, qp_max_iter_warm=4)
+    fitter.fit(z, adaptive="staged", collect="lazy")
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        fitter.fit(z, adaptive="staged", collect="lazy")
+        torch.cuda.synchronize()
+    raw = {}
+    for name, (ns, count) in device_event_sums(p).items():
+        key = torch._C._demangle(name) if len(name) > 1 else name
+        old_ns, old_count = raw.get(key, (0, 0))
+        raw[key] = (old_ns + ns, old_count + count)
+    ka = key_average_sums(p)
+    assert sum(c for _, c in raw.values()) > 100
+    assert raw.keys() == ka.keys()
+    for key, (ns, count) in raw.items():
+        assert ka[key][1] == count, key
+        assert abs(ka[key][0] - ns) <= 1e-3 * count, (key, ka[key][0], ns)

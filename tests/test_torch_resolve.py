@@ -133,10 +133,11 @@ def test_offset_pq_and_special_dict_match_jax():
 
 
 def test_prepare_group_blocks_rejects_hybrid_specials():
-    """v_baseline / vz_offset need the fitted values the blocks do not take."""
+    """v_baseline / vz_offset are marginalized at their fitted values: given
+    without them, the blocks are refused."""
     special = {"vz_offset": {"index": 0, "nonneg": False, "size": 1},
                "R_inf": {"index": 1, "nonneg": True, "size": 1}}
-    with pytest.raises(NotImplementedError, match="items 6-7"):
+    with pytest.raises(ValueError, match="fit_parameters"):
         resolve.prepare_group_blocks([np.eye(4)], [np.ones(4)], [1.0], [0.1], [(0, 2)],
                                      special, True)
 

@@ -4,7 +4,7 @@ warm QPs (``qp_fused``), taken in turns in one process, and one profiled call.
 Run from the repository root on a machine with a CUDA card:
 
     python3 torch_fit_walls.py [--rounds 3] [--batch 8192] [--no-profile]
-                               [--frames | --stream | --history | --single | --hybrid]
+                               [--frames | --stream | --history | --single | --hybrid | --het]
 
 The fit is ``chip_smoke.py``'s main path: ``make_batch(batch, 71)``
 (``hybdrt_torch/utils/probe.py``, the benchmark's spectra),
@@ -56,18 +56,34 @@ plain and ``qp_fused``, and the het leg's 256 hybrid observations
 ``fit(adaptive="staged")``, each round plain, fused, ragged, ragged, fused,
 plain; then the ragged fit's ``prepare`` and loop apart, and one profiled
 call of each with the lane kernels' launches.
+
+With ``--het`` it times the het leg's map through ``DRTMD``
+(``chip_smoke.py`` phase 14): ``make_het_map(768, 256)``,
+``fit_all(refit=True, batched=True, dtype=float32)`` and ``resolve_group("g",
+psi_sort_dims=["i"])`` windowed in float64 and coupled in float32 and
+float64, each round fit, windowed, coupled f32, coupled f64 and back; the
+resolves' rebuild, host assembly and solve walls (``resolve_info``); then one
+profiled call of each with the lane kernels' launches (the fit's with
+``key_averages``' sums beside the raw events' that ``probe.profile`` prints).
+Then the card's fits go to a map on the CPU (``load_fit_state``), which
+resolves the group coupled in float32 and float64 through the port's plain
+path: 3x that float32-vs-float64 spread of ``obs_x_resolved`` is the bound
+that ``chip_smoke.py`` phase 14 holds the card's float32 coupled resolve to
+(``HET_F32_BOUND``).
 """
 import argparse
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 import hybdrt_torch
+from hybdrt_torch.mapping.drtmd import STATE_KEYS, load_fit_state
 from hybdrt_torch.ops import chol_lane, ip_lane
 from hybdrt_torch.solver import fitcore
 from hybdrt_torch.utils.probe import (GOLDEN_HYPERS, card_line, golden_fit, make_batch,
-                                      make_frames, make_het_eis, make_het_hybrid,
+                                      make_frames, make_het_eis, make_het_hybrid, make_het_map,
                                       make_hybrid_batch, make_stream, profile, timed)
 
 KW = dict(max_iter=50, qp_max_iter=20, qp_max_iter_warm=4, pred_stop=True, pred_rtol=3e-2)
@@ -84,12 +100,13 @@ def main():
     mode.add_argument("--history", action="store_true")
     mode.add_argument("--single", action="store_true")
     mode.add_argument("--hybrid", action="store_true")
+    mode.add_argument("--het", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_fit_walls.py needs a CUDA card")
     print(card_line())
     for flag, fn in (("frames", frames), ("stream", stream), ("history", history),
-                     ("single", single), ("hybrid", hybrid)):
+                     ("single", single), ("hybrid", hybrid), ("het", het)):
         if getattr(args, flag):
             fn(args)
             return
@@ -220,6 +237,59 @@ def hybrid(args):
             ip_lane.reset_launch_counts()
             profile(k, fn, top=10)
             print(f"{k}, lane kernel launches: {dict(chol_lane.LAUNCHES, **ip_lane.LAUNCHES)}")
+
+
+def het(args):
+    """The het map's fit_all and its three resolves, in turns."""
+    md = make_het_map(768, 256)
+    md.fit_all(batched=True, dtype=torch.float32)
+    resolve = lambda **kw: md.resolve_group("g", psi_sort_dims=["i"], **kw)
+    runs = {"fit_all": lambda: md.fit_all(refit=True, batched=True, dtype=torch.float32),
+            "windowed f64": lambda: resolve(batched=True, dtype=torch.float64),
+            "coupled f32": lambda: resolve(coupled=True, dtype=torch.float32),
+            "coupled f64": lambda: resolve(coupled=True, dtype=torch.float64)}
+    for fn in runs.values():
+        fn()
+    walls = {k: [] for k in runs}
+    parts = {k: [] for k in runs if k != "fit_all"}
+    order = list(runs)
+    for _ in range(args.rounds):
+        for k in order + order[::-1]:
+            walls[k].append(timed(runs[k]))
+            if k in parts:
+                parts[k].append([md.resolve_info[f] for f in ("rebuild_s", "assembly_s",
+                                                              "solve_s")])
+    for k, w in walls.items():
+        line = f"het {k}: walls {[round(x, 4) for x in w]} s, median {np.median(w):.4f} s"
+        if k in parts:
+            med = np.median(np.array(parts[k]), axis=0)
+            line += (f"; medians: rebuild {med[0]:.4f} s, host assembly {med[1]:.4f} s, "
+                     f"solve {med[2]:.4f} s")
+        print(line)
+    if not args.no_profile:
+        for k, fn in runs.items():
+            chol_lane.reset_launch_counts()
+            profile(f"het {k}", fn, top=10, key_averages=k == "fit_all")
+            print(f"het {k}, lane kernel launches: {dict(chol_lane.LAUNCHES)}")
+
+    # The coupled resolve in float32 against float64, on the card and on the
+    # CPU's plain path, on the same fits
+    cpu = load_fit_state(make_het_map(768, 256, device="cpu"),
+                         {k: getattr(md, k) for k in STATE_KEYS})
+    xs = {}
+    for name, m in (("card", md), ("CPU", cpu)):
+        for dt in (torch.float32, torch.float64):
+            t0 = time.time()
+            m.resolve_group("g", psi_sort_dims=["i"], coupled=True, dtype=dt)
+            xs[name, dt] = m.obs_x_resolved.copy()
+            print(f"het coupled {dt} on the {name}: {time.time() - t0:.2f} s, KKT residual "
+                  f"{m.resolve_info['kkt_residual']:.4g} (tolerance "
+                  f"{m.resolve_info['kkt_tol']:.4g}), objective "
+                  f"{m.group_objective('g', psi_sort_dims=['i']):.10g}")
+    spread = {name: float(np.max(np.abs(xs[name, torch.float32] - xs[name, torch.float64]))
+                          / np.max(np.abs(xs[name, torch.float64]))) for name in ("card", "CPU")}
+    print(f"het coupled f32 against f64, max |dx| / max |x|: card {spread['card']:.4g}, CPU "
+          f"plain path {spread['CPU']:.4g}; 3x the CPU's {3 * spread['CPU']:.4g}")
 
 
 def stream_threaded(fitter, batches, collect="lazy"):
