@@ -8,8 +8,9 @@ batched box QP, its Cholesky kernels and the fused interior-point kernel),
 outer fit loop), ``models/`` (the single-observation ``DRT`` and the EIS and
 hybrid problem assembly), ``parallel/`` (the batched fitters: ``batch`` for
 spectra on one frequency grid and hybrid observations on one protocol,
-``ragged`` for observations on grids of their own), ``mapping/`` (the group
-resolve of a fitted map), and ``experiments/`` (the Cholesky layout study, the
+``ragged`` for observations on grids of their own), ``mapping/`` (the map
+class, the group resolve of a fitted map and the post-fit host pipeline, with
+``filters/`` and ``peaks``), and ``experiments/`` (the Cholesky layout study, the
 counterpart of the repo's ``experiments/`` directory; on no fit or resolve
 path). The port imports torch, numpy and scipy, never JAX.
 

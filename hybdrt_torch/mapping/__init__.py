@@ -1,1 +1,3 @@
-"""Map-level methods of the port: the group resolve."""
+"""Map-level code of the port: the map class and the group resolve
+(``drtmd``, ``resolve``) and the post-fit host pipeline (``ndx``, ``nddata``,
+``surface``, ``extrema``)."""

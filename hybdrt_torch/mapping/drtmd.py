@@ -10,12 +10,15 @@ rebuilds each fit's posterior (P, q) on the device (``get_fits_batched``) and
 re-optimizes a group jointly (``resolve_group``): the observations are sorted
 by psi and either the whole group is solved as one coupled QP
 (``coupled=True``) or overlapping windows of ``batch_size`` are solved
-together and averaged over their overlaps (``batched=True``).
+together and averaged over their overlaps (``batched=True``). A fitted map
+is read on the host (predictions, filters, QC scores, persistence:
+``hybdrt_tpu/mapping/drtmd.py:1590-2069``).
 
 The free function ``resolve_group(fitter, result, z_batch, ...)`` is the
 uniform-group body of ``DRTMD.resolve_group`` for a map fitted by one
 ``BatchedEISFitter``, without the class.
 """
+import pickle
 import time
 import warnings
 from copy import deepcopy
@@ -25,13 +28,16 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from scipy import ndimage
 from scipy.special import gammaln
 
 from .. import preprocessing as pp
 from ..models.drt import DRT, data_offset_parameters
+from ..ops import basis as basis_mod
 from ..parallel.batch import BatchedEISFitter, BatchedHybridFitter
 from ..parallel.ragged import BatchedRaggedFitter
 from ..utils.device import resolve_device
+from . import nddata
 from . import resolve as resolve_mod
 
 
@@ -257,9 +263,14 @@ class DRTMD:
     float64, the resolve in ``resolve_group``'s ``dtype``. ``batch_fit_kw``
     goes to every batched fitter: the constructor knobs (``qp_max_iter``,
     ``qp_max_iter_warm``, ``pred_stop``, ...) and the fit calls' ``adaptive``
-    (every mode runs the port's live-lane loop). The serial fits
-    (``fit_all(batched=False)``, ``fit_observation``), PFRT, the mesh and the
-    prediction, QC and persistence methods are not ported; each raises
+    (every mode runs the port's live-lane loop). The read side runs on the
+    host as the JAX class's does: predictions (``predict_x``, ``predict_drt``
+    at any derivative order, ``predict_r_p``, ``predict_special``), filters
+    and QC (``filter_observations``, ``score_group_fit_badness``) and
+    persistence (``save_attributes``, ``load_attributes``, ``from_source``,
+    whose files the JAX class reads and writes too). The serial fits
+    (``fit_all(batched=False)``, ``fit_observation``), the covariance-based
+    predictions, PFRT and the mesh are not ported; each raises
     ``NotImplementedError`` naming its ROADMAP item, or is absent. So does a
     ``store_attr_categories`` other than ``["config", "fit_core"]``, which
     only the serial fit reads (item 5): the batched fits store those two.
@@ -1148,6 +1159,319 @@ class DRTMD:
             unit = np.asarray(cols["inductance"], dtype=float) if key == "inductance" else 1.0
             x[:, info["index"]] = self.obs_special_resolved[key][obs_index] / (scale * unit)
         return block_objective(p, q, my, cmat, x)
+
+
+    # ------------------------------------------------------------------
+    # Prediction (:1590-1683)
+    # ------------------------------------------------------------------
+    def _resolved_source(self, resolved):
+        return resolved and self.obs_resolve_status.any()
+
+    def predict_x(self, psi=None, obs_index=None, resolved=True, factor_index=None):
+        """DRT coefficients on the supergrid at the requested indices, or at
+        the observations nearest in psi (:1590); the resolved ones where a
+        resolve has run and ``resolved``. ``factor_index`` selects a PFRT
+        level, and this map holds no PFRT fits (item 9)."""
+        x_source = self.obs_x_resolved if (self._resolved_source(resolved)
+                                           and self.fit_type == "drt") else self.obs_x
+        if obs_index is not None:
+            return x_source[np.asarray(obs_index)]
+        if psi is None:
+            return x_source
+        return x_source[self.get_psi_index(psi)]
+
+    def predict_drt(self, psi=None, obs_index=None, tau=None, order=0, resolved=True):
+        """gamma(ln tau), or its order-th derivative in ln tau, for the
+        requested observations (:1610)."""
+        if tau is None:
+            tau = self.tau_supergrid
+        x = self.predict_x(psi, obs_index, resolved)
+        em = basis_mod.func_eval_matrix_host(np.log(self.tau_supergrid), np.log(np.asarray(tau)),
+                                             self.tau_basis_type, self.tau_epsilon, order)
+        return x @ em.T
+
+    def predict_r_p(self, psi=None, obs_index=None, resolved=True):
+        """Polarization resistance: sum |x| times the basis area (:1621)."""
+        x = self.predict_x(psi, obs_index, resolved)
+        return np.sum(np.abs(x), axis=-1) * self.tau_basis_area
+
+    def predict_special(self, key, psi=None, obs_index=None, resolved=True):
+        """A special parameter (R_inf, inductance, ...) of the requested
+        observations (:1627)."""
+        source = self.obs_special_resolved if self._resolved_source(resolved) \
+            else self.obs_special
+        vals = source[key]
+        if obs_index is not None:
+            return vals[np.asarray(obs_index)]
+        if psi is None:
+            return vals
+        return vals[self.get_psi_index(psi)]
+
+    def predict_param_cov(self, obs_index, factor_index=None):
+        raise _unported("predict_param_cov: the fits' parameter covariance", 5)
+
+    def predict_x_cov(self, obs_index, factor_index=None):
+        raise _unported("predict_x_cov: the fits' parameter covariance", 5)
+
+    def predict_drt_cov(self, obs_index, tau=None, order=0, factor_index=None, extend_var=True):
+        raise _unported("predict_drt_cov: the fits' distribution covariance", 5)
+
+    def predict_drt_var(self, obs_index, tau=None, order=0, factor_index=None, extend_var=True):
+        raise _unported("predict_drt_var: the fits' distribution covariance", 5)
+
+    def predict_x_var(self, obs_index, factor_index=None):
+        raise _unported("predict_x_var: the fits' parameter covariance", 5)
+
+    def predict_curv_prob(self, psi=None, obs_index=None, tau=None, factor_index=None,
+                          extend_var=True):
+        raise _unported("predict_curv_prob: the fits' distribution variance", 5)
+
+    def predict_peak_prob(self, psi=None, obs_index=None, tau=None, factor_index=None,
+                          extend_var=True):
+        raise _unported("predict_peak_prob: the fits' distribution variance", 5)
+
+    def predict_dop(self, psi=None, obs_index=None, nu=None, normalize=True, resolved=True):
+        raise _unported("predict_dop: the distribution of phasances", 4)
+
+    # ------------------------------------------------------------------
+    # Convenience accessors (:1688-1794)
+    # ------------------------------------------------------------------
+    def get_tau_eval(self, ppd=10):
+        """Evaluation grid over the tau supergrid, ``ppd`` points a decade."""
+        log_min = np.log10(self.tau_supergrid[0])
+        log_max = np.log10(self.tau_supergrid[-1])
+        return np.logspace(log_min, log_max, int((log_max - log_min) * ppd) + 1)
+
+    def get_nu_eval(self, n=201):
+        return np.linspace(-1, 1, n)
+
+    @property
+    def tau_basis_area(self):
+        return basis_mod.get_basis_func_area(self.tau_basis_type, self.tau_epsilon)
+
+    def get_psi_index(self, psi):
+        """Indices of the nearest stored observations to the given psi rows."""
+        psi = np.atleast_2d(psi)
+        return np.array([int(np.argmin(np.sum((self.obs_psi - p) ** 2, axis=1)))
+                         for p in psi])
+
+    @property
+    def obs_dtype(self):
+        """Per-observation data type: 'eis', 'chrono' or 'hybrid'."""
+        out = []
+        for i in range(self.num_obs):
+            chrono_data, eis_data = self.get_obs_data(i)
+            has_c = chrono_data is not None and chrono_data[0] is not None
+            has_e = eis_data is not None and eis_data[0] is not None
+            out.append("hybrid" if (has_c and has_e) else ("eis" if has_e else "chrono"))
+        return out
+
+    def filter_psi(self, dim_eq=None, dim_gt=None, dim_lt=None, return_index=True,
+                   exclude_flagged=False):
+        """Select observations by psi conditions: dim_eq/gt/lt map a
+        dimension name to a value."""
+        conditions = [np.ones(self.num_obs, dtype=bool)]
+        for cond_dict, op in ((dim_eq, np.equal), (dim_gt, np.greater), (dim_lt, np.less)):
+            for name, val in (cond_dict or {}).items():
+                conditions.append(op(self.obs_psi[:, self.psi_dim_names.index(name)], val))
+        if exclude_flagged:
+            conditions.append(~self.obs_ignore_flag)
+        mask = np.logical_and.reduce(conditions)
+        return np.where(mask)[0] if return_index else mask
+
+    def obs_psi_df(self):
+        """psi, group id and flags as a pandas DataFrame (pandas imported
+        here, as the JAX class does)."""
+        import pandas as pd
+        names = self.psi_dim_names or [f"psi{i}" for i in range(self.obs_psi.shape[1])]
+        df = pd.DataFrame(self.obs_psi, columns=names)
+        df["group_id"] = self.obs_group_id
+        df["fitted"] = self.obs_fit_status
+        df["ignore"] = self.obs_ignore_flag
+        return df
+
+    def clear_fits(self):
+        """Reset all fit results, keeping the observations."""
+        self.obs_fit_status[:] = False
+        self.obs_resolve_status[:] = False
+        self.obs_x[:] = 0
+        self.obs_drt_var[:] = 0
+        self.obs_x_resolved[:] = 0
+        self.obs_x_filt[:] = 0
+        self.obs_fit_attr = [None] * self.num_obs
+        self.obs_tau_indices = [None] * self.num_obs
+        for d in (self.obs_special, self.obs_special_resolved, self.obs_special_filt):
+            if d is not None:
+                for k in d:
+                    d[k][:] = 0
+
+    def clear_obs(self):
+        """Remove all observations and results, keeping the configuration
+        the JAX class keeps (:1770), and the device."""
+        self.__init__(tau_supergrid=self.tau_supergrid, psi_dim_names=self.psi_dim_names,
+                      tau_basis_type=self.tau_basis_type, tau_epsilon=self.tau_epsilon,
+                      step_model=self.step_model, chrono_mode=self.chrono_mode,
+                      fit_inductance=self.fit_inductance, fit_ohmic=self.fit_ohmic,
+                      fit_capacitance=self.fit_capacitance, fixed_basis_nu=self.fixed_basis_nu,
+                      fit_dop=self.fit_dop, normalize_dop=self.normalize_dop,
+                      nu_basis_type=self.nu_basis_type, nu_epsilon=self.nu_epsilon,
+                      chrono_reader=self.chrono_reader, eis_reader=self.eis_reader,
+                      fit_kw=self.fit_kw, fit_type=self.fit_type,
+                      pfrt_factors=self.pfrt_factors, warn=self.warn,
+                      print_progress=self.print_progress, device=self.device)
+
+    def load_observations(self, psi_array, chrono_files=None, eis_files=None, group_ids=None,
+                          fit=False):
+        raise NotImplementedError("load_observations: the file readers (fileload) are not "
+                                  "ported yet (ROADMAP, Host modules); pass the data as arrays "
+                                  "to add_observations")
+
+    # ------------------------------------------------------------------
+    # Filtered maps and QC scores (:1799-1869)
+    # ------------------------------------------------------------------
+    def filter_observations(self, obs_index=None, psi_sort_dims=None, resolved=True,
+                            sigma=(1, 1), store=True, **filter_kw):
+        """Gaussian-filter the (psi-sorted) 2-D (obs, tau) map of the fitted,
+        not ignored observations and their special parameters (:1799);
+        returns (obs_index, x, special) and with ``store`` keeps them in
+        ``obs_x_filt`` and ``obs_special_filt``."""
+        if obs_index is None:
+            obs_index = np.arange(self.num_obs)
+        obs_index = np.asarray(obs_index)
+        include = self.obs_fit_status[obs_index] & ~self.obs_ignore_flag[obs_index]
+        obs_index = obs_index[include]
+        if psi_sort_dims is not None:
+            sort_vals = [self.obs_psi[obs_index, self.psi_dim_names.index(d)]
+                         for d in psi_sort_dims][::-1]
+            obs_index = obs_index[np.lexsort(sort_vals)]
+        from_resolved = self._resolved_source(resolved)
+        x_src = self.obs_x_resolved if from_resolved else self.obs_x
+        x = ndimage.gaussian_filter(np.asarray(x_src[obs_index], dtype=float), sigma=sigma,
+                                    **filter_kw)
+        if store:
+            self.obs_x_filt[obs_index] = x
+        sp_src = self.obs_special_resolved if from_resolved else self.obs_special
+        sp_out = {}
+        for key, vals in (sp_src or {}).items():
+            v = np.asarray(vals[obs_index], dtype=float)
+            sig = sigma[0] if np.ndim(sigma) else sigma
+            v_f = ndimage.gaussian_filter1d(v, sigma=sig, axis=0) if v.ndim > 0 else v
+            sp_out[key] = v_f
+            if store:
+                self.obs_special_filt[key][obs_index] = v_f
+        return obs_index, x, sp_out
+
+    def filter_group(self, group_id, **kw):
+        return self.filter_observations(self.get_group_index(group_id), **kw)
+
+    def score_group_fit_badness(self, group_id, psi_sort_dims=None, median_size=(3, 3),
+                                std_size=(5, 3)):
+        """Per-observation fit badness: the rss of the group's fitted map
+        against its median-filtered version (``nddata.flag_bad_obs``, :1832);
+        stored in ``obs_fit_badness``."""
+        obs_index = self.get_group_index(group_id)
+        if psi_sort_dims is not None:
+            sort_vals = [self.obs_psi[obs_index, self.psi_dim_names.index(d)]
+                         for d in psi_sort_dims][::-1]
+            obs_index = obs_index[np.lexsort(sort_vals)]
+        x_array = np.asarray(self.obs_x[obs_index], dtype=float).copy()
+        x_array[self.obs_ignore_flag[obs_index] | ~self.obs_fit_status[obs_index]] = np.nan
+        x_filt = ndimage.median_filter(np.nan_to_num(x_array), size=median_size)
+        _, rss_list = nddata.flag_bad_obs(x_array, x_filt, std_size=std_size, return_rss=True)
+        x_rss = np.asarray(rss_list[0]).reshape(-1)
+        self.obs_fit_badness[obs_index] = x_rss
+        return obs_index, x_rss
+
+    def score_group_data_badness(self, group_id, **kk_kw):
+        raise _unported("score_group_data_badness: the Kramers-Kronig test (kk_test)", 9)
+
+    # ------------------------------------------------------------------
+    # Persistence (:1983-2069)
+    # ------------------------------------------------------------------
+    _persist_attrs = [
+        "fit_type", "pfrt_factors",
+        "tau_supergrid", "psi_dim_names", "tau_basis_type", "tau_epsilon",
+        "fixed_basis_nu", "nu_basis_type", "nu_epsilon", "fit_dop", "fit_kw",
+        "batch_fit_kw",
+        "fit_ohmic", "fit_inductance", "fit_capacitance", "normalize_dop",
+        "step_model", "chrono_mode",
+        "obs_psi", "obs_data", "obs_group_id", "obs_data_badness", "obs_ignore_flag",
+        "obs_x", "obs_drt_var", "obs_special", "obs_fit_status", "obs_fit_badness",
+        "obs_tau_indices", "obs_llh", "obs_rss", "obs_resolve_status",
+        "obs_x_resolved", "obs_special_resolved", "obs_x_filt", "obs_special_filt",
+        "obs_fit_attr",
+    ]
+
+    @property
+    def attribute_categories(self):
+        """Persistable attributes by category: 'config', 'obs_data', 'fit'."""
+        fit_keys = {"obs_fit_status", "obs_fit_attr", "obs_fit_badness", "obs_tau_indices",
+                    "obs_x", "obs_special", "obs_drt_var", "obs_resolve_status",
+                    "obs_x_resolved", "obs_special_resolved", "obs_x_filt", "obs_special_filt",
+                    "obs_llh", "obs_rss"}
+        obs_keys = {"obs_psi", "obs_data", "obs_group_id", "obs_ignore_flag",
+                    "obs_data_badness"}
+        return {
+            "config": [k for k in self._persist_attrs if k not in fit_keys and k not in obs_keys],
+            "obs_data": [k for k in self._persist_attrs if k in obs_keys],
+            "fit": [k for k in self._persist_attrs if k in fit_keys],
+        }
+
+    def _category_attr_names(self, which):
+        if which is None or which == "all":
+            return list(self._persist_attrs)
+        if isinstance(which, str):
+            which = [which]
+        cats = self.attribute_categories
+        try:
+            return sum([cats[c] for c in which], [])
+        except KeyError:
+            raise ValueError(f"Invalid attribute category; valid: {['all'] + list(cats.keys())}")
+
+    def get_attributes(self, which=None):
+        """The attributes of a category or list of categories ('config' |
+        'obs_data' | 'fit' | 'all')."""
+        return {k: getattr(self, k) for k in self._category_attr_names(which)}
+
+    def set_attributes(self, att_dict):
+        if att_dict.get("fit_type", self.fit_type) == "pfrt":
+            raise _unported("a map of PFRT fits", 9)
+        for k, v in att_dict.items():
+            setattr(self, k, v)
+
+    def save_attributes(self, which, dest=None):
+        """Pickle attributes to ``dest`` (with one argument, all of them to
+        that path), in the file format of the JAX class."""
+        if dest is None:
+            which, dest = None, which
+        with open(dest, "wb") as f:
+            pickle.dump(self.get_attributes(which), f)
+
+    def load_attributes(self, source):
+        """Set attributes from a pickle written by ``save_attributes``, this
+        class's or the JAX class's."""
+        with open(source, "rb") as f:
+            self.set_attributes(pickle.load(f))
+
+    @classmethod
+    def from_source(cls, source, device=None):
+        """A map built from a ``save_attributes`` pickle (a path) or an
+        attribute dict, on ``device`` (the card unless "cpu"); a
+        configuration the constructor does not take (``fixed_basis_nu``,
+        ``fit_dop``) raises, naming its item."""
+        if not isinstance(source, dict):
+            with open(source, "rb") as f:
+                att_dict = pickle.load(f)
+        else:
+            att_dict = dict(source)
+        config_keys = ["tau_supergrid", "psi_dim_names", "tau_basis_type", "tau_epsilon",
+                       "fixed_basis_nu", "nu_epsilon", "nu_basis_type", "fit_dop", "fit_ohmic",
+                       "fit_inductance", "fit_capacitance", "normalize_dop", "step_model",
+                       "chrono_mode"]
+        init_kw = {k: att_dict.pop(k) for k in config_keys if k in att_dict}
+        drtmd = cls(**init_kw, device=device)
+        drtmd.set_attributes(att_dict)
+        return drtmd
 
 
 # The fit state a map carries between packages: DRTMD attributes

@@ -1091,12 +1091,13 @@ class DRT:
         return np.logspace(log_min, log_max, int((log_max - log_min) * ppd) + 1)
 
     def predict_distribution(self, tau=None, ppd=20, order=0, x=None, normalize=False):
-        """gamma(ln tau) on an evaluation grid (:1695; order 0)."""
+        """gamma(ln tau), or its order-th derivative in ln tau (order 0..3), on
+        an evaluation grid (:1695)."""
         if tau is None:
             tau = self.get_tau_eval(ppd)
-        em = basis_mod.construct_func_eval_matrix(np.log(self.basis_tau),
-                                                  np.log(np.asarray(tau, dtype=float)),
-                                                  self.tau_basis_type, self.tau_epsilon, order)
+        em = basis_mod.func_eval_matrix_host(np.log(self.basis_tau),
+                                             np.log(np.asarray(tau, dtype=float)),
+                                             self.tau_basis_type, self.tau_epsilon, order)
         if x is None:
             x = self.fit_parameters["x"]
         else:

@@ -53,15 +53,55 @@ def integrated_derivative_kernel(order):
     return func
 
 
+def get_basis_func_derivative(basis_type, order):
+    """d^order phi / dy^order of the gaussian, order 0..3
+    (hybdrt_tpu/ops/basis.py:110-121)."""
+    if order == 0:
+        return get_basis_func(basis_type)
+    _check_gaussian(basis_type)
+    if order == 1:
+        return lambda y, epsilon: -2 * epsilon ** 2 * y * gaussian(y, epsilon)
+    if order == 2:
+        return lambda y, epsilon: (-2 * epsilon ** 2 + 4 * epsilon ** 4 * y ** 2) \
+            * gaussian(y, epsilon)
+    if order == 3:
+        return lambda y, epsilon: (12 * epsilon ** 4 * y - 8 * epsilon ** 6 * y ** 3) \
+            * gaussian(y, epsilon)
+    raise ValueError(f"Derivative of order {order} not implemented for basis type {basis_type}")
+
+
 def construct_func_eval_matrix(basis_grid, eval_grid=None, basis_type="gaussian",
                                epsilon=1.0, order=0):
-    """em @ x = the fitted distribution at eval_grid (order 0 only)."""
-    if order != 0:
-        raise NotImplementedError("the port implements the order-0 eval matrix only")
-    phi = get_basis_func(basis_type)
+    """em @ x = the order-th derivative of the fitted distribution at
+    eval_grid (hybdrt_tpu/ops/basis.py:270-279), in numpy float64."""
+    func = get_basis_func_derivative(basis_type, order)
     basis_grid = np.asarray(basis_grid, dtype=float)
     eval_grid = basis_grid if eval_grid is None else np.asarray(eval_grid, dtype=float)
-    return phi(eval_grid[:, None] - basis_grid[None, :], epsilon)
+    return func(eval_grid[:, None] - basis_grid[None, :], epsilon)
+
+
+_EVAL_MATRIX_HOST_CACHE = {}
+_EVAL_MATRIX_HOST_CACHE_MAX = 64
+
+
+def func_eval_matrix_host(basis_grid, eval_grid=None, basis_type="gaussian", epsilon=1.0,
+                          order=0):
+    """:func:`construct_func_eval_matrix`, cached by its grids and settings
+    for the host-side getters (``predict_drt``, the map's post-fit
+    pipeline), as hybdrt_tpu/ops/basis.py:285-320 caches it. The cache keeps
+    the last 64 matrices, read-only."""
+    basis_grid = np.asarray(basis_grid, dtype=float)
+    eval_grid = basis_grid if eval_grid is None else np.asarray(eval_grid, dtype=float)
+    key = (basis_grid.tobytes(), eval_grid.tobytes(), basis_type, float(epsilon), int(order))
+    em = _EVAL_MATRIX_HOST_CACHE.get(key)
+    if em is None:
+        em = construct_func_eval_matrix(basis_grid, eval_grid, basis_type, epsilon, order)
+        em.flags.writeable = False
+        if len(_EVAL_MATRIX_HOST_CACHE) >= _EVAL_MATRIX_HOST_CACHE_MAX:
+            # user-supplied eval grids vary per call; bound the cache
+            _EVAL_MATRIX_HOST_CACHE.pop(next(iter(_EVAL_MATRIX_HOST_CACHE)))
+        _EVAL_MATRIX_HOST_CACHE[key] = em
+    return em
 
 
 def get_impedance_func(part, basis_type="gaussian"):

@@ -2,8 +2,8 @@
 step detection and step sizes (:17-70), the ideal-step input model
 (:74-102), the Rp estimates (``estimate_rp`` :152, ``estimate_rp_batch``
 :195), extreme-value flags (:262-271), the time since each step (:277) and
-the basis-grid helpers (:292-337); and ``nearest_index`` ``unit_step`` and
-``rel_round`` of ``hybdrt_tpu/utils/array.py:39``, ``:72``, ``:11``.
+the basis-grid helpers (:292-337). ``nearest_index``, ``unit_step`` and
+``rel_round`` come from ``utils/array.py``, as they do in the JAX package.
 
 Non-ideal (``expdecay``) steps, whose step fit is a nonlinear least-squares
 problem (``fit_signal_steps``, :117), and downsampling are not ported
@@ -11,12 +11,8 @@ problem (``fit_signal_steps``, :117), and downsampling are not ported
 """
 import numpy as np
 
+from .utils.array import nearest_index, rel_round, unit_step  # noqa: F401 (pp.* names)
 from .utils.validation import check_step_model
-
-
-def unit_step(x, x0=0.0):
-    """Heaviside step: 1 where x >= x0, else 0."""
-    return np.where(np.asarray(x) >= x0, 1.0, 0.0)
 
 
 # ------------------------------------------------------------------
@@ -254,31 +250,6 @@ def get_tau_lim(frequencies, times=None, step_times=None):
 def get_num_decades(frequencies, times=None, step_times=None):
     tau_min, tau_max = get_tau_lim(frequencies, times, step_times)
     return np.log10(tau_max) - np.log10(tau_min)
-
-
-def rel_round(x, precision):
-    """x rounded to ``precision`` significant digits of its largest entry."""
-    x = np.asarray(x)
-    x_max = np.max(np.abs(x)) if x.size else 0.0
-    if x_max == 0:
-        return x
-    return np.round(x, precision - int(np.ceil(np.log10(x_max))))
-
-
-def nearest_index(x_array, x_val, constraint=None):
-    """Index of the entry of ``x_array`` nearest to ``x_val``; with
-    constraint -1 the entry must be <= x_val, with 1 >= x_val (the nearest
-    entry when none is)."""
-    x_array = np.asarray(x_array, dtype=float)
-    if constraint is None:
-        return int(np.argmin(np.abs(x_array - x_val)))
-    if constraint not in (-1, 1):
-        raise ValueError(f"Invalid constraint {constraint}; options: None, -1, 1")
-    delta = (x_array - x_val) * constraint
-    delta[delta < 0] = np.inf
-    if np.all(np.isinf(delta)):
-        return int(np.argmin(np.abs(x_array - x_val)))
-    return int(np.argmin(delta))
 
 
 def get_basis_tau(frequencies, times=None, step_times=None, ppd=10, extend_decades=1,

@@ -6,9 +6,12 @@ layouts`` and ``ip_loop``, ``utils/kernel_digest.py``) and by its tests.
 Nothing here is on a fitting path: it makes seeded test inputs (and holds
 the single-spectrum fit's golden spectrum and values), reads the
 card's name and power limit, times calls, computes a call's bound (the
-least time the card could take for its bytes and operations), and holds one
-parameter covariance against another by the readouts users take from it.
+least time the card could take for its bytes and operations), holds one
+parameter covariance against another by the readouts users take from it,
+and runs the benchmark's post-fit map pipeline stage by stage
+(``run_postproc_pipeline``) with the checks the het map's truth allows.
 """
+import hashlib
 import subprocess
 import time
 
@@ -685,3 +688,94 @@ def profile(label, fn, top=8, key_averages=False):
               f"{sum(ns for ns, _ in ka.values()) / 1e9:.6f} s in "
               f"{sum(c for _, c in ka.values())} kernels, {len(ka)} names; raw events "
               f"{total_s:.6f} s in {sum(c for _, c in rows.values())} kernels, {len(rows)} names")
+
+
+POSTPROC_STAGES = ("assemble_s", "filter_s", "flag_s", "ridges_s", "extrema_s")
+
+
+def run_postproc_pipeline(md, return_outputs=False):
+    """The post-fit map pipeline of ``bench.py::run_postproc_pipeline``
+    (``bench.py:349-379``) on the port's modules, with its calls and
+    arguments: ``assemble_ndx`` of ``md.obs_x`` sorted by psi "i",
+    ``filter_ndx`` (sigma (2, 1)), ``flag_bad_obs``, ``coef_to_ridges`` and
+    ``optimize_extrema``, each timed on the host clock. Returns the bench's
+    keys: each stage's seconds (unrounded), ``total_s``, ``bad_obs``; with
+    ``return_outputs`` also a dict of the outputs (x_nd, x_filt, bad,
+    ridge_mask, trough_mask, p_ridge, p_trough, and the optimized masks
+    ridge_opt, trough_opt)."""
+    from ..mapping import extrema, nddata, ndx, surface
+
+    out, res = {}, {}
+    t0 = time.perf_counter()
+    _, res["x_nd"] = ndx.assemble_ndx(md.obs_x, md.obs_psi, md.psi_dim_names,
+                                      md.tau_supergrid, sort_by=["i"])
+    out["assemble_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["x_filt"] = ndx.filter_ndx(res["x_nd"], 0, sigma=(2, 1))
+    out["filter_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["bad"] = nddata.flag_bad_obs(res["x_nd"], res["x_filt"])
+    out["flag_s"] = time.perf_counter() - t0
+    out["bad_obs"] = int(np.sum(res["bad"]))
+    t0 = time.perf_counter()
+    res["ridge_mask"], res["trough_mask"], res["p_ridge"], res["p_trough"] = \
+        surface.coef_to_ridges(res["x_filt"], md, num_group_dims=0)
+    out["ridges_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["ridge_opt"], res["trough_opt"] = extrema.optimize_extrema(
+        res["ridge_mask"], res["trough_mask"], res["p_ridge"], res["p_trough"])
+    out["extrema_s"] = time.perf_counter() - t0
+    out["total_s"] = sum(out[k] for k in POSTPROC_STAGES)
+    return (out, res) if return_outputs else out
+
+
+def postproc_digest(res):
+    """SHA-256 of the pipeline's discrete outputs: the bad observations'
+    indices and the optimized ridge and trough masks, as
+    ``utils/fit_digest.py`` digests a fit."""
+    h = hashlib.sha256()
+    h.update(np.flatnonzero(res["bad"]).astype(np.int64).tobytes())
+    for key in ("ridge_opt", "trough_opt"):
+        h.update(np.asarray(res[key].shape, dtype=np.int64).tobytes())
+        h.update(np.packbits(np.asarray(res[key], dtype=bool)).tobytes())
+    return h.hexdigest()
+
+
+def max_troughs_between_ridges(ridge_mask, trough_mask):
+    """The most troughs any row of (rows, tau) masks has between two
+    adjacent ridges (at most 1 where ridges and troughs alternate)."""
+    most = 0
+    for r, t in zip(np.asarray(ridge_mask, dtype=bool), np.asarray(trough_mask, dtype=bool)):
+        ridges, troughs = np.flatnonzero(r), np.flatnonzero(t)
+        if len(ridges) > 1 and len(troughs):
+            between = np.histogram(troughs, bins=ridges)[0]
+            most = max(most, int(between.max()))
+    return most
+
+
+def het_truth_shares(md, ridge_mask, reach=2):
+    """Shares of the het map's rows (``make_het_map``, ``bench.py:202-206``:
+    tau_2 = 1e-4 s everywhere, tau_1 = 10^(-2.8 + 1.2 p), p = i / (n - 1) at
+    psi "i") whose ridge mask has a ridge within ``reach`` supergrid points
+    of tau_1, of tau_2, and of both; ``ridge_mask`` (rows, tau) has the rows
+    in psi order, as ``assemble_ndx`` sorts them. Returns {"eis" | "hybrid":
+    {"tau1", "tau2", "both": share, "rows": count}}, hybrid rows being the
+    observations with chrono data."""
+    order = np.argsort(md.obs_psi[:, 0])
+    hybrid = np.array([md.obs_data[k][0] is not None for k in order])
+    log_grid = np.log10(md.tau_supergrid)
+    p = md.obs_psi[order, 0] / max(md.num_obs - 1, 1)
+    idx1 = np.argmin(np.abs(log_grid[None, :] - (-2.8 + 1.2 * p)[:, None]), axis=1)
+    idx2 = int(np.argmin(np.abs(log_grid + 4.0)))
+    cols = np.arange(len(log_grid))
+    rm = np.asarray(ridge_mask, dtype=bool)
+    near1 = (rm & (np.abs(cols[None, :] - idx1[:, None]) <= reach)).any(axis=1)
+    near2 = (rm & (np.abs(cols - idx2) <= reach)[None, :]).any(axis=1)
+    out = {}
+    for name, sel in (("eis", ~hybrid), ("hybrid", hybrid)):
+        n = int(sel.sum())
+        out[name] = {"tau1": float(near1[sel].mean()) if n else float("nan"),
+                     "tau2": float(near2[sel].mean()) if n else float("nan"),
+                     "both": float((near1 & near2)[sel].mean()) if n else float("nan"),
+                     "rows": n}
+    return out

@@ -249,11 +249,13 @@ def test_make_het_map_is_the_benchmarks():
 
 
 def test_no_module_imports_jax():
-    """Every module of hybdrt_torch, and the chip scripts, import with JAX and
-    hybdrt_tpu made unimportable; and no line of them imports either."""
+    """Every module of hybdrt_torch, and the chip scripts, import with JAX,
+    hybdrt_tpu, bench.py and the packages the GPU machine lacks (sklearn,
+    pandas, networkx) made unimportable; and no line of them imports JAX or
+    hybdrt_tpu."""
     code = (
         "import sys, pkgutil, importlib, runpy\n"
-        "for name in ('jax', 'jaxlib', 'hybdrt_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'hybdrt_tpu', 'bench', 'sklearn', 'pandas', 'networkx'):\n"
         "    sys.modules[name] = None\n"
         "import hybdrt_torch\n"
         "for m in pkgutil.walk_packages(hybdrt_torch.__path__, 'hybdrt_torch.'):\n"

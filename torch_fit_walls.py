@@ -4,7 +4,8 @@ warm QPs (``qp_fused``), taken in turns in one process, and one profiled call.
 Run from the repository root on a machine with a CUDA card:
 
     python3 torch_fit_walls.py [--rounds 3] [--batch 8192] [--no-profile]
-                               [--frames | --stream | --history | --single | --hybrid | --het]
+                               [--frames | --stream | --history | --single | --hybrid | --het
+                                | --het-truth]
 
 The fit is ``chip_smoke.py``'s main path: ``make_batch(batch, 71)``
 (``hybdrt_torch/utils/probe.py``, the benchmark's spectra),
@@ -69,7 +70,18 @@ Then the card's fits go to a map on the CPU (``load_fit_state``), which
 resolves the group coupled in float32 and float64 through the port's plain
 path: 3x that float32-vs-float64 spread of ``obs_x_resolved`` is the bound
 that ``chip_smoke.py`` phase 14 holds the card's float32 coupled resolve to
-(``HET_F32_BOUND``).
+(``HET_F32_BOUND``). Last, the post-fit map pipeline
+(``probe.run_postproc_pipeline``, ``bench.py:349-379``) on the card's
+float32 fit: one first call, then six calls, each stage's host wall (these
+stages run on the host CPU, not the card).
+
+With ``--het-truth`` it reads the het map's truth through that pipeline
+(``chip_smoke.py`` phase 15's floor): ``make_het_map(768, 256)`` fitted by
+the port in float64 on the CPU (``device="cpu"``) and in float32 on the card,
+each map's ``obs_x`` through the pipeline, and the shares of EIS and hybrid
+rows whose optimized ridge mask has a ridge within two supergrid points of
+each true relaxation (``probe.het_truth_shares``), with ``bad_obs``, the
+most troughs between adjacent ridges and the outputs' digest.
 """
 import argparse
 import time
@@ -82,9 +94,11 @@ import hybdrt_torch
 from hybdrt_torch.mapping.drtmd import STATE_KEYS, load_fit_state
 from hybdrt_torch.ops import chol_lane, ip_lane
 from hybdrt_torch.solver import fitcore
-from hybdrt_torch.utils.probe import (GOLDEN_HYPERS, card_line, golden_fit, make_batch,
-                                      make_frames, make_het_eis, make_het_hybrid, make_het_map,
-                                      make_hybrid_batch, make_stream, profile, timed)
+from hybdrt_torch.utils.probe import (GOLDEN_HYPERS, POSTPROC_STAGES, card_line, golden_fit,
+                                      het_truth_shares, make_batch, make_frames, make_het_eis,
+                                      make_het_hybrid, make_het_map, make_hybrid_batch,
+                                      make_stream, max_troughs_between_ridges, postproc_digest,
+                                      profile, run_postproc_pipeline, timed)
 
 KW = dict(max_iter=50, qp_max_iter=20, qp_max_iter_warm=4, pred_stop=True, pred_rtol=3e-2)
 
@@ -101,12 +115,14 @@ def main():
     mode.add_argument("--single", action="store_true")
     mode.add_argument("--hybrid", action="store_true")
     mode.add_argument("--het", action="store_true")
+    mode.add_argument("--het-truth", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_fit_walls.py needs a CUDA card")
     print(card_line())
     for flag, fn in (("frames", frames), ("stream", stream), ("history", history),
-                     ("single", single), ("hybrid", hybrid), ("het", het)):
+                     ("single", single), ("hybrid", hybrid), ("het", het),
+                     ("het_truth", het_truth)):
         if getattr(args, flag):
             fn(args)
             return
@@ -290,6 +306,36 @@ def het(args):
                           / np.max(np.abs(xs[name, torch.float64]))) for name in ("card", "CPU")}
     print(f"het coupled f32 against f64, max |dx| / max |x|: card {spread['card']:.4g}, CPU "
           f"plain path {spread['CPU']:.4g}; 3x the CPU's {3 * spread['CPU']:.4g}")
+
+    # The post-fit pipeline on the card's float32 fit, on the host
+    first = run_postproc_pipeline(md)
+    calls = [run_postproc_pipeline(md) for _ in range(6)]
+    print(f"het post-fit pipeline (host), first call: "
+          f"{ {k: round(v, 4) for k, v in first.items() if k != 'bad_obs'} }, bad_obs "
+          f"{first['bad_obs']}")
+    for k in (*POSTPROC_STAGES, "total_s"):
+        w = [c[k] for c in calls]
+        print(f"het post-fit {k}: six calls {[round(x, 4) for x in w]} s, median "
+              f"{np.median(w):.4f} s")
+
+
+def het_truth(args):
+    """The het map's truth through the post-fit pipeline: the port's float64
+    fit on the CPU and float32 fit on the card."""
+    for device, dtype in (("cpu", torch.float64), ("cuda", torch.float32)):
+        md = make_het_map(768, 256, device=device)
+        t0 = time.time()
+        md.fit_all(batched=True, dtype=dtype)
+        t_fit = time.time() - t0
+        timing, res = run_postproc_pipeline(md, return_outputs=True)
+        for label in ("ridge_mask", "ridge_opt"):
+            print(f"het truth, {dtype} fit on {device} ({t_fit:.1f} s), {label}: "
+                  f"{het_truth_shares(md, res[label])}")
+        print(f"het truth, {dtype} fit on {device}: bad_obs {timing['bad_obs']}, most troughs "
+              f"between adjacent ridges "
+              f"{max_troughs_between_ridges(res['ridge_opt'], res['trough_opt'])}, x_nd finite "
+              f"{bool(np.isfinite(res['x_nd']).all())}, digest {postproc_digest(res)}, "
+              f"pipeline {timing['total_s']:.4f} s")
 
 
 def stream_threaded(fitter, batches, collect="lazy"):
