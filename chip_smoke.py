@@ -224,14 +224,44 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
     the first call's, and the shares of EIS and hybrid rows with a ridge
     within two supergrid points of each true relaxation (tau_2 = 1e-4 s,
     tau_1 = 10^(-2.8 + 1.2 p), ``bench.py:202-206``) at or above
-    ``HET_TRUTH_FLOOR``; a digest of the bad observations and both masks.
+    ``HET_TRUTH_FLOOR``; a digest of the bad observations and both masks;
+16. the reference's defaults: (a) ``DRT().fit_eis`` of the quick start's
+    spectrum (``probe.quickstart_eis``) in float64, warm, #1-#3 launched and
+    every QP through the lane kernels, then ``predict_drt_ci``,
+    ``find_peaks`` (both methods), ``quantify_peaks``,
+    ``estimate_peak_distributions``, ``split_r_p``, ``integrate_drt``,
+    ``predict_peak_prob``, ``fisher_matrix``, ``evaluate_rss/llh/bic/lml``,
+    ``predict_sigma`` and ``evaluate_chi_sq`` against the same fit on the
+    CPU: peak indices equal, the covariance, variances, CI band and peak
+    probability within their conditioning bounds, rss, llh and bic within
+    1e-9 on one fit state and lml within its log-det bound, and the quick
+    start's truth (peaks within 0.1 decade, Rp within ``QS_R_MARGIN``);
+    (b) ``make_het_map(96, 32)`` fitted by ``fit_all()`` (serial, float64),
+    once: the wall, median wall per EIS and hybrid fit, launches and QP
+    routes per fit; every observation fitted and finite, obs_drt_var
+    finite and >= 0, every fit's QPs through #1-#3, and the share of
+    observations that ``fit_all(batched=True, dtype=float64)`` fits to the
+    same iterations and x within 1e-6 at or above the CPU's
+    (``SERIAL_SHARE_FLOOR``); (c) ``estimate_obs_drt_var`` of phase 14's
+    map, its wall, the first 64 within their readout bounds of the CPU's
+    per-observation path; (d) ``resolve_group("g", psi_sort_dims=["i"])``
+    with its defaults (dense windows of n = 658, float64) on (b)'s map: wall,
+    IP iterations, every window through the library route and no lane
+    kernel; x within ``DENSE_X_BOUND`` and the objective within
+    ``DENSE_OBJ_RTOL`` of ``batched=True``'s, the first 13 windows at the
+    CPU's iterations and x within 1e-8; then the same on phase 14's 1024
+    observations (its first 256 where 26 windows' wall scaled to 205 passes
+    ``DENSE_BIG_S``); (e) ``predict_drt_var``, ``predict_x_var``,
+    ``predict_curv_prob`` and ``predict_peak_prob`` of (b)'s map: finite,
+    probabilities in [0, 1], 8 observations within their bounds of the CPU's.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches from the path it serves: phase 5 and phase 13's timed fits for the
 three fit Cholesky kernels, phase 6 and phase 13's fused fit for
 ``ip_steps_lane``, phase 8's two timed resolves for
-``chol_factor_lane``, phase 14's timed fit and resolves for #1-#4, phase 9's
-study for the four layout kernels, phase 10's study for ``ip_steps_loop``);
+``chol_factor_lane``, phase 14's timed fit and resolves for #1-#4, phase 16's
+quick-start fit and serial ``fit_all`` for #1-#3, phase 9's study for the
+four layout kernels, phase 10's study for ``ip_steps_loop``);
 the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -2092,6 +2122,329 @@ def phase_postproc(md, fit_wall):
     return warm
 
 
+# Phase 16: the reference's defaults. The quick start's truth (its ZARCs:
+# 1.0 ohm at 1e-3 s, 0.8 ohm at 1e-1 s); the port's float64 fit on a CPU
+# puts its peaks at 1.0042e-3 and 0.10042 s (0.002 decade off) and
+# quantify_peaks at 1.0076 and 0.7852 ohm, so the margin on each peak's Rp
+# is 3x the larger miss (0.0148), rounded up
+QS_PEAK_TAU, QS_PEAK_DECADES = (1e-3, 1e-1), 0.1
+QS_PEAK_R, QS_R_MARGIN = (1.0, 0.8), 0.05
+# The serial het map: make_het_map(96, 32) fitted by fit_all(), against the
+# same observations fitted by fit_all(batched=True, dtype=float64) with the
+# DRT's own solver settings (batch_fit_kw={}): the share of observations at
+# the same iteration count with obs_x within 1e-6 of max |x|, 91 of 128 with
+# the port on a CPU (all 128 at the same count; PERF.md §6), which the
+# card's share may not fall below
+SERIAL_MAP = (96, 32)
+SERIAL_SHARE_FLOOR = 91 / 128
+# The default (dense) resolve against the batched windows of the same map:
+# both land on one flat optimum in different places, in the JAX package too
+# (ROADMAP Queue 3 item 16): the objectives agree to DENSE_OBJ_RTOL of |f|
+# (3.3e-12 on a CPU), and x to 3x the CPU's max |dx| / max |x| on this map,
+# 2.521e-3 (PERF.md §6)
+DENSE_OBJ_RTOL = 1e-10
+DENSE_X_BOUND = 7.564e-3
+DENSE_CPU_WINDOWS = 13
+# The 1024-observation default resolve runs where 26 windows' wall scaled to
+# 205 stays within this (s), else on the first 256 observations
+DENSE_BIG_S = 30.0
+
+
+# the least share of points a probability guard of phase 16 must hold
+PROB_MIN_SHARE = 0.5
+
+
+def report_probabilities(label, p, p_ref, bound):
+    """Hold the card's probability map ``p`` against the CPU's ``p_ref``
+    point by point, wherever the point's bound (``probe.prob_bounds``) is
+    at most ``probe.PROB_HOLD``, on at least ``PROB_MIN_SHARE`` of the
+    points; print how many points that leaves out."""
+    from hybdrt_torch.utils.probe import PROB_HOLD, held_probabilities
+    held, excess, d_held = held_probabilities(p, p_ref, bound)
+    n_held = int(held.sum())
+    print(f"  {label}: {n_held} of {held.size} points held (bound <= {PROB_HOLD}), "
+          f"{held.size - n_held} left out; held max |d| {d_held:.3g}, their bounds up to "
+          f"{float(np.max(bound[held])) if n_held else float('nan'):.3g}; max |d| over all points "
+          f"{float(np.max(np.abs(p - p_ref))):.3g}")
+    check(n_held >= PROB_MIN_SHARE * held.size, f"{label}: at least {PROB_MIN_SHARE} held")
+    check(excess <= 0, f"{label} within its per-point CDF bound (excess {excess:.3g})")
+
+
+def phase_quickstart():
+    """Phase 16a: the quick start's single fit on the card (float64) and its
+    posterior, peak and likelihood readouts, against the same fit on the
+    CPU. Returns (walls, launches of the timed fit)."""
+    import copy
+
+    import hybdrt_torch
+    from hybdrt_torch.ops import basis as basis_mod
+    from hybdrt_torch.ops import chol_lane as cl
+    from hybdrt_torch.utils.probe import (cov_bound, drt_prob_inputs, lml_bound, prob_bounds,
+                                          quickstart_eis, quickstart_readouts, variance_errors)
+
+    walls = {}
+    freq, z = quickstart_eis()
+    drt = hybdrt_torch.DRT()
+    drt.fit_eis(freq, z)
+    cl.reset_launch_counts()
+    walls["fit_eis"] = timed(lambda: drt.fit_eis(freq, z))
+    launches, routes = launch_counts(), dict(cl.QP_ROUTES)
+    first = timed(lambda: quickstart_readouts(drt))
+    t0 = time.time()
+    card = quickstart_readouts(drt)
+    torch.cuda.synchronize()
+    walls["readouts"] = time.time() - t0
+    print(f"defaults 16a: DRT().fit_eis of the quick start's spectrum, f64 on the card: warm "
+          f"{walls['fit_eis']:.4f} s, n_iter {drt.qphb_params['n_iter']}; launches {launches}; "
+          f"QPs by route {routes}; the readouts {first:.4f} s, then {walls['readouts']:.4f} s")
+    check(all(launches[k] > 0 for k in FIT_KERNELS), f"16a fit launched #1-#3: {launches}")
+    check(routes["library"] == 0 and routes["lane"] > 0, "16a QPs through the lane kernels")
+
+    cpu = hybdrt_torch.DRT(device="cpu").fit_eis(freq, z)
+    ref = quickstart_readouts(cpu)
+    for key in ("peaks", "peaks_prob"):
+        check(np.array_equal(card[key][2], ref[key][2]),
+              f"16a {key} indices equal on the card and the CPU: {card[key][2]} {ref[key][2]}")
+    p_g, p_c = (np.asarray(d.qphb_params["p_matrix"]) for d in (drt, cpu))
+    bound = cov_bound(p_g, p_c)
+    d_cov = float(np.max(np.abs(card["cov"] - ref["cov"])) / np.max(np.abs(ref["cov"])))
+    tau, ns = card["tau"], drt.get_qp_mat_offset()
+    em = basis_mod.func_eval_matrix_host(np.log(drt.basis_tau), np.log(tau), "gaussian",
+                                         drt.tau_epsilon, 0)
+    err, vb = variance_errors(card["var"], ref["var"], p_g, p_c, em, ns)
+    mu = np.abs(cpu.predict_distribution(tau))
+    ci_tol = 1e-6 * np.max(mu) + 1.96 * np.sqrt(ref["var"]) * (0.5 * vb + 1e-12)
+    d_ci = max(float(np.max(np.abs(a - b) - ci_tol)) for a, b in zip(card["ci"], ref["ci"]))
+    print(f"  card against CPU: cov max |d| / max |cov| {d_cov:.3g} (bound {bound:.3g}); "
+          f"variances max rel {err.max():.3g} (bounds up to {vb.max():.3g}); CI band excess over "
+          f"its bound {d_ci:.3g}; peaks {card['peaks'][0]} / prob {card['peaks_prob'][0]}")
+    check(d_cov <= bound, "16a parameter covariance within cond(P) max(eps, dP)")
+    check(np.all(err <= vb + 1e-12), "16a variances within their readout bounds")
+    check(d_ci <= 0, "16a CI band within sigma's bound and the fit tolerance")
+    # predict_peak_prob reads tau at 10 a decade; each point against its own bound
+    inputs = drt_prob_inputs(drt, cpu, drt.get_tau_eval(10))
+    check(inputs["var_excess"] <= 1e-12, "16a variances of orders 0-2 within their bounds")
+    bound = prob_bounds("peak_prob", inputs["mus"], inputs["mus_ref"], inputs["var"],
+                        inputs["var_ref"], floor=True)
+    report_probabilities("16a peak_prob", card["peak_prob"], ref["peak_prob"], bound)
+    # likelihoods: the card's on the CPU fit's state, and each on its own fit
+    same = copy.copy(drt)
+    same.qphb_params, same.fit_parameters = cpu.qphb_params, cpu.fit_parameters
+    same.coefficient_scale = cpu.coefficient_scale
+    rel = {fn: abs(getattr(same, f"evaluate_{fn}")() / ref[fn] - 1) for fn in ("rss", "llh", "bic")}
+    qp_c = cpu.qphb_params
+    d_lml = abs(same.evaluate_lml() - ref["lml"])
+    lml_b = lml_bound(p_c, qp_c["rm"] * qp_c["weights"][:, None]) + 1e-9 * abs(ref["lml"])
+    own = {fn: abs(card[fn] / ref[fn] - 1) for fn in ("rss", "llh", "bic", "lml")}
+    print("  likelihoods on one state, card against CPU: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in rel.items()) + f", lml |d| {d_lml:.3g} (bound {lml_b:.3g}); "
+          "each fit's own, relative: " + ", ".join(f"{k} {v:.3g}" for k, v in own.items()))
+    check(all(v <= 1e-9 for v in rel.values()), "16a rss, llh, bic within 1e-9 on one state")
+    check(d_lml <= lml_b, "16a lml within its log-det bound on one state")
+    check(all(own[k] <= 1e-6 for k in ("rss", "llh", "bic")), "16a own-fit likelihoods")
+    fim = card["fisher"]
+    check(np.max(np.abs(same.fisher_matrix() - ref["fisher"])) <= 1e-12 * np.max(
+        np.abs(ref["fisher"])), "16a Fisher matrix on one state within 1e-12")
+    lam = np.linalg.eigvalsh(fim)
+    check(lam.min() >= -fim.shape[0] * np.finfo(float).eps * lam.max(), "16a Fisher PSD")
+    check(abs(card["chi_sq"] / ref["chi_sq"] - 1) <= 1e-6, "16a chi_sq")
+    check(np.allclose(card["sigma"], ref["sigma"], rtol=1e-6), "16a predict_sigma")
+    # the quick start's truth
+    peaks = card["peaks"][0]
+    print(f"  truth: peaks {peaks} s against {QS_PEAK_TAU}, quantify_peaks {card['quantify']} "
+          f"against {QS_PEAK_R} (margin {QS_R_MARGIN}); split_r_p {card['split']}")
+    check(len(peaks) == 2 and np.all(np.abs(np.log10(peaks / np.array(QS_PEAK_TAU)))
+                                     <= QS_PEAK_DECADES), "16a peaks near the truth")
+    check(np.all(np.abs(card["quantify"] - np.array(QS_PEAK_R)) <= QS_R_MARGIN),
+          "16a quantify_peaks near the truth")
+    for key in ("quantify", "split", "integral", "peak_drts"):
+        check(np.allclose(card[key], ref[key], rtol=1e-6, atol=1e-10), f"16a {key} card vs CPU")
+    return walls, launches
+
+
+def phase_defaults(het_md):
+    """Phase 16: the reference's defaults on the card: 16a the quick start's
+    single fit and readouts; 16b the serial het map; 16c
+    ``estimate_obs_drt_var`` on phase 14's map; 16d the default (dense)
+    resolve; 16e the map's uncertainty readouts. Returns ({label: wall},
+    {label: launches of #1-#3})."""
+    from hybdrt_torch.mapping import resolve
+    from hybdrt_torch.mapping.drtmd import STATE_KEYS, load_fit_state, resolve_windows
+    from hybdrt_torch.ops import basis as basis_mod
+    from hybdrt_torch.ops import chol_lane as cl
+    from hybdrt_torch.utils.probe import (cov_bound, make_het_map, map_prob_inputs,
+                                          posterior_definite, prob_bounds,
+                                          serial_batched_agreement, serial_map, variance_errors)
+
+    t_phase = time.time()
+    walls, launches = {}, {}
+    qs_walls, launches["quickstart fit_eis"] = phase_quickstart()
+    walls.update({f"quickstart {k}": v for k, v in qs_walls.items()})
+
+    # 16b: the serial map, one call in the process the phases before warmed
+    cl.reset_launch_counts()
+    md, log, walls["serial fit_all"] = serial_map(*SERIAL_MAP)
+    torch.cuda.synchronize()
+    launches["serial fit_all"] = launch_counts()
+    summary = log.summary()
+    print(f"defaults 16b: make_het_map{SERIAL_MAP} fit_all() (serial, f64) of {md.num_obs} "
+          f"observations: {walls['serial fit_all']:.3f} s; launches "
+          f"{launches['serial fit_all']}")
+    for kind, row in summary.items():
+        print(f"  {kind}: {row['n']} fits, median wall {row['median_wall']:.4f} s; per fit "
+              + ", ".join(f"{k} {v[0]}-{v[1]}" for k, v in row.items()
+                          if k not in ("n", "median_wall")))
+    check(md.obs_fit_status.all(), "16b every observation fitted")
+    check(all(np.isfinite(a).all() for a in (md.obs_x, md.obs_llh, md.obs_rss)),
+          "16b obs_x, obs_llh, obs_rss finite")
+    definite = posterior_definite(md, np.arange(md.num_obs))
+    var_ok = np.isfinite(md.obs_drt_var).all(axis=1) & (md.obs_drt_var >= 0).all(axis=1)
+    print(f"  obs_drt_var finite and >= 0 on {int(var_ok.sum())} of {md.num_obs} observations; "
+          f"P without a float64 Cholesky factor (the general inverse, Queue 3 item 17) on "
+          f"{int((~definite).sum())}: {np.flatnonzero(~definite).tolist()}")
+    check(np.isfinite(md.obs_drt_var).all(), "16b obs_drt_var finite")
+    check(var_ok[definite].all(), "16b obs_drt_var >= 0 wherever P factors")
+    check(all(r[k] > 0 for r in log.per_obs for k in FIT_KERNELS) and
+          all(r["qp_library"] == 0 and r["qp_lane"] > 0 for r in log.per_obs),
+          "16b every serial fit's QPs launched #1-#3")
+    mb = make_het_map(*SERIAL_MAP)
+    mb.batch_fit_kw = {}
+    mb.fit_all(batched=True, dtype=torch.float64)
+    same_it, share = serial_batched_agreement(md, mb)
+    print(f"  against fit_all(batched=True, float64) with the DRT's settings: same n_iter "
+          f"{same_it:.4f}, and x within 1e-6 of max |x| {share:.4f} (CPU floor "
+          f"{SERIAL_SHARE_FLOOR})")
+    check(share >= SERIAL_SHARE_FLOOR, "16b serial against batched share at or above the CPU's")
+
+    # 16c: the group variance of phase 14's map
+    t0 = time.time()
+    het_md.estimate_obs_drt_var(refresh=True)
+    walls["obs_drt_var"] = time.time() - t0
+    cpu = load_fit_state(make_het_map(768, 256, device="cpu"),
+                         {k: getattr(het_md, k) for k in STATE_KEYS})
+    sub = np.arange(HET_CPU_OBS)
+    fits_g, fits_c = het_md.get_fits_batched(sub), cpu.get_fits_batched(sub)
+    worst = 0.0
+    for i in sub:
+        dg, dc = fits_g[i], fits_c[i]
+        own = np.diag(dc.estimate_distribution_cov(tau=het_md.tau_supergrid, extend_var=True))
+        em = basis_mod.func_eval_matrix_host(np.log(dc.basis_tau), np.log(het_md.tau_supergrid),
+                                             "gaussian", dc.tau_epsilon, 0)
+        err, vb = variance_errors(het_md.obs_drt_var[i], own,
+                                  np.asarray(dg.fit_parameters["p_matrix"]),
+                                  np.asarray(dc.fit_parameters["p_matrix"]), em,
+                                  dc.get_qp_mat_offset(), het_md.tau_supergrid, dc.basis_tau)
+        check(np.all(err <= vb + 1e-12), f"16c obs {i}: variance within its readout bound")
+        worst = max(worst, float(np.max(err / (vb + 1e-12))))
+    print(f"defaults 16c: estimate_obs_drt_var of phase 14's {het_md.num_obs} observations "
+          f"{walls['obs_drt_var']:.4f} s; the first {HET_CPU_OBS} against the CPU's "
+          f"per-observation path: largest error over its bound {worst:.3g}")
+    check(np.isfinite(het_md.obs_drt_var).all() and (het_md.obs_drt_var >= 0).all(),
+          "16c variances finite and >= 0")
+
+    # 16d: the default resolve, its windows captured for the CPU
+    captured, real = [], resolve.solve_dense_window
+
+    def capture(p, q, lb, **kw):
+        out = real(p, q, lb, **kw)
+        captured.append((p, q, lb, out))
+        return out
+
+    md.resolve_group("g", psi_sort_dims=["i"])
+    cl.reset_launch_counts()
+    resolve.solve_dense_window = capture
+    try:
+        walls["dense resolve"] = timed(lambda: md.resolve_group("g", psi_sort_dims=["i"]))
+    finally:
+        resolve.solve_dense_window = real
+    info, routes = md.resolve_info, dict(cl.QP_ROUTES)
+    n_it = np.asarray(info["n_iter"])
+    print(f"defaults 16d: resolve_group('g') default (dense windows, f64) of the serial map: "
+          f"{walls['dense resolve']:.4f} s ({info['windows']} windows of n = "
+          f"{len(captured[0][1])}; rebuild {info['rebuild_s']:.4f} s, host assembly "
+          f"{info['assembly_s']:.4f} s, solve {info['solve_s']:.4f} s); IP iterations "
+          f"{n_it.tolist()}; QPs by route {routes}; lane launches {dict(cl.LAUNCHES)}")
+    check(routes == {"lane": 0, "library": info["windows"]}, "16d every window's QP took the "
+          "library route")
+    check(all(v == 0 for v in cl.LAUNCHES.values()), "16d no lane kernel launched")
+    check(np.isfinite(md.obs_x_resolved).all(), "16d finite")
+    xd, fd = md.obs_x_resolved.copy(), md.group_objective("g", psi_sort_dims=["i"])
+    md.resolve_group("g", psi_sort_dims=["i"], batched=True)
+    xb, fb = md.obs_x_resolved.copy(), md.group_objective("g", psi_sort_dims=["i"])
+    dx = float(np.max(np.abs(xd - xb)) / np.max(np.abs(xb)))
+    print(f"  dense against batched=True f64: max |dx| / max |x| {dx:.4g} (bound "
+          f"{DENSE_X_BOUND}), objective {fd:.12g} against {fb:.12g} (rel {(fd - fb) / abs(fb):.3g})")
+    check(dx <= DENSE_X_BOUND, "16d dense x within DENSE_X_BOUND of the batched windows'")
+    check(abs(fd - fb) <= DENSE_OBJ_RTOL * abs(fb), "16d objectives within DENSE_OBJ_RTOL")
+    t0 = time.time()
+    same, dxs = [], []
+    for p, q, lb, (x, it) in captured[:DENSE_CPU_WINDOWS]:
+        xc, itc = real(p, q, lb, device="cpu")
+        same.append(it == itc)
+        dxs.append(float(np.max(np.abs(x - xc)) / np.max(np.abs(xc))))
+    print(f"  the first {DENSE_CPU_WINDOWS} windows on the CPU ({time.time() - t0:.2f} s): same "
+          f"IP iterations {sum(same)}/{len(same)}, max |dx| / max |x| {max(dxs):.3g}")
+    check(all(same) and max(dxs) < 1e-8, "16d windows at the CPU's iterations, x within 1e-8")
+
+    # 16d: the 1024-observation map's default resolve, or its first 256
+    n_win, n_16d = len(resolve_windows(het_md.num_obs, 7, 2)), info["windows"]
+    estimate = walls["dense resolve"] * n_win / n_16d
+    big = estimate <= DENSE_BIG_S
+    groups = list(het_md.obs_group_id)
+    if not big:
+        het_md.obs_group_id = ["g" if i < 256 else "rest" for i in range(het_md.num_obs)]
+    cl.reset_launch_counts()
+    try:
+        walls["dense resolve het"] = timed(lambda: het_md.resolve_group("g", psi_sort_dims=["i"]))
+    finally:
+        het_md.obs_group_id = groups
+    info = het_md.resolve_info
+    print(f"defaults 16d: the default resolve of phase 14's map, "
+          f"{'all 1024' if big else 'its first 256'} observations ({n_16d} windows scaled to "
+          f"{n_win}: {estimate:.1f} s against {DENSE_BIG_S} s): {walls['dense resolve het']:.4f} s, "
+          f"{info['windows']} windows, IP iterations median {np.median(info['n_iter']):.0f} max "
+          f"{int(np.max(info['n_iter']))}, solve {info['solve_s']:.4f} s, host assembly "
+          f"{info['assembly_s']:.4f} s; QPs by route {dict(cl.QP_ROUTES)}")
+    check(cl.QP_ROUTES == {"lane": 0, "library": info["windows"]}, "16d het windows took the "
+          "library route")
+    check(np.isfinite(het_md.obs_x_resolved).all(), "16d het resolve finite")
+
+    # 16e: the map's uncertainty readouts, 8 observations against the CPU
+    idx = md.fitted_obs_index()
+    t0 = time.time()
+    reads = {"drt_var": md.predict_drt_var(idx), "x_var": md.predict_x_var(idx),
+             "curv_prob": md.predict_curv_prob(), "peak_prob": md.predict_peak_prob()}
+    walls["readouts"] = time.time() - t0
+    print(f"defaults 16e: predict_drt_var, predict_x_var, predict_curv_prob and "
+          f"predict_peak_prob of {len(idx)} observations {walls['readouts']:.4f} s")
+    ok = definite[idx]
+    for k, v in reads.items():
+        check(np.isfinite(v[ok]).all(), f"16e {k} finite wherever P factors")
+    for k in ("curv_prob", "peak_prob"):
+        check(np.all((reads[k][ok] >= 0) & (reads[k][ok] <= 1)), f"16e {k} in [0, 1]")
+    cpu = load_fit_state(make_het_map(*SERIAL_MAP, device="cpu"),
+                         {k: getattr(md, k) for k in STATE_KEYS})
+    sub = idx[ok][:8]
+    tau = md.get_tau_eval(10)
+    fits = cpu.get_fits_batched(sub)
+    inputs = map_prob_inputs(md, cpu, sub, tau)
+    check(inputs["var_excess"] <= 1e-12, "16e drt_var of orders 0-2 within their bounds")
+    for kind, fn in (("curv", "predict_curv_prob"), ("peak_prob", "predict_peak_prob")):
+        report_probabilities(f"16e {fn}", getattr(md, fn)(obs_index=sub),
+                             getattr(cpu, fn)(obs_index=sub),
+                             prob_bounds(kind, inputs["mus"], inputs["mus_ref"],
+                                         inputs["var"], inputs["var_ref"]))
+    x_cov_c, x_var_g = cpu.predict_x_cov(sub), md.predict_x_var(sub)
+    d_xvar = [float(np.max(np.abs(x_var_g[k] - np.diag(c))) / np.max(np.abs(c)))
+              for k, c in enumerate(x_cov_c)]
+    x_bound = [cov_bound(*(np.asarray(fits[i].fit_parameters["p_matrix"]),) * 2) for i in sub]
+    print(f"  8 observations against the CPU: x_var max |d| / max |x_cov| {max(d_xvar):.3g} "
+          f"(bounds down to {min(x_bound):.3g})")
+    check(all(d <= b for d, b in zip(d_xvar, x_bound)), "16e x_var within the covariance bound")
+    print(f"defaults: phase {time.time() - t_phase:.1f} s")
+    return walls, launches
+
+
 def main():
     phase_card()
     phase_build()
@@ -2116,12 +2469,16 @@ def main():
     hybrid_walls, hybrid_err, hybrid_launches, hyb_res = phase_hybrid()
     het_launches, het_walls, het_md = phase_het(eis_res, hyb_res)
     postproc_walls = phase_postproc(het_md, het_walls["fit_all"])
+    default_walls, default_launches = phase_defaults(het_md)
     for k, e in {**ragged_err, **hybrid_err}.items():
         max_err[k] = max(max_err[k], e)
     for k, n in hybrid_launches.items():
         launches[k] += n
     for counts in het_launches.values():
         for k in (*FIT_KERNELS, "chol_factor_lane"):
+            launches[k] += counts[k]
+    for counts in default_launches.values():
+        for k in FIT_KERNELS:
             launches[k] += counts[k]
     print(f"second-call wall, B={B_BENCH}: plain {wall:.4f} s ({B_BENCH / wall:.1f} spectra/s), "
           f"fused {fused_wall:.4f} s ({B_BENCH / fused_wall:.1f} spectra/s)")
@@ -2141,6 +2498,8 @@ def main():
           + "; launches " + ", ".join(f"{k} {v}" for k, v in het_launches.items()))
     print("het post-fit pipeline (host), medians: "
           + ", ".join(f"{k} {w:.4f} s" for k, w in postproc_walls.items()))
+    print("the reference's defaults: " + ", ".join(f"{k} {w:.4f} s"
+                                                  for k, w in default_walls.items()))
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu, "launches": launches[k],
          "max_abs_err": max_err[k], "ms": times[k]["ms"], "plain_ms": times[k]["plain_ms"],

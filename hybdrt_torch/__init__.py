@@ -24,10 +24,10 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
-from .mapping.drtmd import GroupResolveResult, resolve_group  # noqa: E402
+from .mapping.drtmd import DRTMD, GroupResolveResult, resolve_group  # noqa: E402
 from .models.drt import DRT  # noqa: E402
 from .parallel.batch import BatchedEISFitter, BatchedHybridFitter, BatchFitResult  # noqa: E402
 from .parallel.ragged import BatchedRaggedFitter, RaggedFitResult  # noqa: E402
 
 __all__ = ["BatchedEISFitter", "BatchedHybridFitter", "BatchFitResult", "BatchedRaggedFitter",
-           "DRT", "GroupResolveResult", "RaggedFitResult", "resolve_group"]
+           "DRT", "DRTMD", "GroupResolveResult", "RaggedFitResult", "resolve_group"]

@@ -2,17 +2,21 @@
 the group resolve (counterpart of ``hybdrt_tpu/mapping/drtmd.py``).
 
 ``DRTMD`` stores observations (EIS spectra, chrono records or both) at
-coordinates psi on a shared tau supergrid, fits them all with
+coordinates psi on a shared tau supergrid and fits them one by one with the
+map's ``DRT`` (``fit_all()``, the reference's serial loop, each fit's state
+and distribution variance stored) or all together with
 ``fit_all(batched=True)`` (a uniform EIS grid through one
 ``BatchedEISFitter``, a uniform hybrid protocol through one
-``BatchedHybridFitter``, everything else through the ``BatchedRaggedFitter``),
-rebuilds each fit's posterior (P, q) on the device (``get_fits_batched``) and
-re-optimizes a group jointly (``resolve_group``): the observations are sorted
-by psi and either the whole group is solved as one coupled QP
-(``coupled=True``) or overlapping windows of ``batch_size`` are solved
-together and averaged over their overlaps (``batched=True``). A fitted map
-is read on the host (predictions, filters, QC scores, persistence:
-``hybdrt_tpu/mapping/drtmd.py:1590-2069``).
+``BatchedHybridFitter``, everything else through the ``BatchedRaggedFitter``).
+It rebuilds each batched fit's posterior (P, q) on the device
+(``get_fits_batched``) and re-optimizes a group jointly (``resolve_group``):
+the observations are sorted by psi and either the whole group is solved as
+one coupled QP (``coupled=True``) or overlapping windows of ``batch_size``
+are solved, together (``batched=True``) or one dense QP after another (the
+default, ``resolve_observations``), and averaged over their overlaps. A
+fitted map is read on the host (predictions, filters, QC scores,
+persistence: ``hybdrt_tpu/mapping/drtmd.py:1590-2069``); its covariance
+readouts invert the fits' P in float64 on the map's device.
 
 The free function ``resolve_group(fitter, result, z_batch, ...)`` is the
 uniform-group body of ``DRTMD.resolve_group`` for a map fitted by one
@@ -29,15 +33,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 from scipy import ndimage
-from scipy.special import gammaln
+from scipy.special import gammaln, ndtr
 
 from .. import preprocessing as pp
 from ..models.drt import DRT, data_offset_parameters
 from ..ops import basis as basis_mod
+from ..ops import mat1d
 from ..parallel.batch import BatchedEISFitter, BatchedHybridFitter
 from ..parallel.ragged import BatchedRaggedFitter
+from ..solver.qphb import QPHBConfig
 from ..utils.device import resolve_device
-from . import nddata
+from . import nddata, surface
 from . import resolve as resolve_mod
 
 
@@ -110,6 +116,20 @@ def block_objective(p, q, my, cmat, x):
     return float(0.5 * np.vdot(x, hx) + np.vdot(q, x))
 
 
+def solve_dense_windows(systems, dtype=None, device=None):
+    """Each window's blocks (``prepare_group_blocks``' first five outputs)
+    solved as one dense QP after another, the reference's default resolve
+    (``hybdrt_tpu/mapping/drtmd.py:1560-1585``). Returns ([x (w, nc)], info)
+    with the windows' IP iterations in ``info["n_iter"]``."""
+    xs, n_iter = [], []
+    for p_stack, q_stack, lb, my, cmat in systems:
+        x, it = resolve_mod.solve_dense_window(*resolve_mod.dense_system(
+            p_stack, q_stack, lb, my, cmat), dtype=dtype, device=device)
+        xs.append(x.reshape(np.shape(q_stack)))
+        n_iter.append(it)
+    return xs, {"dense": True, "n_iter": np.array(n_iter)}
+
+
 def resolve_group(fitter, result, z_batch, psi=None, coupled=False, batched=True,
                   batch_size=7, overlap=2, sigma=1, lambda_psi=1, tau_filter_sigma=0,
                   dtype=None, device=None):
@@ -121,19 +141,15 @@ def resolve_group(fitter, result, z_batch, psi=None, coupled=False, batched=True
     the whole group as one QP (``resolve.solve_coupled_group``) and reports
     its KKT residual against a tolerance, with a warning above it;
     otherwise the windows of ``batch_size`` overlapping by ``overlap`` are
-    solved together (``resolve.solve_resolve_batch``) and averaged with the
-    reference's margin weights. ``dtype`` (default float64) is the solve's;
-    the solve runs on the CUDA card unless ``device="cpu"``.
+    solved together (``batched=True``, ``resolve.solve_resolve_batch``) or
+    one dense QP after another (``batched=False``, the reference's form,
+    ``resolve.solve_dense_window``) and averaged with the reference's margin
+    weights. ``dtype`` (default float64) is the solve's; the solve runs on
+    the CUDA card unless ``device="cpu"``.
     """
     if fitter.tau_indices is None:
         raise ValueError("the fitter has no tau_supergrid: build it with "
                          "BatchedEISFitter(..., tau_supergrid=...)")
-    if not coupled and not batched:
-        raise NotImplementedError(
-            "batched=False (the dense per-window solve): its (batch_size*nc)^2 systems do "
-            "not fit one block's shared memory in the lane-Cholesky kernels, and it needs a "
-            "library factor, as the JAX package's unbatched path reaches no Pallas kernel "
-            "(ROADMAP Queue 1 item 8). Use batched=True or coupled=True")
     x_fit = np.asarray(result.x)
     if not (np.all(np.isfinite(x_fit)) and np.all(np.isfinite(result.r_inf))):
         bad = np.flatnonzero(~(np.isfinite(x_fit).all(axis=1) & np.isfinite(result.r_inf)))
@@ -193,7 +209,10 @@ def resolve_group(fitter, result, z_batch, psi=None, coupled=False, batched=True
         p_stack, q_stack, lb, my, cmat, meta = blocks(order[start:end])
         systems.append((p_stack, q_stack, lb, my, cmat))
         metas.append(meta)
-    xs, info = resolve_mod.solve_resolve_batch(systems, **solve_kw)
+    if batched:
+        xs, info = resolve_mod.solve_resolve_batch(systems, **solve_kw)
+    else:
+        xs, info = solve_dense_windows(systems, dtype=dtype, device=device)
     info = {"coupled": False, "windows": len(windows), **info}
 
     n_cols = tau_indices[1] - tau_indices[0]
@@ -268,14 +287,16 @@ class DRTMD:
     at any derivative order, ``predict_r_p``, ``predict_special``), filters
     and QC (``filter_observations``, ``score_group_fit_badness``) and
     persistence (``save_attributes``, ``load_attributes``, ``from_source``,
-    whose files the JAX class reads and writes too). The serial fits
-    (``fit_all(batched=False)``, ``fit_observation``), the covariance-based
-    predictions, PFRT and the mesh are not ported; each raises
-    ``NotImplementedError`` naming its ROADMAP item, or is absent. So does a
-    ``store_attr_categories`` other than ``["config", "fit_core"]``, which
-    only the serial fit reads (item 5): the batched fits store those two.
-    ``print_diagnostics`` and ``print_progress`` are kept for the JAX
-    class's signature and have no effect (they print from the serial fit);
+    whose files the JAX class reads and writes too), and its covariance
+    readouts (``predict_param_cov``, ``predict_drt_var``,
+    ``predict_peak_prob``, ...). ``fit_all()`` (``batched=False``, the
+    reference's default) fits each observation with ``self.drt1d`` in
+    float64 on the map's device and stores the ``store_attr_categories`` of
+    its attributes (any of "config" and "fit_core"; "detail" is not ported,
+    item 5). PFRT and the mesh are not ported; each raises
+    ``NotImplementedError`` naming its ROADMAP item, or is absent.
+    ``print_progress`` prints the serial fit's progress;
+    ``print_diagnostics`` is kept for the JAX class's signature;
     ``nu_basis_type``, ``nu_epsilon`` and ``normalize_dop`` configure the
     DOP, which raises (item 4), and ``pfrt_factors`` the PFRT (item 9).
     """
@@ -293,9 +314,11 @@ class DRTMD:
             raise _unported("fit_type='pfrt': the PFRT sweep", 9)
         if fixed_basis_nu is not None:
             raise _unported("fixed_basis_nu: the distribution of phasances", 4)
-        if store_attr_categories not in (None, ["config", "fit_core"]):
-            raise _unported(f"store_attr_categories={store_attr_categories!r}: the serial fit "
-                            f"that reads it", 5)
+        if store_attr_categories is None:
+            store_attr_categories = ["config", "fit_core"]
+        if not set(store_attr_categories) <= {"config", "fit_core"}:
+            raise _unported(f"store_attr_categories={store_attr_categories!r}: the 'detail' "
+                            f"attributes", 5)
         self.device = resolve_device(device)
         self.drt1d = DRT(tau_supergrid=tau_supergrid, tau_basis_type=tau_basis_type,
                          extend_basis_decades=extend_basis_decades, step_model=step_model,
@@ -306,7 +329,7 @@ class DRTMD:
             self.drt1d.tau_epsilon = tau_epsilon
 
         self.psi_dim_names = psi_dim_names
-        self.store_attr_categories = ["config", "fit_core"]
+        self.store_attr_categories = list(store_attr_categories)
         self.tau_supergrid = np.asarray(tau_supergrid)
         self.tau_basis_type = tau_basis_type
         self.tau_epsilon = self.drt1d.tau_epsilon
@@ -379,8 +402,7 @@ class DRTMD:
             raise ValueError(f"psi must have {len(self.psi_dim_names)} entries")
 
     def add_observation(self, psi, chrono_data, eis_data, group_id=None, fit=False):
-        if fit:
-            raise _unported("add_observation(fit=True): the serial fit_observation", 5)
+        """Store an observation (:164), and with ``fit`` fit it at once."""
         psi = np.atleast_1d(psi).flatten()
         if self.obs_psi is None:
             self.obs_psi = np.zeros((0, len(psi)))
@@ -410,6 +432,8 @@ class DRTMD:
                 shape = (1, *self.special_param_shape(key))
                 for d in (self.obs_special, self.obs_special_resolved, self.obs_special_filt):
                     d[key] = np.concatenate([d[key], np.zeros(shape)])
+        if fit:
+            self.fit_observation(self.num_obs - 1)
 
     def add_observations(self, psi_array, chrono_data_list=None, eis_data_list=None,
                          group_ids=None):
@@ -435,37 +459,194 @@ class DRTMD:
     def initialize_obs_special(self):
         self.obs_special, self.obs_special_resolved, self.obs_special_filt = {}, {}, {}
         for key in self.drt1d.special_qp_params:
-            shape = (self.num_obs, *self.special_param_shape(key))
-            for d in (self.obs_special, self.obs_special_resolved, self.obs_special_filt):
-                d[key] = np.zeros(shape)
+            self._add_special_key(key)
+
+    def _add_special_key(self, key):
+        shape = (self.num_obs, *self.special_param_shape(key))
+        for d in (self.obs_special, self.obs_special_resolved, self.obs_special_filt):
+            d[key] = np.zeros(shape)
+
+    def format_1d_params(self, drt, left_index, right_index):
+        """A fitted DRT's coefficients on the supergrid (its basis at
+        [left_index, right_index)) and its special parameters (:234)."""
+        x_drt = np.zeros(len(self.tau_supergrid))
+        x_drt[left_index:right_index] = drt.fit_parameters["x"]
+        x_special = {k: drt.fit_parameters.get(k) for k in drt.special_qp_params}
+        if "v_baseline" in drt.special_qp_params:
+            x_special["v_baseline"] = np.atleast_1d(drt.fit_parameters["v_baseline"])
+            if self.special_param_shape("v_baseline") == ():
+                x_special["v_baseline"] = x_special["v_baseline"][0]
+        return x_drt, x_special
 
     # ------------------------------------------------------------------
-    # Batched fits (:467-894)
+    # The distribution variance and the serial fits (:262-482)
     # ------------------------------------------------------------------
     def estimate_obs_drt_var(self, obs_index=None, refresh=False):
-        raise _unported("estimate_obs_drt_var: the fits' distribution covariance", 5)
+        """Fill ``obs_drt_var`` (the variance of each fit's distribution on
+        the supergrid, extrapolated beyond its basis) for batched fits; the
+        serial fits store it as they fit (:262). A uniform-batched group's P
+        are rebuilt and inverted in one batched float64 inverse on the map's
+        device (``_estimate_drt_var_group``); the other observations go
+        through one ``get_fits_batched`` rebuild and one batched inverse per
+        size of P, which gives what each fit's
+        ``estimate_distribution_cov(tau=tau_supergrid, extend_var=True)``
+        gives."""
+        if obs_index is None:
+            obs_index = np.where(self.obs_fit_status)[0]
+        groups, slow = {}, []
+        for i in np.atleast_1d(obs_index):
+            i = int(i)
+            if not refresh and np.any(self.obs_drt_var[i] != 0):
+                continue
+            attr = self.obs_fit_attr[i]
+            if self.obs_fit_status[i] and not (isinstance(attr, dict) and attr.get("batched")):
+                continue
+            key = self._uniform_group_key(i)
+            if key is None:
+                slow.append(i)
+            else:
+                groups.setdefault(key, []).append(i)
+        for idx in groups.values():
+            if len(idx) == 1:
+                slow.extend(idx)
+            else:
+                slow.extend(self._estimate_drt_var_group(idx))
+        if slow:
+            fits = self.get_fits_batched(slow)
+            for i, cov in self._param_covs(fits, slow).items():
+                self.obs_drt_var[i] = np.diag(fits[i].distribution_cov(
+                    cov, self.tau_supergrid, extend_var=True))
+        return self.obs_drt_var
+
+    def _estimate_drt_var_group(self, idx):
+        """obs_drt_var of uniform-batched observations of one fitter (:300):
+        every P rebuilt (``_uniform_pq``) and inverted in one batched
+        float64 ``invert_psd`` on the map's device, the basis-to-supergrid
+        transform's diagonal taken there, then the out-of-basis
+        extrapolation on the host. Returns the observations whose variance
+        came out non-finite, for the per-observation path."""
+        attrs = [self.obs_fit_attr[i] for i in idx]
+        fitter = self._resolve_batch_fitter(idx[0], attrs[0])
+        basis_tau = np.asarray(fitter.basis_tau)
+        ns = fitter.num_special
+        p_b, _ = self._uniform_pq(fitter, attrs)
+        cov = mat1d.invert_psd(p_b)[:, ns:, ns:]
+        em = torch.tensor(basis_mod.func_eval_matrix_host(
+            np.log(basis_tau), np.log(self.tau_supergrid), self.tau_basis_type,
+            fitter.tau_epsilon, 0), dtype=cov.dtype, device=cov.device)
+        var = torch.einsum("tj,bjk,tk->bt", em, cov, em).cpu().numpy()
+        var = var * np.array([float(a["scale"]) for a in attrs])[:, None] ** 2
+        tau = np.asarray(self.tau_supergrid)
+        left, right = tau < basis_tau[0], tau > basis_tau[-1]
+        if left.any() and (~left).any():
+            var[:, left] += var[:, ~left][:, :1] * np.log(basis_tau[0] / tau[left])[None] ** 2
+        if right.any() and (~right).any():
+            var[:, right] += var[:, ~right][:, -1:] * np.log(tau[right] / basis_tau[-1])[None] ** 2
+        bad = ~np.all(np.isfinite(var), axis=1)
+        for bi, i in enumerate(idx):
+            if not bad[bi]:
+                self.obs_drt_var[i] = var[bi]
+        return [i for bi, i in enumerate(idx) if bad[bi]]
+
+    def fit_convergence_summary(self):
+        """Per observation ``converged`` (False where unfitted or failed;
+        True for a serial fit, which warns as it fits) and ``n_iter`` (-1
+        where unknown), the failures ``ignore_errors`` recorded, and counts
+        (:365)."""
+        n = self.num_obs
+        converged = np.zeros(n, dtype=bool)
+        n_iter = np.full(n, -1, dtype=int)
+        for i in range(n):
+            attr = self.obs_fit_attr[i] if i < len(self.obs_fit_attr) else None
+            if isinstance(attr, dict) and attr.get("batched"):
+                converged[i] = attr.get("converged", False)
+                n_iter[i] = attr.get("n_iter", -1)
+            elif self.obs_fit_status[i]:
+                converged[i] = True
+        errors = [str(e) if e is not None else None for e in self.obs_fit_errors]
+        return {"converged": converged, "n_iter": n_iter, "errors": errors,
+                "num_fitted": int(np.sum(self.obs_fit_status)),
+                "num_failed": int(sum(e is not None for e in self.obs_fit_errors)),
+                "num_converged": int(np.sum(converged))}
 
     def fit_observation(self, obs_index, ignore_errors=False):
-        raise _unported("fit_observation: the serial fit of one observation", 5)
+        """Fit one observation with ``self.drt1d`` (``fit_eis``, ``fit_chrono``
+        or ``fit_hybrid`` with ``fit_kw``; float64 on the map's device) and
+        store its coefficients, special parameters, attributes, llh, rss and
+        distribution variance (:394). With ``ignore_errors`` a failure marks
+        the observation ignored."""
+        chrono_data, eis_data = self.get_obs_data(obs_index)
+        try:
+            times, freq = chrono_data[0], eis_data[0]
+            if times is None and freq is None:
+                raise ValueError("Observation has no data")
+            if times is None:
+                self.drt1d.fit_eis(*eis_data, **self.fit_kw)
+            elif freq is None:
+                self.drt1d.fit_chrono(*chrono_data, **self.fit_kw)
+            else:
+                self.drt1d.fit_hybrid(*chrono_data, *eis_data, **self.fit_kw)
+
+            self.obs_fit_attr[obs_index] = self.drt1d.get_attributes(
+                which=self.store_attr_categories)
+            self.obs_llh[obs_index] = self.drt1d.evaluate_llh()
+            self.obs_rss[obs_index] = self.drt1d.evaluate_rss()
+            left = pp.nearest_index(self.tau_supergrid, self.drt1d.basis_tau[0])
+            right = pp.nearest_index(self.tau_supergrid, self.drt1d.basis_tau[-1]) + 1
+            self.obs_tau_indices[obs_index] = (left, right)
+            if self.obs_special is None:
+                self.initialize_obs_special()
+            x_drt, x_special = self.format_1d_params(self.drt1d, left, right)
+            if not np.all(np.isfinite(x_drt)):
+                raise ValueError("Fit produced non-finite DRT coefficients")
+            self.obs_x[obs_index] = x_drt
+            self.obs_drt_var[obs_index] = np.diag(self.drt1d.estimate_distribution_cov(
+                tau=self.tau_supergrid, extend_var=True))
+            for key in self.drt1d.special_qp_params:
+                if key not in self.obs_special:
+                    self._add_special_key(key)
+                self.obs_special[key][obs_index] = x_special[key]
+            self.obs_fit_status[obs_index] = True
+        except Exception as err:
+            if not ignore_errors:
+                raise
+            print(f"Error at obs_index {obs_index}; observation ignored.\n{err}")
+            self.obs_fit_status[obs_index] = False
+            self.obs_ignore_flag[obs_index] = True
+            self.obs_fit_errors[obs_index] = err
 
     def fit_observations(self, obs_index, print_interval=None, ignore_errors=False):
-        raise _unported("fit_observations: the serial fits", 5)
+        """``fit_observation`` of each of ``obs_index`` in turn (:453),
+        printing progress every ``print_interval`` with ``print_progress``."""
+        num_to_fit = len(obs_index)
+        if print_interval is None:
+            print_interval = int(np.ceil(num_to_fit / 10)) if num_to_fit else 1
+        start_time = time.time()
+        for i, index in enumerate(obs_index):
+            self.fit_observation(index, ignore_errors=ignore_errors)
+            if self.print_progress and ((i + 1) % print_interval == 0 or i == num_to_fit - 1):
+                print(f"{i + 1} / {num_to_fit}")
+        if num_to_fit > 0 and self.print_progress:
+            elapsed = time.time() - start_time
+            print(f"Fitted {num_to_fit} observations in {elapsed:.1f} s "
+                  f"({elapsed / num_to_fit:.2f} s/obs)")
 
     def fit_all(self, refit=False, print_interval=None, ignore_errors=False, batched=False,
                 mesh=None, dtype=None):
-        """Fit every observation not fitted yet (``refit``: every one) as
-        batches, partitioned by data type (``_fit_batched``). ``dtype`` is a
-        torch dtype, float64 by default. ``batched=False``, the reference's
-        serial loop, is not ported."""
-        if not batched:
-            raise _unported("fit_all(batched=False): the serial fit loop", 5)
+        """Fit every observation not fitted yet (``refit``: every one), one
+        by one (``fit_observations``, the reference's default; float64) or
+        with ``batched`` as batches partitioned by data type
+        (``_fit_batched``; ``dtype`` a torch dtype, float64 by default)."""
         if mesh is not None:
             raise _unported("mesh: multi-GPU sharding", 10)
         if refit:
             fit_index = np.arange(self.num_obs)
         else:
             fit_index = np.where(~self.obs_fit_status & ~self.obs_ignore_flag)[0]
-        self._fit_batched(fit_index, dtype=dtype, ignore_errors=ignore_errors)
+        if batched:
+            self._fit_batched(fit_index, dtype=dtype, ignore_errors=ignore_errors)
+        else:
+            self.fit_observations(fit_index, print_interval, ignore_errors)
 
     def _fit_batched(self, fit_index, dtype=None, ignore_errors=False):
         """Partition by data type (:484-555): a uniform EIS grid goes to the
@@ -773,7 +954,7 @@ class DRTMD:
     # ------------------------------------------------------------------
     def get_fit(self, obs_index):
         """A DRT holding one observation's fit, its (P, q) in
-        ``fit_parameters["p_matrix"]`` / ``["q_vector"]``."""
+        ``fit_parameters["p_matrix"]`` / ``["q_vector"]`` (:933)."""
         return self.get_fits_batched([obs_index])[obs_index]
 
     def _resolve_batch_fitter(self, obs_index, attr):
@@ -870,18 +1051,21 @@ class DRTMD:
         package's ``_rebuild_batched_fit`` and ``_rebuild_ragged_fit``, and
         the grouping of its ``get_fits_batched``): P and q host float64,
         rebuilt on the device one batch per fitter or protocol group and
-        copied to the host once per group; ``source`` is
-        ("uniform", fitter, attr) or ("ragged", system, attr). An unfitted
-        or failed observation raises ValueError, a serial fit
-        NotImplementedError (item 5)."""
+        copied to the host once per group; a serial fit's as it stored
+        them. ``source`` is ("uniform", fitter, attr), ("ragged", system,
+        attr) or ("serial", None, attr). An unfitted or failed observation
+        raises ValueError."""
         groups, ragged, out = {}, [], {}
         for i in np.atleast_1d(obs_index):
             i = int(i)
             if not self.obs_fit_status[i]:
                 raise ValueError(f"Observation {i} has not been fitted")
             attr = self.obs_fit_attr[i]
-            if not (isinstance(attr, dict) and attr.get("batched")):
-                raise _unported("rebuilding a serial fit", 5)
+            if not attr.get("batched"):
+                fp = attr["fit_parameters"]
+                out[i] = (np.asarray(fp["p_matrix"]), np.asarray(fp["q_vector"]),
+                          ("serial", None, attr))
+                continue
             if attr.get("pfrt"):
                 raise _unported("rebuilding a PFRT fit", 9)
             key = self._uniform_group_key(i)
@@ -906,6 +1090,11 @@ class DRTMD:
         """(special_qp_params, {response_signal_scale, scaled_response_offset,
         v_baseline_scale}, inductance_scale) of one stored fit."""
         kind, src, attr = source
+        if kind == "serial":
+            scales = {k: attr[k] for k in ("response_signal_scale", "scaled_response_offset",
+                                           "v_baseline_scale")} \
+                if "v_baseline" in attr["special_qp_params"] else {}
+            return attr["special_qp_params"], scales, attr["inductance_scale"]
         if kind == "ragged":
             return (src["special_qp_params"],
                     {k: src[k] for k in ("response_signal_scale", "v_baseline_scale")}
@@ -925,6 +1114,10 @@ class DRTMD:
         """A DRT carrying one observation's fit and (P, q): the JAX package's
         ``_make_uniform_drt`` (:1070) and ``_make_ragged_drt`` (:1327)."""
         kind, src, attr = source
+        if kind == "serial":
+            # the JAX package builds DRT(interpolate_integrals=False) and then
+            # sets integrate_method="interp" (:941-944): the port's default
+            return DRT(device=self.device).set_attributes(deepcopy(attr))
         special, scales, inductance_scale = self._fit_scales(obs_index, source)
         if kind == "uniform":
             drt = self._fitter_template(src, isinstance(src, BatchedHybridFitter))
@@ -949,8 +1142,9 @@ class DRTMD:
         return drt
 
     def get_fits_batched(self, obs_index):
-        """{i: DRT} for many observations, every (P, q) rebuilt on the device
-        in one batch per fitter or protocol group (:1097)."""
+        """{i: DRT} for many observations, every batched fit's (P, q) rebuilt
+        on the device in one batch per fitter or protocol group, every serial
+        fit rebuilt from its stored attributes (:1097)."""
         return {i: self._make_drt(i, p, q, src) for i, (p, q, src) in
                 self._rebuild(obs_index).items()}
 
@@ -990,11 +1184,14 @@ class DRTMD:
             p, q, source = rebuilt[int(i)]
             special, scales, ind = self._fit_scales(int(i), source)
             attr = source[2]
-            scale = float(attr["scale"])
-            params = data_offset_parameters(np.asarray(attr["x_raw"], dtype=float), special,
-                                            scales.get("v_baseline_scale"),
-                                            scales.get("scaled_response_offset"),
-                                            scales.get("response_signal_scale")) if scales else {}
+            if source[0] == "serial":
+                scale, params = float(attr["coefficient_scale"]), attr["fit_parameters"]
+            else:
+                scale = float(attr["scale"])
+                params = data_offset_parameters(
+                    np.asarray(attr["x_raw"], dtype=float), special,
+                    scales.get("v_baseline_scale"), scales.get("scaled_response_offset"),
+                    scales.get("response_signal_scale")) if scales else {}
             for k, v in (("p", p), ("q", q), ("scale", scale), ("tau", self.obs_tau_indices[i]),
                          ("r_inf", self.obs_special["R_inf"][i] / scale
                           if "R_inf" in self.obs_special else 0.0),
@@ -1011,42 +1208,120 @@ class DRTMD:
             self.fit_kw.get("nonneg", True), fit_parameters=pick("params"),
             scales=pick("scales"), **kw)
 
+    def _write_resolved(self, x, cols, sel, rows, special_dict, mti):
+        """One solution x (len(sel), nc) of the observations ``sel`` of
+        ``cols`` (``rows`` of the map) into ``obs_x_resolved`` (its tau span
+        ``mti``; the other columns keep what they hold) and
+        ``obs_special_resolved``."""
+        x_drt, x_sp = resolve_mod.unpack_resolved_x(
+            np.reshape(x, (len(sel), -1)), np.asarray(cols["scale"])[sel], special_dict,
+            np.asarray(cols["inductance"], dtype=float)[sel])
+        self.obs_x_resolved[rows[:, None], np.arange(mti[0], mti[1])[None, :]] = x_drt
+        for key, val in x_sp.items():
+            if key not in self.obs_special_resolved:
+                self.obs_special_resolved[key] = np.zeros(
+                    (self.num_obs, *self.special_param_shape(key)))
+            self.obs_special_resolved[key][rows] = val
+
+    def _resolve_windows(self, cols, obs_index, windows, block_kw, dtype, batched,
+                         on_window=None):
+        """Each window (positions into ``cols`` and ``obs_index``) assembled
+        into its block QP on the host, all of them solved in one
+        ``solve_resolve_batch`` (``batched``) or one dense QP after another
+        (``solve_dense_windows``), on this map's device, and written back in
+        window order, ``on_window(w)`` called after window w's write.
+        Returns the solver's info with the assembly and solve walls."""
+        t0 = time.time()
+        systems, metas = [], []
+        for pos in windows:
+            *system, meta = self._blocks(cols, pos, **block_kw)
+            systems.append(tuple(system))
+            metas.append(meta)
+        t1 = time.time()
+        if batched:
+            xs, info = resolve_mod.solve_resolve_batch(systems, dtype=dtype, device=self.device,
+                                                       return_info=True)
+        else:
+            xs, info = solve_dense_windows(systems, dtype=dtype, device=self.device)
+        info.update(assembly_s=t1 - t0, solve_s=time.time() - t1)
+        for w, (pos, x, (special_dict, mti, _, _)) in enumerate(zip(windows, xs, metas)):
+            self._write_resolved(np.asarray(x), cols, pos, obs_index[pos], special_dict, mti)
+            if on_window is not None:
+                on_window(w)
+        return info
+
+    def _distance_order(self, obs_index, psi_distance_dims):
+        if psi_distance_dims is None:
+            return np.arange(len(obs_index))
+        return np.lexsort([self.obs_psi[obs_index, self.psi_dim_names.index(d)]
+                           for d in psi_distance_dims][::-1])
+
+    def resolve_observations(self, obs_index, psi_sort_dims=None, psi_distance_dims=None,
+                             truncate=False, sigma=1, lambda_psi=1, tau_filter_sigma=0,
+                             special_filter_sigma=0, dtype=None):
+        """Jointly re-optimize the fitted, not ignored observations of
+        ``obs_index`` (sorted by ``psi_sort_dims``, else
+        ``psi_distance_dims``) as one dense QP (:1362), solved in ``dtype``
+        (float64 by default) on this map's device; a lone observation keeps
+        its fit."""
+        obs_index = np.asarray(obs_index)
+        obs_index = obs_index[self.obs_fit_status[obs_index] & ~self.obs_ignore_flag[obs_index]]
+        sort_dims = psi_sort_dims if psi_sort_dims is not None else psi_distance_dims
+        obs_index = obs_index[self._distance_order(obs_index, sort_dims)]
+        if len(obs_index) == 0:
+            warnings.warn("No valid observations in resolution group")
+            return
+        if len(obs_index) == 1:
+            self._keep_fit(obs_index)
+            return
+        self._resolve_windows(self._block_inputs(obs_index), obs_index,
+                              [np.arange(len(obs_index))],
+                              dict(truncate=truncate, sigma=sigma, lambda_psi=lambda_psi,
+                                   tau_filter_sigma=tau_filter_sigma,
+                                   special_filter_sigma=special_filter_sigma), dtype,
+                              batched=False)
+        self.obs_resolve_status[obs_index] = True
+
+    def _keep_fit(self, obs_index):
+        self.obs_x_resolved[obs_index] = self.obs_x[obs_index]
+        for k, v in (self.obs_special or {}).items():
+            self.obs_special_resolved[k][obs_index] = v[obs_index]
+        self.obs_resolve_status[obs_index] = True
+
     def resolve_group(self, group_id, batch_size=7, overlap=2, psi_sort_dims=None,
                       psi_distance_dims=None, truncate=False, sigma=1, lambda_psi=1,
                       tau_filter_sigma=0, special_filter_sigma=0, batched=False, mesh=None,
                       coupled=False, dtype=None):
         """Joint re-optimization of a group (:1408-1585): its observations
-        sorted by psi, their (P, q) rebuilt on the device
-        (``get_fits_batched``'s rebuild), the hybrid fits' v_baseline and
-        vz_offset marginalized, every block resized to the union of the tau
-        windows (the intersection with ``truncate``).
+        sorted by psi, their (P, q) rebuilt once (``get_fits_batched``'s
+        rebuild: batched fits on the device, serial fits as stored), the
+        hybrid fits' v_baseline and vz_offset marginalized, every block
+        resized to the union of the tau windows (the intersection with
+        ``truncate``).
 
+        By default (the reference's) the overlapping windows of
+        ``batch_size`` are solved one after another, each as one dense QP
+        (``resolve_observations``' form, each window re-sorted by
+        ``psi_distance_dims`` where given), and averaged with the
+        reference's margin weights; ``batched=True`` solves every window's
+        blocks in one ``solve_resolve_batch``, matrix-free;
         ``coupled=True`` solves the whole group as one box QP
         (``resolve.solve_coupled_group``) and warns when its KKT residual is
-        above the JAX package's tolerance; ``batched=True`` solves every
-        overlapping window of ``batch_size`` in one ``solve_resolve_batch``
-        and averages them with the reference's margin weights. The
-        reference's default, neither (one dense solve per window), is not
-        ported. ``dtype`` is the solve's (float64 by default), on this map's
-        device. ``resolve_info`` holds the solver's counts and the walls of
-        the rebuild (``rebuild_s``), the host assembly (``assembly_s``) and
-        the solve (``solve_s``)."""
+        above the JAX package's tolerance. A failure of the batched solve
+        fails the call. ``dtype`` is the solve's (float64 by default), on
+        this map's device. ``resolve_info`` holds the solver's counts (the
+        windows' IP iterations in ``n_iter``) and the walls of the rebuild
+        (``rebuild_s``), the host assembly (``assembly_s``) and the solve
+        (``solve_s``)."""
         if mesh is not None:
             raise _unported("mesh: multi-GPU sharding", 10)
-        if not (batched or coupled):
-            raise _unported(
-                "resolve_group(batched=False, coupled=False): the dense per-window solve, the "
-                "reference's default (Queue 3 item 8); pass batched=True or coupled=True", "8(b)")
         obs_index = self._sorted_group(group_id, psi_sort_dims, psi_distance_dims)
         self.obs_x_resolved[obs_index] = 0
         num_obs = len(obs_index)
         if num_obs == 0:
             return
         if num_obs == 1:
-            self.obs_x_resolved[obs_index] = self.obs_x[obs_index]
-            for k, v in (self.obs_special or {}).items():
-                self.obs_special_resolved[k][obs_index] = v[obs_index]
-            self.obs_resolve_status[obs_index] = True
+            self._keep_fit(obs_index)
             return
         block_kw = dict(truncate=truncate, sigma=sigma, lambda_psi=lambda_psi,
                         tau_filter_sigma=tau_filter_sigma,
@@ -1054,8 +1329,6 @@ class DRTMD:
         t0 = time.time()
         cols = self._block_inputs(obs_index)
         times = {"rebuild_s": time.time() - t0}
-        coef_scale = np.asarray(cols["scale"])
-        ind_scale = np.asarray(cols["inductance"], dtype=float)
 
         if coupled:
             t0 = time.time()
@@ -1076,58 +1349,39 @@ class DRTMD:
                     f"{kkt_tol:.3g} after {n_iter} IP iterations); the stored resolved "
                     f"distributions may be inaccurate. Consider dtype=float64 or the windowed "
                     f"resolve (coupled=False).")
-            x_drt, x_sp = resolve_mod.unpack_resolved_x(x, coef_scale, special_dict, ind_scale)
-            self.obs_x_resolved[obs_index[:, None], np.arange(mti[0], mti[1])[None, :]] = x_drt
-            for key, val in x_sp.items():
-                if key not in self.obs_special_resolved:
-                    self.obs_special_resolved[key] = np.zeros(
-                        (self.num_obs, *self.special_param_shape(key)))
-                self.obs_special_resolved[key][obs_index] = val
+            self._write_resolved(x, cols, np.arange(num_obs), obs_index, special_dict, mti)
             self.obs_resolve_status[obs_index] = True
             return
 
-        # Windowed: every window's block QP assembled on the host and all of
-        # them solved in one matrix-free computation over a window axis
         windows = resolve_windows(num_obs, batch_size, overlap)
         batch_size = windows[0][1] - windows[0][0]
-        t0 = time.time()
-        systems, metas = [], []
-        for start, end in windows:
-            p_stack, q_stack, lb, my, cmat, meta = self._blocks(cols, range(start, end),
-                                                                **block_kw)
-            systems.append((p_stack, q_stack, lb, my, cmat))
-            metas.append(meta)
-        times["assembly_s"] = time.time() - t0
-        t0 = time.time()
-        xs, info = resolve_mod.solve_resolve_batch(systems, dtype=dtype, device=self.device,
-                                                   return_info=True)
-        times["solve_s"] = time.time() - t0
-        self.resolve_info = {"coupled": False, "windows": len(windows), **info, **times}
-
         n_win = len(windows)
         x_batch = np.zeros((n_win, num_obs, self.obs_x_resolved.shape[1]))
         x_special = {k: np.zeros((n_win, num_obs, *self.special_param_shape(k)))
                      for k in (self.obs_special_resolved or {})}
         margins = np.full((n_win, num_obs), -1.0)
-        for w, (x_win, (special_dict, mti, _, _)) in enumerate(zip(xs, metas)):
+
+        def collect(w):
+            """Window w's resolved rows into the averaging stacks."""
             start, end = windows[w]
             bidx = obs_index[start:end]
-            x_drt, x_sp = resolve_mod.unpack_resolved_x(
-                np.asarray(x_win), coef_scale[start:end], special_dict, ind_scale[start:end])
-            # columns outside this window's tau span keep what an earlier
-            # window wrote there, as in the reference
-            self.obs_x_resolved[bidx[:, None], np.arange(mti[0], mti[1])[None, :]] = x_drt
-            for key, val in x_sp.items():
-                if key not in self.obs_special_resolved:
-                    self.obs_special_resolved[key] = np.zeros(
-                        (self.num_obs, *self.special_param_shape(key)))
-                    x_special[key] = np.zeros((n_win, num_obs, *self.special_param_shape(key)))
-                self.obs_special_resolved[key][bidx] = val
             x_batch[w, start:end] = self.obs_x_resolved[bidx]
-            for key in x_special:
+            for key in self.obs_special_resolved:
+                if key not in x_special:
+                    x_special[key] = np.zeros((n_win, num_obs, *self.special_param_shape(key)))
                 x_special[key][w, start:end] = self.obs_special_resolved[key][bidx]
             margins[w, start:end] = np.minimum(np.arange(batch_size),
                                                np.arange(batch_size)[::-1])
+
+        # the reference's dense windows are each re-sorted by psi_distance_dims
+        # (its resolve_observations); its batched windows keep the group's order
+        positions = [np.arange(start, end) for start, end in windows]
+        if not batched:
+            positions = [pos[self._distance_order(obs_index[pos], psi_distance_dims)]
+                         for pos in positions]
+        info = self._resolve_windows(cols, obs_index, positions, block_kw, dtype, batched,
+                                     on_window=collect)
+        self.resolve_info = {"coupled": False, "windows": n_win, **info, **times}
 
         if overlap > 0:
             weights = margins + 0.1
@@ -1207,28 +1461,109 @@ class DRTMD:
             return vals
         return vals[self.get_psi_index(psi)]
 
+    # ------------------------------------------------------------------
+    # The fits' posterior (:1639-1680, :1874-1980)
+    # ------------------------------------------------------------------
+    def _param_covs(self, fits, obs_index):
+        """{i: parameter covariance (physical units, host numpy)} of the
+        fitted DRTs ``fits``: their P inverted in float64 on this map's
+        device, one batched ``invert_psd`` per size of P."""
+        by_n = {}
+        for i in obs_index:
+            by_n.setdefault(fits[i]._p_matrix().shape[0], []).append(i)
+        out = {}
+        for idx in by_n.values():
+            p = torch.as_tensor(np.stack([fits[i]._p_matrix() for i in idx]),
+                                dtype=torch.float64, device=self.device)
+            inv = mat1d.invert_psd(p).cpu().numpy()
+            for k, i in enumerate(idx):
+                out[i] = fits[i].scale_param_cov(inv[k])
+        return out
+
+    def _fitted_covs(self, obs_index):
+        """(fits, covs) of the fitted observations among ``obs_index``."""
+        fitted = sorted({int(i) for i in np.atleast_1d(obs_index) if self.obs_fit_status[i]})
+        if not fitted:
+            return {}, {}
+        fits = self.get_fits_batched(fitted)
+        return fits, self._param_covs(fits, fitted)
+
     def predict_param_cov(self, obs_index, factor_index=None):
-        raise _unported("predict_param_cov: the fits' parameter covariance", 5)
+        """Each observation's posterior parameter covariance (None where
+        unfitted) (:1639). ``factor_index`` selects a PFRT level, and this
+        map holds no PFRT fits (item 9)."""
+        _, covs = self._fitted_covs(obs_index)
+        return [covs.get(int(i)) for i in np.atleast_1d(obs_index)]
 
     def predict_x_cov(self, obs_index, factor_index=None):
-        raise _unported("predict_x_cov: the fits' parameter covariance", 5)
+        """The DRT coefficients' covariance on the supergrid, (n, T, T), NaN
+        where unfitted (:1661)."""
+        obs_index = np.atleast_1d(obs_index)
+        fits, covs = self._fitted_covs(obs_index)
+        n_tau = len(self.tau_supergrid)
+        x_cov = np.zeros((len(obs_index), n_tau, n_tau))
+        for k, i in enumerate(obs_index):
+            cov = covs.get(int(i))
+            if cov is None:
+                x_cov[k] = np.nan
+                continue
+            li, ri = self.obs_tau_indices[i]
+            ns = fits[int(i)].get_qp_mat_offset()
+            x_cov[k, li:ri, li:ri] = cov[ns:, ns:]
+        return x_cov
+
+    def _drt_covs(self, obs_index, tau, orders, extend_var):
+        """{order: [distribution covariance on ``tau``]} of each observation
+        (NaN where unfitted), one covariance of the parameters for all
+        ``orders``."""
+        fits, covs = self._fitted_covs(obs_index)
+        nan = np.full((len(tau), len(tau)), np.nan)
+        return {order: [fits[int(i)].distribution_cov(covs[int(i)], tau, order=order,
+                                                      extend_var=extend_var)
+                        if int(i) in covs else nan for i in np.atleast_1d(obs_index)]
+                for order in orders}
 
     def predict_drt_cov(self, obs_index, tau=None, order=0, factor_index=None, extend_var=True):
-        raise _unported("predict_drt_cov: the fits' distribution covariance", 5)
+        """Each observation's distribution covariance on ``tau`` (:1874)."""
+        if tau is None:
+            tau = self.get_tau_eval(10)
+        return self._drt_covs(obs_index, tau, (order,), extend_var)[order]
 
     def predict_drt_var(self, obs_index, tau=None, order=0, factor_index=None, extend_var=True):
-        raise _unported("predict_drt_var: the fits' distribution covariance", 5)
+        """The distribution variance on ``tau``, (n, len(tau)) (:1896)."""
+        covs = self.predict_drt_cov(obs_index, tau, order, factor_index, extend_var)
+        return np.array([np.diag(c) for c in covs])
 
     def predict_x_var(self, obs_index, factor_index=None):
-        raise _unported("predict_x_var: the fits' parameter covariance", 5)
+        """The DRT coefficients' variance on the supergrid (:1901)."""
+        return np.array([np.diag(c) for c in self.predict_x_cov(obs_index, factor_index)])
+
+    def _prob_inputs(self, psi, obs_index, tau, orders, extend_var):
+        if tau is None:
+            tau = self.get_tau_eval(10)
+        if obs_index is None:
+            obs_index = self.get_psi_index(psi) if psi is not None else self.fitted_obs_index()
+        mus = [self.predict_drt(obs_index=obs_index, tau=tau, order=k) for k in orders]
+        covs = self._drt_covs(obs_index, tau, orders, extend_var)
+        return mus, [np.array([np.diag(c) for c in covs[k]]) for k in orders]
 
     def predict_curv_prob(self, psi=None, obs_index=None, tau=None, factor_index=None,
                           extend_var=True):
-        raise _unported("predict_curv_prob: the fits' distribution variance", 5)
+        """P(negative curvature and positive height) over (observation, tau)
+        (:1935)."""
+        (f, fxx), (f_var, fxx_var) = self._prob_inputs(psi, obs_index, tau, (0, 2), extend_var)
+        p_curv = 1 - ndtr(fxx / np.sqrt(np.maximum(fxx_var, 1e-30)))
+        p_f = 1 - ndtr(-f / np.sqrt(np.maximum(f_var, 1e-30)))
+        return p_curv * p_f
 
     def predict_peak_prob(self, psi=None, obs_index=None, tau=None, factor_index=None,
                           extend_var=True):
-        raise _unported("predict_peak_prob: the fits' distribution variance", 5)
+        """Peak probability over (observation, tau) from the surface peak and
+        trough model (:1958)."""
+        mus, var = self._prob_inputs(psi, obs_index, tau, (0, 1, 2), extend_var)
+        pp_ = surface.peak_prob(*mus, f_var=var[0], fx_var=var[1], fxx_var=var[2])
+        tp_ = surface.trough_prob(*mus, f_var=var[0], fx_var=var[1], fxx_var=var[2])
+        return pp_ * (1 - tp_)
 
     def predict_dop(self, psi=None, obs_index=None, nu=None, normalize=True, resolved=True):
         raise _unported("predict_dop: the distribution of phasances", 4)
@@ -1449,9 +1784,8 @@ class DRTMD:
 
     def load_attributes(self, source):
         """Set attributes from a pickle written by ``save_attributes``, this
-        class's or the JAX class's."""
-        with open(source, "rb") as f:
-            self.set_attributes(pickle.load(f))
+        class's or the JAX class's (``load_pickle``)."""
+        self.set_attributes(load_pickle(source))
 
     @classmethod
     def from_source(cls, source, device=None):
@@ -1460,8 +1794,7 @@ class DRTMD:
         configuration the constructor does not take (``fixed_basis_nu``,
         ``fit_dop``) raises, naming its item."""
         if not isinstance(source, dict):
-            with open(source, "rb") as f:
-                att_dict = pickle.load(f)
+            att_dict = load_pickle(source)
         else:
             att_dict = dict(source)
         config_keys = ["tau_supergrid", "psi_dim_names", "tau_basis_type", "tau_epsilon",
@@ -1472,6 +1805,73 @@ class DRTMD:
         drtmd = cls(**init_kw, device=device)
         drtmd.set_attributes(att_dict)
         return drtmd
+
+
+# ---------------------------------------------------------------------------
+# Reading the JAX class's files where JAX is absent
+# ---------------------------------------------------------------------------
+_JAX_MODULES = ("jax", "jaxlib", "hybdrt_tpu")
+
+
+class _JaxQPHBConfig:
+    """Unpickles the JAX package's QPHBConfig, a NamedTuple of the port's
+    QPHBConfig fields in the same order, as the port's."""
+
+    def __new__(cls, *args, **kw):
+        return QPHBConfig(*args, **kw)
+
+
+class _Foreign:
+    """Stands in for any other object of JAX or the JAX package in a pickle,
+    so that ``load_pickle`` can name where it lies."""
+    qualname = None
+
+    def __new__(cls, *args, **kw):
+        return object.__new__(cls)
+
+    def __init__(self, *args, **kw):
+        pass
+
+    def __setstate__(self, state):
+        pass
+
+
+class _MapUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.split(".")[0] in _JAX_MODULES:
+            if (module, name) == ("hybdrt_tpu.solver.qphb", "QPHBConfig"):
+                return _JaxQPHBConfig
+            return type("Foreign", (_Foreign,), {"qualname": f"{module}.{name}"})
+        return super().find_class(module, name)
+
+
+def _foreign_paths(obj, path, out):
+    if isinstance(obj, _Foreign) or (isinstance(obj, type) and issubclass(obj, _Foreign)):
+        out.append((path, obj.qualname))
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            _foreign_paths(v, f"{path}[{k!r}]", out)
+    elif isinstance(obj, (list, tuple)):
+        for k, v in enumerate(obj):
+            _foreign_paths(v, f"{path}[{k}]", out)
+    return out
+
+
+def load_pickle(source):
+    """The attribute dict of a ``save_attributes`` pickle, this class's or
+    the JAX class's, without importing JAX: the JAX package's QPHBConfig
+    (which a serial fit stores in ``qphb_params["cfg"]``) is read as the
+    port's; any other JAX object raises ValueError naming the attribute
+    that holds it (ROADMAP Queue 3 item 15)."""
+    with open(source, "rb") as f:
+        att_dict = _MapUnpickler(f).load()
+    found = _foreign_paths(att_dict, "", [])
+    if found:
+        path, qualname = found[0]
+        raise ValueError(f"{Path(source).name}: attribute {path.lstrip('[').split(']')[0]}, at "
+                         f"{path}, holds a {qualname} object, which cannot be read without JAX "
+                         f"(ROADMAP Queue 3 item 15); {len(found)} such object(s) in all")
+    return att_dict
 
 
 # The fit state a map carries between packages: DRTMD attributes

@@ -17,6 +17,13 @@ window stops at the interior-point iteration and CG count it stops at in JAX.
 ``solve_coupled_group`` is the case G = 1. The block-Jacobi factor and its
 solves run the lane-Cholesky kernels (``ops/chol_lane.py``:
 ``chol_factor_lane`` and ``chol_solve_factored_lane``) on a CUDA device.
+
+The reference's own form of a window, one dense QP of the (nr nc, nr nc)
+matrix blockdiag(P_i) + My (x) Cmat (``assemble_resolve_system``,
+``resolve_observations``), is solved by ``ops/qp.py::solve_qp_box`` at one
+lane; at the windows' sizes (7 x 94 = 658 unknowns on the het map) it takes
+the QP's library factor route, as the JAX package's unbatched solve takes
+LAPACK.
 """
 from copy import deepcopy
 
@@ -25,7 +32,7 @@ import torch
 from scipy.ndimage import gaussian_filter1d, median_filter
 
 from ..ops import basis as basis_mod
-from ..ops.qp import spd_factor, spd_solve_factored
+from ..ops.qp import solve_qp_box, spd_factor, spd_solve_factored
 from ..utils.device import resolve_device
 
 _MESH_MSG = "mesh: multi-GPU sharding is not ported yet (ROADMAP Queue 1 item 10)"
@@ -206,6 +213,90 @@ def prepare_group_blocks(p_list, q_list, coefficient_scale, r_inf_scaled, obs_ta
 
     return (np.stack(p_out), np.stack(q_out), lb, my, cmat,
             (special_dict, match_tau_indices, nr, nc))
+
+
+def dense_system(p_stack, q_stack, lb, my, cmat):
+    """The dense form of one window's blocks: (P (nr nc, nr nc) =
+    blockdiag(P_i) + kron(my, cmat), q (nr nc,), lb (nr nc,))."""
+    nr, nc = np.shape(q_stack)
+    p_matrix = np.kron(my, cmat)
+    for i in range(nr):
+        p_matrix[i * nc:(i + 1) * nc, i * nc:(i + 1) * nc] += p_stack[i]
+    return p_matrix, np.reshape(q_stack, -1), np.tile(lb, nr)
+
+
+def assemble_resolve_system(p_list, q_list, coefficient_scale, r_inf_scaled, obs_tau_indices,
+                            special_qp_params, nonneg, truncate=False, sigma=1, lambda_psi=1,
+                            tau_filter_sigma=0, special_filter_sigma=0, fit_parameters=None,
+                            scales=None):
+    """The joint block QP of one resolve window in dense form (resolve.py:205),
+    from the arrays ``prepare_group_blocks`` takes. Returns (p_matrix,
+    q_vector, lb, meta) with meta = (special_dict, match_tau_indices, nr, nc)."""
+    p_stack, q_stack, lb, my, cmat, meta = prepare_group_blocks(
+        p_list, q_list, coefficient_scale, r_inf_scaled, obs_tau_indices, special_qp_params,
+        nonneg, truncate=truncate, sigma=sigma, lambda_psi=lambda_psi,
+        tau_filter_sigma=tau_filter_sigma, special_filter_sigma=special_filter_sigma,
+        fit_parameters=fit_parameters, scales=scales)
+    return (*dense_system(p_stack, q_stack, lb, my, cmat), meta)
+
+
+def solve_dense_window(p_matrix, q_vector, lb, dtype=None, device=None):
+    """One window's dense QP through ``solve_qp_box`` at one lane, in
+    ``dtype`` (float64 by default) on ``device`` (the card by default), as
+    the JAX package solves it (resolve.py:239). Returns (x, IP iterations)."""
+    dtype = dtype or torch.float64
+    device = resolve_device(device)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)[None]
+    res = solve_qp_box(t(p_matrix), t(q_vector), t(lb))
+    return res.x[0].cpu().numpy(), int(res.iterations[0])
+
+
+def drt_block_inputs(drts):
+    """The arrays ``prepare_group_blocks`` takes, read off fitted ``DRT``s as
+    the JAX function reads them (resolve.py:21, :153-162): each fit's
+    ``fit_parameters`` (P, q, R_inf, the baseline and vz offset), its
+    ``coefficient_scale`` and the scales of its chrono data. Returns a dict
+    of lists."""
+    keys = ("response_signal_scale", "scaled_response_offset", "v_baseline_scale")
+    out = {k: [] for k in ("p_list", "q_list", "coefficient_scale", "r_inf_scaled",
+                           "special_qp_params", "fit_parameters", "scales")}
+    for drt in drts:
+        fp = drt.fit_parameters
+        out["p_list"].append(np.asarray(fp["p_matrix"]))
+        out["q_list"].append(np.asarray(fp["q_vector"]))
+        out["coefficient_scale"].append(drt.coefficient_scale)
+        out["r_inf_scaled"].append(fp["R_inf"] / drt.coefficient_scale)
+        out["special_qp_params"].append(drt.special_qp_params)
+        out["fit_parameters"].append(fp)
+        out["scales"].append({k: getattr(drt, k) for k in keys})
+    return out
+
+
+def resolve_observations(obs_drt_list, obs_tau_indices, nonneg, obs_psi=None, truncate=False,
+                         sigma=1, lambda_psi=1, unpack=False, tau_filter_sigma=0,
+                         special_filter_sigma=0, dtype=None, device=None):
+    """Jointly re-optimize one window of fitted observations (``DRT``s in
+    psi order) with psi smoothing, one dense QP (resolve.py:229). Returns x
+    (nr, nc) and the match tau indices, or with ``unpack`` (x_drt,
+    x_special, match_tau_indices) in physical units. ``obs_psi`` is taken
+    and unused, as in the JAX function. ``dtype`` and ``device`` are the
+    solve's (float64 on the card by default)."""
+    cols = drt_block_inputs(obs_drt_list)
+    p_matrix, q_vector, lb, meta = assemble_resolve_system(
+        cols["p_list"], cols["q_list"], cols["coefficient_scale"], cols["r_inf_scaled"],
+        obs_tau_indices, cols["special_qp_params"], nonneg, truncate=truncate, sigma=sigma,
+        lambda_psi=lambda_psi, tau_filter_sigma=tau_filter_sigma,
+        special_filter_sigma=special_filter_sigma, fit_parameters=cols["fit_parameters"],
+        scales=cols["scales"])
+    special_dict, match_tau_indices, nr, nc = meta
+    x, _ = solve_dense_window(p_matrix, q_vector, lb, dtype=dtype, device=device)
+    x_opt = x.reshape((nr, nc))
+    if unpack:
+        x_drt, x_special = unpack_resolved_x(
+            x_opt, cols["coefficient_scale"], special_dict,
+            [drt.inductance_scale or 1.0 for drt in obs_drt_list])
+        return x_drt, x_special, match_tau_indices
+    return x_opt, match_tau_indices
 
 
 def pad_windows(blocks):

@@ -13,6 +13,13 @@ numpy functions in float64, which both ``DRT`` and ``build_eis_problem``
 the design matrix shared as in ``BatchedEISFitter``: on the card, their QPs
 launch the lane kernels at one lane.
 
+The fitted model is read as the JAX ``DRT`` reads it: predictions, the
+Laplace posterior (``estimate_param_cov`` :2168, ``estimate_distribution_cov``
+:2319, ``predict_drt_ci`` :2366; the inverse in float64 with ``torch.linalg``
+on the fit's device, the rest host numpy), likelihoods and diagnostics
+(:2470-2525, :2886-2935) and peaks (:1728-1835, :2525-2560; scipy's
+``find_peaks``, ``ndtr`` and ``ndtri`` on the same host arrays).
+
 Options whose code lies in an unported layer raise ``NotImplementedError``
 naming their ROADMAP Queue 1 item.
 """
@@ -21,10 +28,14 @@ from copy import deepcopy
 
 import numpy as np
 import torch
+from scipy import signal as sp_signal
+from scipy.special import ndtr, ndtri
 
+from .. import evaluation
+from .. import peaks as peaks_mod
 from .. import preprocessing as pp
 from ..ops import basis as basis_mod
-from ..ops import chol_lane, lookup, mat1d
+from ..ops import lookup, mat1d
 from ..solver import fitcore
 from ..solver import hypers as hyp_mod
 from ..solver import qphb as qphb_mod
@@ -32,7 +43,10 @@ from ..solver.qphb import QPHBConfig
 from ..utils import chrono as chrono_utils
 from ..utils import eis as eis_utils
 from ..utils import validation
+from ..utils.array import nearest_index
 from ..utils.device import resolve_device
+from ..utils.stats import bic
+from ..mapping import surface
 from .background import get_baseline_matrix
 
 # Keywords of the JAX ``_qphb_fit_core`` (hybdrt_tpu/models/drt.py:870-894)
@@ -369,6 +383,8 @@ class DRT:
         self.fit_matrices = {}
         self.qphb_params = None
         self.qphb_history = None
+        self.series_neg = None
+        self.fit_kwargs = None
         self._assembly_cache = {}
         self._fit_rm_signature = None
         self._pred_mat_cache = {}
@@ -394,6 +410,11 @@ class DRT:
         if self.t_fit is None or len(np.atleast_1d(self.t_fit)) == 0:
             return None if return_none else np.array([])
         return np.asarray(self.t_fit)
+
+    @property
+    def num_data(self):
+        return len(np.atleast_1d(self.get_fit_times())) \
+            + 2 * len(np.atleast_1d(self.get_fit_frequencies()))
 
     def _basis_signature(self):
         return (self.tau_basis_type, float(self.tau_epsilon),
@@ -659,6 +680,12 @@ class DRT:
                           "the scale is set once up front — use solve_rp=True for the refined "
                           "pre-fit Rp estimate instead")
         hypers = qphb_hypers(eff_hp=eff_hp, **kw)
+        self.fit_kwargs = {"smooth_inf_response": smooth_inf_response,
+                           "offset_steps": offset_steps, "step_offset_size": step_offset_size,
+                           **hypers, "nonneg": nonneg, "eff_hp": eff_hp,
+                           "penalty_type": "integral",
+                           "neg_allowed_tau_range": neg_allowed_tau_range}
+        self.series_neg = series_neg
         self.v_baseline_deg = v_baseline_deg
         self.v_baseline_sqrt = v_baseline_sqrt
 
@@ -834,12 +861,6 @@ class DRT:
                 "iw_l1_lambda_0": iw_l1_lambda_0, "iw_l2_lambda_0": iw_l2_lambda_0,
                 "scaled_response_offset": self.scaled_response_offset,
             }
-
-        if self.device.type == "cuda" and not chol_lane.admitted(n, self.dtype):
-            raise NotImplementedError(
-                f"a QP of n={n} parameters in {self.dtype} exceeds the lane kernels' tile rule "
-                f"(n <= 268 in float32, 188 in float64, ops/chol_lane.py::admitted); the dense "
-                f"path for larger systems is ROADMAP Queue 1 item 8")
 
         # Weight initialization (:1326-1405), at one lane
         t = self._t
@@ -1079,7 +1100,9 @@ class DRT:
         out["C_inv"] = 0
         return out
 
-    def get_drt_params(self, x=None):
+    def get_drt_params(self, x=None, sign=1):
+        """The DRT coefficients (:1677); ``sign`` selects a series_neg fit's
+        half, which the port does not fit, so it is unused."""
         if x is None:
             x = self.fit_parameters["x"]
         return np.asarray(x)
@@ -1090,9 +1113,10 @@ class DRT:
         log_max = np.log10(np.max(self.basis_tau)) + extend_decades
         return np.logspace(log_min, log_max, int((log_max - log_min) * ppd) + 1)
 
-    def predict_distribution(self, tau=None, ppd=20, order=0, x=None, normalize=False):
+    def predict_distribution(self, tau=None, ppd=20, order=0, x=None, sign=None,
+                             normalize=False):
         """gamma(ln tau), or its order-th derivative in ln tau (order 0..3), on
-        an evaluation grid (:1695)."""
+        an evaluation grid (:1695); ``sign`` as ``get_drt_params``."""
         if tau is None:
             tau = self.get_tau_eval(ppd)
         em = basis_mod.func_eval_matrix_host(np.log(self.basis_tau),
@@ -1249,11 +1273,373 @@ class DRT:
     def predict_r_tot(self):
         return self.predict_r_inf() + self.predict_r_p()
 
-    def estimate_param_cov(self, *args, **kwargs):
-        raise _unported("estimate_param_cov: the single fit's posterior covariance", 5)
+    predict_drt = predict_distribution
 
-    def estimate_distribution_cov(self, *args, **kwargs):
-        raise _unported("estimate_distribution_cov: the single fit's posterior covariance", 5)
+    def integrate_drt(self, tau_min, tau_max, ppd=10, **predict_kw):
+        """The distribution's integral over ln tau from ``tau_min`` to
+        ``tau_max`` (:2126)."""
+        num_decades = np.log10(tau_max) - np.log10(tau_min)
+        tau = np.logspace(np.log10(tau_min), np.log10(tau_max), int(num_decades * ppd) + 1)
+        gamma = self.predict_distribution(tau, **predict_kw)
+        return np.trapezoid(gamma, x=np.log(tau))
+
+    integrate_distribution = integrate_drt
+
+    def get_drt_norm(self, normalize, normalize_by=None, x=None, absolute=False):
+        """Normalization constant of distribution queries (:2155)."""
+        if normalize_by is not None:
+            return normalize_by
+        if normalize:
+            return self.predict_r_p(x=x, absolute=absolute)
+        return 1.0
+
+    def default_dist_sign(self):
+        return 0 if self.series_neg else 1
+
+    def get_data_tau_limits(self):
+        """(tau_min, tau_max) covered by the measured data (:2451)."""
+        return pp.get_tau_lim(self.get_fit_frequencies(True), self.get_fit_times(True),
+                              self.nonconsec_step_times)
+
+    # ------------------------------------------------------------------
+    # The Laplace posterior (:2166-2385)
+    # ------------------------------------------------------------------
+    def _p_matrix(self, p_matrix=None):
+        if p_matrix is None:
+            if self.qphb_params is not None:
+                p_matrix = self.qphb_params["p_matrix"]
+            else:
+                # rebuilt batched and ragged fits carry (P, q) in fit_parameters
+                p_matrix = self.fit_parameters.get("p_matrix")
+            if p_matrix is None:
+                raise ValueError("No P matrix available; fit first or pass p_matrix")
+        return np.asarray(p_matrix)
+
+    def estimate_param_cov(self, p_matrix=None):
+        """The posterior covariance P^-1 in physical units (:2168): the
+        inverse in float64 on the fit's device (``mat1d.invert_psd``), host
+        numpy out."""
+        p_matrix = self._p_matrix(p_matrix)
+        p_inv = mat1d.invert_psd(torch.as_tensor(p_matrix, dtype=torch.float64,
+                                                 device=self.device)).cpu().numpy()
+        return self.scale_param_cov(p_inv)
+
+    def scale_param_cov(self, p_inv):
+        """P^-1 (solver units, host numpy) in physical units: each column's
+        factor from solver to physical units (:2181-2194)."""
+        scale_vec = np.ones(p_inv.shape[0]) * self.coefficient_scale
+        for name in self.special_qp_params:
+            start, end = self.get_special_indices(name)
+            if name == "v_baseline":
+                scale_vec[start:end] = self.response_signal_scale / self.v_baseline_scale
+            elif name == "inductance":
+                scale_vec[start:end] = self.coefficient_scale * self.inductance_scale
+            elif name == "vz_offset":
+                scale_vec[start:end] = 1.0
+        return p_inv * scale_vec[:, None] * scale_vec[None, :]
+
+    def estimate_distribution_cov(self, tau=None, ppd=20, order=0, extend_var=True,
+                                  p_matrix=None, sign=None, normalize=False, var_floor=0.0):
+        """Covariance of gamma(ln tau), or of its order-th derivative, B
+        Sigma_x B^T (:2319); ``extend_var`` extrapolates the variance beyond
+        the basis (:2344-2362). A series_neg fit raises where it is fitted."""
+        if tau is None:
+            tau = self.get_tau_eval(ppd)
+        return self.distribution_cov(self.estimate_param_cov(p_matrix=p_matrix), tau, order,
+                                     extend_var, normalize, var_floor)
+
+    def distribution_cov(self, cov, tau, order=0, extend_var=True, normalize=False,
+                         var_floor=0.0):
+        """``estimate_distribution_cov`` from the parameter covariance ``cov``
+        (host numpy, physical units)."""
+        ns = self.get_qp_mat_offset()
+        cov_drt = cov[ns:, ns:]
+        tau = np.asarray(tau)
+        em = basis_mod.func_eval_matrix_host(np.log(self.basis_tau), np.log(tau),
+                                             self.tau_basis_type, self.tau_epsilon, order)
+        dist_cov = em @ cov_drt @ em.T
+        if normalize:
+            dist_cov = dist_cov / self.predict_r_p(absolute=True) ** 2
+        if var_floor:
+            dist_cov[np.diag_indices_from(dist_cov)] = np.maximum(np.diag(dist_cov), var_floor)
+        if extend_var:
+            var = np.diag(dist_cov).copy()
+            left = tau < self.basis_tau[0]
+            right = tau > self.basis_tau[-1]
+            if left.any():
+                ref_var = var[~left][0] if (~left).any() else 0
+                var[left] += ref_var * np.log(self.basis_tau[0] / tau[left]) ** 2
+                dist_cov[left, left] = var[left]
+            if right.any():
+                ref_var = var[~right][-1] if (~right).any() else 0
+                var[right] += ref_var * np.log(tau[right] / self.basis_tau[-1]) ** 2
+                dist_cov[right, right] = var[right]
+        return dist_cov
+
+    def predict_drt_ci(self, tau=None, ppd=20, order=0, quantiles=(0.025, 0.975), x=None,
+                       sign=None, normalize=False):
+        """Credible interval of the distribution from the Laplace posterior
+        (:2366): the mean plus ndtri(q) sigma for each of ``quantiles``."""
+        if tau is None:
+            tau = self.get_tau_eval(ppd)
+        dist_cov = self.estimate_distribution_cov(tau=tau, order=order, sign=sign,
+                                                  normalize=normalize)
+        sigma = np.sqrt(np.maximum(np.diag(dist_cov), 0))
+        mu = self.predict_distribution(tau=tau, order=order, x=x, sign=sign,
+                                       normalize=normalize)
+        out = [mu + ndtri(q) * sigma for q in quantiles]
+        return out[0], out[1]
+
+    predict_distribution_ci = predict_drt_ci
+
+    # ------------------------------------------------------------------
+    # Diagnostics (:2470-2525)
+    # ------------------------------------------------------------------
+    def predict_sigma(self, measurement):
+        """The fit's data-space noise level, "chrono" or "eis" (:2470)."""
+        key = {"chrono": "v_sigma_tot", "eis": "z_sigma_tot"}.get(measurement)
+        if key is None:
+            raise ValueError(f"Invalid measurement {measurement}; options: 'chrono', 'eis'")
+        return self.fit_parameters.get(key, None)
+
+    def split_r_p(self, tau_splits, resolve_peaks=False, **predict_kw):
+        """Rp split into its parts between ``tau_splits`` (:2479)."""
+        tau_splits = sorted(tau_splits)
+        if "tau" in predict_kw:
+            tau = np.asarray(predict_kw.pop("tau"))
+        else:
+            tau = self.get_tau_eval(predict_kw.pop("ppd", 20))
+        gamma = self.predict_distribution(tau, **predict_kw)
+        split_index = [nearest_index(tau, ts) for ts in tau_splits]
+        start_index = np.array([0] + split_index)
+        end_index = np.array(split_index + [len(tau)]) + 1
+        if resolve_peaks:
+            fxx = self.predict_distribution(tau, order=2, **predict_kw)
+            peak_index = [int(np.argmin(fxx[i:j])) + i for i, j in zip(start_index, end_index)]
+            peak_coef = self.estimate_peak_coef(tau, peak_indices=peak_index)
+            return np.array([self.predict_r_p(x=pc) for pc in peak_coef])
+        return np.array([np.trapezoid(gamma[i:j], x=np.log(tau[i:j]))
+                         for i, j in zip(start_index, end_index)])
+
+    def evaluate_chi_sq(self, frequencies=None, z=None, x=None, weights=None, **predict_kw):
+        """Chi-squared of the impedance fit (:2501); ``weights="modulus"``
+        weights by 1/|z|."""
+        if frequencies is None:
+            frequencies = self.get_fit_frequencies()
+        if z is None:
+            z = self.z_fit
+        if weights is not None:
+            if isinstance(weights, str) and weights == "modulus":
+                weights = 1 / np.abs(z)
+            elif np.shape(weights) != np.shape(z):
+                raise ValueError("Weights must have same shape as z")
+        z_hat = self.predict_z(frequencies, x=x, **predict_kw)
+        return evaluation.chi_sq(z, z_hat, weights=weights)
+
+    def fisher_matrix(self, weighted=True):
+        """Gauss-Newton information matrix of the data fit, (W rm)^T (W rm)
+        (:2517)."""
+        rm = np.asarray(self.qphb_params["rm"])
+        if weighted:
+            rm = rm * np.asarray(self.qphb_params["weights"])[:, None]
+        return rm.T @ rm
+
+    # ------------------------------------------------------------------
+    # Likelihoods (:2886-2935), in float64 on the fit's device
+    # ------------------------------------------------------------------
+    def _lane(self, a):
+        return torch.as_tensor(np.array(a, dtype=float), dtype=torch.float64,
+                               device=self.device)[None]
+
+    def evaluate_rss(self, weights=None):
+        if weights is None:
+            weights = self.qphb_params["weights"]
+        qp = self.qphb_params
+        return float(qphb_mod.evaluate_rss(self._lane(self._raw_x()), self._lane(qp["rm"])[0],
+                                           self._lane(qp["rv"]), self._lane(weights))[0])
+
+    def evaluate_llh(self, weights=None, x=None, marginalize_weights=True, alpha_0=2, beta_0=1):
+        if weights is None:
+            weights = self.qphb_params["weights"]
+        qp = self.qphb_params
+        x = self._raw_x() if x is None else np.asarray(x)
+        return float(qphb_mod.evaluate_llh(
+            self._lane(x), self._lane(qp["rm"])[0], self._lane(qp["rv"]), self._lane(weights),
+            marginalize_weights=marginalize_weights, alpha_0=alpha_0, beta_0=beta_0)[0])
+
+    def evaluate_bic(self, **llh_kw):
+        llh = self.evaluate_llh(**llh_kw)
+        return bic(llh, len(self._raw_x()), self.num_data)
+
+    def evaluate_lml(self, **kw):
+        qp = self.qphb_params
+        hyp = qphb_mod.hypers_to_tensors(qp["hypers"], self.device, torch.float64)
+        m_stack = torch.stack([self._lane(qp["penalty_matrices"][f"m{k}"])[0] for k in range(3)])
+        return float(qphb_mod.evaluate_lml(
+            self._lane(self._raw_x()), self._lane(qp["rm"])[0], self._lane(qp["rv"]), m_stack,
+            hyp, self._lane(qp["l1_lambda_vector"])[0], self._lane(qp["rho_vector"]),
+            self._lane(np.stack(qp["s_vectors"])), self._lane(qp["weights"]), qp["cfg"],
+            **kw)[0])
+
+    def _raw_x(self):
+        """The scaled (solver) parameter vector rebuilt from fit_parameters
+        (:2922)."""
+        fp = self.fit_parameters
+        x = np.zeros(self.qphb_params["rm"].shape[1])
+        x[self.get_qp_mat_offset():] = fp["x"] / self.coefficient_scale
+        for name in self.special_qp_params:
+            start, end = self.get_special_indices(name)
+            if name == "R_inf":
+                x[start] = fp["R_inf"] / self.coefficient_scale
+            elif name == "inductance":
+                x[start] = fp["inductance"] / (self.coefficient_scale * self.inductance_scale)
+            elif name == "vz_offset":
+                x[start] = fp["vz_offset"]
+            elif name == "v_baseline":
+                vb = np.atleast_1d(fp["v_baseline"]) / self.response_signal_scale
+                vb = vb * self.v_baseline_scale
+                vb[0] += self.scaled_response_offset * self.v_baseline_scale[0] \
+                    if np.ndim(self.v_baseline_scale) else self.scaled_response_offset
+                x[start:end] = vb
+        return x
+
+    # ------------------------------------------------------------------
+    # Peaks (:1728-1835, :2525-2560)
+    # ------------------------------------------------------------------
+    def find_peaks(self, tau=None, x=None, normalize=True, ppd=10, prominence=None,
+                   height=None, sign=1, return_info=False, method="thresh", prob_thresh=0.25,
+                   fxx_var_floor=1e-5, num_peaks=None, **kw):
+        """Peaks of the distribution at the minima of its curvature, kept
+        with ``method="prob"`` where their posterior probability reaches
+        ``prob_thresh`` (:1728)."""
+        if method not in ("thresh", "prob"):
+            raise ValueError(f"Invalid method {method}; options: thresh, prob")
+        if tau is None:
+            tau = self.get_tau_eval(ppd)
+        tau = np.asarray(tau)
+        fxx = self.predict_distribution(tau=tau, x=x, order=2, sign=sign, normalize=normalize)
+        if prominence is None:
+            prominence = 0.05 * np.std(fxx[~np.isinf(fxx)]) + 5e-3 \
+                if method == "thresh" else 5e-3
+        if height is None:
+            height = 0 if method == "thresh" else 1e-3
+
+        if (self.fit_kwargs or {}).get("nonneg", True) and sign != 0:
+            peak_indices, peak_info = sp_signal.find_peaks(-sign * fxx, height=height,
+                                                           prominence=prominence, **kw)
+        else:
+            f = self.predict_distribution(tau=tau, x=x, order=0, sign=sign, normalize=normalize)
+            idx_list, info_list = [], []
+            for peak_sign in (-1, 1):
+                p_idx, p_info = sp_signal.find_peaks(-peak_sign * fxx, height=height,
+                                                     prominence=prominence, **kw)
+                pos = peak_sign * f[p_idx] > 0
+                idx_list.append(p_idx[pos])
+                info_list.append({k: v[pos] for k, v in p_info.items()})
+            peak_indices = np.concatenate(idx_list)
+            peak_info = {k: np.concatenate([pi[k] for pi in info_list])
+                         for k in info_list[0].keys()}
+            order_idx = np.argsort(peak_indices)
+            peak_indices = peak_indices[order_idx]
+            peak_info = {k: v[order_idx] for k, v in peak_info.items()}
+
+        if method == "prob" and len(peak_indices) > 0:
+            min_prom = np.minimum(peak_info["prominences"], peak_info["peak_heights"])
+            fxx_cov = self.estimate_distribution_cov(tau=tau, order=2)
+            fxx_sigma = np.sqrt(np.maximum(np.diag(fxx_cov), fxx_var_floor))
+            if normalize:
+                fxx_sigma = fxx_sigma / self.predict_r_p(absolute=True)
+            # P(|peak| > 0) from the normal posterior of the curvature
+            peak_prob = 2 * ndtr(min_prom / fxx_sigma[peak_indices]) - 1
+            if num_peaks is not None:
+                prob_sort = np.sort(peak_prob)[::-1]
+                prob_thresh = prob_sort[min(num_peaks - 1, len(peak_prob) - 1)]
+            peak_info["probs"] = peak_prob
+            peak_indices = peak_indices[peak_prob >= prob_thresh]
+
+        if return_info:
+            return tau[peak_indices], tau, peak_indices, peak_info
+        return tau[peak_indices]
+
+    def estimate_peak_coef(self, tau=None, peak_indices=None, x=None, sign=1,
+                           epsilon_factor=1.25, max_epsilon=1.25, min_epsilon=None,
+                           epsilon_uniform=None, peak_tau=None, trough_tau=None,
+                           **find_peaks_kw):
+        """The coefficient vector split into one part per peak (:1787)."""
+        if peak_indices is not None and tau is None:
+            raise ValueError("If peak_indices are provided, the tau grid must also be provided")
+        x = self.get_drt_params(x, sign)
+        if peak_indices is None and peak_tau is None:
+            _, tau, peak_indices, _ = self.find_peaks(x=x, sign=sign, return_info=True,
+                                                      **find_peaks_kw)
+        if tau is None:
+            tau = self.get_tau_eval(10)
+        f = self.predict_distribution(tau, x=x, sign=sign)
+        fxx = self.predict_distribution(tau, x=x, sign=sign, order=2)
+        peak_weights = peaks_mod.estimate_peak_weight_distributions(
+            tau, f, fxx, peak_indices, self.basis_tau, epsilon_factor, max_epsilon,
+            min_epsilon, epsilon_uniform, peak_tau=peak_tau, trough_tau=trough_tau)
+        return x * peak_weights
+
+    def estimate_peak_distributions(self, tau=None, ppd=10, tau_find_peaks=None,
+                                    peak_indices=None, x=None, sign=1, find_peaks_kw=None,
+                                    **peak_coef_kw):
+        """Each peak's gamma(ln tau) on an evaluation grid (:1809)."""
+        if tau is None:
+            tau = self.get_tau_eval(ppd)
+        if find_peaks_kw:
+            peak_coef_kw = {**find_peaks_kw, **peak_coef_kw}
+        x_peaks = self.estimate_peak_coef(tau=tau_find_peaks, peak_indices=peak_indices, x=x,
+                                          sign=sign, **peak_coef_kw)
+        return np.stack([self.predict_distribution(tau, x=xp) for xp in x_peaks])
+
+    estimate_peak_drts = estimate_peak_distributions
+
+    def quantify_peaks(self, tau=None, ppd=10, **kw):
+        """Each peak's polarization resistance (:1826)."""
+        x_peaks = self.estimate_peak_coef(tau=tau, **kw)
+        return np.array([self.predict_r_p(x=xp) for xp in x_peaks])
+
+    def predict_peak_trough_probs(self, tau=None, x=None, bayes_cov=True, p_matrix=None):
+        """Pointwise P(peak) and P(trough) from the distribution, its first
+        two derivatives and their posterior variances (:2525)."""
+        if tau is None:
+            tau = self.get_tau_eval(10)
+        mus, bvar = [], []
+        cov = self.estimate_param_cov(p_matrix=p_matrix) if bayes_cov else None
+        for order in (0, 1, 2):
+            mus.append(self.predict_distribution(tau, x=x, order=order))
+            if bayes_cov:
+                sigma = np.diag(self.distribution_cov(cov, tau, order=order,
+                                                      extend_var=True)) ** 0.5
+                # the floor on sigma (reference drt1d.py:3676-3680)
+                iqr = np.percentile(sigma, 75) - np.percentile(sigma, 25)
+                sigma = np.maximum(sigma, np.median(sigma) - 1.5 * iqr)
+                bvar.append(sigma ** 2)
+        f_var, fx_var, fxx_var = bvar if bayes_cov else (None, None, None)
+        pp_ = surface.peak_prob(*mus, f_var=f_var, fx_var=fx_var, fxx_var=fxx_var)
+        tp_ = surface.trough_prob(*mus, f_var=f_var, fx_var=fx_var, fxx_var=fxx_var)
+        return pp_, tp_
+
+    def predict_peak_prob(self, tau=None, x=None, bayes_cov=True, p_matrix=None):
+        """Probability of a peak over tau, P(peak) (1 - P(trough)) (:2549)."""
+        pp_, tp_ = self.predict_peak_trough_probs(tau, x, bayes_cov=bayes_cov,
+                                                  p_matrix=p_matrix)
+        return pp_ * (1 - tp_)
+
+    def find_peaks_byprob(self, tau=None, x=None, prob=None, height=None, prominence=None,
+                          bayes_cov=True, p_matrix=None, return_info=False):
+        """Peaks of the peak-probability function (:2555)."""
+        if tau is None:
+            tau = self.get_tau_eval(10)
+        tau = np.asarray(tau)
+        if prob is None:
+            prob = self.predict_peak_prob(tau, x, bayes_cov=bayes_cov, p_matrix=p_matrix)
+        peak_indices, peak_info = sp_signal.find_peaks(prob, height=height,
+                                                       prominence=prominence)
+        if return_info:
+            return tau[peak_indices], tau, peak_indices, peak_info
+        return tau[peak_indices]
 
     # ------------------------------------------------------------------
     # Attribute persistence (:3886-3925)

@@ -31,6 +31,11 @@ A wrapper given CPU tensors runs the plain PyTorch version
 applied from ``info``). Given CUDA tensors it launches its kernel or raises.
 Each wrapper adds one to ``LAUNCHES[name]`` for every kernel launch and
 nowhere else.
+
+Matrices above the tile rule (``admitted``) do not reach these wrappers:
+``ops/qp.py`` factors them with the library route, and counts the box QPs
+that took each route in ``QP_ROUTES``; ``reset_launch_counts`` zeroes both
+counters.
 """
 import torch
 
@@ -38,6 +43,10 @@ from ..csrc import build as _build
 
 LAUNCHES = {"chol_factor_solve_lane": 0, "chol_solve_factored_lane": 0,
             "chol_solve_lane": 0, "chol_factor_lane": 0}
+# Box QPs (ops/qp.py::solve_qp_box) by route: "lane" through the wrappers
+# below (the kernels on a GPU), "library" through ops/qp.py's library factor
+# route (torch.linalg)
+QP_ROUTES = {"lane": 0, "library": 0}
 
 # Shared memory one block may use on sm_90 (dynamic, after opting in)
 MAX_SMEM_BYTES = 232448
@@ -62,8 +71,9 @@ SOLVE_THREADS = 32
 
 
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, QP_ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 def reg_geometry(n, dtype, tiles_per_thread=None):

@@ -2,12 +2,14 @@
 ``hybdrt_tpu/ops/mat1d.py``).
 
 Host-side float64 numpy: the matrices are built once per frequency grid or
-chrono protocol and uploaded to the device by the fitter. Only the gaussian
+chrono protocol and uploaded to the device by the fitter. ``invert_psd``
+(the posterior covariances' inverse) runs in torch on the tensor's device. Only the gaussian
 basis and the ``integrate_method="interp"`` scheme are implemented, and for
 chrono data galvanostatic mode with ideal steps (ROADMAP Queue 1 items 4
 and 11).
 """
 import numpy as np
+import torch
 
 from .. import preprocessing as pp
 from ..utils.chrono import get_time_transforms
@@ -140,3 +142,23 @@ def construct_eis_var_matrix(frequencies, vmm_epsilon, reim_cor, error_structure
     bot = np.concatenate([vmm_main * reim_cor, vmm_main], axis=1)
     vmm = np.concatenate([top, bot], axis=0)
     return vmm / np.sum(vmm, axis=1, keepdims=True)
+
+
+# ------------------------------------------------------------------
+# PSD inversion
+# ------------------------------------------------------------------
+def invert_psd(a, use_cholesky=True):
+    """Inverse of positive semidefinite matrices (hybdrt_tpu/ops/mat1d.py:313-323):
+    ``a`` a torch tensor (n, n) or (B, n, n), inverted in its dtype on its
+    device. The Cholesky inverse; a matrix whose factor fails (the JAX
+    function's NaN factor) gets the general inverse, as every matrix does
+    without ``use_cholesky``."""
+    if not use_cholesky:
+        return torch.linalg.inv_ex(a)[0]
+    l, info = torch.linalg.cholesky_ex(a)
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device).expand_as(a)
+    inv = torch.cholesky_solve(eye, l)
+    bad = (info != 0) | torch.isnan(l).flatten(-2).any(-1)
+    if bool(bad.any()):
+        inv = torch.where(bad[..., None, None], torch.linalg.inv_ex(a)[0], inv)
+    return inv

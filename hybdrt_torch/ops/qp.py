@@ -11,8 +11,9 @@ so each lane stops at the iteration it stops at in JAX.
 
 Each Mehrotra step (``ops/ip_lane.py::mehrotra_step``) factors
 ``P + diag(z/s)`` once and solves twice through the lane kernels of
-``ops/chol_lane.py`` (CUDA on a GPU, plain PyTorch on the CPU); the cold
-start and the polish factor and solve in one call. With ``fused_steps`` a
+``ops/chol_lane.py`` (CUDA on a GPU, plain PyTorch on the CPU), or, for n
+above their tile rule, through the library route (``library_route``); the
+cold start and the polish factor and solve in one call. With ``fused_steps`` a
 fixed number of steps runs in one call of the fused kernel
 ``ops/ip_lane.py::ip_steps_lane`` instead of the loop.
 """
@@ -36,28 +37,59 @@ class QPResult(NamedTuple):
 # ---------------------------------------------------------------------------
 # SPD factor/solve dispatch (hybdrt_tpu/ops/qp.py:59-140). The JAX package
 # reached the lane kernels through custom_vmap rules for batched float32 on
-# the TPU; here every call is batched, so the dispatch is by device inside
-# the chol_lane wrappers.
+# the TPU and factored an unbatched problem with LAPACK
+# (jnp.linalg.cholesky). Here every call is batched: a matrix the lane
+# kernels take (chol_lane.admitted, the tile rule) goes through the
+# chol_lane wrappers, which dispatch by device; a larger one (a dense
+# resolve window, a single fit's wide basis) takes the library route,
+# torch.linalg's factor and triangular solves on any device. The route is
+# chosen by size alone, before anything runs, and a lane whose pivot is not
+# positive gets NaN in its factor and x on both (hybdrt_tpu/ops/qp.py:344-349).
 # ---------------------------------------------------------------------------
+def library_route(n, dtype):
+    """Whether (n, n) matrices of ``dtype`` take the library route: those
+    above the lane kernels' tile rule."""
+    return not chol_lane.admitted(n, dtype)
+
+
+def _library_factor(a):
+    l, info = torch.linalg.cholesky_ex(a)
+    return torch.where((info != 0)[:, None, None], torch.nan, l)
+
+
+def _library_solve_factored(l, b):
+    y = torch.linalg.solve_triangular(l, b.unsqueeze(-1), upper=False)
+    return torch.linalg.solve_triangular(l.mT, y, upper=True).squeeze(-1)
+
+
 def spd_factor_solve(a, b):
     """(x, l) = (a^-1 b, chol(a)): the Mehrotra predictor's factor is reused
     by the corrector."""
+    if library_route(a.shape[-1], a.dtype):
+        l = _library_factor(a)
+        return _library_solve_factored(l, b), l
     return chol_lane.chol_factor_solve_lane(a.contiguous(), b.contiguous())
 
 
 def spd_factor(a):
     """Lower Cholesky factor of each SPD matrix of the batch (lower triangle
     valid; ``a`` is not written)."""
+    if library_route(a.shape[-1], a.dtype):
+        return _library_factor(a)
     return chol_lane.chol_factor_lane(a.contiguous())
 
 
 def spd_solve_factored(l, b):
     """Solve (L L^T) x = b given the factor from spd_factor_solve or spd_factor."""
+    if library_route(l.shape[-1], l.dtype):
+        return _library_solve_factored(l, b)
     return chol_lane.chol_solve_factored_lane(l.contiguous(), b.contiguous())
 
 
 def spd_solve(a, b):
     """x = a^-1 b for a batch of SPD matrices."""
+    if library_route(a.shape[-1], a.dtype):
+        return _library_solve_factored(_library_factor(a), b)
     return chol_lane.chol_solve_lane(a.contiguous(), b.contiguous())
 
 
@@ -83,6 +115,7 @@ def solve_qp_box(P, q, lb, max_iter=60, x_init=None, z_init=None, fused_steps=No
     runs as usual (``hybdrt_tpu/ops/qp.py:356-358``).
     """
     lb = lb.expand_as(q)
+    chol_lane.QP_ROUTES["library" if library_route(q.shape[-1], q.dtype) else "lane"] += 1
     d_eq = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(P, dim1=-2, dim2=-1), min=1e-300))
     P_orig, q_orig, lb_orig = P, q, lb
     P = P * d_eq[:, :, None] * d_eq[:, None, :]

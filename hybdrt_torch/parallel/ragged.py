@@ -64,11 +64,8 @@ def _port_system(s):
         raise NotImplementedError("the outlier model is not ported yet (ROADMAP Queue 1 item 9)")
     cfg = s["cfg"]
     if not isinstance(cfg, QPHBConfig):
-        d = dict(cfg._asdict() if hasattr(cfg, "_asdict") else cfg)
-        if d.pop("nonlin", False) or d.pop("half_size", 0):
-            raise NotImplementedError("nonlinear systems are not ported yet "
-                                      "(ROADMAP Queue 1 item 9)")
-        s = dict(s, cfg=QPHBConfig(**d))
+        # a nonlinear configuration raises here (QPHBConfig.__post_init__)
+        s = dict(s, cfg=QPHBConfig(**(cfg._asdict() if hasattr(cfg, "_asdict") else cfg)))
     if s["cfg"].fit_dop:
         raise NotImplementedError("DOP systems are not ported yet (ROADMAP Queue 1 item 4)")
     return s

@@ -37,6 +37,15 @@ class QPHBConfig:
     eff_hp: bool = True
     has_outlier: bool = False
     penalty_type: str = "integral"
+    # The JAX configuration's nonlinear-fit fields, always off here: they
+    # let the JAX package read a stored port fit's configuration
+    nonlin: bool = False
+    half_size: int = 0
+
+    def __post_init__(self):
+        if self.nonlin or self.half_size:
+            raise NotImplementedError("nonlinear systems are not ported yet "
+                                      "(ROADMAP Queue 1 item 9)")
 
     @property
     def fit_dop(self):
@@ -267,6 +276,65 @@ def calculate_pq(rm, rv, m_stack, hyp, l1_lambda_vector, rho_vector, s_vectors, 
     p_matrix = wrm.mT @ wrm + l2_matrix
     q_vector = -torch.matmul(wrm.mT, wrv[:, :, None])[:, :, 0] + l1_lambda_vector
     return p_matrix, q_vector
+
+
+# ------------------------------------------------------------------
+# Goodness of fit (hybdrt_tpu/solver/qphb.py:310-369)
+# ------------------------------------------------------------------
+def _gammaln(v, like):
+    return torch.special.gammaln(torch.as_tensor(v, dtype=like.dtype, device=like.device))
+
+
+def evaluate_rss(x_hat, rm, rv, weights):
+    """Weighted residual sum of squares of each lane: x_hat (B, N), rm
+    (M, N) or (B, M, N), rv and weights (B, M) -> (B,)."""
+    wr = weights * (_mv(rm, x_hat) - rv)
+    return torch.sum(wr * wr, dim=-1)
+
+
+def evaluate_llh(x_hat, rm, rv, weights, marginalize_weights=True, alpha_0=2.0, beta_0=1.0,
+                 include_constants=False, row_mask=None):
+    """Gaussian log-likelihood of each lane, with sigma^2 marginalized under
+    an inverse-gamma prior unless ``marginalize_weights`` is false
+    (qphb.py:315). ``row_mask`` (B, M) excludes padded rows from the data
+    count and the weight terms. Shapes as ``evaluate_rss``; -> (B,)."""
+    rss = evaluate_rss(x_hat, rm, rv, weights)
+    n_data = rv.shape[-1] if row_mask is None else torch.sum(row_mask, dim=-1)
+    if marginalize_weights:
+        alpha_n = alpha_0 - 1 + torch.as_tensor(n_data, dtype=rss.dtype, device=rss.device) / 2
+        beta_n = beta_0 + 0.5 * rss
+        llh = alpha_0 * np.log(beta_0) - alpha_n * torch.log(beta_n) \
+            + torch.special.gammaln(alpha_n) - _gammaln(alpha_0, rss)
+    else:
+        llh = -0.5 * rss
+    logw = torch.log(weights)
+    if row_mask is not None:
+        logw = logw * row_mask
+    llh = llh + torch.sum(logw, dim=-1)
+    if include_constants:
+        llh = llh - 0.5 * torch.as_tensor(n_data, dtype=rss.dtype, device=rss.device) \
+            * np.log(2 * np.pi)
+    return llh
+
+
+def evaluate_lml(x_hat, rm, rv, m_stack, hyp, l1_lambda_vector, rho_vector, s_vectors,
+                 weights, cfg: QPHBConfig, alpha_0=1.0, beta_0=1.0):
+    """Log-marginal likelihood of each lane with fixed hyperparameters
+    (qphb.py:343): x_hat (B, N), rv and weights (B, M), rho_vector (B, K),
+    s_vectors (B, K, N), rm and m_stack shared or per lane -> (B,)."""
+    p_matrix, _ = calculate_pq(rm, rv, m_stack, hyp, l1_lambda_vector, rho_vector, s_vectors,
+                               weights, cfg)
+    _, log_det_p = torch.linalg.slogdet(p_matrix)
+    omega = calculate_qp_l2_matrix(hyp, rho_vector, m_stack, s_vectors, cfg)
+    _, log_det_omega = torch.linalg.slogdet(omega)
+    wrmx = weights * _mv(rm, x_hat)
+    wrv = rv * weights
+    alpha = rv.shape[-1] / 2 + alpha_0
+    beta = 0.5 * (torch.sum(wrv * wrv, dim=-1) - torch.sum(wrmx * wrmx, dim=-1)
+                  - _xmx(x_hat, omega)) + beta_0
+    return 0.5 * (log_det_omega - log_det_p) + torch.sum(torch.log(weights), dim=-1) \
+        + _gammaln(alpha, beta) - _gammaln(alpha_0, beta) + alpha_0 * np.log(beta_0) \
+        - alpha * torch.log(beta)
 
 
 # ------------------------------------------------------------------

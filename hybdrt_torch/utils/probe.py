@@ -320,6 +320,35 @@ def simulate_eis(rng, r_inf=0.3, rcs=((1.0, 1e-3), (0.8, 1e-1)), induc=1e-7, noi
     return freq, z
 
 
+def quickstart_eis(seed=0, noise=1e-3):
+    """The quick start's spectrum (examples/quickstart.py:34-40): 0.4 ohm,
+    ZARCs of 1.0 ohm at 1e-3 s and 0.8 ohm at 1e-1 s, 51 frequencies,
+    seeded noise."""
+    rng = np.random.default_rng(seed)
+    freq = np.logspace(5, -1, 51)
+    w = 2j * np.pi * freq
+    z = 0.4 + 1.0 / (1 + (w * 1e-3) ** 0.9) + 0.8 / (1 + (w * 1e-1) ** 0.85)
+    return freq, z + rng.normal(0, noise, len(freq)) * (1 + 1j)
+
+
+def quickstart_readouts(drt):
+    """The quick start's readouts of a fitted DRT (``chip_smoke.py`` phase
+    16a), each on the DRT's device: a dict by name."""
+    tau = drt.get_tau_eval(20)
+    out = {"tau": tau, "ci": drt.predict_drt_ci(tau=tau),
+           "peaks": drt.find_peaks(return_info=True),
+           "peaks_prob": drt.find_peaks(method="prob", return_info=True),
+           "quantify": drt.quantify_peaks(), "peak_drts": drt.estimate_peak_distributions(),
+           "split": drt.split_r_p([1e-2]), "integral": drt.integrate_drt(1e-4, 1e0),
+           "peak_prob": drt.predict_peak_prob(), "fisher": drt.fisher_matrix(),
+           "sigma": drt.predict_sigma("eis"), "chi_sq": drt.evaluate_chi_sq(),
+           "cov": drt.estimate_param_cov(),
+           "var": np.diag(drt.estimate_distribution_cov(tau=tau))}
+    for fn in ("rss", "llh", "bic", "lml"):
+        out[fn] = getattr(drt, f"evaluate_{fn}")()
+    return out
+
+
 def hybrid_data(seed=0):
     """simulate_chrono then simulate_eis from one seeded generator, as
     tests/test_chrono_hybrid.py draws them: (times, i, v, freq, z)."""
@@ -498,6 +527,182 @@ def readout_errors(cov, p, cov_ref, p_ref, u):
     return np.abs(v - v_ref) / np.abs(v_ref), bound
 
 
+def cov_bound(p, p_ref):
+    """The relative bound tests/test_torch_cov.py holds a posterior
+    covariance to: max(1e-6, cond(P_ref) max(eps, dP)) of its
+    max |cov|, dP the relative difference of the two packages' P."""
+    d_p = np.max(np.abs(p - p_ref)) / np.max(np.abs(p_ref))
+    return max(1e-6, np.linalg.cond(p_ref) * max(np.finfo(float).eps, d_p))
+
+
+def variance_errors(var, var_ref, p, p_ref, em, ns, tau=None, basis_tau=None):
+    """(relative error, bound) of distribution variances ``var`` against
+    ``var_ref`` (T,) read off the DRT block (columns ``ns:``) of posteriors
+    of precision ``p`` and ``p_ref`` through the rows of ``em`` (T,
+    n_basis): ``readout_errors``' first-order bound. Where ``tau`` and
+    ``basis_tau`` are given, a point beyond the basis, whose variance
+    ``extend_var`` extrapolates from the nearest point inside, takes the
+    larger of its own bound and that point's."""
+    u = np.zeros((len(em), p.shape[-1]))
+    u[:, ns:] = em
+    c_ref = np.linalg.inv(p_ref)[None]
+    _, bound = readout_errors(c_ref, p[None], c_ref, p_ref[None], u)
+    bound = bound[0]
+    if tau is not None:
+        # where the basis reads nothing (far beyond it) the own bound is 0/0
+        inside = np.flatnonzero((tau >= basis_tau[0]) & (tau <= basis_tau[-1]))
+        left, right = tau < basis_tau[0], tau > basis_tau[-1]
+        bound[left] = np.fmax(bound[left], bound[inside[0]])
+        bound[right] = np.fmax(bound[right], bound[inside[-1]])
+    return np.abs(var - var_ref) / np.abs(var_ref), bound
+
+
+def posterior_definite(md, obs_index):
+    """Per observation of the map ``md``, whether its posterior precision P
+    has a float64 Cholesky factor on the CPU: where it has none,
+    ``invert_psd`` falls back to the general inverse in both packages, and
+    the variances read off it may be negative (ROADMAP Queue 3 item 17)."""
+    fits = md.get_fits_batched(obs_index)
+    return np.array([int(torch.linalg.cholesky_ex(torch.as_tensor(
+        np.asarray(fits[i].fit_parameters["p_matrix"])))[1]) == 0 for i in obs_index])
+
+
+def lml_bound(p, a):
+    """First-order bound on how far the log-marginal likelihood of a
+    posterior of precision ``p`` = Omega + A^T A (``a`` = W rm, m x n) moves
+    under the rounding of its two log dets: 1/2 sum |M^-1| |dM| over M = P
+    and Omega, dM the rounding of P's assembly (m eps |A|^T |A|) and of each
+    LU (n eps |M|), componentwise. At cond(P) 1e14-1e17 it reaches 1e-4-10
+    on fit posteriors, where two LAPACKs' log dets differ by 1e-4-1e-2."""
+    eps = np.finfo(float).eps
+    m, n = a.shape
+    omega = p - a.T @ a
+    b_p = eps * np.sum(np.abs(np.linalg.inv(p)) * (m * np.abs(a).T @ np.abs(a) + n * np.abs(p)))
+    b_o = eps * n * np.sum(np.abs(np.linalg.inv(omega)) * np.abs(omega))
+    return 0.5 * (b_p + b_o)
+
+
+# which standardized values each probability map reads, and how often: the
+# peak map pp (1 - tp) reads the slope's window twice and the curvature twice
+# (surface.peak_prob, surface.trough_prob); predict_curv_prob reads the height
+# and the curvature once
+PROB_FACTORS = {"peak": (1, 1, 1), "trough": (0, 1, 1), "peak_prob": (1, 2, 2),
+                "curv": (1, 0, 1)}
+# a probability is held where its bound is at most this; elsewhere the two
+# readings' inputs lie too far apart to say more, and the point is counted as
+# left out
+PROB_HOLD = 0.05
+
+
+def read_sigma(var, kind, floor=False):
+    """The sigma a probability map ``kind`` reads off the variances ``var``
+    (..., T), as it reads it: ``floor`` first applies the single fit's floor,
+    median - 1.5 IQR over tau (models/drt.py::predict_peak_trough_probs);
+    predict_curv_prob takes sqrt(max(var, 1e-30)), mapping/surface.py
+    var ** 0.5 + 1e-12 (NaN where var < 0)."""
+    var = np.asarray(var, dtype=float)
+    with np.errstate(invalid="ignore"):
+        if floor:
+            sigma = var ** 0.5
+            q25, q50, q75 = np.percentile(sigma, (25, 50, 75), axis=-1, keepdims=True)
+            var = np.maximum(sigma, q50 - 1.5 * (q75 - q25)) ** 2
+        if kind == "curv":
+            return np.sqrt(np.maximum(var, 1e-30))
+        return var ** 0.5 + 1e-12
+
+
+def prob_bounds(kind, mus, mus_ref, var, var_ref, floor=False):
+    """Per point, how far the probability map ``kind`` (``PROB_FACTORS``)
+    may lie from its reference given the two readings' inputs: the means
+    ``mus`` and ``mus_ref`` and the variances ``var`` and ``var_ref`` of
+    orders 0-2 (each (..., T)), which the caller holds to their own bounds
+    (``variance_errors``). Each factor is a normal CDF (or a difference of
+    two along one argument) of a standardized value w = mu / sigma, with
+    sigma as the map reads it (``read_sigma``); the CDF's slope is at most
+    1/sqrt(2 pi), so a factor moves by at most |w - w_ref| / sqrt(2 pi) and
+    by at most 1, and a product of factors in [0, 1] by at most the sum of
+    theirs. Where the two heights differ in sign, the curvature factors,
+    which read sign(f), may move by 1. Each factor's bound carries the
+    rounding of its argument, 8 eps (6 + |w| + |w_ref|), and the sum that
+    of the CDFs and products."""
+    eps = np.finfo(float).eps
+    out = 0.0
+    for k, weight in enumerate(PROB_FACTORS[kind]):
+        if not weight:
+            continue
+        with np.errstate(divide="ignore", invalid="ignore"):
+            w = np.asarray(mus[k], dtype=float) / read_sigma(var[k], kind, floor)
+            w_ref = np.asarray(mus_ref[k], dtype=float) / read_sigma(var_ref[k], kind, floor)
+            dw = np.abs(w - w_ref) + 8 * eps * (6 + np.abs(w) + np.abs(w_ref))
+        b = np.where(np.isfinite(dw), np.fmin(1.0, dw / np.sqrt(2 * np.pi)), 1.0)
+        if k == 2 and kind != "curv":
+            b = np.where(np.sign(mus[0]) == np.sign(mus_ref[0]), b, 1.0)
+        out = out + weight * b
+    return out + 16 * eps
+
+
+def drt_prob_inputs(drt, drt_ref, tau):
+    """What ``prob_bounds`` reads for two fitted single DRTs (``drt_ref``
+    may be the JAX package's) on ``tau``: per order 0-2 each one's means
+    and distribution variances, and the worst excess of the variances'
+    difference over its readout bound (``variance_errors`` on both
+    posteriors, points beyond the basis taking the nearest inside point's;
+    <= 0 holds)."""
+    from ..ops import basis as basis_mod
+    out = {"mus": [], "mus_ref": [], "var": [], "var_ref": [], "var_excess": -np.inf}
+    p, p_ref = (np.asarray(d.qphb_params["p_matrix"]) for d in (drt, drt_ref))
+    for order in (0, 1, 2):
+        em = basis_mod.func_eval_matrix_host(np.log(drt.basis_tau), np.log(tau), "gaussian",
+                                             drt.tau_epsilon, order)
+        var = np.diag(np.asarray(drt.estimate_distribution_cov(tau, order=order)))
+        var_ref = np.diag(np.asarray(drt_ref.estimate_distribution_cov(tau, order=order)))
+        err, bound = variance_errors(var, var_ref, p, p_ref, em, drt.get_qp_mat_offset(), tau,
+                                     drt.basis_tau)
+        out["var_excess"] = max(out["var_excess"], float(np.max(err - bound)))
+        out["mus"].append(np.asarray(drt.predict_distribution(tau, order=order)))
+        out["mus_ref"].append(np.asarray(drt_ref.predict_distribution(tau, order=order)))
+        out["var"].append(var)
+        out["var_ref"].append(var_ref)
+    return out
+
+
+def map_prob_inputs(md, md_ref, obs_index, tau):
+    """``drt_prob_inputs`` for the observations ``obs_index`` of two fitted
+    maps (``md_ref`` may be the JAX package's), through their
+    ``predict_drt`` and ``predict_drt_var``: each of (n, T)."""
+    from ..ops import basis as basis_mod
+    fits = md.get_fits_batched(obs_index)
+    p = {i: np.asarray(fits[i].fit_parameters["p_matrix"]) for i in obs_index}
+    p_ref = {i: np.asarray(md_ref.get_fit(i).fit_parameters["p_matrix"]) for i in obs_index}
+    out = {"mus": [], "mus_ref": [], "var": [], "var_ref": [], "var_excess": -np.inf}
+    for order in (0, 1, 2):
+        var = md.predict_drt_var(obs_index, tau, order=order)
+        var_ref = np.asarray(md_ref.predict_drt_var(obs_index, tau, order=order))
+        for k, i in enumerate(obs_index):
+            d = fits[i]
+            em = basis_mod.func_eval_matrix_host(np.log(d.basis_tau), np.log(tau), "gaussian",
+                                                 d.tau_epsilon, order)
+            err, bound = variance_errors(var[k], var_ref[k], p[i], p_ref[i], em,
+                                         d.get_qp_mat_offset(), tau, d.basis_tau)
+            out["var_excess"] = max(out["var_excess"], float(np.max(err - bound)))
+        out["mus"].append(md.predict_drt(obs_index=obs_index, tau=tau, order=order))
+        out["mus_ref"].append(np.asarray(md_ref.predict_drt(obs_index=obs_index, tau=tau,
+                                                            order=order)))
+        out["var"].append(var)
+        out["var_ref"].append(var_ref)
+    return out
+
+
+def held_probabilities(p, p_ref, bound):
+    """(held, worst excess, largest |dp| held): the points whose bound is
+    at most ``PROB_HOLD``, and how far the two maps' difference there
+    exceeds its bound (<= 0 holds)."""
+    held = bound <= PROB_HOLD
+    d = np.abs(np.asarray(p) - np.asarray(p_ref))
+    excess = float(np.max(d[held] - bound[held])) if held.any() else -np.inf
+    return held, excess, float(np.max(d[held])) if held.any() else 0.0
+
+
 def inverse_residual(p, cov):
     """Per lane ||P C - I||_2 / (||P||_2 ||C||_2): the normwise backward
     error of C as the inverse of P, which a stable inverse keeps below
@@ -635,6 +840,82 @@ class FitLaunches:
 
     def __exit__(self, *exc):
         del self.fitter._fit_plain
+
+
+class SerialFits:
+    """Inside ``with``, records each ``fit_observation`` of the map ``md`` (the
+    serial ``fit_all``'s unit): in ``per_obs`` one dict per call, its
+    observation, kind ("eis", "chrono" or "hybrid"), host wall (ending in a
+    synchronize where the map is on the card), the launches of the lane
+    kernels and the box QPs by route it made, as differences of the counts
+    around the call (no count is reset)."""
+
+    def __init__(self, md):
+        self.md, self.per_obs = md, []
+
+    def __enter__(self):
+        from ..ops import chol_lane
+
+        real = self.md.fit_observation
+        counts = lambda: {**chol_lane.LAUNCHES, **{f"qp_{k}": v for k, v in
+                                                   chol_lane.QP_ROUTES.items()}}
+        cuda = self.md.device.type == "cuda"
+
+        def recorded(i, ignore_errors=False):
+            c, e = self.md.obs_data[i]
+            kind = "eis" if c is None else ("chrono" if e is None else "hybrid")
+            before = counts()
+            t0 = time.time()
+            real(i, ignore_errors=ignore_errors)
+            if cuda:
+                torch.cuda.synchronize()
+            self.per_obs.append({"obs": i, "kind": kind, "wall": time.time() - t0,
+                                 **{k: v - before[k] for k, v in counts().items()}})
+
+        self.md.fit_observation = recorded
+        return self
+
+    def __exit__(self, *exc):
+        del self.md.fit_observation
+
+    def summary(self):
+        """{kind: {"n", "median_wall", and the launches and QP routes of
+        one fit, min and max}} over the recorded fits."""
+        out = {}
+        for kind in sorted({r["kind"] for r in self.per_obs}):
+            rows = [r for r in self.per_obs if r["kind"] == kind]
+            out[kind] = {"n": len(rows), "median_wall": float(np.median([r["wall"] for r in rows]))}
+            for k in rows[0]:
+                if k not in ("obs", "kind", "wall"):
+                    vals = [r[k] for r in rows]
+                    out[kind][k] = (min(vals), max(vals))
+        return out
+
+
+def serial_map(n_eis=96, n_hybrid=32, device=None):
+    """The het leg's map at its full per-observation widths with fewer
+    observations (``make_het_map(n_eis, n_hybrid)``: three EIS grids, two
+    hybrid protocols, ``TAU_SUPER``, shuffled, group "g"), fitted by the
+    reference's default ``fit_all()`` (serial, float64) inside
+    ``SerialFits``. Returns (map, SerialFits, wall)."""
+    md = make_het_map(n_eis, n_hybrid, device=device)
+    with SerialFits(md) as log:
+        t0 = time.time()
+        md.fit_all()
+        wall = time.time() - t0
+    return md, log, wall
+
+
+def serial_batched_agreement(md_serial, md_batched, rtol=1e-6):
+    """(share of observations fitted to the same iteration count, share
+    whose obs_x lies within ``rtol`` of max |x| as well) of a serially
+    fitted map against the same observations fitted by
+    ``fit_all(batched=True)``."""
+    it_s = np.array([a["qphb_params"]["n_iter"] for a in md_serial.obs_fit_attr])
+    it_b = np.array([a["n_iter"] for a in md_batched.obs_fit_attr])
+    dx = np.max(np.abs(md_serial.obs_x - md_batched.obs_x), axis=1)
+    close = dx <= rtol * np.max(np.abs(md_batched.obs_x), axis=1)
+    return float(np.mean(it_s == it_b)), float(np.mean((it_s == it_b) & close))
 
 
 def timed(fn):

@@ -891,7 +891,7 @@ def test_drt_on_card_matches_cpu(cuda):
     """DRT.fit_eis on the card (float64, the lane kernels at one lane)
     against the CPU: the same iterations and flag, x within 1e-6 of max |x|;
     every fit kernel launched. A basis whose QP exceeds the float64 tile rule
-    raises on the card."""
+    fits through the library route on the card, as on the CPU."""
     freq, z, _ = golden_fit()
     cpu = DRT(device="cpu").fit_eis(freq, z, **GOLDEN_HYPERS)
     chol_lane.reset_launch_counts()
@@ -901,8 +901,14 @@ def test_drt_on_card_matches_cpu(cuda):
     assert card.qphb_params["converged"] == cpu.qphb_params["converged"]
     x, x_c = card.fit_parameters["x"], cpu.fit_parameters["x"]
     assert np.max(np.abs(x - x_c)) <= 1e-6 * np.max(np.abs(x_c))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        DRT(fixed_basis_tau=np.logspace(-8, 3, 187)).fit_eis(freq, z)
+    basis = np.logspace(-8, 3, 187)
+    chol_lane.reset_launch_counts()
+    wide = DRT(fixed_basis_tau=basis).fit_eis(freq, z, max_iter=10)
+    assert chol_lane.QP_ROUTES["library"] > 0 and chol_lane.QP_ROUTES["lane"] == 0
+    wide_c = DRT(fixed_basis_tau=basis, device="cpu").fit_eis(freq, z, max_iter=10)
+    assert wide.qphb_params["n_iter"] == wide_c.qphb_params["n_iter"]
+    x, x_c = wide.fit_parameters["x"], wide_c.fit_parameters["x"]
+    assert np.max(np.abs(x - x_c)) <= 1e-6 * np.max(np.abs(x_c))
 
 
 def test_ragged_on_card_matches_cpu(cuda):

@@ -106,7 +106,8 @@ def test_drt_attributes_round_trip():
     att = drt.get_attributes()
     assert set(att) == set(drt.attribute_categories["config"]) \
         | set(drt.attribute_categories["fit_core"])
-    assert att["fit_dop"] is None and att["nu_epsilon"] is None and att["fit_kwargs"] is None
+    assert att["fit_dop"] is None and att["nu_epsilon"] is None
+    assert att["fit_kwargs"]["nonneg"] is True and att["series_neg"] is False
     other = DRT(device="cpu").set_attributes(att)
     np.testing.assert_array_equal(other.predict_z(freq), drt.predict_z(freq))
     att["basis_tau"][0] = -1.0  # a deep copy
@@ -177,16 +178,8 @@ def _raises(item, fn):
 
 
 UNPORTED = {
-    "fit_all(batched=False)": ("5", lambda md: md.fit_all()),
-    "fit_observation": ("5", lambda md: md.fit_observation(0)),
-    "fit_observations": ("5", lambda md: md.fit_observations([0])),
-    "add_observation(fit=True)": ("5", lambda md: md.add_observation([9.0], None, None,
-                                                                     fit=True)),
-    "estimate_obs_drt_var": ("5", lambda md: md.estimate_obs_drt_var()),
-    "get_fit().estimate_param_cov": ("5", lambda md: md.get_fit(0).estimate_param_cov()),
     "mesh": ("10", lambda md: md.fit_all(batched=True, mesh=object())),
     "resolve mesh": ("10", lambda md: md.resolve_group("g", batched=True, mesh=object())),
-    "resolve_group default": (r"8\(b\)", lambda md: md.resolve_group("g")),
     "store_attr_categories": ("5", lambda md: DRTMD(
         md.tau_supergrid, store_attr_categories=["config", "fit_core", "detail"],
         device="cpu")),

@@ -283,13 +283,6 @@ def test_from_source_keeps_the_constructors_raises(maps):
 
 
 UNPORTED = {
-    "predict_param_cov": ("5", lambda md: md.predict_param_cov([0])),
-    "predict_x_cov": ("5", lambda md: md.predict_x_cov([0])),
-    "predict_drt_cov": ("5", lambda md: md.predict_drt_cov([0])),
-    "predict_drt_var": ("5", lambda md: md.predict_drt_var([0, 1], tau=md.get_tau_eval(5))),
-    "predict_x_var": ("5", lambda md: md.predict_x_var([0])),
-    "predict_curv_prob": ("5", lambda md: md.predict_curv_prob(obs_index=[0])),
-    "predict_peak_prob": ("5", lambda md: md.predict_peak_prob(obs_index=[0, 1])),
     "predict_dop": ("4", lambda md: md.predict_dop(obs_index=[0])),
     "score_group_data_badness": ("9", lambda md: md.score_group_data_badness("g")),
 }

@@ -382,8 +382,6 @@ def test_coupled_objective_is_no_higher_than_windowed(fitted):
 
 def test_group_resolve_rejects_what_is_not_ported(fitted):
     _, fitter, res, zs, _ = fitted
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        resolve_group(fitter, res, zs, batched=False, device="cpu")
     plain = BatchedEISFitter(FREQ, dtype=torch.float64, device="cpu")
     with pytest.raises(ValueError, match="tau_supergrid"):
         resolve_group(plain, res, zs, device="cpu")

@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 torch_fit_walls.py [--rounds 3] [--batch 8192] [--no-profile]
                                [--frames | --stream | --history | --single | --hybrid | --het
-                                | --het-truth]
+                                | --het-truth | --serial]
 
 The fit is ``chip_smoke.py``'s main path: ``make_batch(batch, 71)``
 (``hybdrt_torch/utils/probe.py``, the benchmark's spectra),
@@ -82,6 +82,15 @@ each map's ``obs_x`` through the pipeline, and the shares of EIS and hybrid
 rows whose optimized ridge mask has a ridge within two supergrid points of
 each true relaxation (``probe.het_truth_shares``), with ``bad_obs``, the
 most troughs between adjacent ridges and the outputs' digest.
+
+With ``--serial`` it times the reference's defaults of ``chip_smoke.py``
+phase 16: ``DRT().fit_eis`` of the quick start's spectrum (float64), its
+readouts (``probe.quickstart_readouts``), ``fit_all()`` (serial, float64) of
+``make_het_map(96, 32)`` and that map's default resolve (one dense QP a
+window, float64), each round fit, readouts, fit_all, resolve and back; then
+one ``fit_all`` under ``probe.SerialFits`` (median wall, launches and QP
+routes per EIS and hybrid fit), and one profiled call of each (of the serial
+fit, its first 16 observations).
 """
 import argparse
 import time
@@ -98,7 +107,8 @@ from hybdrt_torch.utils.probe import (GOLDEN_HYPERS, POSTPROC_STAGES, card_line,
                                       het_truth_shares, make_batch, make_frames, make_het_eis,
                                       make_het_hybrid, make_het_map, make_hybrid_batch,
                                       make_stream, max_troughs_between_ridges, postproc_digest,
-                                      profile, run_postproc_pipeline, timed)
+                                      profile, quickstart_eis, quickstart_readouts,
+                                      run_postproc_pipeline, serial_map, SerialFits, timed)
 
 KW = dict(max_iter=50, qp_max_iter=20, qp_max_iter_warm=4, pred_stop=True, pred_rtol=3e-2)
 
@@ -116,13 +126,14 @@ def main():
     mode.add_argument("--hybrid", action="store_true")
     mode.add_argument("--het", action="store_true")
     mode.add_argument("--het-truth", action="store_true")
+    mode.add_argument("--serial", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_fit_walls.py needs a CUDA card")
     print(card_line())
     for flag, fn in (("frames", frames), ("stream", stream), ("history", history),
                      ("single", single), ("hybrid", hybrid), ("het", het),
-                     ("het_truth", het_truth)):
+                     ("het_truth", het_truth), ("serial", serial)):
         if getattr(args, flag):
             fn(args)
             return
@@ -336,6 +347,48 @@ def het_truth(args):
               f"{max_troughs_between_ridges(res['ridge_opt'], res['trough_opt'])}, x_nd finite "
               f"{bool(np.isfinite(res['x_nd']).all())}, digest {postproc_digest(res)}, "
               f"pipeline {timing['total_s']:.4f} s")
+
+
+def serial(args):
+    """The reference's defaults of chip_smoke.py phase 16, in turns."""
+    freq, z = quickstart_eis()
+    drt = hybdrt_torch.DRT()
+    drt.fit_eis(freq, z)
+    md, _, cold = serial_map(96, 32)
+    print(f"serial fit_all, first call: {cold:.3f} s")
+    runs = {"quickstart fit_eis": lambda: drt.fit_eis(freq, z),
+            "quickstart readouts": lambda: quickstart_readouts(drt),
+            "serial fit_all": lambda: md.fit_all(refit=True),
+            "dense resolve": lambda: md.resolve_group("g", psi_sort_dims=["i"])}
+    for fn in runs.values():
+        fn()
+    walls = {k: [] for k in runs}
+    order = list(runs)
+    for _ in range(args.rounds):
+        for k in order + order[::-1]:
+            walls[k].append(timed(runs[k]))
+    for k, w in walls.items():
+        print(f"{k}: walls {[round(x, 4) for x in w]} s, median {np.median(w):.4f} s")
+    info = md.resolve_info
+    print(f"dense resolve: {info['windows']} windows, IP iterations {list(info['n_iter'])}, "
+          f"rebuild {info['rebuild_s']:.4f} s, host assembly {info['assembly_s']:.4f} s, solve "
+          f"{info['solve_s']:.4f} s (last call)")
+    with SerialFits(md) as log:
+        md.fit_all(refit=True)
+    for kind, row in log.summary().items():
+        print(f"serial fit_all, {kind}: {row['n']} fits, median wall {row['median_wall']:.4f} s; "
+              "per fit " + ", ".join(f"{k} {v[0]}-{v[1]}" for k, v in row.items()
+                                     if k not in ("n", "median_wall")))
+    if not args.no_profile:
+        # the whole serial fit makes millions of kernel events: its first 16
+        # observations (13 EIS, 3 hybrid) stand for it
+        runs["serial fit_all"] = lambda: md.fit_observations(np.arange(16))
+        for k, fn in runs.items():
+            chol_lane.reset_launch_counts()
+            profile(k if k != "serial fit_all" else "serial fits of observations 0-15", fn,
+                    top=10)
+            print(f"{k}, lane kernel launches: {dict(chol_lane.LAUNCHES)}; QPs by route "
+                  f"{dict(chol_lane.QP_ROUTES)}")
 
 
 def stream_threaded(fitter, batches, collect="lazy"):
