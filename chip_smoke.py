@@ -253,15 +253,45 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
     observations (its first 256 where 26 windows' wall scaled to 205 passes
     ``DENSE_BIG_S``); (e) ``predict_drt_var``, ``predict_x_var``,
     ``predict_curv_prob`` and ``predict_peak_prob`` of (b)'s map: finite,
-    probabilities in [0, 1], 8 observations within their bounds of the CPU's.
+    probabilities in [0, 1], 8 observations within their bounds of the CPU's;
+17. the rest of the fit surface: (a) phase 14's map refitted with
+    ``qp_fused=True`` in its ``batch_fit_kw`` (``fit_all(batched=True,
+    dtype=float32)``): both ragged fits launch ``ip_steps_lane`` (counted
+    per fit), which is held on each fit's first warm QP within 6x the plain
+    steps' spread against float64 (Queue 3 item 12's bound), the spread
+    taken over P and P moved one ulp (``one_ulp``), in float32 and, on the
+    same inputs, in float64 (``hold_fused_steps``); each half against phase 14's plain map by phase
+    13's float32 bounds on the lanes converged in both where they are at
+    least half, else (the EIS half, which converges almost no lane) on the
+    lanes that stop at the same iteration in both (``fused_bounds``);
+    the second call's wall and launches; (b) ``return_history=True`` on the
+    ragged fit of the het leg's 768 EIS spectra and on
+    ``BatchedHybridFitter`` at ``make_hybrid_batch(1024)`` (float32): each
+    result bit for bit the fit without history, the history's last entry the
+    final state; (c) on the quick start's spectrum in float64, ``series_neg``
+    and ``weight_factor=2`` fits, ``generate_map_samples()`` (its pinned QPs
+    one batch through #1-#3; launches and QP routes printed),
+    ``get_parameter_quantile`` and ``estimate_posterior_mean``, each against
+    the same call on the card with the plain lane versions (``PlainLanes``)
+    and against the CPU, the samples on the CPU fit's state with its Laplace
+    sigma (``REST_X_TOL``, ``REST_LP_RTOL``), and a serial map with the
+    "detail" attributes saved and read back; (d) on het protocol 0's record
+    in float64, ``fit_chrono`` with ``expdecay`` steps, with ``downsample``
+    and with the static, dynamic and scaled GP backgrounds, each against the
+    CPU (the same n_iter, x within ``REST_X_TOL``), ``chrono_mode="pot"``
+    refused as in the JAX package, and the ragged fitter's ``downsample``
+    fast path over the het leg's 256 hybrid observations (its first
+    ``REST_CPU_OBS`` against the CPU).
 
 The line before the last is a JSON object with one entry per kernel (its
 launches from the path it serves: phase 5 and phase 13's timed fits for the
 three fit Cholesky kernels, phase 6 and phase 13's fused fit for
 ``ip_steps_lane``, phase 8's two timed resolves for
 ``chol_factor_lane``, phase 14's timed fit and resolves for #1-#4, phase 16's
-quick-start fit and serial ``fit_all`` for #1-#3, phase 9's study for the
-four layout kernels, phase 10's study for ``ip_steps_loop``);
+quick-start fit and serial ``fit_all`` for #1-#3, phase 17's fused map's
+second call for #1-#3 and #5, and its single, sample and ragged fits for
+#1-#3, phase 9's study for the four layout kernels, phase 10's study for
+``ip_steps_loop``);
 the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -2445,6 +2475,474 @@ def phase_defaults(het_md):
     return walls, launches
 
 
+# Phase 17: the rest of the fit surface. The single fits of 17c-17d run in
+# float64 on the card and are held to the CPU's: the same iterations, and
+# max |dx| / max |x| within REST_X_TOL; the MAP samples on one fit state (the
+# CPU fit's) with one Laplace sigma (the CPU's inverse: at these posteriors
+# cond(P) is 3e15, and two LAPACKs' inverses part by 0.4 %), x within
+# REST_X_TOL of max |x| and lp within REST_LP_RTOL
+REST_X_TOL = 1e-6
+REST_LP_RTOL = 1e-8
+# 17d: the ragged downsampled fit's float64 reference on the CPU, its first
+# observations (both protocols among them)
+REST_CPU_OBS = 64
+
+
+class PlainLanes:
+    """Inside ``with``, the QP's lane kernels (#1-#4 and the fused steps)
+    are their plain PyTorch versions, on the same card tensors: the same
+    call with no kernel launched."""
+    NAMES = ("chol_factor_solve_lane", "chol_solve_factored_lane", "chol_solve_lane",
+             "chol_factor_lane")
+
+    def __enter__(self):
+        from hybdrt_torch.ops import chol_lane as cl, ip_lane, qp
+        self.saved = [(cl, n, getattr(cl, n)) for n in self.NAMES]
+        self.saved.append((qp, "ip_steps_lane", qp.ip_steps_lane))
+        for n in self.NAMES:
+            setattr(cl, n, getattr(cl, n + "_plain"))
+        qp.ip_steps_lane = ip_lane.ip_steps_lane_plain
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def one_ulp(a, seed=0):
+    """``a`` (B, n, n) with every entry moved one ulp of its dtype up or down
+    at random, symmetrically: the rounding another factor order could leave."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    sign = (torch.randint(0, 2, a.shape, generator=g) * 2 - 1).to(a.device, a.dtype)
+    sign = torch.triu(sign) + torch.triu(sign, 1).mT
+    return torch.nextafter(a, a + sign * torch.inf)
+
+
+# one-ulp moves of P in hold_fused_steps' spread
+ULP_SEEDS = (0, 1, 2)
+
+
+def worst_lane(a, ref):
+    """The worst lane's distance max |a - ref| / (1 + |ref|), in float64."""
+    ref = ref.double()
+    return float(((a.double() - ref).abs() / (1 + ref.abs())).amax(1).max())
+
+
+def hold_fused_steps(label, inp):
+    """#5 on a fit's first warm QP (ROADMAP Queue 3 item 12's bound: within
+    6x the plain steps' spread against float64), in both precisions, on the
+    same per-lane systems. A ragged fit's warm QPs are so ill-conditioned
+    (cond(H) 1e6-1e9 on the het EIS half) that float32 steps land far from
+    float64 and at random: on P moved one ulp (``one_ulp``) the plain float32
+    steps' worst lane moves by several times. So the spread is the plain
+    float32 steps' worst lane over P and its one-ulp moves (``ULP_SEEDS``),
+    and the kernel's worst lane is held within 6x it plus TOL. In float64,
+    where these systems keep their digits, the kernel on the same inputs is
+    held to the plain float64 steps within 6x their own one-ulp spread plus
+    1e-12. Prints every distance."""
+    from hybdrt_torch.ops import ip_lane
+
+    check(inp is not None, f"{label}: the fit called ip_steps_lane")
+    args, n_steps = inp[:6], inp[6]
+    a64 = [a.double() for a in args]
+    p64 = ip_lane.ip_steps_lane_plain(*a64, n_steps)
+    lines = []
+    for dtype, inputs, ref in ((torch.float32, args, p64), (torch.float64, a64, None)):
+        k = ip_lane.ip_steps_lane(*inputs, n_steps)
+        p = ip_lane.ip_steps_lane_plain(*inputs, n_steps)
+        moved = [ip_lane.ip_steps_lane_plain(one_ulp(inputs[0], seed), *inputs[1:], n_steps)
+                 for seed in ULP_SEEDS]
+        for part in range(3):
+            base = p64[part] if ref is not None else p[part]
+            d_k = worst_lane(k[part], base)
+            spread = [worst_lane(v[part], base) for v in ([p] if ref is not None else []) + moved]
+            floor = TOL if dtype == torch.float32 else 1e-12
+            lines.append(f"{'xsz'[part]} {str(dtype)[6:]}: kernel {d_k:.3g}, plain "
+                         + "/".join(f"{v:.3g}" for v in spread))
+            check(d_k <= 6 * max(spread) + floor,
+                  f"{label}: ip_steps_lane {'xsz'[part]} {dtype} within 6x the plain steps' "
+                  f"spread ({d_k:.3g} against {max(spread):.3g})")
+    print(f"  {label}: ip_steps_lane on the first warm QP {tuple(args[0].shape)}, {n_steps} "
+          f"steps, worst lane's distance from the float64 plain steps (float32: the plain "
+          f"steps on P, then on P moved one ulp; float64: the plain steps on P moved one ulp): "
+          + "; ".join(lines))
+
+
+def fused_bounds(label, rp, rp_ref, d_rinf, zrel, same, both):
+    """Phase 13's bounds (Rp median and p95, the functional fit) on the
+    lanes converged in both fits (``both``) where they are at least half, as
+    phase 13 holds them; else on the lanes that stop at the same iteration
+    in both (``same``), as phase 6 holds the fused fit: without
+    ``pred_stop`` the het map's EIS half converges almost no lane (phase 12),
+    while lanes that both run to ``max_iter`` on limit cycles part by more
+    where a hybrid lane's cycle is wide. Every lane's numbers reported."""
+    rel = np.abs(rp - rp_ref) / np.abs(rp_ref)
+
+    def stats(m):
+        if not m.any():
+            return "none"
+        return (f"Rp rel diff median {np.median(rel[m]):.3g} p95 {np.percentile(rel[m], 95):.3g} "
+                f"max {np.max(rel[m]):.3g}, max |dR_inf| {np.max(d_rinf[m]):.3g}, functional "
+                f"fit max {np.max(zrel[m]):.3g}")
+
+    print(f"  {label}, {len(rp)} observations: {stats(np.ones(len(rp), dtype=bool))}; on the "
+          f"{int(same.sum())} stopping at the same iteration: {stats(same)}; on the "
+          f"{int(both.sum())} converged in both: {stats(both)}")
+    held = both if both.sum() >= len(both) // 2 else same
+    name = "converged in both" if held is both else "stopping at the same iteration"
+    check(held.sum() >= len(held) // 2, f"{label}: half the lanes {name}")
+    check(np.median(rel[held]) < 1e-3, f"{label} Rp median rel diff < 1e-3 ({name})")
+    check(np.percentile(rel[held], 95) < 3e-3, f"{label} Rp p95 rel diff < 3e-3 ({name})")
+    check(np.max(zrel[held]) < 1.5e-2, f"{label} functional fit rel diff < 1.5e-2 ({name})")
+    print(f"  {label}: held on the lanes {name}")
+
+
+def phase_fused_map(het_md):
+    """Phase 17a: the het map fitted by ``DRTMD.fit_all(batched=True,
+    dtype=float32)`` with ``qp_fused=True`` added to its ``batch_fit_kw``:
+    both ragged fits launch #5, which is held on each fit's first warm QP
+    within 6x its plain version's spread against float64, in float32 and in
+    float64 (``hold_fused_steps``); the map against phase 14's plain map by phase
+    13's float32 bounds; the second call's wall and launches. Returns
+    (walls, launches, max abs err of #5)."""
+    from types import SimpleNamespace
+
+    from hybdrt_torch import BatchedRaggedFitter
+    from hybdrt_torch.ops import basis, chol_lane as cl, ip_lane
+    from hybdrt_torch.utils.probe import make_het_map
+
+    md = make_het_map(768, 256)
+    md.batch_fit_kw = dict(md.batch_fit_kw, qp_fused=True)
+    n = md.num_obs
+    fits = []
+    real_fit = BatchedRaggedFitter.fit
+
+    def fit(self, *args, **kw):
+        """The ragged fit, its #5 launches and first warm QP, and each
+        lane's prediction from its fit and from phase 14's plain fit of the
+        same observation through this fit's design (the map's fitters are
+        shared by both halves, so read it here)."""
+        n0 = ip_lane.LAUNCHES["ip_steps_lane"]
+        with FirstFusedInputs() as first:
+            res = real_fit(self, *args, **kw)
+        torch.cuda.synchronize()
+        hybrid = res.num_chrono.max() > 0
+        idx = [i for i in range(n) if (md.obs_data[i][0] is not None) == hybrid]
+        x_plain = np.zeros_like(res.x_raw)
+        for k, i in enumerate(idx):
+            xr = het_md.obs_fit_attr[i]["x_raw"]
+            x_plain[k, :len(xr)] = xr
+        y = self.final_predictions(res)
+        y_plain = self.final_predictions(SimpleNamespace(x_raw=x_plain))
+        zrel = np.max(np.abs(y - y_plain), axis=1) / np.max(np.abs(self._last_batch["rzv"]),
+                                                          axis=1)
+        fits.append(("hybrid" if hybrid else "EIS", self.qp_fused, res, idx, zrel,
+                     ip_lane.LAUNCHES["ip_steps_lane"] - n0, first.inputs))
+        return res
+
+    BatchedRaggedFitter.fit = fit
+    try:
+        first_wall = timed(lambda: md.fit_all(batched=True, dtype=torch.float32))
+    finally:
+        BatchedRaggedFitter.fit = real_fit
+    check(len(fits) == 2 and all(f[1] for f in fits),
+          f"17a: two fused ragged fits ({[f[1] for f in fits]})")
+    area = basis.get_basis_func_area("gaussian", md.tau_epsilon)
+    for label, _, res, idx, zrel, n5, inp in fits:
+        print(f"rest 17a: the fused {label} half, {len(idx)} observations, n = "
+              f"{res.x_raw.shape[1]}: ip_steps_lane launched {n5} times in the first call; "
+              f"passes {int(res.n_iter.max())}, converged {int(res.converged.sum())}")
+        check(n5 > 0, f"17a: the {label} half launched ip_steps_lane")
+        hold_fused_steps(f"17a fused {label} ragged fit", inp)
+        rp = np.sum(np.abs(md.obs_x[idx]), axis=1) * area
+        rp_plain = np.sum(np.abs(het_md.obs_x[idx]), axis=1) * area
+        d_rinf = np.abs(md.obs_special["R_inf"][idx] - het_md.obs_special["R_inf"][idx])
+        both = np.array([md.obs_fit_attr[i]["converged"] and het_md.obs_fit_attr[i]["converged"]
+                         for i in idx])
+        same = np.array([md.obs_fit_attr[i]["n_iter"] == het_md.obs_fit_attr[i]["n_iter"]
+                         for i in idx])
+        fused_bounds(f"17a {label} half, fused against phase 14's plain map (f32)", rp, rp_plain,
+                     d_rinf, zrel, same, both)
+    cl.reset_launch_counts()
+    ip_lane.reset_launch_counts()
+    wall = timed(lambda: md.fit_all(refit=True, batched=True, dtype=torch.float32))
+    launches = {**{k: cl.LAUNCHES[k] for k in FIT_KERNELS}, **ip_lane.LAUNCHES}
+    print(f"rest 17a: fused fit_all of the het map (f32): first call {first_wall:.3f} s, second "
+          f"{wall:.4f} s; launches {launches}")
+    check(np.all(np.isfinite(md.obs_x)) and md.obs_fit_status.all(), "17a: fitted, finite")
+    check(launches["ip_steps_lane"] > 0, "17a second call launched ip_steps_lane")
+    return {"fused fit_all": wall}, launches
+
+
+def same_fit(label, a, b):
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if f == "tau_indices":
+            ok = x == y
+        elif x is None:
+            ok = y is None
+        else:
+            ok = same_bits(x, y)
+        check(ok, f"{label}: {f} with history bit for bit without")
+
+
+def phase_histories():
+    """Phase 17b: ``return_history=True`` on the het leg's 768 EIS spectra
+    through the ragged fitter and on ``BatchedHybridFitter`` at
+    ``make_hybrid_batch(1024)``, float32: each result bit for bit the same
+    fit without history (a fresh fitter each, so both preps take the same
+    path), and each lane's last history entry its final state. Returns
+    walls."""
+    import hybdrt_torch
+
+    walls = {}
+    obs, tau = make_het_eis(768, 256)
+    t_, i_, f_, vb, zb = make_hybrid_batch(HYBRID_B, proto=0)
+    cases = {
+        "ragged EIS 768": (lambda: hybdrt_torch.BatchedRaggedFitter(
+            tau, dtype=torch.float32, **HET_KW), (obs,)),
+        f"BatchedHybridFitter {HYBRID_B}": (lambda: hybdrt_torch.BatchedHybridFitter(
+            t_, i_, f_, dtype=torch.float32, **HET_KW), (vb, zb))}
+    for label, (make, args) in cases.items():
+        t0 = time.time()
+        res, hist = make().fit(*args, return_history=True)
+        torch.cuda.synchronize()
+        walls[f"history {label}"] = time.time() - t0
+        t0 = time.time()
+        plain = make().fit(*args)
+        torch.cuda.synchronize()
+        walls[f"plain {label}"] = time.time() - t0
+        same_fit(f"17b {label}", res, plain)
+        it = hist["it"][:, -1]
+        check(same_bits(hist["x"][:, -1], res.x_raw) and same_bits(it, res.n_iter)
+              and same_bits(hist["converged"][:, -1], res.converged),
+              f"17b {label}: the history's last entry is the final state")
+        print(f"rest 17b: {label} with history {walls[f'history {label}']:.3f} s, without "
+              f"{walls[f'plain {label}']:.3f} s (first calls); history "
+              f"{ {k: v.shape for k, v in hist.items() if k in ('x', 'weights')} }, bit for bit")
+    return walls
+
+
+def cpu_sigma_inverse(cpu_drt):
+    """``mat1d.invert_psd`` returning the inverse of ``cpu_drt``'s P computed
+    on the CPU, for the card's MAP samples on the CPU fit's state."""
+    from hybdrt_torch.ops import mat1d
+
+    p_inv = mat1d.invert_psd(torch.as_tensor(cpu_drt.qphb_params["p_matrix"],
+                                             dtype=torch.float64))
+
+    def inverse(a, use_cholesky=True):
+        return p_inv.to(a.device)
+
+    return inverse
+
+
+def phase_item5():
+    """Phase 17c: the quick start's spectrum (f64): ``series_neg`` and
+    ``weight_factor=2`` fits, the MAP samples at their defaults with their
+    quantiles and posterior mean, and a serial map round-tripped with the
+    "detail" attributes. Each held against the same call on the card with
+    the plain lane versions and against the CPU. Returns (walls, launches of
+    #1-#3, {kernel: max abs err})."""
+    import tempfile
+
+    import hybdrt_torch
+    import hybdrt_torch.models.drt as drt_mod
+    from hybdrt_torch.mapping.drtmd import DRTMD
+    from hybdrt_torch.ops import chol_lane as cl
+    from hybdrt_torch.utils.probe import quickstart_eis, small_map
+
+    walls, total = {}, {k: 0 for k in FIT_KERNELS}
+    freq, z = quickstart_eis()
+
+    def fit(device, kw, plain=False):
+        drt = hybdrt_torch.DRT(warn=False, device=device)
+        if plain:
+            with PlainLanes():
+                drt.fit_eis(freq, z, **kw)
+        else:
+            drt.fit_eis(freq, z, **kw)
+        return drt
+
+    def dx(a, b):
+        return float(np.max(np.abs(np.asarray(a) - np.asarray(b))) / np.max(np.abs(b)))
+
+    for label, kw in (("series_neg", dict(series_neg=True)),
+                      ("weight_factor=2", dict(weight_factor=2))):
+        fit(None, kw)
+        cl.reset_launch_counts()
+        t0 = time.time()
+        card = fit(None, kw)
+        torch.cuda.synchronize()
+        walls[label] = time.time() - t0
+        launches, routes = launch_counts(), dict(cl.QP_ROUTES)
+        for k in FIT_KERNELS:
+            total[k] += launches[k]
+        plain, cpu = fit(None, kw, plain=True), fit("cpu", kw)
+        n_it = [d.qphb_params["n_iter"] for d in (card, plain, cpu)]
+        d_p = dx(card.fit_parameters["x"], plain.fit_parameters["x"])
+        d_c = dx(card.fit_parameters["x"], cpu.fit_parameters["x"])
+        print(f"rest 17c: DRT.fit_eis({label}), f64 on the card, n = "
+              f"{card.qphb_params['p_matrix'].shape[0]}: {walls[label]:.4f} s warm; launches "
+              f"{launches}; QPs by route {routes}; n_iter card / plain lanes / CPU {n_it}; max "
+              f"|dx| / max |x| against plain lanes {d_p:.3g}, against the CPU {d_c:.3g}")
+        check(all(launches[k] > 0 for k in FIT_KERNELS), f"17c {label} launched #1-#3")
+        check(n_it[0] == n_it[1] == n_it[2] and d_p < REST_X_TOL and d_c < REST_X_TOL,
+              f"17c {label}: the plain lanes' and the CPU's iterations and x")
+
+    # The MAP samples: the card's own fit, then on the CPU fit's state
+    card = fit(None, {})
+    card.generate_map_samples()
+    cl.reset_launch_counts()
+    t0 = time.time()
+    s_card = card.generate_map_samples(refresh=True)
+    torch.cuda.synchronize()
+    walls["map samples"] = time.time() - t0
+    launches, routes = launch_counts(), dict(cl.QP_ROUTES)
+    for k in FIT_KERNELS:
+        total[k] += launches[k]
+    n_s = len(s_card["lp"])
+    print(f"rest 17c: generate_map_samples() on the card's fit: {n_s} pinned QPs of n = "
+          f"{s_card['x'].shape[1]} in one batch, {walls['map samples']:.4f} s; launches "
+          f"{launches}; QPs by route {routes}")
+    check(all(launches[k] > 0 for k in FIT_KERNELS) and routes["library"] == 0,
+          f"17c MAP samples through #1-#3: {launches} {routes}")
+    check(np.all(np.isfinite(s_card["x"])) and np.all(s_card["lp"] <= s_card["lp_hat"] + 1e-7),
+          "17c MAP samples finite, the refined MAP dominating")
+    cpu = fit("cpu", {})
+    s_cpu = cpu.generate_map_samples()
+    q_cpu, m_cpu = cpu.get_parameter_quantile([0.025, 0.5, 0.975]), cpu.estimate_posterior_mean()
+    real_inverse = drt_mod.mat1d.invert_psd
+    drt_mod.mat1d.invert_psd = cpu_sigma_inverse(cpu)
+    try:
+        outs = {}
+        for label, plain in (("kernels", False), ("plain lanes", True)):
+            same = hybdrt_torch.DRT(warn=False).set_attributes(cpu.get_attributes())
+            if plain:
+                with PlainLanes():
+                    s = same.generate_map_samples()
+            else:
+                s = same.generate_map_samples()
+            outs[label] = (s, same.get_parameter_quantile([0.025, 0.5, 0.975]),
+                           same.estimate_posterior_mean())
+    finally:
+        drt_mod.mat1d.invert_psd = real_inverse
+    for ref_label, (s_ref, q_ref, m_ref) in (("the CPU", (s_cpu, q_cpu, m_cpu)),
+                                             ("plain lanes", outs["plain lanes"])):
+        s, q, m = outs["kernels"]
+        d_x, d_q, d_m = dx(s["x"], s_ref["x"]), dx(q, q_ref), dx(m, m_ref)
+        d_lp = float(np.max(np.abs(s["lp"] - s_ref["lp"]) / np.abs(s_ref["lp"])))
+        print(f"  MAP samples on the CPU fit's state, the card's kernels against {ref_label}: "
+              f"x {d_x:.3g}, lp {d_lp:.3g} rel, quantiles {d_q:.3g}, posterior mean {d_m:.3g}")
+        check(d_x < REST_X_TOL and d_q < REST_X_TOL and d_m < REST_X_TOL
+              and d_lp < REST_LP_RTOL, f"17c MAP samples against {ref_label}")
+
+    # A serial map with the "detail" attributes, round-tripped through a file
+    tau_s, obs = small_map("eis")
+    md = DRTMD(tau_s, psi_dim_names=["T"], store_attr_categories=["config", "fit_core", "detail"],
+               print_progress=False)
+    for psi, c, e in obs[:3]:
+        md.add_observation(psi, c, e, group_id="g")
+    walls["serial map with detail"] = timed(lambda: md.fit_all())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/detail.pkl"
+        md.save_attributes(path)
+        back = DRTMD.from_source(path)
+    for i in range(md.num_obs):
+        a, b = md.obs_fit_attr[i], back.obs_fit_attr[i]
+        check({"qphb_history", "pfrt_result", "fit_matrices"} <= set(b) and b["pfrt_result"] is None
+              and all(same_bits(a["fit_matrices"][k], b["fit_matrices"][k])
+                      for k in ("impedance", "m0", "m1", "m2")),
+              f"17c serial map observation {i}: the detail attributes round-trip")
+    check(same_bits(back.obs_x, md.obs_x), "17c serial map round-trip: obs_x")
+    print(f"rest 17c: serial map of {md.num_obs} observations with the detail attributes: fit "
+          f"{walls['serial map with detail']:.3f} s; saved and read back, equal")
+    return walls, total
+
+
+def phase_item11():
+    """Phase 17d: chrono options on het protocol 0's record (f64 on the card
+    against the CPU): ``expdecay`` steps, ``downsample``, the three GP
+    background modes; ``chrono_mode="pot"`` refused as the JAX package
+    refuses it; and the ragged fitter's ``downsample`` fast path over the
+    het leg's 256 hybrid observations (f64; its first ``REST_CPU_OBS`` on
+    the CPU). Returns (walls, launches of #1-#3)."""
+    import hybdrt_torch
+    from hybdrt_torch.ops import chol_lane as cl
+
+    walls, total = {}, {k: 0 for k in FIT_KERNELS}
+    obs, tau = make_het_hybrid()
+    (times, i_sig, v), _ = obs[0]
+    bkg = {"estimate_background_kw": {"gp_kw": {"n_grid": 4}}, "subtract_background": True}
+    cases = {"expdecay": ({"step_model": "expdecay"}, {}),
+             "downsample": ({}, {"downsample": True}),
+             **{f"background {t}": ({}, dict(bkg, background_type=t))
+                for t in ("static", "dynamic", "scaled")}}
+    for label, (ctor, kw) in cases.items():
+        cl.reset_launch_counts()
+        card = hybdrt_torch.DRT(warn=False, **ctor)
+        walls[label] = timed(lambda: card.fit_chrono(times, i_sig, v, **kw))
+        launches = launch_counts()
+        for k in FIT_KERNELS:
+            total[k] += launches[k]
+        cpu = hybdrt_torch.DRT(warn=False, device="cpu", **ctor).fit_chrono(times, i_sig, v, **kw)
+        x, x_c = card.fit_parameters["x"], cpu.fit_parameters["x"]
+        d = float(np.max(np.abs(x - x_c)) / np.max(np.abs(x_c)))
+        it = (card.qphb_params["n_iter"], cpu.qphb_params["n_iter"])
+        print(f"rest 17d: fit_chrono {label}, {len(card.get_fit_times())} of {len(times)} samples, "
+              f"f64: {walls[label]:.3f} s (GP and prefit included); n_iter card / CPU {it}; "
+              f"max |dx| / max |x| {d:.3g}; launches {launches}")
+        check(it[0] == it[1] and d < REST_X_TOL, f"17d {label}: the CPU's iterations and x")
+        check(all(launches[k] > 0 for k in FIT_KERNELS), f"17d {label} launched #1-#3")
+    try:
+        hybdrt_torch.DRT(chrono_mode="pot")
+        raise RuntimeError("17d: chrono_mode='pot' was not refused")
+    except ValueError as e:
+        print(f"rest 17d: chrono_mode='pot' refused as in the JAX package: {e}")
+
+    kw = dict(HET_KW, fit_kw={"downsample": True}, dtype=torch.float64)
+    cl.reset_launch_counts()
+    t0 = time.time()
+    res = hybdrt_torch.BatchedRaggedFitter(tau, **kw).fit(obs)
+    torch.cuda.synchronize()
+    walls["ragged downsample"] = time.time() - t0
+    launches = launch_counts()
+    for k in FIT_KERNELS:
+        total[k] += launches[k]
+    n_ref = REST_CPU_OBS
+    t0 = time.time()
+    ref = hybdrt_torch.BatchedRaggedFitter(tau, device="cpu", **kw).fit(obs[:n_ref])
+    t_cpu = time.time() - t0
+    d = max(float(np.max(np.abs(res.x[k][:r - l] - ref.x[k][:r - l]))
+                  / np.max(np.abs(ref.x[k][:r - l]))) for k, (l, r) in enumerate(ref.tau_indices))
+    same_it = int(np.sum(res.n_iter[:n_ref] == ref.n_iter))
+    n_times = np.array([len(c[0]) for c, _ in obs])
+    print(f"rest 17d: ragged fit of the het leg's {len(obs)} hybrid observations with "
+          f"downsample, f64: {walls['ragged downsample']:.3f} s (first call); chrono rows "
+          f"{sorted(set(res.num_chrono.tolist()))} of {sorted(set(n_times.tolist()))} samples; "
+          f"launches {launches}; the first {n_ref} on the CPU ({t_cpu:.2f} s): same n_iter "
+          f"{same_it}/{n_ref}, max |dx| / max |x| {d:.3g}")
+    check(np.all(res.num_chrono < n_times), "17d ragged: the chrono rows decimated")
+    check(same_it == n_ref and d < REST_X_TOL, "17d ragged downsample: the CPU's n_iter and x")
+    check(all(launches[k] > 0 for k in FIT_KERNELS), "17d ragged launched #1-#3")
+    return walls, total
+
+
+def phase_rest(het_md):
+    """Phase 17 (17a-17d). Returns (walls, launches)."""
+    t_phase = time.time()
+    walls, launches = phase_fused_map(het_md)
+    walls.update(phase_histories())
+    w5, l5 = phase_item5()
+    w11, l11 = phase_item11()
+    walls.update(w5)
+    walls.update(w11)
+    for k in FIT_KERNELS:
+        launches[k] += l5[k] + l11[k]
+    print(f"rest: phase {time.time() - t_phase:.1f} s")
+    return walls, launches
+
+
 def main():
     phase_card()
     phase_build()
@@ -2470,6 +2968,9 @@ def main():
     het_launches, het_walls, het_md = phase_het(eis_res, hyb_res)
     postproc_walls = phase_postproc(het_md, het_walls["fit_all"])
     default_walls, default_launches = phase_defaults(het_md)
+    rest_walls, rest_launches = phase_rest(het_md)
+    for k, n in rest_launches.items():
+        launches[k] += n
     for k, e in {**ragged_err, **hybrid_err}.items():
         max_err[k] = max(max_err[k], e)
     for k, n in hybrid_launches.items():
@@ -2500,6 +3001,8 @@ def main():
           + ", ".join(f"{k} {w:.4f} s" for k, w in postproc_walls.items()))
     print("the reference's defaults: " + ", ".join(f"{k} {w:.4f} s"
                                                   for k, w in default_walls.items()))
+    print("the rest of the fit surface: " + ", ".join(f"{k} {w:.4f} s"
+                                                     for k, w in rest_walls.items()))
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu, "launches": launches[k],
          "max_abs_err": max_err[k], "ms": times[k]["ms"], "plain_ms": times[k]["plain_ms"],

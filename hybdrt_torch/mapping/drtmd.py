@@ -292,8 +292,9 @@ class DRTMD:
     ``predict_peak_prob``, ...). ``fit_all()`` (``batched=False``, the
     reference's default) fits each observation with ``self.drt1d`` in
     float64 on the map's device and stores the ``store_attr_categories`` of
-    its attributes (any of "config" and "fit_core"; "detail" is not ported,
-    item 5). PFRT and the mesh are not ported; each raises
+    its attributes (any of "config", "fit_core" and "detail": the fit's
+    history where one was stored, ``pfrt_result`` None, and its fit
+    matrices). PFRT and the mesh are not ported; each raises
     ``NotImplementedError`` naming its ROADMAP item, or is absent.
     ``print_progress`` prints the serial fit's progress;
     ``print_diagnostics`` is kept for the JAX class's signature;
@@ -316,9 +317,6 @@ class DRTMD:
             raise _unported("fixed_basis_nu: the distribution of phasances", 4)
         if store_attr_categories is None:
             store_attr_categories = ["config", "fit_core"]
-        if not set(store_attr_categories) <= {"config", "fit_core"}:
-            raise _unported(f"store_attr_categories={store_attr_categories!r}: the 'detail' "
-                            f"attributes", 5)
         self.device = resolve_device(device)
         self.drt1d = DRT(tau_supergrid=tau_supergrid, tau_basis_type=tau_basis_type,
                          extend_basis_decades=extend_basis_decades, step_model=step_model,
@@ -1836,11 +1834,22 @@ class _Foreign:
         pass
 
 
+def _jax_array(fun, args, arr_state, aval_state):
+    """Unpickles a JAX array (``jax._src.array._reconstruct_array``: the
+    numpy array it was copied from, then its device and type state) as that
+    numpy array: a serial fit's "detail" attributes hold its history so."""
+    np_value = fun(*args)
+    np_value.__setstate__(arr_state)
+    return np_value
+
+
 class _MapUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if module.split(".")[0] in _JAX_MODULES:
             if (module, name) == ("hybdrt_tpu.solver.qphb", "QPHBConfig"):
                 return _JaxQPHBConfig
+            if (module, name) == ("jax._src.array", "_reconstruct_array"):
+                return _jax_array
             return type("Foreign", (_Foreign,), {"qualname": f"{module}.{name}"})
         return super().find_class(module, name)
 
@@ -1861,7 +1870,8 @@ def load_pickle(source):
     """The attribute dict of a ``save_attributes`` pickle, this class's or
     the JAX class's, without importing JAX: the JAX package's QPHBConfig
     (which a serial fit stores in ``qphb_params["cfg"]``) is read as the
-    port's; any other JAX object raises ValueError naming the attribute
+    port's, and a JAX array (a "detail" history's) as a numpy array; any
+    other JAX object raises ValueError naming the attribute
     that holds it (ROADMAP Queue 3 item 15)."""
     with open(source, "rb") as f:
         att_dict = _MapUnpickler(f).load()

@@ -3,9 +3,11 @@ problem assembly it shares with the batched fitter.
 
 Counterpart of ``hybdrt_tpu/models/drt.py`` for the gaussian basis and
 ``integrate_method="interp"``; chrono data in galvanostatic mode with ideal
-steps. The assembly (``process_chrono_signals`` :346, ``scale_data`` :398,
-``_prep_for_fit`` :464, ``_prep_chrono_fit_matrix`` :534,
-``_prep_impedance_fit_matrix`` :613, ``_prep_penalty_matrices`` :657,
+or ``expdecay`` steps, downsampled or not, with or without the GP background
+(``models/background.py``; static, dynamic and scaled), and the
+``series_neg`` and ``weight_factor`` options. The assembly
+(``process_chrono_signals`` :346, ``scale_data`` :398, ``_prep_for_fit`` :464,
+``_prep_chrono_fit_matrix`` :534, ``_prep_impedance_fit_matrix`` :613, ``_prep_penalty_matrices`` :657,
 ``_format_qp_matrices`` :695, ``_make_lower_bound`` :800) is a set of host
 numpy functions in float64, which both ``DRT`` and ``build_eis_problem``
 (``BatchedEISFitter``'s problem) call. ``DRT.fit_eis``, ``fit_chrono`` and
@@ -18,7 +20,9 @@ Laplace posterior (``estimate_param_cov`` :2168, ``estimate_distribution_cov``
 :2319, ``predict_drt_ci`` :2366; the inverse in float64 with ``torch.linalg``
 on the fit's device, the rest host numpy), likelihoods and diagnostics
 (:2470-2525, :2886-2935) and peaks (:1728-1835, :2525-2560; scipy's
-``find_peaks``, ``ndtr`` and ``ndtri`` on the same host arrays).
+``find_peaks``, ``ndtr`` and ``ndtri`` on the same host arrays). The MAP
+samples (``generate_map_samples`` :2197) solve their pinned QPs as one
+batched ``ops.qp.solve_qp_box`` call, so that the lane kernels carry them.
 
 Options whose code lies in an unported layer raise ``NotImplementedError``
 naming their ROADMAP Queue 1 item.
@@ -43,18 +47,13 @@ from ..solver.qphb import QPHBConfig
 from ..utils import chrono as chrono_utils
 from ..utils import eis as eis_utils
 from ..utils import validation
-from ..utils.array import nearest_index
+from ..utils.array import nearest_index, weighted_quantile_2d
 from ..utils.device import resolve_device
 from ..utils.stats import bic
 from ..mapping import surface
+from ..ops import qp as qp_mod
+from . import background as bkg_mod
 from .background import get_baseline_matrix
-
-# Keywords of the JAX ``_qphb_fit_core`` (hybdrt_tpu/models/drt.py:870-894)
-# whose code is not ported (downsampling, the GP background), with their
-# defaults: the port takes them only to refuse another value
-CHRONO_KW = {"downsample": False, "downsample_kw": None, "subtract_background": False,
-             "background_type": "static", "background_corr_power": None,
-             "estimate_background_kw": None, "background_penalty": 1}
 
 
 def _unported(what, item):
@@ -87,13 +86,16 @@ def eis_basis_tau(frequencies, fixed_basis_tau=None, tau_supergrid=None, extend_
                             tau_grid=tau_supergrid)
 
 
-def special_qp_params(fit_ohmic=True, fit_inductance=True, v_baseline_size=0, vz_offset=False):
+def special_qp_params(fit_ohmic=True, fit_inductance=True, v_baseline_size=0, vz_offset=False,
+                      background_scale=False):
     """The special columns before the DRT block, in the JAX package's order
     (:1052-1064): the chrono voltage baseline's ``v_baseline_size`` columns,
-    the hybrid vz offset, R_inf and the inductance."""
+    the hybrid vz offset, the scaled background's amplitude, R_inf and the
+    inductance."""
     special = {}
     for name, size, nonneg in (("v_baseline", v_baseline_size, False),
                                ("vz_offset", int(vz_offset), False),
+                               ("background_scale", int(background_scale), True),
                                ("R_inf", int(fit_ohmic), True),
                                ("inductance", int(fit_inductance), True)):
         if size:
@@ -159,7 +161,7 @@ def base_penalty_matrices(basis_tau, tau_epsilon):
 def chrono_design_matrix(rm_drt, special, vb_mat, induc_rv, inf_rv, inductance_scale):
     """The response matrix with its special columns (T, N) (:719-739): the
     normalized baseline matrix ``vb_mat``, the inductance and ohmic
-    response vectors; the vz-offset column is zero."""
+    response vectors; the vz-offset and background columns are zero."""
     ns = num_special(special)
     rm = np.empty((rm_drt.shape[0], rm_drt.shape[1] + ns))
     if "v_baseline" in special:
@@ -168,8 +170,9 @@ def chrono_design_matrix(rm_drt, special, vb_mat, induc_rv, inf_rv, inductance_s
         rm[:, special["inductance"]["index"]] = induc_rv * inductance_scale
     if "R_inf" in special:
         rm[:, special["R_inf"]["index"]] = inf_rv
-    if "vz_offset" in special:
-        rm[:, special["vz_offset"]["index"]] = 0
+    for name in ("vz_offset", "background_scale"):
+        if name in special:
+            rm[:, special[name]["index"]] = 0
     rm[:, ns:] = rm_drt
     return rm
 
@@ -311,15 +314,16 @@ class DRT:
     ``device=None`` means the card (``RuntimeError`` where none is present;
     ``device="cpu"`` runs on the CPU). ``dtype`` is the fit's, float64 by
     default as the JAX ``DRT`` (``hybdrt_tpu/__init__.py:27``); the assembly
-    is host float64 either way. Chrono data are galvanostatic with ideal
-    steps (ROADMAP Queue 1 item 11).
+    is host float64 either way. Chrono data are galvanostatic, with ideal or
+    ``expdecay`` steps; ``chrono_mode="pot"`` raises the JAX package's own
+    ``ValueError`` (its gaussian response integrand is galvanostatic only).
     """
 
     def __init__(self, fixed_basis_tau=None, tau_supergrid=None, tau_basis_type="gaussian",
                  basis_tau_ppd=10, extend_basis_decades=1, step_model="ideal",
-                 chrono_mode="galv", interpolate_integrals=True, fit_dop=False,
-                 fit_inductance=True, fit_ohmic=True, fit_capacitance=False, warn=True,
-                 device=None, dtype=torch.float64):
+                 chrono_mode="galv", interpolate_integrals=True, chrono_tau_rise=None,
+                 fit_dop=False, fit_inductance=True, fit_ohmic=True, fit_capacitance=False,
+                 warn=True, device=None, dtype=torch.float64):
         validation.check_basis_type(tau_basis_type)
         validation.check_step_model(step_model)
         validation.check_ctrl_mode(chrono_mode)
@@ -331,10 +335,9 @@ class DRT:
             raise _unported("fit_dop: the distribution of phasances", 4)
         if fit_capacitance:
             raise _unported("fit_capacitance: the capacitance column", 4)
-        if step_model != "ideal":
-            raise _unported(f"step_model={step_model!r}: non-ideal steps", 11)
-        if chrono_mode != "galv":
-            raise _unported(f"chrono_mode={chrono_mode!r}: potentiostatic chrono data", 11)
+        # the response table of this mode (:163-171): potentiostatic data
+        # raise here, as in the JAX package
+        basis_mod.get_response_func(tau_basis_type, chrono_mode, step_model)
         self.device = resolve_device(device)
         self.dtype = dtype
         self.fixed_basis_tau = None if fixed_basis_tau is None else np.asarray(fixed_basis_tau)
@@ -344,6 +347,7 @@ class DRT:
         self.extend_basis_decades = extend_basis_decades
         self.step_model = step_model
         self.chrono_mode = chrono_mode
+        self.chrono_tau_rise = chrono_tau_rise
         self.integrate_method = "interp"
         self.fit_inductance = fit_inductance
         self.fit_ohmic = fit_ohmic
@@ -361,6 +365,7 @@ class DRT:
         self.raw_input_signal = None
         self.raw_response_signal = None
         self.raw_response_background = None
+        self.background_gp = None
         self.scaled_input_signal = None
         self.scaled_response_signal = None
         self.scaled_response_offset = None
@@ -383,6 +388,9 @@ class DRT:
         self.fit_matrices = {}
         self.qphb_params = None
         self.qphb_history = None
+        self.pfrt_result = None
+        self.map_samples = None
+        self.map_sample_kw = None
         self.series_neg = None
         self.fit_kwargs = None
         self._assembly_cache = {}
@@ -399,7 +407,8 @@ class DRT:
 
     @property
     def num_drt_params(self):
-        return len(self.basis_tau)
+        n = len(self.basis_tau)
+        return 2 * n if self.series_neg else n
 
     def get_fit_frequencies(self, return_none=False):
         if len(np.atleast_1d(self.f_fit)) == 0:
@@ -434,9 +443,11 @@ class DRT:
     # Chrono signals and data scale
     # ------------------------------------------------------------------
     def process_chrono_signals(self, times, i_signal, v_signal, step_times, step_sizes,
-                               offset_steps, step_offset_size):
+                               offset_steps, step_offset_size, downsample=False,
+                               downsample_kw=None):
         """Steps of the input signal, the nonconsecutive step times and the
-        fit samples (every sample: downsampling is not ported) (:346)."""
+        fit samples: every sample, or with ``downsample`` those of
+        ``pp.downsample_data`` (:346-393)."""
         if times is None:
             self.step_times = None
             self.step_sizes = None
@@ -464,10 +475,17 @@ class DRT:
         else:
             self.nonconsec_step_times = np.asarray(step_times)
 
-        self.sample_index = np.arange(len(times), dtype=int)
-        sample_times = np.array(times, dtype=float)
-        sample_i = np.array(i_signal, dtype=float)
-        sample_v = np.array(v_signal, dtype=float)
+        if downsample:
+            if downsample_kw is None:
+                downsample_kw = {"prestep_samples": 10, "target_times": None}
+            self.sample_index, (sample_times, sample_i, sample_v) = pp.downsample_data(
+                times, i_signal, v_signal, step_times=self.nonconsec_step_times,
+                op_mode=self.chrono_mode, **downsample_kw)
+        else:
+            self.sample_index = np.arange(len(times), dtype=int)
+            sample_times = np.array(times, dtype=float)
+            sample_i = np.array(i_signal, dtype=float)
+            sample_v = np.array(v_signal, dtype=float)
         self.t_fit = sample_times
         input_signal, response_signal = chrono_utils.get_input_and_response(
             sample_i, sample_v, self.chrono_mode)
@@ -545,6 +563,7 @@ class DRT:
         key = ("rm", self._basis_signature(), self.step_model, self.chrono_mode,
                np.asarray(times).tobytes(), np.atleast_1d(step_times).astype(float).tobytes(),
                np.atleast_1d(step_sizes).astype(float).tobytes(),
+               None if tau_rise is None else np.atleast_1d(tau_rise).astype(float).tobytes(),
                np.asarray(self.raw_input_signal).tobytes(), bool(smooth_inf_response))
 
         def build():
@@ -552,9 +571,7 @@ class DRT:
                 self.basis_tau, times, self.step_model, step_times, step_sizes,
                 basis_type=self.tau_basis_type, epsilon=self.tau_epsilon, tau_rise=tau_rise,
                 op_mode=self.chrono_mode, integrate_method=self.integrate_method,
-                interpolate_grids=lookup.generate_response_lookup(
-                    self.tau_basis_type, self.chrono_mode, self.step_model,
-                    float(self.tau_epsilon)))
+                interpolate_grids=self._response_lookup())
             induc_rv = mat1d.construct_inductance_response_vector(
                 times, self.step_model, step_times, step_sizes, tau_rise, self.chrono_mode)
             inf_rv = mat1d.construct_ohmic_response_vector(
@@ -567,12 +584,21 @@ class DRT:
         self.fit_matrices["rm_layered"] = rm_layered
         self.fit_matrices["inductance_response"] = induc_rv
         self.fit_matrices["inf_response"] = inf_rv
-        self._fit_rm_signature = self._response_signature(step_times, step_sizes)
+        self._fit_rm_signature = self._response_signature(step_times, step_sizes, tau_rise)
         return rm, inf_rv, induc_rv
 
-    def _response_signature(self, step_times, step_sizes):
+    def _response_lookup(self):
+        """The response table of the constructor's step model and
+        ``chrono_tau_rise`` (:163-171; cached by ``lookup``)."""
+        tr = self.chrono_tau_rise if self.step_model != "ideal" else None
+        return lookup.generate_response_lookup(self.tau_basis_type, self.chrono_mode,
+                                               self.step_model, float(self.tau_epsilon),
+                                               tau_rise=tr)
+
+    def _response_signature(self, step_times, step_sizes, tau_rise):
         return self._basis_signature() + (
             self.step_model, self.chrono_mode,
+            None if tau_rise is None else float(np.atleast_1d(tau_rise)[0]),
             tuple(np.round(np.atleast_1d(step_times).astype(float), 12).tolist()),
             tuple(np.round(np.atleast_1d(step_sizes).astype(float), 12).tolist()))
 
@@ -584,8 +610,10 @@ class DRT:
         return zm
 
     def _prep_penalty_matrices(self):
-        return self._cached(("pen", self._basis_signature()),
+        base = self._cached(("pen", self._basis_signature()),
                             lambda: base_penalty_matrices(self.basis_tau, self.tau_epsilon))
+        self.fit_matrices.update({f"m{k}": base[k] for k in range(3)})
+        return base
 
     def _get_neg_allowed_indices(self, nonneg, neg_allowed_tau_range):
         if nonneg and neg_allowed_tau_range is not None:
@@ -643,7 +671,10 @@ class DRT:
                        step_offset_size=None, offset_baseline=True, v_baseline_deg=0,
                        v_baseline_sqrt=False, smooth_inf_response=True, v_baseline_penalty=1e-6,
                        ohmic_penalty=1e-6, inductance_penalty=1e-6, inductance_scale=1e-5,
-                       capacitance_scale=1e-3, remove_extremes=False, extreme_kw=None,
+                       capacitance_scale=1e-3, downsample=False, downsample_kw=None,
+                       subtract_background=False, background_type="static",
+                       background_corr_power=None, estimate_background_kw=None,
+                       background_penalty=1, remove_extremes=False, extreme_kw=None,
                        init_weights_separately=False, chrono_error_structure="uniform",
                        eis_error_structure=None, remove_outliers=False,
                        return_outlier_index=False, chrono_vmm_epsilon=4, eis_vmm_epsilon=0.25,
@@ -654,14 +685,19 @@ class DRT:
                        max_iter=50, store_history=False, prep_only=False, **kw):
         """The fit of EIS, chrono or hybrid data (``hybdrt_tpu/models/drt.py:870``).
         ``prep_only=True`` returns the assembled system as the JAX dict
-        (:1293-1324), numpy arrays, without fitting."""
+        (:1293-1324), numpy arrays, without fitting.
+
+        ``series_neg`` fits nonnegative positive and negative coefficient
+        sets side by side (:491-506); ``weight_factor`` scales the data
+        weights from the second iteration on; ``subtract_background``
+        estimates a GP background from a preliminary fit's residuals
+        (``estimate_chrono_background``) and subtracts it ("static"),
+        projects it out of the design ("dynamic") or fits its amplitude
+        ("scaled") (:991-1029, :1137-1153, :1406-1425)."""
         validation.check_chrono_data(times, i_signal, v_signal)
         validation.check_eis_data(frequencies, z)
         for err_struct in (chrono_error_structure, eis_error_structure):
             validation.check_error_structure(err_struct)
-        unported = [k for k, default in CHRONO_KW.items() if k in kw and kw.pop(k) != default]
-        if unported:
-            raise _unported(f"{unported}: downsampling and background subtraction", 11)
         if remove_outliers or return_outlier_index:
             raise _unported("remove_outliers / return_outlier_index: the outlier model", 9)
         if times is None and frequencies is None:
@@ -669,23 +705,11 @@ class DRT:
                              "(frequencies, z) or both")
         if series_neg and not nonneg:
             raise ValueError("Only one of series_neg and nonneg may be True")
-        if series_neg:
-            raise NotImplementedError("series_neg is not ported yet")
-        if weight_factor != 1:
-            raise NotImplementedError(
-                "weight_factor != 1: the port's fit loop applies no global weight factor "
-                "(hybdrt_torch/solver/fitcore.py::_loop_body)")
         if update_scale:
             warnings.warn("update_scale (mid-fit data-scale refinement) is not implemented; "
                           "the scale is set once up front — use solve_rp=True for the refined "
                           "pre-fit Rp estimate instead")
         hypers = qphb_hypers(eff_hp=eff_hp, **kw)
-        self.fit_kwargs = {"smooth_inf_response": smooth_inf_response,
-                           "offset_steps": offset_steps, "step_offset_size": step_offset_size,
-                           **hypers, "nonneg": nonneg, "eff_hp": eff_hp,
-                           "penalty_type": "integral",
-                           "neg_allowed_tau_range": neg_allowed_tau_range}
-        self.series_neg = series_neg
         self.v_baseline_deg = v_baseline_deg
         self.v_baseline_sqrt = v_baseline_sqrt
 
@@ -716,11 +740,48 @@ class DRT:
                                       f"{np.where(flag)[0].tolist()}")
                     frequencies, z = frequencies[~flag], z[~flag]
 
+        # The GP background from a preliminary fit's residuals (:991-1029)
+        bkg = subtract_background and times is not None
+        drt_bkg = bkg_gps = None
+        self.background_gp = None
+        self.raw_response_background = None
+        if bkg:
+            if background_type not in ("static", "dynamic", "scaled"):
+                raise ValueError(f"Invalid background_type {background_type!r}. "
+                                 "Options: 'static', 'dynamic', 'scaled'")
+            ebk = dict(estimate_background_kw or {})
+            ebk.setdefault("nonneg", nonneg)
+            drt_bkg, bkg_gps, y_bkg = self.estimate_chrono_background(
+                times, i_signal, v_signal, copy_self=True, **ebk)
+            self.background_gp = bkg_gps[0]
+            y_pred_bkg_full = np.asarray(drt_bkg.predict_response(times))
+            if background_corr_power is None and background_type != "static":
+                # penalize backgrounds correlated with the model response
+                std_ratio = np.std(y_bkg) / np.std(y_pred_bkg_full)
+                background_corr_power = np.log(0.02 / std_ratio + 1) + 0.25
+            if background_type == "static":
+                if background_corr_power is not None:
+                    rm_bkg_est = bkg_mod.get_background_matrix(
+                        bkg_gps, np.asarray(times)[:, None], y_drt=y_pred_bkg_full,
+                        corr_power=background_corr_power)
+                    self.raw_response_background = rm_bkg_est @ (
+                        np.asarray(v_signal, dtype=float) - y_pred_bkg_full)
+                else:
+                    self.raw_response_background = np.asarray(y_bkg)
+                v_signal = v_signal - self.raw_response_background
+
+        self.fit_kwargs = {"smooth_inf_response": smooth_inf_response,
+                           "offset_steps": offset_steps, "step_offset_size": step_offset_size,
+                           **hypers, "nonneg": nonneg, "eff_hp": eff_hp,
+                           "penalty_type": "integral",
+                           "neg_allowed_tau_range": neg_allowed_tau_range}
+        self.series_neg = series_neg
         data_type = "eis" if times is None else ("chrono" if frequencies is None else "hybrid")
         num_eis = 0 if frequencies is None else len(frequencies)
         fit_vz = bool(vz_offset and data_type == "hybrid")
+        bkg_scaled = bkg and background_type == "scaled"
         self.special_qp_params = special_qp_params(
-            self.fit_ohmic, self.fit_inductance, vz_offset=fit_vz,
+            self.fit_ohmic, self.fit_inductance, vz_offset=fit_vz, background_scale=bkg_scaled,
             v_baseline_size=0 if times is None else v_baseline_deg + 1 + int(v_baseline_sqrt))
         sp = self.special_qp_params
         ns = self.get_qp_mat_offset()
@@ -728,7 +789,8 @@ class DRT:
         # _prep_for_fit (:464): chrono processing, basis, matrices, data scale
         sample_times, sample_i, sample_v, step_times, step_sizes, tau_rise = \
             self.process_chrono_signals(times, i_signal, v_signal, step_times, step_sizes,
-                                        offset_steps, step_offset_size)
+                                        offset_steps, step_offset_size, downsample,
+                                        downsample_kw)
         self.basis_tau = eis_basis_tau(frequencies, self.fixed_basis_tau, self.tau_supergrid,
                                        self.extend_basis_decades, times=times,
                                        step_times=step_times)
@@ -745,6 +807,13 @@ class DRT:
         else:
             self.f_fit = []
         base_penalty = self._prep_penalty_matrices()
+        if series_neg:
+            # the negative set: the same columns negated, its own penalty block
+            if sample_times is not None:
+                rm_drt = np.hstack((rm_drt, -rm_drt))
+            if zm_drt is not None:
+                zm_drt = np.hstack((zm_drt, -zm_drt))
+            base_penalty = np.stack([np.kron(np.eye(2), m) for m in base_penalty])
         _, v_scaled, z_scaled = self.scale_data(sample_times, sample_i, sample_v, step_times,
                                                 step_sizes, z, scale_data, hypers["rp_scale"])
         num_chrono = 0
@@ -769,13 +838,30 @@ class DRT:
             zm = eis_design_matrix(zm_drt, frequencies, sp, inductance_scale)
         m_stack = penalty_stack(base_penalty, sp, {
             "v_baseline": v_baseline_penalty, "vz_offset": 1 / vz_offset_scale,
-            "R_inf": ohmic_penalty, "inductance": inductance_penalty})
+            "background_scale": background_penalty, "R_inf": ohmic_penalty,
+            "inductance": inductance_penalty})
+
+        # The GP background operator of the dynamic and scaled modes
+        # (:1114-1128), the dynamic mode's projection out of the design
+        rm_bkg = rm_orig = None
+        if bkg and background_type != "static":
+            rm_bkg = bkg_mod.get_background_matrix(
+                bkg_gps, np.asarray(sample_times)[:, None],
+                y_drt=np.asarray(drt_bkg.predict_response(sample_times)),
+                corr_power=background_corr_power)
+            if background_type == "dynamic":
+                rm_orig = rm.copy()
+                rm = rm - rm_bkg @ rm
         rzm = zm if rm is None else (rm if zm is None else np.vstack((rm, zm)))
 
-        # vz offset (:1138-1153)
+        # vz offset (:1138-1153); it relates z to the raw voltage, not the
+        # background-projected one
         if fit_vz:
-            rzm_vz = rzm.copy()
-            rzm_vz[:, special_slice(sp, "v_baseline")] = 0
+            if rm_orig is not None:
+                rzm_vz = np.vstack((rm_orig, zm))
+            else:
+                rzm_vz = rzm.copy()
+                rzm_vz[:, special_slice(sp, "v_baseline")] = 0
             chrono_vz, eis_vz = self._get_vz_strength_vec(
                 sample_times, frequencies, fit_times=sample_times, fit_frequencies=frequencies,
                 vz_offset_eps=vz_offset_eps)
@@ -785,10 +871,13 @@ class DRT:
             vz_strength_vec = np.ones(rzm.shape[0])
 
         # The data vector with the response's baseline offset (:1155-1173)
-        rv = zv = None
+        rv = zv = rv_orig = None
         if times is not None:
             self.scaled_response_offset = -response_baseline if offset_baseline else 0.0
             rv = self.scaled_response_signal + self.scaled_response_offset
+            if rm_orig is not None:
+                rv_orig = rv.copy()
+                rv = rv - rm_bkg @ rv
         if frequencies is not None:
             zv = np.concatenate([z_scaled.real, z_scaled.imag])
         rzv = zv.copy() if rv is None else (rv.copy() if zv is None else np.concatenate([rv, zv]))
@@ -809,7 +898,7 @@ class DRT:
                 self._t(rzv)[None], self._t(rzm), self._t(lb), cfg))[0]
             rp_est = self.predict_r_p(absolute=True, x=x_rp, raw=True)
             scale_factor = hypers["rp_scale"] / rp_est
-            for vec in (rv, zv, rzv):
+            for vec in (rv, zv, rzv, rv_orig):
                 if vec is not None:
                     vec *= scale_factor
             self.update_data_scale(scale_factor)
@@ -928,7 +1017,8 @@ class DRT:
         rzm_t, rzv_t, vmm_t, l1v_t = t(rzm), t(rzv)[None], t(vmm), t(l1_lambda_vector)
         fcfg = fitcore.FitConfig(cfg=cfg, data_type=data_type, num_chrono=num_chrono,
                                  vz_offset=fit_vz, vz_index=vz_index, max_iter=max_iter,
-                                 x_rtol=xtol)
+                                 x_rtol=xtol, bkg_scaled=bkg_scaled,
+                                 bkg_index=sp.get("background_scale", {}).get("index", -1))
         row_factors = np.ones(len(rzv))
         row_factors[:num_chrono] = chrono_weight_factor
         row_factors[num_chrono:] = eis_weight_factor
@@ -937,12 +1027,15 @@ class DRT:
             hybrid["row_factors"] = t(row_factors)
             if fit_vz:
                 hybrid.update(rzm_vz=t(rzm_vz), vz_strength=t(vz_strength_vec))
+        loop_kw = dict(hybrid, weight_factor=weight_factor, return_design=True)
+        if bkg_scaled:
+            loop_kw["rm_bkg"] = t(rm_bkg)
         loop_args = (rzm_t, rzv_t, vmm_t, m_t, l1v_t, lb_t, hyp, t(np.full((1, n), 1e-6)),
                      t(s_vectors)[None], t(rho_vector)[None], t(dop_rho_vector)[None],
                      t(init_weights)[None], t(est_weights)[None], t(np.ones((1, len(rzv)))),
                      fcfg)
         if store_history:
-            state, history = fitcore.qphb_fit_scan(*loop_args, **hybrid)
+            state, history, rzm_final = fitcore.qphb_fit_scan(*loop_args, **loop_kw)
             n_hist = int(history["it"][0, -1])
             self.qphb_history = [{"x": history["x"][0, i],
                                   "s_vectors": history["s_vectors"][0, i],
@@ -953,17 +1046,15 @@ class DRT:
                                   "converged": bool(history["converged"][0, i])}
                                  for i in range(n_hist)]
         else:
-            state = fitcore.qphb_fit_loop(*loop_args, **hybrid)
+            state, rzm_final = fitcore.qphb_fit_loop(*loop_args, **loop_kw)
             self.qphb_history = None
 
-        if fit_vz:
-            # The design as the loop left it: the vz column rewritten from
-            # the final iterate
-            sys_ = fitcore.LaneSystem(rzm_t, vmm_t, m_t, l1v_t, lb_t, **hybrid,
-                                      vz_sign=fitcore.chrono_eis_sign(num_chrono, len(rzv), rzv_t))
-            rzm_t = fitcore.with_vz_column(rzm_t, sys_.vz_column(state.x), vz_index)[0]
+        if fit_vz or bkg_scaled:
+            # The design as the loop left it: the vz and background columns
+            # rewritten from the final iterate
+            rzm_t = rzm_final[0]
         x = npy(state.x)
-        weights = npy(state.weights)
+        weights = npy(state.weights) * weight_factor
         scaled_weights = weights.copy()
         if data_type == "hybrid":
             scaled_weights *= row_factors
@@ -975,7 +1066,20 @@ class DRT:
         p_t, q_t = qphb_mod.calculate_pq(rzm_t, rzv_t, m_t, hyp, l1v_t, state.rho_vector,
                                          state.s_vectors, t(scaled_weights)[None], cfg)
         p_matrix, q_vector = npy(p_t), npy(q_t)
-        if times is not None and self.raw_response_background is None:
+        rzm_out = self._to_numpy(rzm_t) if (fit_vz or bkg_scaled) else rzm
+        if bkg and background_type != "static":
+            # The fitted background (:1406-1425)
+            if background_type == "dynamic":
+                resid = rv_orig - rm_orig @ x
+                self.raw_response_background = (rm_bkg @ resid) * self.response_signal_scale
+            else:
+                bkg_idx = sp["background_scale"]["index"]
+                rzm_resid = rzm_out.copy()
+                rzm_resid[:, bkg_idx] = 0
+                resid = (rzv - rzm_resid @ x)[:num_chrono]
+                self.raw_response_background = (rm_bkg @ resid) * self.response_signal_scale \
+                    * x[bkg_idx]
+        elif times is not None and self.raw_response_background is None:
             self.raw_response_background = np.zeros(num_chrono)
         self.qphb_params = {
             "est_weights": est_weights.copy(), "init_weights": init_weights.copy(),
@@ -987,7 +1091,7 @@ class DRT:
             "rho_vector": npy(state.rho_vector), "dop_rho_vector": None,
             "s_vectors": [s_out[k] for k in range(k_range)], "outlier_t": npy(state.outlier_t),
             "vmm": vmm, "l1_lambda_vector": l1_lambda_vector,
-            "rm": self._to_numpy(rzm_t) if fit_vz else rzm, "rv": rzv,
+            "rm": rzm_out, "rv": rzv,
             "penalty_matrices": {f"m{k}": m_stack[k] for k in range(k_range)},
             "hypers": hypers, "num_eis": num_eis, "num_chrono": num_chrono,
             "n_iter": n_iter, "converged": converged,
@@ -1098,14 +1202,29 @@ class DRT:
                                                         * self.inductance_scale) \
             if "inductance" in special else 0
         out["C_inv"] = 0
+        if "background_scale" in special:
+            out["background_scale"] = x[special["background_scale"]]
         return out
 
     def get_drt_params(self, x=None, sign=1):
-        """The DRT coefficients (:1677); ``sign`` selects a series_neg fit's
-        half, which the port does not fit, so it is unused."""
+        """The DRT coefficients (:1677); of a series_neg fit the positive set
+        (``sign`` 1), the negative one (-1) or their sum (0)."""
         if x is None:
             x = self.fit_parameters["x"]
-        return np.asarray(x)
+        x = np.asarray(x)
+        if self.series_neg:
+            n = len(self.basis_tau)
+            if sign == 1:
+                return x[:n]
+            if sign == -1:
+                return -x[n:]
+            return x[:n] - x[n:]
+        return x
+
+    def _drt_coef(self, params):
+        """The coefficients of the distribution a prediction reads: a
+        series_neg fit's two sets summed."""
+        return self.get_drt_params(params["x"], sign=0) if self.series_neg else params["x"]
 
     def get_tau_eval(self, ppd, extend_decades=0):
         """Evaluation grid spanning basis_tau +- extend_decades (:1893)."""
@@ -1122,13 +1241,17 @@ class DRT:
         em = basis_mod.func_eval_matrix_host(np.log(self.basis_tau),
                                              np.log(np.asarray(tau, dtype=float)),
                                              self.tau_basis_type, self.tau_epsilon, order)
+        if sign is None:
+            sign = self.default_dist_sign()
         if x is None:
-            x = self.fit_parameters["x"]
+            x = self.get_drt_params(sign=sign) if self.series_neg else self.fit_parameters["x"]
         else:
             x = np.asarray(x)
-            if len(x) > len(self.basis_tau):
+            if len(x) > (2 if self.series_neg else 1) * len(self.basis_tau):
                 # a raw solver vector: strip the specials and unscale
                 x = self.extract_qphb_parameters(x)["x"]
+            if len(x) > len(self.basis_tau):
+                x = self.get_drt_params(x, sign)
         out = em @ x
         if normalize:
             out = out / self.predict_r_p(absolute=True)
@@ -1159,11 +1282,11 @@ class DRT:
             return zm_fit
         return impedance_matrix(f, self.basis_tau, self.tau_epsilon)
 
-    def _get_response_pred_matrix(self, times, step_times, step_sizes):
+    def _get_response_pred_matrix(self, times, step_times, step_sizes, tau_rise=None):
         """The DRT block's step response at ``times``: rows of the fit
         matrix where the protocol is the fit's and the times are among the
         fit times, else a fresh matrix, cached by grid (:1968)."""
-        sig = self._response_signature(step_times, step_sizes)
+        sig = self._response_signature(step_times, step_sizes, tau_rise)
         times = np.asarray(times, dtype=float)
         rm_fit = self.fit_matrices.get("response")
         t_fit = self.get_fit_times()
@@ -1178,10 +1301,9 @@ class DRT:
                 return entry[2][idx]
         rm, _ = mat1d.construct_response_matrix(
             self.basis_tau, times, self.step_model, step_times, step_sizes,
-            basis_type=self.tau_basis_type, epsilon=self.tau_epsilon, op_mode=self.chrono_mode,
-            integrate_method=self.integrate_method,
-            interpolate_grids=lookup.generate_response_lookup(
-                self.tau_basis_type, self.chrono_mode, self.step_model, float(self.tau_epsilon)))
+            basis_type=self.tau_basis_type, epsilon=self.tau_epsilon, tau_rise=tau_rise,
+            op_mode=self.chrono_mode, integrate_method=self.integrate_method,
+            interpolate_grids=self._response_lookup())
         self._pred_mat_cache["response"] = (sig, times.copy(), rm)
         return rm
 
@@ -1201,7 +1323,7 @@ class DRT:
         params = self._params(x)
         z = np.zeros(len(frequencies), dtype=complex)
         if include_drt:
-            z = z + zm @ params["x"]
+            z = z + zm @ self._drt_coef(params)
         if include_ohmic:
             z = z + params.get("R_inf", 0)
         if include_inductance:
@@ -1224,9 +1346,9 @@ class DRT:
         times = np.asarray(times, dtype=float)
         step_times = self.step_times if step_times is None else step_times
         step_sizes = self.step_sizes if step_sizes is None else step_sizes
-        rm = self._get_response_pred_matrix(times, step_times, step_sizes)
+        rm = self._get_response_pred_matrix(times, step_times, step_sizes, self.tau_rise)
         params = self._params(x)
-        response = rm @ params["x"]
+        response = rm @ self._drt_coef(params)
         inf_rv = mat1d.construct_ohmic_response_vector(
             times, self.step_model, step_times, step_sizes, self.tau_rise,
             pp.generate_model_signal(times, step_times, step_sizes, self.tau_rise,
@@ -1255,16 +1377,19 @@ class DRT:
             return vb_mat @ np.atleast_1d(x_vb)
         return np.zeros_like(times, dtype=float)
 
-    def predict_r_p(self, absolute=False, x=None, raw=False):
+    def predict_r_p(self, absolute=False, x=None, raw=False, sign=None):
         """Polarization resistance: the DRT coefficients' sum times the basis
-        area (:2101)."""
+        area (:2101); ``sign`` as ``get_drt_params`` (default: a series_neg
+        fit's two sets summed)."""
         area = basis_mod.get_basis_func_area(self.tau_basis_type, self.tau_epsilon)
+        if sign is None:
+            sign = self.default_dist_sign()
         if raw:
             x = np.asarray(x)
             if len(x) > self.num_drt_params:
                 x = x[self.get_qp_mat_offset():]
         else:
-            x = self.get_drt_params(x)
+            x = self.get_drt_params(x, sign)
         return (np.sum(np.abs(x)) if absolute else np.sum(x)) * area
 
     def predict_r_inf(self):
@@ -1342,14 +1467,15 @@ class DRT:
                                   p_matrix=None, sign=None, normalize=False, var_floor=0.0):
         """Covariance of gamma(ln tau), or of its order-th derivative, B
         Sigma_x B^T (:2319); ``extend_var`` extrapolates the variance beyond
-        the basis (:2344-2362). A series_neg fit raises where it is fitted."""
+        the basis (:2344-2362); of a series_neg fit the covariance of the
+        set ``sign`` selects (default: the sum)."""
         if tau is None:
             tau = self.get_tau_eval(ppd)
         return self.distribution_cov(self.estimate_param_cov(p_matrix=p_matrix), tau, order,
-                                     extend_var, normalize, var_floor)
+                                     extend_var, normalize, var_floor, sign=sign)
 
     def distribution_cov(self, cov, tau, order=0, extend_var=True, normalize=False,
-                         var_floor=0.0):
+                         var_floor=0.0, sign=None):
         """``estimate_distribution_cov`` from the parameter covariance ``cov``
         (host numpy, physical units)."""
         ns = self.get_qp_mat_offset()
@@ -1357,6 +1483,10 @@ class DRT:
         tau = np.asarray(tau)
         em = basis_mod.func_eval_matrix_host(np.log(self.basis_tau), np.log(tau),
                                              self.tau_basis_type, self.tau_epsilon, order)
+        if self.series_neg:
+            sign = 0 if sign is None else sign
+            zero = np.zeros_like(em)
+            em = np.hstack({0: [em, -em], 1: [em, zero]}.get(sign, [zero, -em]))
         dist_cov = em @ cov_drt @ em.T
         if normalize:
             dist_cov = dist_cov / self.predict_r_p(absolute=True) ** 2
@@ -1493,8 +1623,8 @@ class DRT:
                 x[start] = fp["R_inf"] / self.coefficient_scale
             elif name == "inductance":
                 x[start] = fp["inductance"] / (self.coefficient_scale * self.inductance_scale)
-            elif name == "vz_offset":
-                x[start] = fp["vz_offset"]
+            elif name in ("vz_offset", "background_scale"):
+                x[start] = fp[name]
             elif name == "v_baseline":
                 vb = np.atleast_1d(fp["v_baseline"]) / self.response_signal_scale
                 vb = vb * self.v_baseline_scale
@@ -1642,6 +1772,116 @@ class DRT:
         return tau[peak_indices]
 
     # ------------------------------------------------------------------
+    # MAP samples (:2197-2318)
+    # ------------------------------------------------------------------
+    def generate_map_samples(self, shift_scale=1.5, deltas=(-3, -2, -1, 1, 2, 3),
+                             refresh=False):
+        """The posterior explored around the MAP by conditional
+        re-optimization (:2197): for each DRT coefficient i and shift delta,
+        x_i is pinned at x_hat_i + delta sigma_i shift_scale (sigma from the
+        Laplace covariance P^-1, held at its lower bound) and the other
+        coordinates are re-optimized under the fit's final hyperparameters;
+        each sample's joint log posterior is recorded. The MAP is first
+        refined against the final (P, q) from the stored iterate.
+
+        All pinned QPs (row and column i of P zeroed, a unit diagonal there,
+        q_i = -v) go to ``ops.qp.solve_qp_box`` as one batch of
+        len(deltas) x n_drt QPs, in the fit's dtype on its device, so on
+        the card the lane kernels carry them (#1-#3 where n takes their tile
+        rule, else the library route). Cached by keyword in
+        ``self.map_samples``: raw-space ``x`` (n_samples, n), ``lp``,
+        ``lp_hat``, ``x_hat``, ``index`` and ``delta``."""
+        kwargs = {"shift_scale": shift_scale, "deltas": tuple(deltas)}
+        if not refresh and self.map_samples is not None and self.map_sample_kw == kwargs:
+            return self.map_samples
+        if self.qphb_params is None or "x_raw" not in self.qphb_params:
+            raise ValueError("Fit the model (fit_eis/fit_chrono/fit_hybrid) before sampling")
+        qp = self.qphb_params
+        t = self._t
+        P = t(qp["p_matrix"])
+        q = t(qp["q_vector"])
+        lb = t(qp["lb"])
+        n = P.shape[0]
+        ns = self.get_qp_mat_offset()
+
+        p_inv = mat1d.invert_psd(torch.as_tensor(np.asarray(qp["p_matrix"], dtype=float),
+                                                 dtype=torch.float64, device=self.device))
+        sigma_x = torch.sqrt(torch.clamp(torch.diagonal(p_inv), min=0)).to(self.dtype)
+        x_hat = qp_mod.solve_qp_box(P[None], q[None], lb, x_init=t(qp["x_raw"])[None]).x[0]
+
+        idx = torch.as_tensor(np.repeat(np.arange(ns, n), len(deltas)), device=self.device)
+        dlt = t(np.tile(np.asarray(deltas, dtype=float), n - ns))
+        v = torch.maximum(x_hat[idx] + dlt * sigma_x[idx] * shift_scale, lb[idx])
+        keep = 1.0 - torch.nn.functional.one_hot(idx, n).to(P.dtype)  # 0 at the pinned i
+        p_pin = P * keep[:, :, None] * keep[:, None, :] + torch.diag_embed(1.0 - keep)
+        q_pin = keep * (q + P[:, idx].mT * v[:, None]) - (1.0 - keep) * v[:, None]
+        x_samples = qp_mod.solve_qp_box(p_pin, q_pin, lb).x
+
+        lane = lambda a: t(np.asarray(a, dtype=float))
+        k_range = qp["cfg"].k_range
+        m_stack = torch.stack([lane(qp["penalty_matrices"][f"m{k}"]) for k in range(k_range)])
+        lp_args = (lane(qp["rm"]), lane(qp["rv"]), m_stack, self._hyp(qp["hypers"]),
+                   lane(qp["l1_lambda_vector"]), lane(qp["rho_vector"]),
+                   torch.stack([lane(s_) for s_ in qp["s_vectors"]]), lane(qp["weights"]),
+                   lane(qp["xmx_norms"]), qp["cfg"])
+        lp = qphb_mod.evaluate_posterior_lp(x_samples, *lp_args)
+        lp_hat = qphb_mod.evaluate_posterior_lp(x_hat[None], *lp_args)[0]
+        self.map_samples = {"x": self._to_numpy(x_samples), "lp": self._to_numpy(lp),
+                            "lp_hat": float(lp_hat), "x_hat": self._to_numpy(x_hat),
+                            "index": np.repeat(np.arange(ns, n), len(deltas)),
+                            "delta": np.tile(np.asarray(deltas, dtype=float), n - ns)}
+        self.map_sample_kw = kwargs
+        return self.map_samples
+
+    def _weighted_samples(self, **sample_kw):
+        samples = self.generate_map_samples(**sample_kw)
+        x_all = np.vstack([samples["x_hat"][None, :], samples["x"]])
+        lp_all = np.concatenate([[samples["lp_hat"]], samples["lp"]])
+        return x_all, np.exp(lp_all - np.max(lp_all))
+
+    def get_parameter_quantile(self, quantile, **sample_kw):
+        """Posterior parameter quantiles from the lp-weighted MAP samples,
+        the MAP among them (:2293): (n_quantiles, n) raw-space values."""
+        x_all, w = self._weighted_samples(**sample_kw)
+        return weighted_quantile_2d(x_all, np.atleast_1d(quantile), sample_weight=w)
+
+    def estimate_posterior_mean(self, **sample_kw):
+        """The posterior mean of the raw-space vector from the lp-weighted
+        MAP samples, the MAP among them (:2306)."""
+        x_all, w = self._weighted_samples(**sample_kw)
+        return np.average(x_all, axis=0, weights=w)
+
+    # ------------------------------------------------------------------
+    # The chrono GP background (:2953-2985)
+    # ------------------------------------------------------------------
+    def estimate_chrono_background(self, times, i_signal, v_signal, bkg_iter=1,
+                                   kernel_type="gaussian", copy_self=False, gp_kw=None,
+                                   **fit_kw):
+        """Fit the DRT and a GP to the residual drift in turn, ``bkg_iter``
+        times (:2953); returns (drt_bkg if copy_self, [gp], y_bkg)."""
+        drt_bkg = deepcopy(self) if copy_self else self
+        drt_bkg.warn = False
+        times = np.asarray(times)
+        y_bkg = np.zeros(len(times))
+        gp = None
+        resp = np.asarray(v_signal, dtype=float)
+        other = np.asarray(i_signal)
+        for _ in range(max(bkg_iter, 1)):
+            drt_bkg.fit_chrono(times, other, resp - y_bkg, **fit_kw)
+            resid = resp - y_bkg - drt_bkg.predict_response(times)
+            gp = bkg_mod.GPBackground(kernel_type=kernel_type, **(gp_kw or {}))
+            gp.fit(times, resid)
+            y_bkg = y_bkg + gp.predict(times)
+        if copy_self:
+            return drt_bkg, [gp], y_bkg
+        return [gp], y_bkg
+
+    def predict_chrono_background(self, times):
+        if self.background_gp is None:
+            return np.zeros(len(np.atleast_1d(times)))
+        return self.background_gp.predict(times)
+
+    # ------------------------------------------------------------------
     # Attribute persistence (:3886-3925)
     # ------------------------------------------------------------------
     @property
@@ -1663,6 +1903,9 @@ class DRT:
                 "nonconsec_step_times", "t_fit", "f_fit", "z_fit", "z_fit_scaled",
                 "raw_input_signal", "raw_response_signal",
             ],
+            # pfrt_result is None for every fit but a PFRT sweep's (ROADMAP
+            # Queue 1 item 9), as in the JAX package
+            "detail": ["qphb_history", "pfrt_result", "fit_matrices"],
         }
 
     def get_attributes(self, which=None):
@@ -1680,6 +1923,23 @@ class DRT:
         for k, v in att_dict.items():
             setattr(self, k, v)
         return self
+
+    def save_attributes(self, which, dest):
+        """Pickle the attributes of the categories ``which`` to ``dest``
+        (:3927); the JAX ``DRT.load_attributes`` reads the file."""
+        import pickle
+        with open(dest, "wb") as f:
+            pickle.dump(self.get_attributes(which), f)
+
+    def load_attributes(self, source):
+        """Set the attributes of a dict, or of a ``save_attributes`` pickle,
+        this class's or the JAX class's, read without JAX
+        (``mapping/drtmd.py::load_pickle``: its QPHBConfig as the port's,
+        its arrays, a "detail" history's, as numpy arrays) (:3932)."""
+        if isinstance(source, dict):
+            return self.set_attributes(source)
+        from ..mapping.drtmd import load_pickle
+        return self.set_attributes(load_pickle(source))
 
 
 def build_hybrid_problem(times, i_signal, frequencies, step_times=None, step_sizes=None,

@@ -123,16 +123,27 @@ def get_impedance_func(part, basis_type="gaussian"):
 def get_response_func(basis_type, op_mode="galv", step_model="ideal"):
     """Quadrature integrand func(y, tau_m, t_n, epsilon, tau_rise) of the
     chrono step-response matrix, y = ln(tau / tau_m): the response of one
-    basis function to a unit ideal current step (hybdrt_tpu/ops/basis.py:367;
-    galvanostatic mode and ideal steps only, ROADMAP Queue 1 item 11)."""
+    basis function to a unit current step, ideal or rising as
+    1 - exp(-t / tau_rise) (``expdecay``) (hybdrt_tpu/ops/basis.py:367-398).
+    Galvanostatic mode only, as in the JAX package: the potentiostatic
+    response is the delta-basis closed form of
+    ``mat1d.construct_response_matrix``."""
     if op_mode != "galv":
-        raise NotImplementedError(f"op_mode={op_mode!r}: potentiostatic chrono data are not "
-                                  f"ported yet (ROADMAP Queue 1 item 11)")
-    if step_model != "ideal":
-        raise NotImplementedError(f"step_model={step_model!r}: non-ideal steps are not "
-                                  f"ported yet (ROADMAP Queue 1 item 11)")
+        raise ValueError("Response integrand only defined for galvanostatic mode; "
+                         "potentiostatic response uses the delta-basis closed form")
     f_basis = get_basis_func(basis_type)
-
-    def func(y, tau_m, t_n, epsilon, tau_rise):
-        return f_basis(y, epsilon) * (1 - np.exp(-t_n / (tau_m * np.exp(y))))
-    return func
+    if step_model == "ideal":
+        def func(y, tau_m, t_n, epsilon, tau_rise):
+            return f_basis(y, epsilon) * (1 - np.exp(-t_n / (tau_m * np.exp(y))))
+        return func
+    if step_model == "expdecay":
+        def func(y, tau_m, t_n, epsilon, tau_rise):
+            tau = np.exp(y) * tau_m
+            # tau_rise = 0 (an ideal step's table) gives exp(-inf) = 0 and a
+            # zero factor, as in the JAX package
+            with np.errstate(divide="ignore"):
+                return f_basis(y, epsilon) * (1 - np.exp(-t_n / tau)
+                                              + (tau_rise / (tau_rise - tau))
+                                              * (np.exp(-t_n / tau) - np.exp(-t_n / tau_rise)))
+        return func
+    raise ValueError(f"Invalid step_model {step_model!r}")

@@ -4,9 +4,10 @@
 Host-side float64 numpy: the matrices are built once per frequency grid or
 chrono protocol and uploaded to the device by the fitter. ``invert_psd``
 (the posterior covariances' inverse) runs in torch on the tensor's device. Only the gaussian
-basis and the ``integrate_method="interp"`` scheme are implemented, and for
-chrono data galvanostatic mode with ideal steps (ROADMAP Queue 1 items 4
-and 11).
+basis and the ``integrate_method="interp"`` scheme are implemented (ROADMAP
+Queue 1 item 4); chrono data take ideal and ``expdecay`` steps, and the
+potentiostatic response is the delta-basis closed form, as in the JAX
+package.
 """
 import numpy as np
 import torch
@@ -42,22 +43,35 @@ def construct_response_matrix(basis_tau, times, step_model, step_times, step_siz
                               op_mode="galv", integrate_method="interp", interpolate_grids=None):
     """(A, A_layered): A @ x is the modelled response to the input steps,
     and A_layered (n_steps, n_times, n_tau) each step's part of it
-    (hybdrt_tpu/ops/mat1d.py:65, the quadrature bases' interp branch)."""
-    basis_mod._check_gaussian(basis_type)
-    if integrate_method != "interp":
-        raise NotImplementedError(
-            f"integrate_method={integrate_method!r}: the port implements 'interp' only")
+    (hybdrt_tpu/ops/mat1d.py:65: the potentiostatic closed form of any
+    basis, :88-93, and the quadrature bases' interp branch). Without
+    ``interpolate_grids`` the table is the one of this step model and of
+    the first step's ``tau_rise``."""
     basis_tau = np.asarray(basis_tau, dtype=float)
     times = np.asarray(times, dtype=float)
     step_times = np.asarray(step_times, dtype=float)
     step_sizes = np.asarray(step_sizes, dtype=float)
-    if interpolate_grids is None:
-        interpolate_grids = lookup_mod.generate_response_lookup(basis_type, op_mode,
-                                                                step_model, float(epsilon))
-    log_td_grid, response_grid = interpolate_grids
     # (n_steps, n_times): the time since each step
     td = times[None, :] - step_times[:, None]
     active = td > 0
+    if op_mode == "pot":
+        # The delta basis's closed form (:88-93)
+        with np.errstate(over="ignore", invalid="ignore"):
+            expo = np.exp(-td[:, :, None] / basis_tau[None, None, :])
+        a_layered = np.where((times[None, :, None] - step_times[:, None, None]) >= 0,
+                             expo, 0.0) * step_sizes[:, None, None]
+        a_layered = np.nan_to_num(a_layered, nan=0.0)
+        return np.sum(a_layered, axis=0), a_layered
+    basis_mod._check_gaussian(basis_type)
+    if integrate_method != "interp":
+        raise NotImplementedError(
+            f"integrate_method={integrate_method!r}: the port implements 'interp' only")
+    if interpolate_grids is None:
+        tr = None if step_model == "ideal" else float(np.atleast_1d(
+            0.0 if tau_rise is None else tau_rise)[0])
+        interpolate_grids = lookup_mod.generate_response_lookup(basis_type, op_mode, step_model,
+                                                                float(epsilon), tau_rise=tr)
+    log_td_grid, response_grid = interpolate_grids
     td_safe = np.where(active, td, 1.0)
     log_ratio = np.log(td_safe[:, :, None] / basis_tau[None, None, :])
     vals = np.interp(log_ratio, log_td_grid, response_grid)
@@ -77,12 +91,19 @@ def construct_integrated_derivative_matrix(basis_grid, basis_type="gaussian", or
 
 def construct_inductance_response_vector(times, step_model, step_times, step_sizes, tau_rise,
                                          op_mode="galv"):
-    """The inductance's step response (hybdrt_tpu/ops/mat1d.py:214): zero
-    for ideal steps, the only step model ported."""
-    if step_model != "ideal":
-        raise NotImplementedError(f"step_model={step_model!r}: non-ideal steps are not "
-                                  f"ported yet (ROADMAP Queue 1 item 11)")
-    return np.zeros(np.shape(times))
+    """The inductance's step response (hybdrt_tpu/ops/mat1d.py:214-226):
+    zero for ideal steps; for ``expdecay`` steps the derivative of each
+    step's rise, step_size / tau_rise exp(-(t - t_step) / tau_rise)."""
+    times = np.asarray(times, dtype=float)
+    if step_model != "expdecay":
+        return np.zeros(times.shape)
+    step_times = np.asarray(step_times, dtype=float)
+    step_sizes = np.asarray(step_sizes, dtype=float)
+    tau_rise = np.asarray(tau_rise, dtype=float)
+    td = times[None, :] - step_times[:, None]
+    with np.errstate(over="ignore"):
+        vals = (step_sizes / tau_rise)[:, None] * np.exp(-td / tau_rise[:, None])
+    return np.sum(np.where(td >= 0, vals, 0.0), axis=0)
 
 
 def construct_ohmic_response_vector(times, step_model, step_times, step_sizes, tau_rise,

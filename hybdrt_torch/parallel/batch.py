@@ -733,12 +733,19 @@ class BatchedHybridFitter:
             return np.zeros(len(v_s))
         return -np.median(v_s[:, pre], axis=1)
 
-    def _fit_plain(self, rzv):
+    def _loop_args(self, rzv):
         inp = self._loop_inputs(rzv)
-        return fitcore.qphb_fit_loop(
-            self.rzm, rzv, self.vmm, self.m_stack, self.l1v, self.lb, self.hyp, inp["x0"],
-            inp["s0"], inp["rho0"], inp["dop_rho0"], inp["init_weights"], inp["est_weights"],
-            inp["outlier_t0"], self.fcfg, **self.hybrid)
+        return (self.rzm, rzv, self.vmm, self.m_stack, self.l1v, self.lb, self.hyp, inp["x0"],
+                inp["s0"], inp["rho0"], inp["dop_rho0"], inp["init_weights"],
+                inp["est_weights"], inp["outlier_t0"], self.fcfg)
+
+    def _fit_plain(self, rzv):
+        return fitcore.qphb_fit_loop(*self._loop_args(rzv), **self.hybrid)
+
+    def _fit_history(self, rzv):
+        """(final states, history) of fitcore.qphb_fit_scan
+        (``_fit_single_history``, hybdrt_tpu/parallel/batch.py:1148)."""
+        return fitcore.qphb_fit_scan(*self._loop_args(rzv), **self.hybrid)
 
     def _fit_warm(self, rzv, warm):
         """Every lane seeded from ``warm`` in continuation mode, the vz-offset
@@ -795,8 +802,10 @@ class BatchedHybridFitter:
         result.s_vectors as device tensors. warm_from=<the previous frame's
         BatchFitResult> seeds each lane from that frame's fit, with the
         vz-offset column rebuilt from the seed iterate; it combines with
-        neither ``adaptive`` nor ``return_history``. ``return_history`` is
-        not ported (ROADMAP Queue 1 item 7)."""
+        neither ``adaptive`` nor ``return_history``. ``return_history`` also
+        returns every pass's state (``fitcore.qphb_fit_scan``), a dict of (B,
+        max_iter, ...) arrays after the result (and the states), as the JAX
+        fitter does (``hybdrt_tpu/parallel/batch.py:1206-1217``)."""
         self._check_options(adaptive, collect)
         if warm_from is not None and (adaptive or return_history):
             raise ValueError("warm_from seeds a plain whole-batch fit; it cannot be combined "
@@ -807,15 +816,19 @@ class BatchedHybridFitter:
             if v is not None:
                 raise ValueError(f"{name}: this fitter has no compaction schedule to budget; "
                                  f"every adaptive mode runs the live-lane loop")
-        if return_history:
-            raise NotImplementedError("return_history on the hybrid fitter is not ported yet "
-                                      "(ROADMAP Queue 1 item 7)")
-        if collect == "lazy" and return_states:
-            raise ValueError("collect='lazy' cannot be combined with return_states: it "
-                             "returns every field in full")
+        if return_history and adaptive:
+            raise ValueError("return_history records a whole-batch fit; use it without "
+                             "adaptive scheduling")
+        if collect == "lazy" and (return_states or return_history):
+            raise ValueError("collect='lazy' cannot be combined with return_states or "
+                             "return_history: they return every field in full")
         rzv, scale = self.scale_batch(v_batch, z_batch)
         warm = None if warm_from is None else self._warm_arrays(warm_from, len(scale), scale)
         rzv = torch.as_tensor(rzv, dtype=self.dtype, device=self.device)
+        if return_history:
+            states, history = self._fit_history(rzv)
+            out = self.collect(states, scale, return_states=return_states)
+            return (*out, history) if return_states else (out, history)
         states = self._fit_plain(rzv) if warm is None else self._fit_warm(rzv, warm)
         return self.collect(states, scale, return_states=return_states,
                             lazy=(collect == "lazy"))

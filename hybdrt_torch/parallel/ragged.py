@@ -21,6 +21,12 @@ The matrix stacks are kept once per measurement protocol (frequency grid, or
 time grid, input signal and frequency grid) on the host and gathered to the
 whole batch on the device, and the fit runs the port's live-lane loop over
 per-lane systems (``solver/fitcore.py``). One batch holds one data type.
+
+With ``qp_fused`` every warm QP of a live lane runs ``qp_max_iter_warm``
+fixed Mehrotra steps in one launch of the fused kernel
+(``ops/ip_lane.py::ip_steps_lane``) over the lanes' own (P, q, lb), the
+padded columns pinned as in the plain path; iteration 0 runs cold over every
+lane first, as in the JAX fitter (``hybdrt_tpu/parallel/ragged.py:101-106``).
 """
 from typing import NamedTuple, Optional
 
@@ -29,7 +35,7 @@ import torch
 
 from .. import preprocessing as pp
 from ..models.drt import DRT, qphb_hypers
-from ..ops import chol_lane
+from ..ops import chol_lane, ip_lane
 from ..solver import fitcore, qphb as qphb_mod
 from ..solver.qphb import QPHBConfig
 from ..utils.device import resolve_device
@@ -108,8 +114,10 @@ class BatchedRaggedFitter:
         fitter = BatchedRaggedFitter(tau_supergrid, dtype=torch.float32)
         result = fitter.fit(observations)
     where each observation is ((times, i_signal, v_signal) | None,
-    (freq, z) | None), all of one data type: EIS, chrono or hybrid
-    (galvanostatic, ideal steps).
+    (freq, z) | None), all of one data type: EIS, chrono or hybrid.
+    ``fit_kw`` are the single fit's keywords (``DRT._qphb_fit_core``), for
+    example ``downsample``; ``qp_fused`` fuses the warm QPs
+    (``qp_max_iter_warm`` defaults to 8 with it).
 
     The fitter runs on the CUDA card unless ``device="cpu"`` is given, and
     raises ``RuntimeError`` where no card is present. The JAX fitter's
@@ -136,10 +144,6 @@ class BatchedRaggedFitter:
         if fit_dop or fit_capacitance:
             raise NotImplementedError("fit_dop and fit_capacitance are not ported yet "
                                       "(ROADMAP Queue 1 item 4)")
-        if qp_fused:
-            raise NotImplementedError(
-                "qp_fused on ragged lanes (fused QPs over per-lane systems) is not ported yet "
-                "(ROADMAP Queue 1 item 7)")
         if "batch_bucket" in hyper_kw:
             raise TypeError("batch_bucket is not taken: it padded the batch only so that XLA "
                             "would not recompile, and nothing here compiles per shape")
@@ -151,6 +155,10 @@ class BatchedRaggedFitter:
         self.max_iter = max_iter
         self.xtol = xtol
         self.qp_max_iter = qp_max_iter
+        self.qp_fused = bool(qp_fused)
+        if self.qp_fused and qp_max_iter_warm is None:
+            # the fused path's fixed step count (hybdrt_tpu/parallel/ragged.py:102-106)
+            qp_max_iter_warm = 8
         self.qp_max_iter_warm = qp_max_iter_warm
         self.pred_stop = bool(pred_stop)
         self.pred_rtol = float(pred_rtol)
@@ -229,7 +237,16 @@ class BatchedRaggedFitter:
         sys_["host_chrono_wf"] = cwf
         if self._fast_path_ok() and sys_["data_type"] != "chrono":
             if sys_["data_type"] == "hybrid":
-                # The protocol's chrono state that the rescale needs
+                # The protocol's chrono state that the rescale needs, with
+                # the downsampling's sample index and antialiasing replay
+                # (:231-245)
+                downsample = bool(self.fit_kw.get("downsample", False))
+                sys_["fp_times"] = np.asarray(times, dtype=float)
+                sys_["fp_sample_index"] = np.asarray(drt.sample_index)
+                sys_["fp_filter"] = downsample and (self.fit_kw.get("downsample_kw") or {}).get(
+                    "antialiased", True)
+                sys_["fp_step_index"] = (pp.get_step_indices_from_step_times(
+                    sys_["fp_times"], drt.nonconsec_step_times) if sys_["fp_filter"] else None)
                 sys_["fp_step_times"] = np.atleast_1d(drt.step_times)
                 sys_["fp_step_sizes"] = np.atleast_1d(drt.step_sizes)
                 sys_["fp_offset_baseline"] = bool(self.fit_kw.get("offset_baseline", True))
@@ -260,13 +277,18 @@ class BatchedRaggedFitter:
         """The fast path's rescale for hybrid observations ``items`` [(v, z),
         ...] sharing a cached protocol, in one vectorized pass
         (``_hybrid_rescale`` :256 and ``_hybrid_rescale_batch`` :314): what
-        the single prep does with (v, z), in its order. The joint chrono/EIS
-        Rp estimate (``estimate_rp_batch``) sets the coefficient, impedance
-        and response scales; the scaled response less its median before the
-        first step, and the scaled spectrum, make rzv; and the ``"rp"``
-        method's weight factors are recomputed from this data."""
+        the single prep does with (v, z), in its order. With downsampling the
+        response is filtered (``filter_chrono_signal_batch``, the antialiasing
+        replay) and decimated to the protocol's samples first. The joint
+        chrono/EIS Rp estimate (``estimate_rp_batch``) sets the coefficient,
+        impedance and response scales; the scaled response less its median
+        before the first step, and the scaled spectrum, make rzv; and the
+        ``"rp"`` method's weight factors are recomputed from this data."""
         v = np.asarray([it[0] for it in items], dtype=float)
         z = np.asarray([it[1] for it in items], dtype=complex)
+        if tmpl["fp_filter"]:
+            v = pp.filter_chrono_signal_batch(tmpl["fp_times"], v, tmpl["fp_step_index"])
+        v = v[:, tmpl["fp_sample_index"]]
         st, ss = tmpl["fp_step_times"], tmpl["fp_step_sizes"]
         sample_times = np.asarray(tmpl["sample_times"])
         step_model = self._drt_kw["step_model"]
@@ -424,9 +446,7 @@ class BatchedRaggedFitter:
             tau_indices.append((int(left), int(right)))
             scales.append(s["coefficient_scale"])
 
-        if ref["weight_factor"] not in (None, 1):
-            raise NotImplementedError("weight_factor != 1: the port's fit loop applies no "
-                                      "global weight factor")
+        self.weight_factor = float(ref["weight_factor"] or 1.0)
         self._proto_index = proto_index
         self._first_of_proto = first_of_proto
         self._uniq = uniq
@@ -447,7 +467,8 @@ class BatchedRaggedFitter:
                                       vz_index=ref["vz_index"], max_iter=self.max_iter,
                                       x_rtol=self.xtol, qp_max_iter=self.qp_max_iter,
                                       qp_max_iter_warm=self.qp_max_iter_warm,
-                                      pred_stop=self.pred_stop, pred_rtol=self.pred_rtol)
+                                      pred_stop=self.pred_stop, pred_rtol=self.pred_rtol,
+                                      qp_fused=self.qp_fused)
         self._tau_indices = tau_indices
         self._scales = np.asarray(scales, dtype=float)
         self._n_rows = n_rows
@@ -562,6 +583,10 @@ class BatchedRaggedFitter:
                 f"padded QPs of n={n} parameters in {dt} exceed the lane kernels' tile rule "
                 f"(ops/chol_lane.py::admitted); the dense path for larger systems is ROADMAP "
                 f"Queue 1 item 8")
+        if dev.type == "cuda" and self.qp_fused and not ip_lane.admitted(n, dt):
+            raise NotImplementedError(
+                f"qp_fused: padded QPs of n={n} parameters in {dt} exceed the fused kernel's "
+                f"tile rule (ops/ip_lane.py::admitted); fit them with qp_fused=False")
         rho0 = self.hyp["rho_0"]
         s0 = torch.stack([torch.full((n,), float(self.hypers["s_0"][k]), dtype=dt, device=dev)
                           for k in range(cfg.k_range)])
@@ -575,7 +600,7 @@ class BatchedRaggedFitter:
         args = (arrays["rzm"], rzv, arrays["vmm"], arrays["m_stack"], arrays["l1v"],
                 arrays["lb"], self.hyp, x0, lanes(s0), lanes(rho0), dop_rho0, init_w, est,
                 out_t, self.fcfg)
-        kw = dict(masks, row_mask=arrays["row_mask"])
+        kw = dict(masks, row_mask=arrays["row_mask"], weight_factor=self.weight_factor)
         if self.data_type == "hybrid":
             kw["row_factors"] = self._row_factors(est, arrays)
             if self.fcfg.vz_offset:
@@ -609,7 +634,10 @@ class BatchedRaggedFitter:
         """Fit EIS observations of mixed grids as one batch; returns a
         RaggedFitResult (with ``return_states``, also the final per-lane
         state). ``observations`` None fits the systems given to
-        ``from_systems``.
+        ``from_systems``. ``return_history`` also returns every pass's state
+        (``fitcore.qphb_fit_scan``), a dict of (B, max_iter, ...) arrays
+        after the result (and the states), as the JAX fitter does
+        (:1000-1012); it cannot be combined with ``adaptive``.
 
         adaptive=False, True and "staged" all run every lane in the port's
         live-lane loop, which steps only the lanes still live, so no lane
@@ -628,9 +656,9 @@ class BatchedRaggedFitter:
             if v is not None:
                 raise ValueError(f"{name}: this fitter has no compaction schedule to budget; "
                                  f"every adaptive mode runs the live-lane loop")
-        if return_history:
-            raise NotImplementedError("return_history on the ragged fitter is not ported yet "
-                                      "(ROADMAP Queue 1 item 7)")
+        if return_history and adaptive:
+            raise ValueError("return_history is a fixed-length scan; it cannot be combined "
+                             "with staged compaction")
         if observations is None:
             if self._given_systems is None:
                 raise ValueError("no observations given, and the fitter was not built "
@@ -639,6 +667,11 @@ class BatchedRaggedFitter:
         else:
             batch = self.prepare(observations)
         args, kw = self._loop_args(self._device_arrays(batch))
+        if return_history:
+            states, history = fitcore.qphb_fit_scan(*args, **kw)
+            out = self.collect(states, return_states=return_states,
+                               row_factors=kw.get("row_factors"))
+            return (*out, history) if return_states else (out, history)
         states = fitcore.qphb_fit_loop(*args, **kw)
         return self.collect(states, return_states=return_states,
                             row_factors=kw.get("row_factors"))

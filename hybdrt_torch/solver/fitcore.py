@@ -15,7 +15,14 @@ Hybrid (chrono + EIS) fits add two steps to each pass
 weights times the chrono/EIS row factors, and after the pass the design's
 vz-offset column is rewritten from the new iterate. That column differs per
 lane; it is a pure function of x, so the loop carries it (B, M) beside the
-state and puts it into the (shared or per-lane) design for each pass.
+state and puts it into the (shared or per-lane) design for each pass. A
+chrono fit with the scaled GP background (``FitConfig.bkg_scaled``,
+``:150-156``) carries its background column the same way, rewritten after
+each pass from the GP-filtered chrono residual.
+
+A global weight factor (``LaneSystem.weight_factor``) scales the QP's
+weights from iteration 1 of a fresh fit and from iteration 0 in
+continuation mode (``:89-94``).
 """
 from dataclasses import dataclass, replace
 from typing import Optional
@@ -59,6 +66,11 @@ class FitConfig:
     # in either mode
     continue_mode: bool = False
     min_iter: int = 2
+    # Scaled GP background (a chrono or hybrid single fit): design column
+    # bkg_index is rewritten each pass, on the first num_chrono rows, from
+    # the GP-filtered chrono residual (LaneSystem.rm_bkg)
+    bkg_scaled: bool = False
+    bkg_index: int = -1
 
 
 @dataclass
@@ -69,11 +81,13 @@ class FitCarry:
     y_prev2: Optional[torch.Tensor] = None
     # Each lane's vz-offset design column (B, M) (None without vz_offset)
     vz_col: Optional[torch.Tensor] = None
+    # Each lane's scaled-background design column (B, M) (None without it)
+    bkg_col: Optional[torch.Tensor] = None
 
     def take(self, idx):
         pick = lambda v: None if v is None else v[idx]
         return FitCarry(self.state.map(lambda v: v[idx]), pick(self.y_prev),
-                        pick(self.y_prev2), pick(self.vz_col))
+                        pick(self.y_prev2), pick(self.vz_col), pick(self.bkg_col))
 
     def put(self, idx, part):
         def put(full, sub):
@@ -83,7 +97,16 @@ class FitCarry:
             out[idx] = sub
             return out
         return FitCarry(self.state.map(put, part.state), put(self.y_prev, part.y_prev),
-                        put(self.y_prev2, part.y_prev2), put(self.vz_col, part.vz_col))
+                        put(self.y_prev2, part.y_prev2), put(self.vz_col, part.vz_col),
+                        put(self.bkg_col, part.bkg_col))
+
+    def design(self, rzm, fcfg):
+        """The design of this pass: ``rzm`` with the carried columns put in."""
+        if self.vz_col is not None:
+            rzm = with_vz_column(rzm, self.vz_col, fcfg.vz_index)
+        if self.bkg_col is not None:
+            rzm = with_vz_column(rzm, self.bkg_col, fcfg.bkg_index)
+        return rzm
 
 
 @dataclass
@@ -99,7 +122,11 @@ class LaneSystem:
     row, and the vz-offset column's sources: ``rzm_vz`` (the design with its
     baseline columns zeroed), ``vz_strength`` and ``vz_sign`` (+1 on chrono
     rows, -1 on EIS rows). Each is shared (rzm_vz (M, N), the others (M,))
-    or per lane (a leading lane dimension), whatever the design is."""
+    or per lane (a leading lane dimension), whatever the design is.
+
+    ``weight_factor`` is the global weight factor, a scalar or a (M,)
+    tensor (None: 1, nothing multiplied); ``rm_bkg`` (C, C) the scaled
+    background's GP smoothing operator on the C chrono rows."""
     rzm: torch.Tensor
     vmm: torch.Tensor
     m_stack: torch.Tensor
@@ -112,6 +139,8 @@ class LaneSystem:
     rzm_vz: Optional[torch.Tensor] = None
     vz_strength: Optional[torch.Tensor] = None
     vz_sign: Optional[torch.Tensor] = None
+    weight_factor: Optional[torch.Tensor] = None
+    rm_bkg: Optional[torch.Tensor] = None
 
     @property
     def per_lane(self):
@@ -123,7 +152,8 @@ class LaneSystem:
         def pick(a, lane_dims):
             return a[idx] if a is not None and a.dim() == lane_dims else a
         hybrid = dict(row_factors=pick(self.row_factors, 2), rzm_vz=pick(self.rzm_vz, 3),
-                      vz_strength=pick(self.vz_strength, 2), vz_sign=pick(self.vz_sign, 2))
+                      vz_strength=pick(self.vz_strength, 2), vz_sign=pick(self.vz_sign, 2),
+                      weight_factor=pick(self.weight_factor, 2), rm_bkg=self.rm_bkg)
         if not self.per_lane:
             return replace(self, **hybrid)
         return LaneSystem(self.rzm[idx], self.vmm[idx],
@@ -155,20 +185,23 @@ def with_vz_column(rzm, vz_col, vz_index):
 
 def _loop_body(carry: FitCarry, sys_: LaneSystem, rzv, est_weights, hyp, fcfg: FitConfig,
                warm_mode="auto"):
-    # The JAX package scales the weights by a global weight factor, from
-    # iteration 1 in a fresh fit and from iteration 0 in continuation mode;
-    # the port's fits take a factor of 1 (hybdrt_tpu/parallel/batch.py:380;
-    # models/drt.py and parallel/ragged.py raise for another), so there is
-    # nothing to scale here
     st = carry.state
-    rzm, m_stack = sys_.rzm, sys_.m_stack
-    if carry.vz_col is not None:
-        rzm = with_vz_column(rzm, carry.vz_col, fcfg.vz_index)
-    st_in = st
+    m_stack = sys_.m_stack
+    rzm = carry.design(sys_.rzm, fcfg)
+    weights = st.weights
     if sys_.row_factors is not None:
         # Hybrid: the QP sees the weights times the chrono/EIS factors; the
         # state keeps them unfactored (hybdrt_tpu/solver/fitcore.py:78-88)
-        st_in = replace(st, weights=st.weights * sys_.row_factors)
+        weights = weights * sys_.row_factors
+    if sys_.weight_factor is not None:
+        # The global weight factor, from iteration 1 of a fresh fit and from
+        # iteration 0 in continuation mode (:89-94); a factor of 1 is left
+        # out, as multiplying by it changes no bit
+        if fcfg.continue_mode:
+            weights = weights * sys_.weight_factor
+        else:
+            weights = torch.where((st.it > 0)[:, None], weights * sys_.weight_factor, weights)
+    st_in = st if weights is st.weights else replace(st, weights=weights)
     fused = fcfg.qp_max_iter_warm if fcfg.qp_fused and warm_mode == "warm" else None
     st_new, _ = qphb.iterate_qphb(st_in, rzv, rzm, sys_.vmm, m_stack, m_stack[..., 1, :, :],
                                   sys_.l1v, sys_.lb, est_weights, hyp, fcfg.cfg,
@@ -189,6 +222,17 @@ def _loop_body(carry: FitCarry, sys_: LaneSystem, rzv, est_weights, hyp, fcfg: F
         xmx = torch.stack([qphb._xmx(x_drt, m_stack[..., k, ns:, ns:])
                            for k in range(fcfg.cfg.k_range)], dim=1)
         st_new.xmx_norms = torch.where((st.it == 0)[:, None], xmx, st_new.xmx_norms)
+
+    bkg_col = carry.bkg_col
+    if bkg_col is not None:
+        # The scaled background's column from the GP-filtered chrono
+        # residual of the new iterate (:150-156); the prediction below
+        # reads the rewritten design
+        nc = fcfg.num_chrono
+        resid = (rzv - qphb._mv(rzm, st_new.x))[:, :nc]
+        bkg_col = torch.zeros_like(bkg_col)
+        bkg_col[:, :nc] = qphb._mv(sys_.rm_bkg, resid)
+        rzm = with_vz_column(rzm, bkg_col, fcfg.bkg_index)
 
     y_prev, y_prev2 = carry.y_prev, carry.y_prev2
     if fcfg.pred_stop:
@@ -212,7 +256,8 @@ def _loop_body(carry: FitCarry, sys_: LaneSystem, rzv, est_weights, hyp, fcfg: F
         # The vz-offset column rewritten from the new iterate, after the
         # prediction above used this pass's design (:166-175)
         vz_col = sys_.vz_column(st_new.x)
-    return FitCarry(state=st_new, y_prev=y_prev, y_prev2=y_prev2, vz_col=vz_col)
+    return FitCarry(state=st_new, y_prev=y_prev, y_prev2=y_prev2, vz_col=vz_col,
+                    bkg_col=bkg_col)
 
 
 def _check_config(fcfg: FitConfig):
@@ -245,7 +290,7 @@ def qphb_fit_loop(rzm, rzv, vmm, m_stack, l1v, lb, hyp, x0, s0, rho0, dop_rho0,
     so that qphb_fit_loop_from_state can resume the exact trajectory. With
     fcfg.qp_fused, iteration 0 is peeled off (peel_cold_start). A 3-D
     ``rzm`` is a per-lane system, with its masks and floor (``LaneSystem``).
-    ``hybrid`` are the hybrid keywords of qphb_fit_loop_from_state."""
+    ``hybrid`` are the other keywords of qphb_fit_loop_from_state."""
     state0 = initial_state(x0, s0, rho0, dop_rho0, init_weights, outlier_t0,
                            fcfg.cfg.k_range)
     return qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp,
@@ -260,7 +305,8 @@ def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_w
                              peel_cold_start=False, seed_pred_history=False,
                              return_pred_history=False, on_pass=None, col_mask=None,
                              row_mask=None, var_floor=None, row_factors=None, rzm_vz=None,
-                             vz_strength=None, vz_sign=None, rebuild_vz=False):
+                             vz_strength=None, vz_sign=None, rebuild_vz=False,
+                             weight_factor=None, rm_bkg=None, return_design=False):
     """Run (or resume) the QPHB outer loop from an explicit per-lane state.
 
     The loop body is Markovian in the state, so resuming a loop that stopped
@@ -294,13 +340,24 @@ def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_w
     -1 on the rest). The loop starts from the design's own vz column, zero
     in a fresh fit; ``rebuild_vz`` rebuilds it from state0.x first, as a fit
     seeded from another frame's iterate does
-    (``hybdrt_tpu/parallel/batch.py:374-377``)."""
+    (``hybdrt_tpu/parallel/batch.py:374-377``).
+
+    ``weight_factor`` (a float or tensor, None for 1) is the global weight
+    factor; ``rm_bkg`` the scaled background's GP operator, with
+    ``fcfg.bkg_scaled``. ``return_design`` also returns the design of the
+    last pass with the carried columns rewritten from the final iterate, the
+    JAX loop's final ``rzm``."""
     _check_config(fcfg)
     fit_vz = fcfg.data_type == "hybrid" and fcfg.vz_offset
     if fit_vz and vz_sign is None:
         vz_sign = chrono_eis_sign(fcfg.num_chrono, rzv.shape[-1], rzv)
+    if weight_factor is not None and not torch.is_tensor(weight_factor):
+        weight_factor = None if np.all(np.asarray(weight_factor) == 1) else torch.as_tensor(
+            np.asarray(weight_factor, dtype=float), dtype=rzv.dtype, device=rzv.device)
+    if fcfg.bkg_scaled and rm_bkg is None:
+        raise ValueError("fcfg.bkg_scaled needs rm_bkg")
     sys_ = LaneSystem(rzm, vmm, m_stack, l1v, lb, col_mask, row_mask, var_floor, row_factors,
-                      rzm_vz, vz_strength, vz_sign)
+                      rzm_vz, vz_strength, vz_sign, weight_factor, rm_bkg)
     if not sys_.per_lane and not (col_mask is None and row_mask is None and var_floor is None):
         raise ValueError("col_mask, row_mask and var_floor belong to per-lane systems "
                          "(a 3-D rzm)")
@@ -326,7 +383,11 @@ def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_w
         y0 = y02 = qphb._mv(rzm0, state0.x)
     else:
         y0 = y02 = torch.zeros_like(rzv)
-    carry = FitCarry(state=state0, y_prev=y0, y_prev2=y02, vz_col=vz_col)
+    bkg_col = None
+    if fcfg.bkg_scaled:
+        # the design's own background column (zero in a fresh fit)
+        bkg_col = rzm[..., fcfg.bkg_index].expand(rzv.shape[0], -1).clone()
+    carry = FitCarry(state=state0, y_prev=y0, y_prev2=y02, vz_col=vz_col, bkg_col=bkg_col)
     if peel_cold_start:
         carry = _loop_body(carry, sys_, rzv, est_weights, hyp, fcfg, warm_mode="cold")
         if on_pass is not None:
@@ -348,9 +409,12 @@ def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_w
             carry = carry.put(idx, part)
         if on_pass is not None:
             on_pass(carry.state)
+    out = (carry.state,)
     if return_pred_history:
-        return carry.state, carry.y_prev, carry.y_prev2
-    return carry.state
+        out += (carry.y_prev, carry.y_prev2)
+    if return_design:
+        out += (carry.design(rzm, fcfg),)
+    return out if len(out) > 1 else out[0]
 
 
 # The fields of the per-iteration history (hybdrt_tpu/solver/fitcore.py:328-332)
@@ -398,7 +462,7 @@ class History:
 
 
 def qphb_fit_scan(rzm, rzv, vmm, m_stack, l1v, lb, hyp, x0, s0, rho0, dop_rho0, init_weights,
-                  est_weights, outlier_t0, fcfg: FitConfig, **hybrid):
+                  est_weights, outlier_t0, fcfg: FitConfig, return_design=False, **hybrid):
     """The fit loop that records every iteration's state: the batched
     counterpart of ``hybdrt_tpu/solver/fitcore.py::qphb_fit_scan``. Returns
     (final_state, history), history a dict of numpy arrays of shape (B,
@@ -411,11 +475,16 @@ def qphb_fit_scan(rzm, rzv, vmm, m_stack, l1v, lb, hyp, x0, s0, rho0, dop_rho0, 
     with ``warm_mode="auto"`` and peels no cold pass, so with ``qp_fused``
     every QP here runs the unfused solver (the warm ones capped at
     qp_max_iter_warm), as there; without it this is ``qphb_fit_loop``'s
-    loop exactly. ``hybrid`` are the hybrid keywords of
-    qphb_fit_loop_from_state."""
+    loop exactly. ``hybrid`` are the keywords of qphb_fit_loop_from_state
+    (the hybrid ones, the masks, ``weight_factor``, ``rm_bkg``); with
+    ``return_design`` the final design comes third."""
     fcfg = replace(fcfg, qp_fused=False)
     state0 = initial_state(x0, s0, rho0, dop_rho0, init_weights, outlier_t0, fcfg.cfg.k_range)
     hist = History(state0, fcfg.max_iter)
-    final = qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_weights,
-                                     fcfg, on_pass=hist.record, **hybrid)
+    out = qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_weights,
+                                   fcfg, on_pass=hist.record, return_design=return_design,
+                                   **hybrid)
+    final = out[0] if return_design else out
+    if return_design:
+        return final, hist.finish(final), out[1]
     return final, hist.finish(final)

@@ -337,6 +337,44 @@ def evaluate_lml(x_hat, rm, rv, m_stack, hyp, l1_lambda_vector, rho_vector, s_ve
         - alpha * torch.log(beta)
 
 
+def get_raw_hyperparams(hyp, rho_vector, xmx_norms):
+    """Effective -> raw gamma-prior hyperparameters of rho and s
+    (hybdrt_tpu/solver/qphb.py:357-369); rho_vector and xmx_norms (..., K)."""
+    l2l0, dw = hyp["l2_lambda_0"], hyp["derivative_weights"]
+    rho_alpha, rho_0 = hyp["rho_alpha"], hyp["rho_0"]
+    s_alpha, s_0 = hyp["s_alpha"], hyp["s_0"]
+    rho_alpha_raw = xmx_norms * l2l0 * dw * rho_alpha
+    rho_beta_raw = xmx_norms * l2l0 * dw * (rho_alpha / rho_0)
+    s_alpha_raw = l2l0 * dw * rho_vector * (s_alpha - 1) + 1
+    s_beta_raw = l2l0 * dw * rho_vector * ((s_alpha - 1) / s_0)
+    return rho_alpha_raw, rho_beta_raw, s_alpha_raw, s_beta_raw
+
+
+def _log_pdf_gamma(x, alpha, beta):
+    return (alpha - 1) * torch.log(x) - beta * x + alpha * torch.log(beta) \
+        - torch.special.gammaln(alpha)
+
+
+def evaluate_posterior_lp(x, rm, rv, m_stack, hyp, l1_lambda_vector, rho_vector, s_vectors,
+                          weights, xmx_norms, cfg: QPHBConfig):
+    """Joint log posterior of (x, rho, s) (hybdrt_tpu/solver/qphb.py:372-388)
+    for each row of x (S, N) under one fit's system: rm (M, N), rv and
+    weights (M,), rho_vector and xmx_norms (K,), s_vectors (K, N). The QP
+    (P, q) is built once and read by every row -> (S,)."""
+    p_matrix, q_vector = calculate_pq(rm, rv[None], m_stack, hyp, l1_lambda_vector,
+                                      rho_vector[None], s_vectors[None], weights[None], cfg)
+    wrv = rv * weights
+    lp_x = -0.5 * _xmx(x, p_matrix[0]) - torch.matmul(x, q_vector[0]) - 0.5 * torch.dot(wrv, wrv)
+    rho_a, rho_b, s_a, s_b = get_raw_hyperparams(hyp, rho_vector, xmx_norms)
+    active = hyp["derivative_weights"] > 0
+    lp_rho = torch.sum(torch.where(active, _log_pdf_gamma(rho_vector, rho_a, rho_b), 0.0))
+    lp_s = 0.0
+    for k in range(len(rho_vector)):
+        lp_s_k = torch.sum(_log_pdf_gamma(s_vectors[k], s_a[k], s_b[k]))
+        lp_s = lp_s + torch.where(active[k], lp_s_k, 0.0)
+    return lp_x + lp_rho + lp_s
+
+
 # ------------------------------------------------------------------
 # Convergence (hybdrt_tpu/solver/qphb.py:394)
 # ------------------------------------------------------------------

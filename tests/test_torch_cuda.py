@@ -1103,3 +1103,94 @@ def test_device_event_sums_match_key_averages(cuda):
     for key, (ns, count) in raw.items():
         assert ka[key][1] == count, key
         assert abs(ka[key][0] - ns) <= 1e-3 * count, (key, ka[key][0], ns)
+
+
+def test_fused_ragged_on_card_matches_cpu(cuda):
+    """The fused ragged fit (``qp_fused=True``) of 24 of the het leg's
+    spectra and 16 of its hybrid observations in float64 on the card against
+    the CPU: the same iterations, x within 1e-6 of each observation's max;
+    in float32 ``ip_steps_lane`` launched."""
+    kw = dict(qp_fused=True, qp_max_iter=20, qp_max_iter_warm=4)
+    for obs in (make_het_eis()[0][:24], make_het_hybrid()[0][:16]):
+        r_cpu = BatchedRaggedFitter(TAU_SUPER, device="cpu", **kw).fit(obs)
+        r_gpu = BatchedRaggedFitter(TAU_SUPER, **kw).fit(obs)
+        np.testing.assert_array_equal(r_gpu.n_iter, r_cpu.n_iter)
+        for k in range(len(obs)):
+            assert np.max(np.abs(r_gpu.x[k] - r_cpu.x[k])) <= 1e-6 * np.max(np.abs(r_cpu.x[k]))
+        ip_lane.reset_launch_counts()
+        r32 = BatchedRaggedFitter(TAU_SUPER, dtype=torch.float32, **kw).fit(obs)
+        assert ip_lane.LAUNCHES["ip_steps_lane"] > 0 and np.all(np.isfinite(r32.x_raw))
+
+
+def test_ragged_and_hybrid_histories_on_card(cuda):
+    """return_history on the card (float32): the result bit for bit the fit
+    without it, the last entry the final state; in float64 the same
+    iteration counts at every entry as the CPU's history and the final
+    entry within 1e-6 of each observation's max, as
+    test_ragged_on_card_matches_cpu holds the fit (the lanes that run to
+    max_iter sit on limit cycles, along which the card's and the CPU's
+    rounding part by a few 1e-6 mid-history)."""
+    obs = make_het_eis()[0][:16]
+    t, i, f, v, z = make_hybrid_batch(16)
+    cases = ((lambda **k: BatchedRaggedFitter(TAU_SUPER, **k), (obs,)),
+             (lambda **k: BatchedHybridFitter(t, i, f, **k), (v, z)))
+    for make, args in cases:
+        res, hist = make(dtype=torch.float32).fit(*args, return_history=True)
+        plain = make(dtype=torch.float32).fit(*args)
+        np.testing.assert_array_equal(res.x_raw, plain.x_raw)
+        np.testing.assert_array_equal(res.n_iter, plain.n_iter)
+        np.testing.assert_array_equal(hist["x"][:, -1], res.x_raw)
+        r64, h64 = make().fit(*args, return_history=True)
+        _, h_cpu = make(device="cpu").fit(*args, return_history=True)
+        np.testing.assert_array_equal(h64["it"], h_cpu["it"])
+        np.testing.assert_array_equal(h64["x"][:, -1], r64.x_raw)
+        for lane in range(len(r64.n_iter)):
+            want = h_cpu["x"][lane, -1]
+            assert np.max(np.abs(h64["x"][lane, -1] - want)) <= 1e-6 * np.max(np.abs(want))
+
+
+def test_item5_options_on_card_match_cpu(cuda):
+    """series_neg and weight_factor fits of the quick start's spectrum in
+    float64 on the card against the CPU (the same iterations, x within 1e-6
+    of max |x|), and the MAP samples on the CPU fit's state with the CPU's
+    Laplace sigma: x within 1e-6, lp within 1e-8 relative, through #1-#3."""
+    import hybdrt_torch.models.drt as drt_mod
+    from hybdrt_torch.ops import mat1d
+    from hybdrt_torch.utils.probe import quickstart_eis
+
+    f, z = quickstart_eis()
+    for kw in (dict(series_neg=True), dict(weight_factor=2)):
+        gpu = DRT(warn=False).fit_eis(f, z, **kw)
+        cpu = DRT(warn=False, device="cpu").fit_eis(f, z, **kw)
+        assert gpu.qphb_params["n_iter"] == cpu.qphb_params["n_iter"]
+        x, x_c = gpu.fit_parameters["x"], cpu.fit_parameters["x"]
+        assert np.max(np.abs(x - x_c)) <= 1e-6 * np.max(np.abs(x_c))
+    cpu = DRT(warn=False, device="cpu").fit_eis(f, z)
+    s_cpu = cpu.generate_map_samples()
+    p_inv = mat1d.invert_psd(torch.as_tensor(cpu.qphb_params["p_matrix"]))
+    real = drt_mod.mat1d.invert_psd
+    drt_mod.mat1d.invert_psd = lambda a, use_cholesky=True: p_inv.to(a.device)
+    try:
+        chol_lane.reset_launch_counts()
+        s = DRT(warn=False).set_attributes(cpu.get_attributes()).generate_map_samples()
+    finally:
+        drt_mod.mat1d.invert_psd = real
+    assert all(chol_lane.LAUNCHES[k] > 0 for k in FIT_KERNELS)
+    assert np.max(np.abs(s["x"] - s_cpu["x"])) <= 1e-6 * np.max(np.abs(s_cpu["x"]))
+    np.testing.assert_allclose(s["lp"], s_cpu["lp"], rtol=1e-8)
+
+
+def test_item11_options_on_card_match_cpu(cuda):
+    """fit_chrono with expdecay steps, downsampling and the three GP
+    background modes in float64 on the card against the CPU on het protocol
+    0's record: the same iterations, x within 1e-6 of max |x|."""
+    (t, i, v), _ = make_het_hybrid()[0][0]
+    bkg = {"subtract_background": True, "estimate_background_kw": {"gp_kw": {"n_grid": 4}}}
+    cases = [({"step_model": "expdecay"}, {}), ({}, {"downsample": True})] + [
+        ({}, dict(bkg, background_type=b)) for b in ("static", "dynamic", "scaled")]
+    for ctor, kw in cases:
+        gpu = DRT(warn=False, **ctor).fit_chrono(t, i, v, **kw)
+        cpu = DRT(warn=False, device="cpu", **ctor).fit_chrono(t, i, v, **kw)
+        assert gpu.qphb_params["n_iter"] == cpu.qphb_params["n_iter"], (ctor, kw)
+        x, x_c = gpu.fit_parameters["x"], cpu.fit_parameters["x"]
+        assert np.max(np.abs(x - x_c)) <= 1e-6 * np.max(np.abs(x_c)), (ctor, kw)

@@ -180,18 +180,10 @@ def _refits(**fit_kw):
     (_refits(remove_outliers=True, outlier_p=0.05), "item 9"),
     (_refits(outlier_p=0.05), "item 9"),
     (_refits(return_outlier_index=True), "item 9"),
-    (lambda: hybdrt_torch.DRT(step_model="expdecay", device="cpu"), "item 11"),
-    (_refits(subtract_background=True), "item 11"),
-    (lambda: hybdrt_torch.DRT(device="cpu")._qphb_fit_core(
-        *hybrid_data()[:3], None, None, downsample=True), "item 11"),
-    (lambda: hybdrt_torch.DRT(chrono_mode="pot", device="cpu"), "item 11"),
     (lambda: hybdrt_torch.DRT(device="cpu").fit_chrono(*hybrid_data()[:3], outlier_p=0.05),
      "item 9"),
-    (_refits(series_neg=True), "series_neg"),
-    (_refits(weight_factor=2.0), "weight_factor"),
 ], ids=["dop", "capacitance", "cole_cole", "trapz", "remove_outliers", "outlier_p",
-        "outlier_index", "vz_offset", "background", "chrono_data", "hybrid", "chrono",
-        "series_neg", "weight_factor"])
+        "outlier_index", "chrono"])
 def test_unported_options_raise(make, item):
     with pytest.raises(NotImplementedError, match=item):
         make()

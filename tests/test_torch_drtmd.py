@@ -180,9 +180,6 @@ def _raises(item, fn):
 UNPORTED = {
     "mesh": ("10", lambda md: md.fit_all(batched=True, mesh=object())),
     "resolve mesh": ("10", lambda md: md.resolve_group("g", batched=True, mesh=object())),
-    "store_attr_categories": ("5", lambda md: DRTMD(
-        md.tau_supergrid, store_attr_categories=["config", "fit_core", "detail"],
-        device="cpu")),
     "fit_type=pfrt": ("9", lambda md: DRTMD(md.tau_supergrid, fit_type="pfrt",
                                             device="cpu")),
     "fixed_basis_nu": ("4", lambda md: DRTMD(md.tau_supergrid, fixed_basis_nu=[1.0],

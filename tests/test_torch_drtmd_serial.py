@@ -16,6 +16,9 @@ tests/test_torch_drt_posterior.py); covariances by tests/test_torch_cov.py's bou
 (``probe.cov_bound``, ``probe.variance_errors``); probabilities within what the two
 maps' means and variances allow through the normal CDF, point by point
 (``probe.prob_bounds``), each bound at most ``probe.PROB_HOLD`` (0.05).
+The serial fit's options (``ignore_errors``, ``store_attr_categories``) and
+the refusal of nonlinear configurations are in
+tests/test_torch_drtmd_serial_options.py.
 """
 import pickle
 import subprocess
@@ -170,31 +173,6 @@ def test_add_observation_fit(serial):
         np.testing.assert_array_equal(m2.obs_special[key], md.obs_special[key])
 
 
-def test_ignore_errors():
-    """tests/test_mapping.py:97-104 through the port, with the JAX
-    package's failure record."""
-    outs = []
-    for cls, kw in ((JaxDRTMD, {}), (DRTMD, {"device": "cpu"})):
-        md = cls(TAU_SUPER, psi_dim_names=["T"], warn=False, print_progress=False, **kw)
-        md.add_observation([0.0], None, (FREQ, _ten_spectra()[0]))
-        md.add_observation([1.0], None, (FREQ[:5], np.full(5, np.nan + 0j)))
-        md.fit_all(ignore_errors=True)
-        assert md.obs_fit_status[0] and not md.obs_fit_status[1]
-        assert md.obs_ignore_flag[1]
-        outs.append(md)
-    mj, mt = outs
-    sj, st = mj.fit_convergence_summary(), mt.fit_convergence_summary()
-    for k in ("converged", "n_iter"):
-        np.testing.assert_array_equal(st[k], sj[k])
-    for k in ("num_fitted", "num_failed", "num_converged"):
-        assert st[k] == sj[k]
-    assert st["errors"][0] is None and st["errors"][1] is not None
-    assert mt.predict_param_cov([0, 1])[1] is None
-    assert np.isnan(mt.predict_x_cov([1])).all() and np.isnan(mt.predict_drt_var([1])).all()
-    with pytest.raises(ValueError):
-        mt.get_fit(1)
-
-
 def test_fit_convergence_summary(serial, batched):
     for maps in (serial["mixed"], batched["mixed"], batched["eis"]):
         sj, st = (m.fit_convergence_summary() for m in maps)
@@ -202,19 +180,6 @@ def test_fit_convergence_summary(serial, batched):
             np.testing.assert_array_equal(st[k], sj[k])
         for k in ("num_fitted", "num_failed", "num_converged", "errors"):
             assert st[k] == sj[k]
-
-
-@pytest.mark.parametrize("cats", [["config"], ["fit_core"], ["config", "fit_core"]])
-def test_store_attr_categories(cats):
-    tau, obs = _observations("eis")
-    keys = []
-    for cls, kw in ((JaxDRTMD, {}), (DRTMD, {"device": "cpu"})):
-        md = cls(tau, store_attr_categories=cats, warn=False, print_progress=False, **kw)
-        md.add_observation(*obs[0], fit=True)
-        keys.append(set(md.obs_fit_attr[0]))
-    assert keys[0] == keys[1]
-    with pytest.raises(NotImplementedError, match=r"item 5(?!\d)"):
-        DRTMD(tau, store_attr_categories=["config", "detail"], device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["ten", "mixed"])
@@ -297,28 +262,10 @@ def test_jax_pickle_loads_without_jax(serial, tmp_path):
     assert isinstance(cfg, QPHBConfig) and not cfg.nonlin
 
 
-def test_nonlinear_configuration_refused():
-    """A nonlinear configuration, the port's or the JAX package's read from
-    a pickle or a ragged system, raises (ROADMAP Queue 1 item 9)."""
-    from hybdrt_tpu.solver.qphb import QPHBConfig as JaxQPHBConfig
-    from hybdrt_torch.mapping.drtmd import _JaxQPHBConfig
-    from hybdrt_torch.parallel.ragged import _port_system
-    jcfg = JaxQPHBConfig(num_special=2, nonlin=True, half_size=3)
-    for make in (lambda: QPHBConfig(num_special=2, nonlin=True),
-                 lambda: QPHBConfig(num_special=2, half_size=3),
-                 lambda: _JaxQPHBConfig(*jcfg),
-                 lambda: _port_system({"data_type": "eis", "cfg": jcfg}),
-                 lambda: _port_system({"data_type": "eis", "cfg": jcfg._asdict()})):
-        with pytest.raises(NotImplementedError, match=r"item 9(?!\d)"):
-            make()
-    assert _port_system({"data_type": "eis", "cfg": jcfg._replace(
-        nonlin=False, half_size=0)})["cfg"] == QPHBConfig(num_special=2)
-
-
 def test_jax_array_in_a_pickle_is_named(serial, tmp_path):
-    """A JAX object other than the configuration cannot be read without
-    JAX: the port raises, naming the attribute that holds it (ROADMAP
-    Queue 3 item 15)."""
+    """Without JAX a JAX array in a pickle (a "detail" history holds them)
+    is read as the numpy array it holds; any other JAX object raises,
+    naming the attribute that holds it (ROADMAP Queue 3 item 15)."""
     mj, _ = serial["mixed"]
     att = mj.get_attributes()
     att["obs_fit_attr"] = list(att["obs_fit_attr"])
@@ -328,15 +275,22 @@ def test_jax_array_in_a_pickle_is_named(serial, tmp_path):
     path = tmp_path / "jax_array.pkl"
     with open(path, "wb") as f:
         pickle.dump(att, f)
+    att["obs_fit_attr"][4] = dict(att["obs_fit_attr"][4], qphb_history=[{"dtype": jnp.float32}])
+    path_other = tmp_path / "jax_object.pkl"
+    with open(path_other, "wb") as f:
+        pickle.dump(att, f)
     code = _JAX_FREE + (
+        f"md = DRTMD.from_source({str(path)!r}, device='cpu')\n"
+        "x = md.obs_fit_attr[3]['qphb_params']['x_raw']\n"
+        "assert type(x) is np.ndarray and x.tolist() == [1.0, 2.0], x\n"
         "try:\n"
-        f"    DRTMD.from_source({str(path)!r}, device='cpu')\n"
+        f"    DRTMD.from_source({str(path_other)!r}, device='cpu')\n"
         "except ValueError as err:\n"
         "    print(err)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
-    assert "obs_fit_attr" in res.stdout and "[3]['qphb_params']['x_raw']" in res.stdout
+    assert "obs_fit_attr" in res.stdout and "[4]['qphb_history'][0]['dtype']" in res.stdout
     assert "Queue 3 item 15" in res.stdout
 
 

@@ -189,10 +189,9 @@ def test_final_design_matrices(batch):
     ({"phase_budgets": (12, 6), "adaptive": "staged"}, ValueError, "phase_budgets"),
     ({"staged_capacities": (2,)}, ValueError, "staged_capacities"),
     ({"collect": "eager"}, ValueError, "collect="),
-    ({"return_history": True}, NotImplementedError, "item 7"),
     ({"warm_from": "seed", "adaptive": True}, ValueError, "warm_from"),
     ({"return_states": True, "collect": "lazy"}, ValueError, "lazy"),
-], ids=["adaptive", "budgets", "capacities", "collect", "history", "warm_adaptive", "lazy_states"])
+], ids=["adaptive", "budgets", "capacities", "collect", "warm_adaptive", "lazy_states"])
 def test_option_checks(kw, exc, match):
     """The fitter fails fast on a bad option (tests/test_parallel.py:551)."""
     times = np.concatenate([np.linspace(-0.005, -0.0005, 4), np.logspace(-5, 0, 20)])

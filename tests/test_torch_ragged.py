@@ -16,7 +16,7 @@ import hybdrt_tpu
 import hybdrt_torch
 from hybdrt_tpu.parallel.ragged import BatchedRaggedFitter as JaxRagged
 from hybdrt_torch import BatchedEISFitter, BatchedRaggedFitter
-from hybdrt_torch.utils.probe import hybrid_data, make_het_eis
+from hybdrt_torch.utils.probe import make_het_eis
 
 torch.set_num_threads(1)
 
@@ -215,17 +215,12 @@ def test_final_predictions(mixed):
      ValueError),
     (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu").fit(o, staged_buckets=2), ValueError),
     (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu").fit(o, adaptive="fast"), ValueError),
-    (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu").fit(o, return_history=True),
-     NotImplementedError),
-    (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu", qp_fused=True), NotImplementedError),
     (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu", mesh=object()), NotImplementedError),
     (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu", fit_dop=True), NotImplementedError),
-    (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu", fit_kw={"downsample": True}).fit(
-        [(hybrid_data()[:3], o[0][1])]), NotImplementedError),
     (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu", batch_bucket=True), TypeError),
     (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu", l2_lambda=1.0), ValueError),
-], ids=["phase_budgets", "capacities", "buckets", "adaptive", "history", "fused", "mesh",
-        "dop", "hybrid", "batch_bucket", "hyper_typo"])
+], ids=["phase_budgets", "capacities", "buckets", "adaptive", "mesh", "dop", "batch_bucket",
+        "hyper_typo"])
 def test_rejects(make, err):
     obs = _shared_grid_obs()[:2]
     with pytest.raises(err):
