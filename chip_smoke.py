@@ -236,7 +236,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
     probability within their conditioning bounds, rss, llh and bic within
     1e-9 on one fit state and lml within its log-det bound, and the quick
     start's truth (peaks within 0.1 decade, Rp within ``QS_R_MARGIN``);
-    (b) ``make_het_map(96, 32)`` fitted by ``fit_all()`` (serial, float64),
+    (b) ``make_het_map(48, 16)`` fitted by ``fit_all()`` (serial, float64),
     once: the wall, median wall per EIS and hybrid fit, launches and QP
     routes per fit; every observation fitted and finite, obs_drt_var
     finite and >= 0, every fit's QPs through #1-#3, and the share of
@@ -250,7 +250,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
     kernel; x within ``DENSE_X_BOUND`` and the objective within
     ``DENSE_OBJ_RTOL`` of ``batched=True``'s, the first 13 windows at the
     CPU's iterations and x within 1e-8; then the same on phase 14's 1024
-    observations (its first 256 where 26 windows' wall scaled to 205 passes
+    observations (its first 256 where 13 windows' wall scaled to 205 passes
     ``DENSE_BIG_S``); (e) ``predict_drt_var``, ``predict_x_var``,
     ``predict_curv_prob`` and ``predict_peak_prob`` of (b)'s map: finite,
     probabilities in [0, 1], 8 observations within their bounds of the CPU's;
@@ -281,7 +281,37 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
     CPU (the same n_iter, x within ``REST_X_TOL``), ``chrono_mode="pot"``
     refused as in the JAX package, and the ragged fitter's ``downsample``
     fast path over the het leg's 256 hybrid observations (its first
-    ``REST_CPU_OBS`` against the CPU).
+    ``REST_CPU_OBS`` against the CPU);
+18. the distribution of phasances (DOP): (a) ``BatchedEISFitter(fit_dop=True)``
+    on ``make_dop_batch(8192, 71)`` (n = 143) in float32 with the bench's
+    knobs, plain and fused, ``fit(adaptive="staged", collect="lazy")`` twice,
+    the counters reset before the second call: every kernel of the path
+    launched, x and x_dop finite, median relative residual < 0.02, the plain
+    fit's converged share at least ``DOP_CONVERGED_FLOOR``, and the first 64
+    spectra against the CPU's float64 fit within ``DOP_SPREAD_FACTOR`` times
+    the JAX package's own float32 spread on them (``DOP_F32_SPREAD``, from
+    ``tests/dop_f32_spread.py``); (b) #1-#3 on the plain fit's first QP at
+    (8192, 143) in float32 and on a float64 fit's at (1024, 143), held as
+    phase 12 holds them (``hold_first_qp``), #4 on the first Mehrotra step's
+    systems in both precisions, #5 on the fused fit's first warm QP
+    (``hold_fused_steps``), and the five kernels, their plain versions and
+    library calls timed at (8192, 143); (c) ``DRT.fit_eis`` with the DOP on
+    tests/test_parallel.py:292's and tests/test_edge_cases.py:118's spectra,
+    with the capacitance on a capacitive one and ``fit_hybrid`` with the
+    DOP, float64 on the card against the CPU (the same n_iter, x, x_dop and
+    C_inv within ``DOP_X_TOL`` of max |x|; ``predict_dop`` and
+    ``predict_dop_ci``); (d) ``make_het_map(768, 256, fit_dop=True)``
+    through ``DRTMD``: ``fit_all(batched=True, float32)`` twice (both halves
+    through the ragged fitter), phase 14's guards, the first
+    ``DOP_CPU_OBS`` rebuilt (P, q) against the CPU's, the coupled f32
+    resolve of the whole map and the windowed f64 resolve of its first
+    ``DOP_WINDOWED_OBS`` observations once each (KKT, no warning, #4 and #2
+    launched, finite x and x_dop; ``DOP_CPU_WINDOWS`` windows solved again
+    on the CPU, the same IP iterations and x within ``DOP_SPREAD_FACTOR``
+    times their spread on the card under a one-ulp move of P) and
+    ``predict_dop`` finite. The other tau bases and
+    ``trapz`` are not ported yet (ROADMAP Queue 1 item 4), so no phase runs
+    them.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches from the path it serves: phase 5 and phase 13's timed fits for the
@@ -290,8 +320,10 @@ three fit Cholesky kernels, phase 6 and phase 13's fused fit for
 ``chol_factor_lane``, phase 14's timed fit and resolves for #1-#4, phase 16's
 quick-start fit and serial ``fit_all`` for #1-#3, phase 17's fused map's
 second call for #1-#3 and #5, and its single, sample and ragged fits for
-#1-#3, phase 9's study for the four layout kernels, phase 10's study for
-``ip_steps_loop``);
+#1-#3, phase 18's timed DOP fits, single fits and DOP map for #1-#5, phase
+9's study for the four layout kernels, phase 10's study for
+``ip_steps_loop``; the max_abs_err of #1-#4 takes in phase 18b's first DOP
+QPs too);
 the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -2159,24 +2191,28 @@ def phase_postproc(md, fit_wall):
 # is 3x the larger miss (0.0148), rounded up
 QS_PEAK_TAU, QS_PEAK_DECADES = (1e-3, 1e-1), 0.1
 QS_PEAK_R, QS_R_MARGIN = (1.0, 0.8), 0.05
-# The serial het map: make_het_map(96, 32) fitted by fit_all(), against the
+# The serial het map: make_het_map(48, 16) fitted by fit_all(), against the
 # same observations fitted by fit_all(batched=True, dtype=float64) with the
 # DRT's own solver settings (batch_fit_kw={}): the share of observations at
-# the same iteration count with obs_x within 1e-6 of max |x|, 91 of 128 with
-# the port on a CPU (all 128 at the same count; PERF.md §6), which the
-# card's share may not fall below
-SERIAL_MAP = (96, 32)
-SERIAL_SHARE_FLOOR = 91 / 128
+# the same iteration count with obs_x within 1e-6 of max |x|, 49 of 64 with
+# the port on a CPU (63 of 64 at the same count; tests/serial_map_floor.py),
+# which the card's share may not fall below. The map is half the depth it
+# had through PR 19 (96, 32), where the card read the CPU's 91 of 128: its
+# serial fit took 115-181 s of the whole script
+SERIAL_MAP = (48, 16)
+SERIAL_SHARE_FLOOR = 49 / 64
 # The default (dense) resolve against the batched windows of the same map:
 # both land on one flat optimum in different places, in the JAX package too
 # (ROADMAP Queue 3 item 16): the objectives agree to DENSE_OBJ_RTOL of |f|
-# (3.3e-12 on a CPU), and x to 3x the CPU's max |dx| / max |x| on this map,
-# 2.521e-3 (PERF.md §6)
+# (1.8e-13 on a CPU), and x to 3x the CPU's max |dx| / max |x| on this map,
+# 1.1757e-3 (tests/serial_map_floor.py); all 13 of its windows solved again
+# on the CPU
 DENSE_OBJ_RTOL = 1e-10
-DENSE_X_BOUND = 7.564e-3
+DENSE_X_BOUND = 3.527e-3
 DENSE_CPU_WINDOWS = 13
-# The 1024-observation default resolve runs where 26 windows' wall scaled to
-# 205 stays within this (s), else on the first 256 observations
+# The 1024-observation default resolve runs where the serial map's 13
+# windows' wall scaled to 205 stays within this (s), else on the first 256
+# observations
 DENSE_BIG_S = 30.0
 
 
@@ -2943,6 +2979,436 @@ def phase_rest(het_md):
     return walls, launches
 
 
+# Phase 18: the distribution of phasances (DOP). The main leg's spectra with
+# a constant-phase term each (probe.make_dop_batch), n = 93 + 50 nu functions
+DOP_N = 143
+DOP_F64_B = 1024
+# tests/dop_f32_spread.py: the JAX package's own float32 DOP fit against its
+# float64 fit on the same first 64 spectra, on a CPU (Rp median, p95 and max
+# relative error, max |dR_inf|, the functional fit), the larger of its plain
+# and fused fits' (fit(z)'s schedule; adaptive="staged" gives the same to
+# three digits). R_inf moved by 2.24e-2 on the plain path and 2.43e-3 on the
+# fused one there, by 1.35e-2 and 5.39e-3 in the port's own staged float32
+# fits on the CPU, and by 2.91e-3 and 2.12e-2 in the card's: which path a
+# lane's R_inf trades with the DOP on turns on rounding. The card's
+# float32 fit is held to DOP_SPREAD_FACTOR times each against the CPU's
+# float64 fit, as tests/test_f32_accuracy.py's bounds are about 3x its
+# measured maxima. x_dop itself is not determined in float32 (the JAX
+# package's moves by 4.3 max |x| there, trading mass with the DRT): it is
+# reported and held finite
+DOP_F32_SPREAD = dict(rp_median=3.055e-3, rp_p95=1.075e-2, rp_max=2.112e-2, r_inf=2.244e-2,
+                      z=4.359e-3)
+DOP_SPREAD_FACTOR = 3
+# the share of lanes the plain DOP fit must converge (every one of the 64 in
+# both precisions in the JAX package's fits of tests/dop_f32_spread.py)
+DOP_CONVERGED_FLOOR = 0.99
+# 18c's single fits: the card's float64 fit against the CPU's, as phase 17
+DOP_X_TOL = 1e-6
+# 18d: the DOP het map's first observations rebuilt on the CPU, the
+# observations its windowed f64 resolve takes, and its windows solved again
+# on the CPU
+DOP_CPU_OBS = 16
+DOP_WINDOWED_OBS = 256
+DOP_CPU_WINDOWS = 1
+# the windows' x where the one-ulp spread is below it (16d's)
+DOP_WINDOW_X_TOL = 1e-8
+
+
+def dop_spread(fitter, res, ref, r64, z):
+    """The card's float32 DOP fit ``res`` against the CPU's float64 ``r64``
+    on the first 64 spectra of ``z``: {metric: value} on all 64 lanes, as
+    tests/dop_f32_spread.py measures the JAX package's, and the lanes that
+    stop at the same iteration."""
+    rp32, rp64 = fitter.predict_r_p(res)[:64], ref.predict_r_p(r64)
+    rel_rp = np.abs(rp32 - rp64) / np.abs(rp64)
+    zrel = np.max(np.abs(fitter.predict_z(res)[:64] - ref.predict_z(r64)), axis=1) \
+        / np.max(np.abs(z[:64]), axis=1)
+    xmax = np.max(np.abs(r64.x), axis=1)
+    return dict(rp_median=float(np.median(rel_rp)), rp_p95=float(np.percentile(rel_rp, 95)),
+                rp_max=float(np.max(rel_rp)),
+                r_inf=float(np.max(np.abs(res.r_inf[:64] - r64.r_inf))),
+                z=float(np.max(zrel)),
+                x_dop=float(np.max(np.max(np.abs(res.x_dop[:64] - r64.x_dop), axis=1) / xmax)),
+                same=int(np.sum(res.n_iter[:64] == r64.n_iter)))
+
+
+def phase_dop_slice(fused):
+    """Phase 18a: ``BatchedEISFitter(fit_dop=True)`` on ``make_dop_batch(8192,
+    71)`` (n = 143) in float32 with the bench's knobs, ``fit(adaptive=
+    "staged", collect="lazy")`` twice, the counters reset before the second
+    call. Returns (launches, wall, the first QP's #1-#3 inputs, the first
+    warm QP's #5 inputs)."""
+    import hybdrt_torch
+    from hybdrt_torch.ops import chol_lane as cl, ip_lane
+    from hybdrt_torch.utils.probe import make_dop_batch
+
+    label = "dop 18a " + ("fused" if fused else "plain")
+    freq, z = make_dop_batch(B_BENCH, N_FREQ)
+    kw = dict(FIT_KW, qp_fused=fused)
+    fitter = hybdrt_torch.BatchedEISFitter(freq, fit_dop=True, dtype=torch.float32,
+                                           device="cuda", **kw)
+    check(fitter.rzm.shape[1] == DOP_N, f"{label}: n = {fitter.rzm.shape[1]}")
+    with FirstKernelInputs() as first, FirstFusedInputs() as first_fused:
+        first_s = timed(lambda: fitter.fit(z, adaptive="staged", collect="lazy"))
+    cl.reset_launch_counts()
+    ip_lane.reset_launch_counts()
+    t0 = time.time()
+    res = fitter.fit(z, adaptive="staged", collect="lazy")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {**cl.LAUNCHES, **ip_lane.LAUNCHES}
+    path = [*FIT_KERNELS, "ip_steps_lane"] if fused else FIT_KERNELS
+    check(all(launches[k] > 0 for k in path), f"{label}: every kernel of the path launched")
+    if fused:
+        check(launches["ip_steps_lane"] <= int(res.n_iter.max()),
+              f"{label}: ip_steps_lane at most once a pass")
+    else:
+        check(launches["ip_steps_lane"] == 0, f"{label}: the plain path does not fuse")
+    check(bool(np.all(np.isfinite(res.x)) and np.all(np.isfinite(res.x_dop))
+               and np.all(np.isfinite(res.r_inf))), f"{label}: finite x, x_dop and R_inf")
+    med_rel = float(np.median(np.abs(fitter.predict_z(res) - z) / np.abs(z)))
+    conv = int(res.converged.sum())
+    print(f"{label}: B={B_BENCH} n={DOP_N} staged lazy f32: first call {first_s:.2f} s, second "
+          f"call {wall:.4f} s -> {B_BENCH / wall:.1f} spectra/s; converged {conv}/{B_BENCH}; "
+          f"median |z_hat - z|/|z| {med_rel:.4g}; n_iter p50/p90/max "
+          f"{np.percentile(res.n_iter, [50, 90, 100]).tolist()}; launches {launches}")
+    check(med_rel < 0.02, f"{label}: median relative residual {med_rel}")
+    if not fused:
+        check(conv >= DOP_CONVERGED_FLOOR * B_BENCH, f"{label}: converged {conv}/{B_BENCH}")
+
+    ref = hybdrt_torch.BatchedEISFitter(freq, fit_dop=True, dtype=torch.float64, device="cpu",
+                                        **kw)
+    t0 = time.time()
+    r64 = ref.fit(z[:64], adaptive="staged")
+    got = dop_spread(fitter, res, ref, r64, z)
+    jax_f32 = DOP_F32_SPREAD
+    print(f"  f32 card vs f64 CPU, 64 spectra (CPU fit {time.time() - t0:.1f} s; "
+          f"{got['same']} lanes at the same iteration): "
+          + ", ".join(f"{k} {got[k]:.3g} (JAX f32 {jax_f32[k]:.3g})" for k in jax_f32)
+          + f"; max |dx_dop| / max |x| {got['x_dop']:.3g}, reported")
+    for k, v in jax_f32.items():
+        check(got[k] <= DOP_SPREAD_FACTOR * v,
+              f"{label}: {k} {got[k]:.3g} within {DOP_SPREAD_FACTOR}x the JAX package's own "
+              f"float32 spread {v:.3g}")
+    return launches, wall, first, first_fused.inputs
+
+
+def phase_dop_kernels(first32, fused_inputs):
+    """Phase 18b: #1-#5 against their plain versions at n = 143 on a DOP
+    fit's systems: #1-#3 on the plain fit's first QP at (8192, 143) in f32
+    and on a float64 fit's at (1024, 143), each held as phase 12 holds them
+    (TOL and the backward errors); #4 on the first Mehrotra step's system in
+    both precisions; #5 on the fused fit's first warm QP in both precisions
+    (``hold_fused_steps``); each kernel, its plain version and its library
+    call timed at (8192, 143) f32. Returns ({kernel: max abs err of #1-#4},
+    {kernel: timing dict})."""
+    import hybdrt_torch
+    from hybdrt_torch.ops import chol_lane as cl, ip_lane
+    from hybdrt_torch.utils.probe import make_dop_batch
+
+    errs = hold_first_qp("DOP f32", first32)
+    freq, z = make_dop_batch(B_BENCH, N_FREQ)
+    f64 = hybdrt_torch.BatchedEISFitter(freq, fit_dop=True, dtype=torch.float64, device="cuda",
+                                        **dict(FIT_KW, max_iter=1))
+    with FirstKernelInputs() as first64:
+        f64.fit(z[:DOP_F64_B])
+    check(tuple(first64.inputs["chol_factor_solve_lane"][0].shape) == (DOP_F64_B, DOP_N, DOP_N),
+          "18b float64 first QP at (1024, 143)")
+    for k, e in hold_first_qp("DOP f64", first64).items():
+        errs[k] = max(errs[k], e)
+    errs["chol_factor_lane"] = 0.0
+    for label, inp in (("f32", first32.inputs), ("f64", first64.inputs)):
+        h = inp["chol_factor_solve_lane"][0]
+        h_in = h.clone()
+        l, l_p = cl.chol_factor_lane(h), cl.chol_factor_lane_plain(h)
+        d = (torch.tril(l) - l_p).abs()
+        check(bool(torch.all(d <= TOL + TOL * l_p.abs())) and bool(torch.equal(h, h_in)),
+              f"18b chol_factor_lane {label}: err {float(d.max())}, input unchanged")
+        errs["chol_factor_lane"] = max(errs["chol_factor_lane"], float(d.max()))
+        print(f"  chol_factor_lane vs plain on the first DOP QP's system {tuple(h.shape)} "
+              f"{label}: max abs err {float(d.max()):.3g}")
+    # held by the plain steps' own float32 spread on these systems, not by
+    # TOL, as phases 13 and 17 hold #5 on a fit's QPs
+    hold_fused_steps("DOP 18b", fused_inputs)
+    steps = fused_inputs[6]
+
+    h, rhs = first32.inputs["chol_factor_solve_lane"]
+    l, r2 = first32.inputs["chol_solve_factored_lane"]
+    b, n = rhs.shape
+    mat, vec, low = h.numel() * 4, rhs.numel() * 4, lower_bytes(b, n)
+    l_p = cl.chol_factor_lane_plain(h)
+    turns = in_turns({"chol_factor_solve_lane": lambda: cl.chol_factor_solve_lane(h, rhs),
+                      "chol_solve_lane": lambda: cl.chol_solve_lane(h, rhs),
+                      "chol_solve_factored_lane": lambda: cl.chol_solve_factored_lane(l, r2),
+                      "chol_factor_lane": lambda: cl.chol_factor_lane(h)})
+    times = {
+        "chol_factor_solve_lane": dict(
+            ms=float(np.mean(turns["chol_factor_solve_lane"])),
+            plain_ms=cuda_ms(lambda: cl.chol_factor_solve_lane_plain(h, rhs)), library_ms=None,
+            bound=bound(2 * mat + 2 * vec, chol_ops(b, n) + 2 * solve_ops(b, n))),
+        "chol_solve_factored_lane": dict(
+            ms=float(np.mean(turns["chol_solve_factored_lane"])),
+            plain_ms=cuda_ms(lambda: cl.chol_solve_factored_lane_plain(l_p, r2)),
+            library_ms=cuda_ms(lambda: torch.cholesky_solve(r2[:, :, None], l_p)),
+            bound=bound(low + 2 * vec, 2 * solve_ops(b, n))),
+        "chol_solve_lane": dict(
+            ms=float(np.mean(turns["chol_solve_lane"])),
+            plain_ms=cuda_ms(lambda: cl.chol_solve_lane_plain(h, rhs)),
+            library_ms=cuda_ms(lambda: torch.linalg.solve(h, rhs)),
+            bound=bound(low + 2 * vec, chol_ops(b, n) + 2 * solve_ops(b, n))),
+        "chol_factor_lane": dict(
+            ms=float(np.mean(turns["chol_factor_lane"])),
+            plain_ms=cuda_ms(lambda: cl.chol_factor_lane_plain(h)),
+            library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(h)),
+            bound=bound(2 * mat, chol_ops(b, n))),
+    }
+    args = fused_inputs[:6]
+    bf = args[0].shape[0]
+    times["ip_steps_lane"] = dict(
+        ms=cuda_ms(lambda: ip_lane.ip_steps_lane(*args, steps)),
+        plain_ms=cuda_ms(lambda: ip_lane.ip_steps_lane_plain(*args, steps)), library_ms=None,
+        bound=ip_steps_bound(bf, n, steps))
+    for k, t in times.items():
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        shape = f"B={bf}, {steps} steps" if k == "ip_steps_lane" else f"B={b}"
+        print(f"  DOP {k}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {lib}, "
+              f"bound {t['bound'][0]:.4f} ms by {t['bound'][1]} ({shape}, n={n}, f32, the "
+              f"first DOP QP's systems, CUDA events, mean of 20)")
+    return errs, times
+
+
+def dop_spectra():
+    """18c's spectra: tests/test_parallel.py:292's and
+    tests/test_edge_cases.py:118's, and a ZARC with a series 1 F capacitor."""
+    rng = np.random.default_rng(0)
+    f1 = np.logspace(5, -2, 51)
+    w = 2j * np.pi * f1
+    z1 = 0.4 + 1.0 / (1 + (w * 1e-2) ** 0.9) + 0.05 * (w ** -0.5)
+    z1 = z1 + rng.normal(0, 1e-3, 51) + 1j * rng.normal(0, 1e-3, 51)
+    rng = np.random.default_rng(8)
+    f2 = np.logspace(5, -1, 51)
+    z2 = 0.4 + 1.0 / (1 + (2j * np.pi * f2 * 1e-2) ** 0.9) + 2j * np.pi * f2 * 1e-6
+    z2 = z2 + rng.normal(0, 1e-3, 51) + 1j * rng.normal(0, 1e-3, 51)
+    rng = np.random.default_rng(5)
+    f3 = np.logspace(5, -1, 41)
+    w = 2j * np.pi * f3
+    z3 = 0.4 + 1.0 / (1 + (w * 1e-3) ** 0.9) + 1 / w
+    z3 = z3 + rng.normal(0, 1e-3, 41) + 1j * rng.normal(0, 1e-3, 41)
+    return {"parallel": (f1, z1), "inductive": (f2, z2), "capacitive": (f3, z3)}
+
+
+def phase_dop_single():
+    """Phase 18c: ``DRT(fit_dop=True).fit_eis`` in float64 on the card on
+    tests/test_parallel.py:292's and tests/test_edge_cases.py:118's spectra,
+    ``fit_capacitance`` on a capacitive one and ``fit_hybrid(fit_dop=True)``
+    on hybrid_data's record, each against the CPU's fit (the same n_iter, x
+    and x_dop within DOP_X_TOL of max |x|), with ``predict_dop`` and
+    ``predict_dop_ci`` finite and the card's within the fit tolerance of the
+    CPU's. Returns ({label: warm wall}, launches of #1-#3)."""
+    import hybdrt_torch
+    from hybdrt_torch.ops import basis as basis_mod, chol_lane as cl
+
+    walls, total = {}, {k: 0 for k in FIT_KERNELS}
+    spectra = dop_spectra()
+    cases = {"dop parallel": ({"fit_dop": True}, "eis", spectra["parallel"]),
+             "dop inductive": ({"fit_dop": True}, "eis", spectra["inductive"]),
+             "capacitance": ({"fit_capacitance": True}, "eis", spectra["capacitive"]),
+             "dop hybrid": ({"fit_dop": True}, "hybrid", hybrid_data())}
+
+    def fit(device, ctor, kind, data):
+        drt = hybdrt_torch.DRT(warn=False, device=device, **ctor)
+        return drt.fit_eis(*data) if kind == "eis" else drt.fit_hybrid(*data)
+
+    for label, (ctor, kind, data) in cases.items():
+        fit(None, ctor, kind, data)
+        cl.reset_launch_counts()
+        t0 = time.time()
+        card = fit(None, ctor, kind, data)
+        torch.cuda.synchronize()
+        walls[label] = time.time() - t0
+        launches = launch_counts()
+        for k in FIT_KERNELS:
+            total[k] += launches[k]
+        cpu = fit("cpu", ctor, kind, data)
+        xm = float(np.max(np.abs(cpu.fit_parameters["x"])))
+        keys = [k for k in ("x", "x_dop", "C_inv", "R_inf") if k in cpu.fit_parameters]
+        dx = {k: float(np.max(np.abs(np.asarray(card.fit_parameters[k])
+                                     - np.asarray(cpu.fit_parameters[k])))) / xm for k in keys}
+        n_it = (card.qphb_params["n_iter"], cpu.qphb_params["n_iter"])
+        line = (f"dop 18c: {label} ({kind}, n = {card.qphb_params['p_matrix'].shape[0]}) f64 "
+                f"on the card {walls[label]:.4f} s warm; launches {launches}; n_iter card / CPU "
+                f"{n_it}; max |d| / max |x| " + ", ".join(f"{k} {v:.3g}" for k, v in dx.items()))
+        if card.fit_dop:
+            dop, (lo, hi) = card.predict_dop(), card.predict_dop_ci()
+            d_dop = float(np.max(np.abs(dop - cpu.predict_dop()))) / xm
+            # a linear map of x_dop: its rows' |entries| summed carry x_dop's
+            # tolerance
+            em = basis_mod.func_eval_matrix_host(card.basis_nu, np.linspace(-1, 1, 201),
+                                                 card.nu_basis_type, card.nu_epsilon, 0)
+            gain = float(np.max(np.sum(np.abs(em), axis=1)))
+            line += f"; predict_dop max |d| / max |x| {d_dop:.3g}"
+            check(np.all(np.isfinite(dop)) and np.all(np.isfinite(lo)) and np.all(hi >= lo),
+                  f"18c {label}: predict_dop and predict_dop_ci finite, ordered")
+            check(d_dop < gain * DOP_X_TOL, f"18c {label}: predict_dop against the CPU's")
+        print(line)
+        check(all(launches[k] > 0 for k in FIT_KERNELS), f"18c {label} launched #1-#3")
+        check(n_it[0] == n_it[1] and max(dx.values()) < DOP_X_TOL,
+              f"18c {label}: the CPU's iterations and coefficients")
+    return walls, total
+
+
+def phase_dop_map():
+    """Phase 18d: ``make_het_map(768, 256, fit_dop=True)`` through DRTMD on
+    the card: ``fit_all(batched=True, float32)`` (both halves through the
+    ragged fitter, padded n = 144), phase 14's guards (every observation
+    fitted, finite, rss >= 0, finite llh; the rebuild on the card against
+    the CPU's on the first observations), ``resolve_group`` coupled in f32 on
+    the whole map and windowed in f64 on its first DOP_WINDOWED_OBS
+    observations (finite, x_dop resolved, #4 and #2 launched, the coupled
+    KKT within tolerance, DOP_CPU_WINDOWS windows at the CPU's iterations
+    and x within DOP_SPREAD_FACTOR times their spread under a one-ulp move
+    of P),
+    ``predict_dop`` finite. Returns
+    ({label: launches}, {label: wall})."""
+    import warnings
+    from hybdrt_torch.mapping.drtmd import STATE_KEYS, load_fit_state
+    from hybdrt_torch.ops import chol_lane as cl
+    from hybdrt_torch.utils.probe import make_het_map
+
+    launches, walls = {}, {}
+    md = make_het_map(768, 256, fit_dop=True)
+    first = timed(lambda: md.fit_all(batched=True, dtype=torch.float32))
+    cl.reset_launch_counts()
+    walls["fit_all"] = timed(lambda: md.fit_all(refit=True, batched=True, dtype=torch.float32))
+    launches["fit_all"] = dict(cl.LAUNCHES)
+    fitters = {type(f).__name__ for f in md._fitter_cache.values()}
+    n_pad = sorted(f._uniq["rzm"].shape[-1] for f in md._fitter_cache.values())
+    n = md.num_obs
+    n_iter = np.array([a["n_iter"] for a in md.obs_fit_attr])
+    print(f"dop 18d: DRTMD(fit_dop=True).fit_all(batched=True, float32) of {n} observations: "
+          f"first call {first:.3f} s, refit {walls['fit_all']:.4f} s; fitters {sorted(fitters)}, "
+          f"padded n {n_pad}; n_iter mean {n_iter.mean():.2f}; launches "
+          f"{launches['fit_all']}")
+    check(fitters == {"BatchedRaggedFitter"}, "18d: both halves through the ragged fitter")
+    check(bool(md.obs_fit_status.all()), f"18d: {int(md.obs_fit_status.sum())}/{n} fitted")
+    check(bool(np.all(np.isfinite(md.obs_x)) and np.all(np.isfinite(md.obs_special["x_dop"]))
+               and np.all(md.obs_rss >= 0) and np.all(np.isfinite(md.obs_llh))),
+          "18d: finite x and x_dop, rss >= 0, finite llh")
+    check(all(launches["fit_all"][k] > 0 for k in FIT_KERNELS), "18d fit_all launched #1-#3")
+
+    sub = np.arange(DOP_CPU_OBS)
+    fits = md.get_fits_batched(sub)
+    cpu = load_fit_state(make_het_map(768, 256, device="cpu", fit_dop=True),
+                         {k: getattr(md, k) for k in STATE_KEYS})
+    cpu_fits = cpu.get_fits_batched(sub)
+    dpq = max(float(np.max(np.abs(fits[i].fit_parameters[k] - cpu_fits[i].fit_parameters[k]))
+                    / np.max(np.abs(cpu_fits[i].fit_parameters[k])))
+              for i in sub for k in ("p_matrix", "q_vector"))
+    print(f"dop 18d: the first {len(sub)} (P, q) rebuilt on the card against the CPU: max "
+          f"|d(P, q)| / max |(P, q)| {dpq:.3g}")
+    check(dpq < 1e-9, f"18d rebuild on the card within 1e-9 of the CPU's: {dpq}")
+
+    # the coupled f32 resolve of the whole map, and the windowed f64 resolve
+    # of its first DOP_WINDOWED_OBS observations (as 16d resolves phase 14's
+    # map), its windows captured; each form runs once, its counters reset
+    from hybdrt_torch.mapping import resolve as resolve_mod
+    captured, real = [], resolve_mod.solve_resolve_batch
+
+    def capture(systems, **kw):
+        out = real(systems, **kw)
+        captured.append((systems, kw, out))
+        return out
+
+    groups = list(md.obs_group_id)
+    forms = {"coupled f32": (dict(coupled=True, dtype=torch.float32), n),
+             "windowed f64": (dict(batched=True, dtype=torch.float64), DOP_WINDOWED_OBS)}
+    for label, (kw, n_obs) in forms.items():
+        md.obs_group_id = ["g" if i < n_obs else "rest" for i in range(n)]
+        resolve_mod.solve_resolve_batch = capture
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                cl.reset_launch_counts()
+                walls[label] = timed(lambda: md.resolve_group("g", psi_sort_dims=["i"], **kw))
+        finally:
+            md.obs_group_id = groups
+            resolve_mod.solve_resolve_batch = real
+        launches[label] = dict(cl.LAUNCHES)
+        info = md.resolve_info
+        n_it = np.atleast_1d(info["n_iter"])
+        moved = float(np.max(np.abs(md.obs_special_resolved["x_dop"][:n_obs]
+                                    - md.obs_special["x_dop"][:n_obs])))
+        print(f"dop 18d: resolve {label} of {n_obs} observations: {walls[label]:.4f} s (the "
+              f"first call); IP iterations max {int(n_it.max())}"
+              + (f", KKT residual {info['kkt_residual']:.4g} (tolerance {info['kkt_tol']:.4g})"
+                 if info["coupled"] else f" median {np.median(n_it):.0f} over "
+                 f"{info['windows']} windows")
+              + f"; x_dop moved by up to {moved:.3g}; launches {launches[label]}")
+        check(not caught, f"18d resolve {label}: no warning ({[str(w.message) for w in caught]})")
+        check(launches[label]["chol_factor_lane"] > 0
+              and launches[label]["chol_solve_factored_lane"] > 0,
+              f"18d resolve {label} launched #4 and #2")
+        check(bool(np.all(np.isfinite(md.obs_x_resolved[:n_obs]))
+                   and np.all(np.isfinite(md.obs_special_resolved["x_dop"][:n_obs]))),
+              f"18d resolve {label}: finite x and x_dop")
+        if info["coupled"]:
+            check(info["kkt_residual"] <= info["kkt_tol"], f"18d {label}: KKT within tolerance")
+    check(len(captured) == 1, "18d the windowed resolve solved its windows in one batch")
+    # the window(s) that took the card fewest iterations solved again on the
+    # CPU (the windows of a batch are independent), and on the card with P
+    # moved one ulp (ULP_SEEDS): the card's x is held within
+    # DOP_SPREAD_FACTOR times the spread of that move, or DOP_WINDOW_X_TOL
+    systems, kw, (xs, info) = captured[0]
+    order = np.argsort(info["n_iter"], kind="stable")[:DOP_CPU_WINDOWS]
+    chosen = [systems[i] for i in order]
+    k = len(chosen)
+    moved_p = [(one_ulp(torch.as_tensor(p), seed).numpy(), *rest)
+               for seed in ULP_SEEDS for p, *rest in chosen]
+    x_moved, _ = real(chosen + moved_p, **kw)
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+    spread = max(rel(x_moved[k + j], x_moved[j % k]) for j in range(len(moved_p)))
+    bound = max(DOP_WINDOW_X_TOL, DOP_SPREAD_FACTOR * spread)
+    t0 = time.time()
+    xc, info_c = real(chosen, **dict(kw, device="cpu"))
+    same = [int(info["n_iter"][i]) == int(info_c["n_iter"][j]) for j, i in enumerate(order)]
+    dxs = [rel(xs[i], xc[j]) for j, i in enumerate(order)]
+    print(f"  window(s) {order.tolist()} on the CPU ({time.time() - t0:.2f} s): IP iterations "
+          f"card {[int(info['n_iter'][i]) for i in order]}, CPU {info_c['n_iter'].tolist()}; "
+          f"max |dx| / max |x| {max(dxs):.3g}, the card's spread with P moved one ulp "
+          f"{spread:.3g} (bound {bound:.3g})")
+    check(all(same) and max(dxs) <= bound,
+          "18d windows at the CPU's iterations, x within the one-ulp spread")
+    dop = md.predict_dop()
+    check(dop.shape == (n, 201) and bool(np.all(np.isfinite(dop))), "18d predict_dop finite")
+    return launches, walls
+
+
+def phase_dop():
+    """Phase 18 (18a-18d). Returns (walls, {kernel: launches}, {kernel: max
+    abs err}, {kernel: timing at n = 143})."""
+    t_phase = time.time()
+    launches = {k: 0 for k in (*FIT_KERNELS, "ip_steps_lane", "chol_factor_lane")}
+    walls = {}
+    l_plain, walls["plain B=8192"], first32, _ = phase_dop_slice(fused=False)
+    l_fused, walls["fused B=8192"], _, fused_inputs = phase_dop_slice(fused=True)
+    for counts in (l_plain, l_fused):
+        for k in launches:
+            launches[k] += counts.get(k, 0)
+    errs, times = phase_dop_kernels(first32, fused_inputs)
+    w_single, l_single = phase_dop_single()
+    walls.update(w_single)
+    map_launches, w_map = phase_dop_map()
+    walls.update({f"map {k}": w for k, w in w_map.items()})
+    for counts in [l_single, *map_launches.values()]:
+        for k in launches:
+            launches[k] += counts.get(k, 0)
+    print(f"dop: phase {time.time() - t_phase:.1f} s; launches {launches}")
+    return walls, launches, errs, times
+
+
 def main():
     phase_card()
     phase_build()
@@ -2971,6 +3437,11 @@ def main():
     rest_walls, rest_launches = phase_rest(het_md)
     for k, n in rest_launches.items():
         launches[k] += n
+    dop_walls, dop_launches, dop_err, dop_times = phase_dop()
+    for k, n in dop_launches.items():
+        launches[k] += n
+    for k, e in dop_err.items():
+        max_err[k] = max(max_err[k], e)
     for k, e in {**ragged_err, **hybrid_err}.items():
         max_err[k] = max(max_err[k], e)
     for k, n in hybrid_launches.items():
@@ -3003,6 +3474,10 @@ def main():
                                                   for k, w in default_walls.items()))
     print("the rest of the fit surface: " + ", ".join(f"{k} {w:.4f} s"
                                                      for k, w in rest_walls.items()))
+    print("DOP: " + ", ".join(f"{k} {w:.4f} s" for k, w in dop_walls.items())
+          + "; kernels at n = 143: " + ", ".join(f"{k} {t['ms']:.4f} ms (bound "
+                                                 f"{t['bound'][0]:.4f})"
+                                                 for k, t in dop_times.items()))
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu, "launches": launches[k],
          "max_abs_err": max_err[k], "ms": times[k]["ms"], "plain_ms": times[k]["plain_ms"],

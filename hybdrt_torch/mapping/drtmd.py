@@ -36,9 +36,10 @@ from scipy import ndimage
 from scipy.special import gammaln, ndtr
 
 from .. import preprocessing as pp
-from ..models.drt import DRT, data_offset_parameters
+from ..models.drt import (DRT, data_offset_parameters, default_basis_nu, default_nu_epsilon,
+                          special_slice)
 from ..ops import basis as basis_mod
-from ..ops import mat1d
+from ..ops import mat1d, phasance
 from ..parallel.batch import BatchedEISFitter, BatchedHybridFitter
 from ..parallel.ragged import BatchedRaggedFitter
 from ..solver.qphb import QPHBConfig
@@ -98,15 +99,32 @@ def group_objective(fitter, result, z_batch, psi, out):
     order = psi_order(psi)
     scale = np.asarray(result.scale, dtype=float)[order]
     r_inf_scaled = (np.asarray(result.r_inf, dtype=float) / np.asarray(result.scale))[order]
+    xds = _x_dop_scaled(fitter, result)
     p, q, _, my, cmat, (special, _, _, _) = resolve_mod.prepare_group_blocks(
         p_all[order], q_all[order], scale, r_inf_scaled, [fitter.tau_indices] * len(order),
-        fitter.special_qp_params, True)
+        fitter.special_qp_params, True, x_dop_scaled=None if xds is None else xds[order])
+    ns = sum(info.get("size", 1) for info in special.values())
     x = np.zeros(q.shape)
-    x[:, len(special):] = out.x[order] / scale[:, None]
+    x[:, ns:] = out.x[order] / scale[:, None]
+    units = {"inductance": fitter.inductance_scale, "C_inv": fitter.capacitance_scale,
+             "x_dop": fitter.dop_scale_vector}
     for key, info in special.items():
-        unit = fitter.inductance_scale if key == "inductance" else 1.0
-        x[:, info["index"]] = out.special[key][order] / (scale * unit)
+        unit = units.get(key)
+        unit = 1.0 if unit is None else unit
+        cols = slice(info["index"], info["index"] + info.get("size", 1))
+        x[:, cols] = np.reshape(out.special[key][order], (len(order), -1)) \
+            / (scale[:, None] * unit)
     return block_objective(p, q, my, cmat, x)
+
+
+def _x_dop_scaled(fitter, result):
+    """Each lane's x_dop / (its scale times the DOP scale vector), the
+    values the DOP block's psi penalty reads (resolve.py:169-172); None
+    without a DOP."""
+    if result.x_dop is None:
+        return None
+    return np.asarray(result.x_dop) / (np.asarray(result.scale, dtype=float)[:, None]
+                                       * fitter.dop_scale_vector)
 
 
 def block_objective(p, q, my, cmat, x):
@@ -162,16 +180,19 @@ def resolve_group(fitter, result, z_batch, psi=None, coupled=False, batched=True
     r_inf_scaled = np.asarray(result.r_inf, dtype=float) / scale
     tau_indices = tuple(fitter.tau_indices)
     nonneg = bool(np.all(np.asarray(fitter.lb.cpu())[fitter.num_special:] >= 0))
+    xds = _x_dop_scaled(fitter, result)
 
     def blocks(idx):
         return resolve_mod.prepare_group_blocks(
             p_all[idx], q_all[idx], scale[idx], r_inf_scaled[idx], [tau_indices] * len(idx),
             fitter.special_qp_params, nonneg, sigma=sigma, lambda_psi=lambda_psi,
-            tau_filter_sigma=tau_filter_sigma)
+            tau_filter_sigma=tau_filter_sigma, x_dop_scaled=None if xds is None else xds[idx])
 
     def unpack(x, idx, special_dict):
         return resolve_mod.unpack_resolved_x(x, scale[idx], special_dict,
-                                             fitter.inductance_scale)
+                                             fitter.inductance_scale,
+                                             dop_scale_vector=fitter.dop_scale_vector,
+                                             capacitance_scale=fitter.capacitance_scale)
 
     solve_kw = dict(dtype=dtype, device=device, return_info=True)
     if coupled and num_obs > 1:
@@ -298,8 +319,12 @@ class DRTMD:
     ``NotImplementedError`` naming its ROADMAP item, or is absent.
     ``print_progress`` prints the serial fit's progress;
     ``print_diagnostics`` is kept for the JAX class's signature;
-    ``nu_basis_type``, ``nu_epsilon`` and ``normalize_dop`` configure the
-    DOP, which raises (item 4), and ``pfrt_factors`` the PFRT (item 9).
+    ``fit_dop`` fits the distribution of phasances (``fixed_basis_nu``,
+    ``nu_basis_type``, ``nu_epsilon`` and ``normalize_dop`` configure it;
+    ``obs_special["x_dop"]``, ``predict_dop``), ``fit_capacitance`` the
+    inverse capacitance (``obs_special["C_inv"]``); with either, hybrid
+    observations go to the ragged fitter, as in the JAX class.
+    ``pfrt_factors`` configures the PFRT (item 9).
     """
 
     def __init__(self, tau_supergrid, psi_dim_names=None, store_attr_categories=None,
@@ -313,8 +338,6 @@ class DRTMD:
             raise ValueError(f"Invalid fit_type {fit_type}. Options: ['drt', 'pfrt']")
         if fit_type == "pfrt":
             raise _unported("fit_type='pfrt': the PFRT sweep", 9)
-        if fixed_basis_nu is not None:
-            raise _unported("fixed_basis_nu: the distribution of phasances", 4)
         if store_attr_categories is None:
             store_attr_categories = ["config", "fit_core"]
         self.device = resolve_device(device)
@@ -322,7 +345,9 @@ class DRTMD:
                          extend_basis_decades=extend_basis_decades, step_model=step_model,
                          chrono_mode=chrono_mode, fit_inductance=fit_inductance,
                          fit_ohmic=fit_ohmic, fit_capacitance=fit_capacitance, fit_dop=fit_dop,
-                         warn=warn, device=self.device)
+                         fixed_basis_nu=fixed_basis_nu, nu_basis_type=nu_basis_type,
+                         nu_epsilon=nu_epsilon, normalize_dop=normalize_dop, warn=warn,
+                         device=self.device)
         if tau_epsilon is not None:
             self.drt1d.tau_epsilon = tau_epsilon
 
@@ -817,21 +842,37 @@ class DRTMD:
     def _ragged_fitter_kw(self):
         return dict(fit_ohmic=self.fit_ohmic, fit_inductance=self.fit_inductance,
                     fit_capacitance=self.fit_capacitance, fit_dop=self.fit_dop,
+                    fixed_basis_nu=self.fixed_basis_nu,
                     nonneg=self.fit_kw.get("nonneg", True), device=self.device,
                     step_model=self.step_model, chrono_mode=self.chrono_mode,
                     fit_kw={k: v for k, v in self.fit_kw.items() if k != "nonneg"},
                     **self._split_batch_kw()[0])
 
+    def _special_drt(self):
+        """A DRT of this map's configuration, its nu basis set as a fit sets
+        it, to carry a batched fit (:1070, :1327)."""
+        drt = DRT(tau_supergrid=self.tau_supergrid, fit_ohmic=self.fit_ohmic,
+                  fit_inductance=self.fit_inductance, fit_capacitance=self.fit_capacitance,
+                  fit_dop=self.fit_dop, fixed_basis_nu=self.fixed_basis_nu,
+                  nu_basis_type=self.nu_basis_type, nu_epsilon=self.nu_epsilon,
+                  normalize_dop=self.normalize_dop, step_model=self.step_model,
+                  chrono_mode=self.chrono_mode, warn=False, device=self.device)
+        if self.fit_dop:
+            drt.basis_nu = default_basis_nu(self.fixed_basis_nu)
+            drt.nu_epsilon = default_nu_epsilon(drt.basis_nu, self.nu_basis_type,
+                                                self.nu_epsilon)
+        return drt
+
     def _fitter_template(self, fitter, is_hybrid):
         """A DRT holding the configuration of a shared-grid fitter's problem,
         where the JAX package reads its fitters' template fit."""
-        drt = DRT(tau_supergrid=self.tau_supergrid, fit_ohmic=self.fit_ohmic,
-                  fit_inductance=self.fit_inductance, step_model=self.step_model,
-                  chrono_mode=self.chrono_mode, warn=False, device=self.device)
+        drt = self._special_drt()
         drt.basis_tau = np.asarray(fitter.basis_tau)
         drt.tau_epsilon = fitter.tau_epsilon
         drt.special_qp_params = dict(fitter.special_qp_params)
         drt.inductance_scale = fitter.inductance_scale
+        drt.capacitance_scale = fitter.capacitance_scale
+        drt.dop_scale_vector = fitter.dop_scale_vector
         drt.f_fit = fitter.frequencies
         drt.fit_type = "qphb_hybrid" if is_hybrid else "qphb_eis"
         if is_hybrid:
@@ -865,6 +906,7 @@ class DRTMD:
                 self.obs_special["R_inf"][i] = result.r_inf[bi]
             if "inductance" in self.obs_special:
                 self.obs_special["inductance"][i] = result.inductance[bi]
+            self._store_dop_cap(i, result, bi)
             self.obs_fit_attr[i] = {
                 "batched": True, "x_raw": result.x_raw[bi], "scale": result.scale[bi],
                 "weights": result.weights[bi], "rho": result.rho[bi],
@@ -892,6 +934,13 @@ class DRTMD:
         ok = self.obs_fit_status[fit_index]
         self.obs_rss[fit_index[ok]] = rss[ok]
         self.obs_llh[fit_index[ok]] = llh[ok]
+
+    def _store_dop_cap(self, i, result, bi):
+        """A batched fit's C_inv and x_dop into obs_special (:761-764)."""
+        if "C_inv" in self.obs_special:
+            self.obs_special["C_inv"][i] = result.c_inv[bi]
+        if "x_dop" in self.obs_special and result.x_dop is not None:
+            self.obs_special["x_dop"][i] = result.x_dop[bi]
 
     def _fit_batched_ragged(self, fit_index, chronos, eiss, dtype, ignore_errors):
         """Observations on grids and protocols of their own, padded and
@@ -935,6 +984,7 @@ class DRTMD:
                 self.obs_special["R_inf"][i] = result.r_inf[bi]
             if "inductance" in self.obs_special:
                 self.obs_special["inductance"][i] = result.inductance[bi]
+            self._store_dop_cap(i, result, bi)
             n_i = int(result.num_rows[bi])
             self.obs_fit_attr[i] = {
                 "batched": True, "ragged": True, "x_raw": result.x_raw[bi][:ns + w_i],
@@ -1120,13 +1170,13 @@ class DRTMD:
         if kind == "uniform":
             drt = self._fitter_template(src, isinstance(src, BatchedHybridFitter))
         else:
-            drt = DRT(tau_supergrid=self.tau_supergrid, fit_ohmic=self.fit_ohmic,
-                      fit_inductance=self.fit_inductance, step_model=self.step_model,
-                      chrono_mode=self.chrono_mode, warn=False, device=self.device)
+            drt = self._special_drt()
             drt.basis_tau = src["basis_tau"]
             drt.tau_epsilon = self.tau_epsilon
             drt.special_qp_params = special
             drt.inductance_scale = inductance_scale
+            drt.capacitance_scale = src["capacitance_scale"]
+            drt.dop_scale_vector = src["dop_scale_vector"]
             drt.input_signal_scale = src["input_signal_scale"]
         drt.coefficient_scale = attr["scale"]
         drt.impedance_scale = attr["scale"]
@@ -1177,7 +1227,7 @@ class DRTMD:
         ``prepare_group_blocks`` takes, per observation, in order."""
         rebuilt = self._rebuild(obs_index)
         cols = {k: [] for k in ("p", "q", "scale", "r_inf", "tau", "special", "params", "scales",
-                                "inductance")}
+                                "inductance", "dop_scale", "cap_scale", "x_dop")}
         for i in obs_index:
             p, q, source = rebuilt[int(i)]
             special, scales, ind = self._fit_scales(int(i), source)
@@ -1190,30 +1240,57 @@ class DRTMD:
                     np.asarray(attr["x_raw"], dtype=float), special,
                     scales.get("v_baseline_scale"), scales.get("scaled_response_offset"),
                     scales.get("response_signal_scale")) if scales else {}
+            dsv, cap, x_dop = self._dop_cap_inputs(source, special, scale)
             for k, v in (("p", p), ("q", q), ("scale", scale), ("tau", self.obs_tau_indices[i]),
                          ("r_inf", self.obs_special["R_inf"][i] / scale
                           if "R_inf" in self.obs_special else 0.0),
                          ("special", special), ("params", params), ("scales", scales),
-                         ("inductance", ind)):
+                         ("inductance", ind), ("dop_scale", dsv), ("cap_scale", cap),
+                         ("x_dop", x_dop)):
                 cols[k].append(v)
         return cols
+
+    @staticmethod
+    def _dop_cap_inputs(source, special, scale):
+        """(dop_scale_vector, capacitance_scale, x_dop / (scale times the
+        DOP scale vector)) of one stored fit, as the JAX resolve reads them
+        off its DRT (resolve.py:169-172, :573-576); None where absent."""
+        kind, src, attr = source
+        if kind == "serial":
+            dsv, cap = attr.get("dop_scale_vector"), attr.get("capacitance_scale")
+            x_dop = attr["fit_parameters"].get("x_dop")
+        else:
+            get = src.get if kind == "ragged" else lambda k: getattr(src, k)
+            dsv, cap = get("dop_scale_vector"), get("capacitance_scale")
+            x_dop = None
+            if dsv is not None:
+                sl = special_slice(special, "x_dop")
+                x_dop = np.asarray(attr["x_raw"], dtype=float)[sl] * (dsv * scale)
+        if dsv is None or x_dop is None:
+            return dsv, cap, None
+        return dsv, cap, np.asarray(x_dop) / (scale * np.asarray(dsv))
 
     def _blocks(self, cols, sel, **kw):
         """prepare_group_blocks of the observations ``sel`` of ``cols``."""
         pick = lambda k: [cols[k][j] for j in sel]
+        x_dop = pick("x_dop")
         return resolve_mod.prepare_group_blocks(
             pick("p"), pick("q"), pick("scale"), pick("r_inf"), pick("tau"), pick("special"),
             self.fit_kw.get("nonneg", True), fit_parameters=pick("params"),
-            scales=pick("scales"), **kw)
+            scales=pick("scales"),
+            x_dop_scaled=None if any(v is None for v in x_dop) else x_dop, **kw)
 
     def _write_resolved(self, x, cols, sel, rows, special_dict, mti):
         """One solution x (len(sel), nc) of the observations ``sel`` of
         ``cols`` (``rows`` of the map) into ``obs_x_resolved`` (its tau span
         ``mti``; the other columns keep what they hold) and
         ``obs_special_resolved``."""
+        pick = lambda k: [cols[k][j] for j in sel]
         x_drt, x_sp = resolve_mod.unpack_resolved_x(
             np.reshape(x, (len(sel), -1)), np.asarray(cols["scale"])[sel], special_dict,
-            np.asarray(cols["inductance"], dtype=float)[sel])
+            np.asarray(cols["inductance"], dtype=float)[sel],
+            dop_scale_vector=pick("dop_scale") if "x_dop" in special_dict else None,
+            capacitance_scale=pick("cap_scale") if "C_inv" in special_dict else None)
         self.obs_x_resolved[rows[:, None], np.arange(mti[0], mti[1])[None, :]] = x_drt
         for key, val in x_sp.items():
             if key not in self.obs_special_resolved:
@@ -1564,7 +1641,28 @@ class DRTMD:
         return pp_ * (1 - tp_)
 
     def predict_dop(self, psi=None, obs_index=None, nu=None, normalize=True, resolved=True):
-        raise _unported("predict_dop: the distribution of phasances", 4)
+        """The DOP over nu of the requested observations (:1906): their
+        x_dop on the nu basis, with ``normalize`` divided by the phasor
+        scale over the supergrid."""
+        if not self.fit_dop:
+            raise ValueError("DOP was not fitted")
+        if nu is None:
+            nu = self.get_nu_eval()
+        x_dop = self.predict_special("x_dop", psi=psi, obs_index=obs_index, resolved=resolved)
+        basis_nu = default_basis_nu(self.fixed_basis_nu)
+        # nu_epsilon defaults to None in the configuration; the fitted DRT
+        # resolves it, so fall back to that, then to the spacing default
+        nu_epsilon = self.nu_epsilon
+        if nu_epsilon is None:
+            nu_epsilon = getattr(self.drt1d, "nu_epsilon", None)
+        if nu_epsilon is None:
+            nu_epsilon = 1 / np.abs(np.median(np.diff(np.sort(basis_nu))))
+        em = basis_mod.func_eval_matrix_host(basis_nu, np.asarray(nu), self.nu_basis_type,
+                                             nu_epsilon, 0)
+        dop = x_dop @ em.T
+        if normalize:
+            dop = dop / phasance.phasor_scale_vector(np.asarray(nu), self.tau_supergrid)
+        return dop
 
     # ------------------------------------------------------------------
     # Convenience accessors (:1688-1794)
@@ -1788,9 +1886,8 @@ class DRTMD:
     @classmethod
     def from_source(cls, source, device=None):
         """A map built from a ``save_attributes`` pickle (a path) or an
-        attribute dict, on ``device`` (the card unless "cpu"); a
-        configuration the constructor does not take (``fixed_basis_nu``,
-        ``fit_dop``) raises, naming its item."""
+        attribute dict, on ``device`` (the card unless "cpu"); a map of PFRT
+        fits raises, naming its item."""
         if not isinstance(source, dict):
             att_dict = load_pickle(source)
         else:

@@ -136,7 +136,7 @@ def get_tau_indices(obs_tau_indices, truncate=False):
 def prepare_group_blocks(p_list, q_list, coefficient_scale, r_inf_scaled, obs_tau_indices,
                          special_qp_params, nonneg, truncate=False, sigma=1, lambda_psi=1,
                          tau_filter_sigma=0, special_filter_sigma=0, fit_parameters=None,
-                         scales=None):
+                         scales=None, x_dop_scaled=None):
     """Per-observation blocks and psi-coupling factors of the joint resolve
     QP (resolve.py:118), without the (nr*nc)^2 block matrix.
 
@@ -150,9 +150,11 @@ def prepare_group_blocks(p_list, q_list, coefficient_scale, r_inf_scaled, obs_ta
     fitted ``v_baseline`` and ``vz_offset`` are marginalized into its q
     (``get_offset_pq``) from its entry of ``fit_parameters`` and ``scales``
     (lists aligned with ``p_list``). ``truncate`` takes the intersection of
-    the observations' tau windows instead of their union.
-    ``special_filter_sigma`` smooths the DOP block only (resolve.py:180-186),
-    which no ported fit has, so it changes nothing here.
+    the observations' tau windows instead of their union. A DOP fit's
+    ``x_dop_scaled`` (nr, n_nu), each observation's x_dop / (coefficient
+    scale times its DOP scale vector), sets the DOP block's psi penalty
+    scale (resolve.py:169-176); ``special_filter_sigma`` smooths the DOP
+    block (:178-184).
 
     Returns (p_stack (nr,nc,nc), q_stack (nr,nc), lb (nc,), my (nr,nr),
     cmat (nc,nc), meta) with meta = (special_dict, match_tau_indices, nr, nc).
@@ -166,8 +168,8 @@ def prepare_group_blocks(p_list, q_list, coefficient_scale, r_inf_scaled, obs_ta
         raise ValueError("v_baseline / vz_offset columns are marginalized at their fitted "
                          "values: give each observation's fit_parameters and scales")
     special_dict = offset_special_dict(sp_list[0])
-    if "x_dop" in special_dict:
-        raise NotImplementedError("x_dop: DOP is not ported yet (ROADMAP Queue 1 item 4)")
+    if "x_dop" in special_dict and x_dop_scaled is None:
+        raise ValueError("a DOP group's psi penalty needs each observation's x_dop_scaled")
     special_offset = int(np.sum([v.get("size", 1) for v in special_dict.values()]))
 
     p_out, q_out = [], []
@@ -187,20 +189,33 @@ def prepare_group_blocks(p_list, q_list, coefficient_scale, r_inf_scaled, obs_ta
     lys = ly @ np.diag(scale_vec / scale_smooth)
     my = lys.T @ lys
 
-    # Per-parameter penalty scaling (R_inf column)
+    # Per-parameter penalty scaling (R_inf and DOP columns)
     param_scale = np.ones(nc)
     if "R_inf" in special_dict:
         ohmic_scale = 5 * np.std(np.asarray(r_inf_scaled, dtype=float))
         if ohmic_scale > 0:
             param_scale[special_dict["R_inf"]["index"]] = ohmic_scale ** -2
+    dop_start = dop_end = None
+    if "x_dop" in special_dict:
+        x_dop = np.asarray(x_dop_scaled, dtype=float)
+        dop_scales = np.std(x_dop, axis=0) + 0.1 * np.std(x_dop)
+        dop_start = special_dict["x_dop"]["index"]
+        dop_end = dop_start + special_dict["x_dop"].get("size", 1)
+        param_scale[dop_start:dop_end] = dop_scales ** -2
 
-    # Optional within-observation smoothing filter over the DRT block (the
-    # reference's special_filter_sigma acts on the DOP block, not ported)
-    if tau_filter_sigma > 0:
+    # Optional within-observation smoothing filters over the DOP and DRT
+    # blocks
+    if tau_filter_sigma > 0 or special_filter_sigma > 0:
         filter_mat = np.eye(nc)
-        eps = 1 / (np.sqrt(2) * tau_filter_sigma)
-        filter_mat[special_offset:, special_offset:] = basis_mod.construct_func_eval_matrix(
-            np.arange(nc - special_offset, dtype=float), epsilon=eps, order=0)
+        if special_filter_sigma > 0 and dop_start is not None:
+            eps = 1 / (np.sqrt(2) * special_filter_sigma)
+            filter_mat[dop_start:dop_end, dop_start:dop_end] = \
+                basis_mod.construct_func_eval_matrix(
+                    np.arange(dop_start, dop_end, dtype=float), epsilon=eps, order=0)
+        if tau_filter_sigma > 0:
+            eps = 1 / (np.sqrt(2) * tau_filter_sigma)
+            filter_mat[special_offset:, special_offset:] = basis_mod.construct_func_eval_matrix(
+                np.arange(nc - special_offset, dtype=float), epsilon=eps, order=0)
         cmat = filter_mat @ np.diag(param_scale * lambda_psi) @ filter_mat
     else:
         cmat = np.diag(param_scale * lambda_psi)
@@ -228,7 +243,7 @@ def dense_system(p_stack, q_stack, lb, my, cmat):
 def assemble_resolve_system(p_list, q_list, coefficient_scale, r_inf_scaled, obs_tau_indices,
                             special_qp_params, nonneg, truncate=False, sigma=1, lambda_psi=1,
                             tau_filter_sigma=0, special_filter_sigma=0, fit_parameters=None,
-                            scales=None):
+                            scales=None, x_dop_scaled=None):
     """The joint block QP of one resolve window in dense form (resolve.py:205),
     from the arrays ``prepare_group_blocks`` takes. Returns (p_matrix,
     q_vector, lb, meta) with meta = (special_dict, match_tau_indices, nr, nc)."""
@@ -236,7 +251,7 @@ def assemble_resolve_system(p_list, q_list, coefficient_scale, r_inf_scaled, obs
         p_list, q_list, coefficient_scale, r_inf_scaled, obs_tau_indices, special_qp_params,
         nonneg, truncate=truncate, sigma=sigma, lambda_psi=lambda_psi,
         tau_filter_sigma=tau_filter_sigma, special_filter_sigma=special_filter_sigma,
-        fit_parameters=fit_parameters, scales=scales)
+        fit_parameters=fit_parameters, scales=scales, x_dop_scaled=x_dop_scaled)
     return (*dense_system(p_stack, q_stack, lb, my, cmat), meta)
 
 
@@ -255,11 +270,13 @@ def drt_block_inputs(drts):
     """The arrays ``prepare_group_blocks`` takes, read off fitted ``DRT``s as
     the JAX function reads them (resolve.py:21, :153-162): each fit's
     ``fit_parameters`` (P, q, R_inf, the baseline and vz offset), its
-    ``coefficient_scale`` and the scales of its chrono data. Returns a dict
-    of lists."""
+    ``coefficient_scale``, the scales of its chrono data, and a DOP or
+    capacitance fit's column scales and scaled x_dop. Returns a dict of
+    lists."""
     keys = ("response_signal_scale", "scaled_response_offset", "v_baseline_scale")
     out = {k: [] for k in ("p_list", "q_list", "coefficient_scale", "r_inf_scaled",
-                           "special_qp_params", "fit_parameters", "scales")}
+                           "special_qp_params", "fit_parameters", "scales", "x_dop_scaled",
+                           "dop_scale_vector", "capacitance_scale")}
     for drt in drts:
         fp = drt.fit_parameters
         out["p_list"].append(np.asarray(fp["p_matrix"]))
@@ -269,6 +286,13 @@ def drt_block_inputs(drts):
         out["special_qp_params"].append(drt.special_qp_params)
         out["fit_parameters"].append(fp)
         out["scales"].append({k: getattr(drt, k) for k in keys})
+        dsv = getattr(drt, "dop_scale_vector", None)
+        out["dop_scale_vector"].append(dsv)
+        out["capacitance_scale"].append(getattr(drt, "capacitance_scale", None))
+        out["x_dop_scaled"].append(None if dsv is None or fp.get("x_dop") is None
+                                   else fp["x_dop"] / (drt.coefficient_scale * dsv))
+    if any(v is None for v in out["x_dop_scaled"]):
+        out["x_dop_scaled"] = None
     return out
 
 
@@ -287,14 +311,16 @@ def resolve_observations(obs_drt_list, obs_tau_indices, nonneg, obs_psi=None, tr
         obs_tau_indices, cols["special_qp_params"], nonneg, truncate=truncate, sigma=sigma,
         lambda_psi=lambda_psi, tau_filter_sigma=tau_filter_sigma,
         special_filter_sigma=special_filter_sigma, fit_parameters=cols["fit_parameters"],
-        scales=cols["scales"])
+        scales=cols["scales"], x_dop_scaled=cols["x_dop_scaled"])
     special_dict, match_tau_indices, nr, nc = meta
     x, _ = solve_dense_window(p_matrix, q_vector, lb, dtype=dtype, device=device)
     x_opt = x.reshape((nr, nc))
     if unpack:
         x_drt, x_special = unpack_resolved_x(
             x_opt, cols["coefficient_scale"], special_dict,
-            [drt.inductance_scale or 1.0 for drt in obs_drt_list])
+            [drt.inductance_scale or 1.0 for drt in obs_drt_list],
+            dop_scale_vector=cols["dop_scale_vector"],
+            capacitance_scale=cols["capacitance_scale"])
         return x_drt, x_special, match_tau_indices
     return x_opt, match_tau_indices
 
@@ -587,22 +613,30 @@ def _coupled_body(p, q, lb, my, cmat, tol_gap, tol_feas, max_iter, cg_iters):
     return x_out, it, kkt, info
 
 
-def unpack_resolved_x(x, coefficient_scale, special_dict, inductance_scale=1.0):
+def unpack_resolved_x(x, coefficient_scale, special_dict, inductance_scale=1.0,
+                      dop_scale_vector=None, capacitance_scale=None):
     """Rescale resolved coefficients to physical units (resolve.py:563);
-    ``inductance_scale`` is one for the group or one per observation.
-    Returns (x_drt (nr, n_tau), {name: (nr,) or (nr, size)})."""
+    ``inductance_scale`` and ``capacitance_scale`` are one for the group or
+    one per observation, ``dop_scale_vector`` (n_nu,) for the group or one
+    per observation (nr, n_nu). Returns (x_drt (nr, n_tau), {name: (nr,) or
+    (nr, size)})."""
     special_offset = int(np.sum([v.get("size", 1) for v in special_dict.values()]))
     coef_scale = np.asarray(coefficient_scale, dtype=float)
     x_drt = x[:, special_offset:] * coef_scale[:, None]
 
     x_special = {}
     for key, info in special_dict.items():
-        if key in ("x_dop", "C_inv"):
-            raise NotImplementedError(f"{key}: DOP and capacitance are not ported yet "
-                                      f"(ROADMAP Queue 1 item 4)")
+        if key == "x_dop" and dop_scale_vector is None:
+            raise ValueError("x_dop: give the fits' dop_scale_vector")
+        if key == "C_inv" and capacitance_scale is None:
+            raise ValueError("C_inv: give the fits' capacitance_scale")
         start, size = info["index"], info.get("size", 1)
         x_k = x[:, start:start + size] * coef_scale[:, None]
-        if key == "inductance":
+        if key == "x_dop":
+            x_k = x_k * np.asarray(dop_scale_vector, dtype=float)
+        elif key == "C_inv":
+            x_k = x_k * np.reshape(np.asarray(capacitance_scale, dtype=float), (-1, 1))
+        elif key == "inductance":
             x_k = x_k * np.reshape(np.asarray(inductance_scale, dtype=float), (-1, 1))
         if size == 1:
             x_k = x_k.flatten()

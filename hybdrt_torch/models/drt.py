@@ -4,8 +4,11 @@ problem assembly it shares with the batched fitter.
 Counterpart of ``hybdrt_tpu/models/drt.py`` for the gaussian basis and
 ``integrate_method="interp"``; chrono data in galvanostatic mode with ideal
 or ``expdecay`` steps, downsampled or not, with or without the GP background
-(``models/background.py``; static, dynamic and scaled), and the
-``series_neg`` and ``weight_factor`` options. The assembly
+(``models/background.py``; static, dynamic and scaled), the ``series_neg``
+and ``weight_factor`` options, the capacitance column (``fit_capacitance``,
+``C_inv``) and the distribution of phasances (``fit_dop``: the ``x_dop``
+block of ``ops/phasance.py``'s basis over nu, gaussian or delta, last among
+the special columns). The assembly
 (``process_chrono_signals`` :346, ``scale_data`` :398, ``_prep_for_fit`` :464,
 ``_prep_chrono_fit_matrix`` :534, ``_prep_impedance_fit_matrix`` :613, ``_prep_penalty_matrices`` :657,
 ``_format_qp_matrices`` :695, ``_make_lower_bound`` :800) is a set of host
@@ -39,7 +42,7 @@ from .. import evaluation
 from .. import peaks as peaks_mod
 from .. import preprocessing as pp
 from ..ops import basis as basis_mod
-from ..ops import lookup, mat1d
+from ..ops import lookup, mat1d, phasance
 from ..solver import fitcore
 from ..solver import hypers as hyp_mod
 from ..solver import qphb as qphb_mod
@@ -87,17 +90,20 @@ def eis_basis_tau(frequencies, fixed_basis_tau=None, tau_supergrid=None, extend_
 
 
 def special_qp_params(fit_ohmic=True, fit_inductance=True, v_baseline_size=0, vz_offset=False,
-                      background_scale=False):
+                      background_scale=False, fit_capacitance=False, dop_size=0):
     """The special columns before the DRT block, in the JAX package's order
-    (:1052-1064): the chrono voltage baseline's ``v_baseline_size`` columns,
-    the hybrid vz offset, the scaled background's amplitude, R_inf and the
-    inductance."""
+    (:1052-1076): the chrono voltage baseline's ``v_baseline_size`` columns,
+    the hybrid vz offset, the scaled background's amplitude, R_inf, the
+    inductance, the inverse capacitance and the DOP's ``dop_size``
+    coefficients."""
     special = {}
     for name, size, nonneg in (("v_baseline", v_baseline_size, False),
                                ("vz_offset", int(vz_offset), False),
                                ("background_scale", int(background_scale), True),
                                ("R_inf", int(fit_ohmic), True),
-                               ("inductance", int(fit_inductance), True)):
+                               ("inductance", int(fit_inductance), True),
+                               ("C_inv", int(fit_capacitance), True),
+                               ("x_dop", dop_size, True)):
         if size:
             special[name] = {"index": num_special(special), "nonneg": nonneg, "size": size}
     return special
@@ -137,9 +143,12 @@ def impedance_matrix(frequencies, basis_tau, tau_epsilon):
                                                 epsilon=tau_epsilon, interpolate_grids=zim_lu)
 
 
-def eis_design_matrix(zm_drt, frequencies, special, inductance_scale):
+def eis_design_matrix(zm_drt, frequencies, special, inductance_scale, capacitance_scale=None,
+                      zm_dop=None, dop_scale_vector=None):
     """The impedance matrix with its special columns, stacked [Re; Im]
-    (2F, N) (:746-758); the baseline and vz-offset columns are zero."""
+    (2F, N) (:746-758): the inductance's, R_inf's, the capacitance's (its
+    vector times ``capacitance_scale``) and the DOP block (``zm_dop`` times
+    ``dop_scale_vector``); the baseline and vz-offset columns are zero."""
     ns = num_special(special)
     zm = np.zeros((zm_drt.shape[0], zm_drt.shape[1] + ns), dtype=complex)
     if "inductance" in special:
@@ -147,8 +156,75 @@ def eis_design_matrix(zm_drt, frequencies, special, inductance_scale):
             mat1d.construct_inductance_impedance_vector(frequencies) * inductance_scale
     if "R_inf" in special:
         zm[:, special["R_inf"]["index"]] = 1
+    if "C_inv" in special:
+        zm[:, special["C_inv"]["index"]] = \
+            mat1d.construct_capacitance_impedance_vector(frequencies) * capacitance_scale
+    if "x_dop" in special:
+        zm[:, special_slice(special, "x_dop")] = zm_dop * dop_scale_vector
     zm[:, ns:] = zm_drt
     return np.vstack([zm.real, zm.imag])
+
+
+def default_basis_nu(fixed_basis_nu=None):
+    """The DOP's nu basis: ``fixed_basis_nu``, else 25 points on [-1, -0.4]
+    and 25 on [0.4, 1] (:1067-1072)."""
+    if fixed_basis_nu is not None:
+        return np.asarray(fixed_basis_nu, dtype=float)
+    return np.concatenate([np.linspace(-1, -0.4, 25), np.linspace(0.4, 1, 25)])
+
+
+def default_nu_epsilon(basis_nu, nu_basis_type="gaussian", nu_epsilon=None):
+    """``nu_epsilon``, else one over the nu basis's median spacing; None for
+    the delta basis (:1073-1075)."""
+    if nu_epsilon is None and nu_basis_type != "delta":
+        return 1 / np.median(np.diff(np.sort(basis_nu)))
+    return nu_epsilon
+
+
+def check_nu_basis_type(nu_basis_type):
+    """The DOP's nu basis: gaussian or delta; the other basis types reach
+    the generic penalty of ROADMAP Queue 1 item 4."""
+    validation.check_basis_type(nu_basis_type)
+    if nu_basis_type not in ("gaussian", "delta"):
+        raise _unported(f"nu_basis_type={nu_basis_type!r}: DOP bases other than gaussian and "
+                        f"delta", 4)
+
+
+def dop_penalty_matrices(basis_nu, nu_basis_type, nu_epsilon):
+    """The DOP block's integrated-derivative penalties of orders 0..2 (3, d,
+    d), gaussian in nu (the delta basis's at epsilon = 1 / its median
+    spacing), and the order-0 smoothing matrix gmat0 (d, d) of its s update
+    (:675-689)."""
+    basis_nu = np.asarray(basis_nu, dtype=float)
+    if nu_basis_type == "delta":
+        eps = 1 / np.median(np.diff(np.sort(basis_nu)))
+    else:
+        eps = nu_epsilon
+    m_dop = np.stack([mat1d.construct_integrated_derivative_matrix(
+        basis_nu, basis_type="gaussian", order=k, epsilon=eps) for k in range(3)])
+    dnu = np.mean(np.abs(np.diff(basis_nu)))
+    gmat0 = mat1d.construct_integrated_derivative_matrix(basis_nu, basis_type="gaussian",
+                                                         order=1, epsilon=1 / dnu)
+    return m_dop, gmat0
+
+
+def dop_gmat_stack(gmat0, k_range=3):
+    """(K, d, d): the order-0 smoothing matrix, zeros at the other orders
+    (:1202-1207)."""
+    return np.stack([gmat0 if k == 0 else np.zeros_like(gmat0) for k in range(k_range)])
+
+
+def dop_scale_vector(basis_nu, nu_basis_type, nu_epsilon, normalize_dop, tau_eval):
+    """The DOP columns' scale (:706-717): ``phasance.phasor_scale_vector``
+    over ``tau_eval`` (the supergrid, else the basis), divided by the nu
+    basis's area for the gaussian basis; ones without ``normalize_dop``."""
+    basis_nu = np.asarray(basis_nu, dtype=float)
+    if not normalize_dop:
+        return np.ones(len(basis_nu))
+    dsv = phasance.phasor_scale_vector(basis_nu, tau_eval)
+    if nu_basis_type != "delta":
+        dsv = dsv / basis_mod.get_basis_func_area(nu_basis_type, nu_epsilon)
+    return dsv
 
 
 def base_penalty_matrices(basis_tau, tau_epsilon):
@@ -158,10 +234,13 @@ def base_penalty_matrices(basis_tau, tau_epsilon):
         np.log(basis_tau), order=k, epsilon=tau_epsilon) for k in range(3)])
 
 
-def chrono_design_matrix(rm_drt, special, vb_mat, induc_rv, inf_rv, inductance_scale):
-    """The response matrix with its special columns (T, N) (:719-739): the
-    normalized baseline matrix ``vb_mat``, the inductance and ohmic
-    response vectors; the vz-offset and background columns are zero."""
+def chrono_design_matrix(rm_drt, special, vb_mat, induc_rv, inf_rv, inductance_scale,
+                         cap_rv=None, capacitance_scale=None, rm_dop=None,
+                         dop_scale_vector=None):
+    """The response matrix with its special columns (T, N) (:719-742): the
+    normalized baseline matrix ``vb_mat``, the inductance, ohmic and
+    capacitance response vectors and the DOP block (``rm_dop`` times
+    ``dop_scale_vector``); the vz-offset and background columns are zero."""
     ns = num_special(special)
     rm = np.empty((rm_drt.shape[0], rm_drt.shape[1] + ns))
     if "v_baseline" in special:
@@ -170,6 +249,10 @@ def chrono_design_matrix(rm_drt, special, vb_mat, induc_rv, inf_rv, inductance_s
         rm[:, special["inductance"]["index"]] = induc_rv * inductance_scale
     if "R_inf" in special:
         rm[:, special["R_inf"]["index"]] = inf_rv
+    if "C_inv" in special:
+        rm[:, special["C_inv"]["index"]] = cap_rv * capacitance_scale
+    if "x_dop" in special:
+        rm[:, special_slice(special, "x_dop")] = rm_dop * dop_scale_vector
     for name in ("vz_offset", "background_scale"):
         if name in special:
             rm[:, special[name]["index"]] = 0
@@ -177,16 +260,21 @@ def chrono_design_matrix(rm_drt, special, vb_mat, induc_rv, inf_rv, inductance_s
     return rm
 
 
-def penalty_stack(base, special, penalties):
+def penalty_stack(base, special, penalties, dop_base=None):
     """(3, N, N): each order's DRT block with the special columns' diagonal
     penalties ``penalties[name]`` before it, a scalar or one value per
-    column (:762-794)."""
+    column, and the DOP block's own penalties ``dop_base`` (3, d, d)
+    (:762-794)."""
     ns = num_special(special)
     n = base.shape[-1] + ns
     m_stack = np.zeros((3, n, n))
     for k in range(3):
         m_stack[k, ns:, ns:] = base[k]
         for name, sp in special.items():
+            if name == "x_dop":
+                m_stack[k, special_slice(special, name), special_slice(special, name)] = \
+                    dop_base[k]
+                continue
             pen = penalties[name]
             for j, i in enumerate(range(sp["index"], sp["index"] + sp.get("size", 1))):
                 m_stack[k, i, i] = pen if np.isscalar(pen) else pen[j]
@@ -211,10 +299,10 @@ def make_lower_bound(n, nonneg, special, neg_allowed_indices=None):
     return lb
 
 
-def qphb_hypers(eff_hp=True, **hyper_kw):
+def qphb_hypers(eff_hp=True, fit_dop=False, **hyper_kw):
     """The default hyperparameters updated by ``hyper_kw``, each key checked
     (:1081-1085); the outlier model raises (item 9)."""
-    hypers = hyp_mod.get_default_hypers(eff_hp=eff_hp, fit_dop=False)
+    hypers = hyp_mod.get_default_hypers(eff_hp=eff_hp, fit_dop=fit_dop)
     for key in hyper_kw:
         if key not in hypers:
             raise ValueError(f"Invalid keyword argument {key}")
@@ -225,17 +313,33 @@ def qphb_hypers(eff_hp=True, **hyper_kw):
 
 
 def overfit_hypers(hypers, iw_l1_lambda_0, iw_l2_lambda_0):
-    """The weight initialization's hyperparameters (:1330-1332)."""
+    """The weight initialization's hyperparameters (:1330-1336): the DOP
+    block's l2 strength scales with the DRT block's."""
     iw_hypers = dict(hypers)
     iw_hypers["l1_lambda_0"] = iw_l1_lambda_0
     iw_hypers["l2_lambda_0"] = iw_l2_lambda_0
+    if "dop_l2_lambda_0" in hypers:
+        iw_hypers["dop_l2_lambda_0"] = hypers["dop_l2_lambda_0"] / hypers["l2_lambda_0"] \
+            * iw_l2_lambda_0
     return iw_hypers
 
 
-def l1_vector(n, ns, hypers):
+def l1_vector(n, ns, hypers, special=None):
+    """The l1 vector: the DRT block's strength, and the DOP block's where
+    ``special`` has one (:1175-1180)."""
     l1v = np.zeros(n)
     l1v[ns:] = hypers["l1_lambda_0"]
+    if special is not None and "x_dop" in special:
+        l1v[special_slice(special, "x_dop")] = hypers["dop_l1_lambda_0"]
     return l1v
+
+
+def dop_config(special):
+    """(dop_start, dop_size) of the QPHBConfig: the DOP block's place among
+    the special columns, (0, 0) without one."""
+    if "x_dop" not in special:
+        return 0, 0
+    return special["x_dop"]["index"], special["x_dop"]["size"]
 
 
 def build_eis_problem(frequencies, basis_tau=None, tau_supergrid=None, fit_ohmic=True,
@@ -249,6 +353,10 @@ def build_eis_problem(frequencies, basis_tau=None, tau_supergrid=None, fit_ohmic
     The basis is ``basis_tau`` if given, else the slice of ``tau_supergrid``
     that covers the data range +- 1 decade, else a 10-ppd grid; epsilon
     follows the spacing of the first of these given (drt.py:145-151).
+    ``fit_capacitance`` adds the C_inv column, ``fit_dop`` the DOP block on
+    the default gaussian nu basis (``default_basis_nu``, normalized, as the
+    JAX fitter's template has it), with its own penalties and
+    hyperparameters.
 
     Returns a dict of host float64 arrays and metadata: ``frequencies``,
     ``rzm`` (2F, N) design matrix stacked [Re; Im], ``vmm`` (2F, 2F)
@@ -256,43 +364,56 @@ def build_eis_problem(frequencies, basis_tau=None, tau_supergrid=None, fit_ohmic
     ``m_stack`` (3, N, N) penalty matrices, ``l1v`` (N,), ``lb`` (N,),
     ``hypers`` / ``iw_hypers`` (dicts of floats, arrays and None), ``cfg``,
     ``special_qp_params``, ``basis_tau``, ``tau_epsilon``, ``inductance_scale``,
-    ``tau_supergrid`` (None without one).
+    ``capacitance_scale``, ``tau_supergrid`` (None without one), and the
+    DOP's ``basis_nu``, ``nu_basis_type``, ``nu_epsilon``,
+    ``dop_scale_vector`` and ``dop_gmat`` (3, d, d) (None without it).
     """
-    if fit_dop:
-        raise _unported("fit_dop: DOP assembly", 4)
-    if fit_capacitance:
-        raise _unported("fit_capacitance: capacitance assembly", 4)
     if tau_basis_type != "gaussian":
         raise _unported(f"tau_basis_type={tau_basis_type!r}: bases other than gaussian", 4)
     if integrate_method != "interp":
         raise _unported(f"integrate_method={integrate_method!r}: quadrature assembly", 4)
 
-    hypers = qphb_hypers(eff_hp=True, **hyper_kw)
+    hypers = qphb_hypers(eff_hp=True, fit_dop=fit_dop, **hyper_kw)
     frequencies = np.asarray(frequencies, dtype=float)
     if tau_supergrid is not None:
         tau_supergrid = np.asarray(tau_supergrid, dtype=float)
     tau_epsilon = default_tau_epsilon(basis_tau, tau_supergrid)
     basis_tau = eis_basis_tau(frequencies, basis_tau, tau_supergrid)
 
-    special = special_qp_params(fit_ohmic, fit_inductance)
+    basis_nu = nu_epsilon = dsv = dop_gmat = dop_base = zm_dop = None
+    if fit_dop:
+        basis_nu = default_basis_nu()
+        nu_epsilon = default_nu_epsilon(basis_nu)
+        dop_base, gmat0 = dop_penalty_matrices(basis_nu, "gaussian", nu_epsilon)
+        dop_gmat = dop_gmat_stack(gmat0)
+        dsv = dop_scale_vector(basis_nu, "gaussian", nu_epsilon, True,
+                               tau_supergrid if tau_supergrid is not None else basis_tau)
+        zm_dop = phasance.construct_phasor_z_matrix(frequencies, basis_nu, "gaussian",
+                                                    nu_epsilon)
+    special = special_qp_params(fit_ohmic, fit_inductance, fit_capacitance=fit_capacitance,
+                                dop_size=0 if basis_nu is None else len(basis_nu))
     ns = num_special(special)
     n = len(basis_tau) + ns
     inductance_scale = 1e-5
+    capacitance_scale = 1e-3
     rzm = eis_design_matrix(impedance_matrix(frequencies, basis_tau, tau_epsilon), frequencies,
-                            special, inductance_scale)
-    # ohmic_penalty = inductance_penalty = 1e-6 (drt.py:879-880)
+                            special, inductance_scale, capacitance_scale, zm_dop, dsv)
+    # ohmic, inductance and capacitance penalties 1e-6 (drt.py:879-880)
     m_stack = penalty_stack(base_penalty_matrices(basis_tau, tau_epsilon), special,
-                            {name: 1e-6 for name in special})
+                            {name: 1e-6 for name in special}, dop_base)
     vmm = mat1d.construct_eis_var_matrix(frequencies, 0.25, 0.25, None)
-    cfg = QPHBConfig(num_special=ns, k_range=len(hypers["derivative_weights"]),
-                     eff_hp=True, has_outlier=False)
+    dop_start, dop_size = dop_config(special)
+    cfg = QPHBConfig(num_special=ns, dop_start=dop_start, dop_size=dop_size,
+                     k_range=len(hypers["derivative_weights"]), eff_hp=True, has_outlier=False)
     return {
         "frequencies": frequencies, "rzm": rzm, "vmm": vmm, "m_stack": m_stack,
-        "l1v": l1_vector(n, ns, hypers), "lb": make_lower_bound(n, nonneg, special),
+        "l1v": l1_vector(n, ns, hypers, special), "lb": make_lower_bound(n, nonneg, special),
         "hypers": hypers, "iw_hypers": overfit_hypers(hypers, iw_l1_lambda_0, iw_l2_lambda_0),
         "cfg": cfg, "special_qp_params": special, "basis_tau": basis_tau,
         "tau_epsilon": float(tau_epsilon), "inductance_scale": inductance_scale,
-        "tau_supergrid": tau_supergrid,
+        "capacitance_scale": capacitance_scale, "tau_supergrid": tau_supergrid,
+        "basis_nu": basis_nu, "nu_basis_type": "gaussian", "nu_epsilon": nu_epsilon,
+        "dop_scale_vector": dsv, "dop_gmat": dop_gmat,
     }
 
 
@@ -322,7 +443,8 @@ class DRT:
     def __init__(self, fixed_basis_tau=None, tau_supergrid=None, tau_basis_type="gaussian",
                  basis_tau_ppd=10, extend_basis_decades=1, step_model="ideal",
                  chrono_mode="galv", interpolate_integrals=True, chrono_tau_rise=None,
-                 fit_dop=False, fit_inductance=True, fit_ohmic=True, fit_capacitance=False,
+                 fixed_basis_nu=None, nu_basis_type="gaussian", nu_epsilon=None, fit_dop=False,
+                 normalize_dop=True, fit_inductance=True, fit_ohmic=True, fit_capacitance=False,
                  warn=True, device=None, dtype=torch.float64):
         validation.check_basis_type(tau_basis_type)
         validation.check_step_model(step_model)
@@ -331,10 +453,7 @@ class DRT:
             raise _unported(f"tau_basis_type={tau_basis_type!r}: bases other than gaussian", 4)
         if not interpolate_integrals:
             raise _unported("interpolate_integrals=False (integrate_method='trapz')", 4)
-        if fit_dop:
-            raise _unported("fit_dop: the distribution of phasances", 4)
-        if fit_capacitance:
-            raise _unported("fit_capacitance: the capacitance column", 4)
+        check_nu_basis_type(nu_basis_type)
         # the response table of this mode (:163-171): potentiostatic data
         # raise here, as in the JAX package
         basis_mod.get_response_func(tau_basis_type, chrono_mode, step_model)
@@ -351,6 +470,15 @@ class DRT:
         self.integrate_method = "interp"
         self.fit_inductance = fit_inductance
         self.fit_ohmic = fit_ohmic
+        self.fit_capacitance = fit_capacitance
+        # The distribution of phasances (:73-80)
+        self.fixed_basis_nu = None if fixed_basis_nu is None else np.asarray(fixed_basis_nu)
+        self.basis_nu = None
+        self.nu_epsilon = nu_epsilon
+        self.nu_basis_type = nu_basis_type
+        self.fit_dop = fit_dop
+        self.normalize_dop = normalize_dop
+        self.dop_scale_vector = None
         self.warn = warn
         self.tau_epsilon = default_tau_epsilon(self.fixed_basis_tau, self.tau_supergrid,
                                                basis_tau_ppd)
@@ -382,6 +510,7 @@ class DRT:
         self.coefficient_scale = 1.0
         self.impedance_scale = 1.0
         self.inductance_scale = None
+        self.capacitance_scale = None
         self.special_qp_params = {}
         self.fit_parameters = None
         self.fit_type = None
@@ -404,6 +533,12 @@ class DRT:
     def get_special_indices(self, name):
         s = special_slice(self.special_qp_params, name)
         return s.start, s.stop
+
+    @property
+    def dop_indices(self):
+        if self.fit_dop and "x_dop" in self.special_qp_params:
+            return self.get_special_indices("x_dop")
+        return None, None
 
     @property
     def num_drt_params(self):
@@ -615,6 +750,46 @@ class DRT:
         self.fit_matrices.update({f"m{k}": base[k] for k in range(3)})
         return base
 
+    def _nu_signature(self):
+        return (self.nu_basis_type, None if self.nu_epsilon is None else float(self.nu_epsilon),
+                np.asarray(self.basis_nu, dtype=float).tobytes())
+
+    def _prep_special_matrices(self, times, step_times, step_sizes, tau_rise, frequencies):
+        """The capacitance's response vector and the DOP's matrices, each
+        built only where fitted (:569-572, :586-594, :645-654, :675-692):
+        (cap_rv, rm_dop, zm_dop, m_dop (3, d, d), dop_gmat (3, d, d)), None
+        where absent. The JAX ``DRT`` builds the capacitance vector of every
+        chrono fit, and so refuses ``expdecay`` steps whether or not the
+        capacitance is fitted (ROADMAP Queue 3 item 18); here only a fit with
+        ``fit_capacitance`` builds it, and raises that ``ValueError``."""
+        cap_rv = rm_dop = zm_dop = m_dop = dop_gmat = None
+        if times is not None and self.fit_capacitance:
+            cap_rv = mat1d.construct_capacitance_response_vector(
+                times, self.step_model, step_times, step_sizes, tau_rise, self.chrono_mode)
+            self.fit_matrices["capacitance_response"] = cap_rv
+        if not self.fit_dop:
+            return cap_rv, rm_dop, zm_dop, m_dop, dop_gmat
+        nu_sig = self._nu_signature()
+        if times is not None:
+            key = ("rm_dop", nu_sig, self.step_model, self.chrono_mode,
+                   np.asarray(times).tobytes(), np.atleast_1d(step_times).astype(float).tobytes(),
+                   np.atleast_1d(step_sizes).astype(float).tobytes())
+            rm_dop = self._cached(key, lambda: phasance.construct_phasor_v_matrix(
+                times, self.basis_nu, self.nu_basis_type, self.nu_epsilon, self.step_model,
+                step_times, step_sizes, self.chrono_mode)[0])
+            self.fit_matrices["rm_dop"] = rm_dop
+        if frequencies is not None:
+            zm_dop = self._cached(("zm_dop", nu_sig, np.asarray(frequencies).tobytes()),
+                                  lambda: phasance.construct_phasor_z_matrix(
+                                      frequencies, self.basis_nu, self.nu_basis_type,
+                                      self.nu_epsilon))
+            self.fit_matrices["zm_dop"] = zm_dop
+        m_dop, gmat0 = self._cached(("pen_dop", nu_sig), lambda: dop_penalty_matrices(
+            self.basis_nu, self.nu_basis_type, self.nu_epsilon))
+        self.fit_matrices.update({f"m{k}_dop": m_dop[k] for k in range(3)})
+        self.fit_matrices["gmat0_dop"] = gmat0
+        return cap_rv, rm_dop, zm_dop, m_dop, dop_gmat_stack(gmat0)
+
     def _get_neg_allowed_indices(self, nonneg, neg_allowed_tau_range):
         if nonneg and neg_allowed_tau_range is not None:
             raise ValueError("If nonneg==True, neg_allowed_tau_range cannot be specified")
@@ -670,8 +845,9 @@ class DRT:
                        scale_data=True, update_scale=False, solve_rp=False, offset_steps=True,
                        step_offset_size=None, offset_baseline=True, v_baseline_deg=0,
                        v_baseline_sqrt=False, smooth_inf_response=True, v_baseline_penalty=1e-6,
-                       ohmic_penalty=1e-6, inductance_penalty=1e-6, inductance_scale=1e-5,
-                       capacitance_scale=1e-3, downsample=False, downsample_kw=None,
+                       ohmic_penalty=1e-6, inductance_penalty=1e-6, capacitance_penalty=1e-6,
+                       inductance_scale=1e-5, capacitance_scale=1e-3, downsample=False,
+                       downsample_kw=None,
                        subtract_background=False, background_type="static",
                        background_corr_power=None, estimate_background_kw=None,
                        background_penalty=1, remove_extremes=False, extreme_kw=None,
@@ -709,7 +885,14 @@ class DRT:
             warnings.warn("update_scale (mid-fit data-scale refinement) is not implemented; "
                           "the scale is set once up front — use solve_rp=True for the refined "
                           "pre-fit Rp estimate instead")
-        hypers = qphb_hypers(eff_hp=eff_hp, **kw)
+        if self.fit_dop:
+            # the nu basis and its epsilon (:1067-1076)
+            self.basis_nu = default_basis_nu(self.fixed_basis_nu)
+            self.nu_epsilon = default_nu_epsilon(self.basis_nu, self.nu_basis_type,
+                                                 self.nu_epsilon)
+        else:
+            self.basis_nu = None
+        hypers = qphb_hypers(eff_hp=eff_hp, fit_dop=self.fit_dop, **kw)
         self.v_baseline_deg = v_baseline_deg
         self.v_baseline_sqrt = v_baseline_sqrt
 
@@ -782,7 +965,9 @@ class DRT:
         bkg_scaled = bkg and background_type == "scaled"
         self.special_qp_params = special_qp_params(
             self.fit_ohmic, self.fit_inductance, vz_offset=fit_vz, background_scale=bkg_scaled,
-            v_baseline_size=0 if times is None else v_baseline_deg + 1 + int(v_baseline_sqrt))
+            v_baseline_size=0 if times is None else v_baseline_deg + 1 + int(v_baseline_sqrt),
+            fit_capacitance=self.fit_capacitance,
+            dop_size=0 if self.basis_nu is None else len(self.basis_nu))
         sp = self.special_qp_params
         ns = self.get_qp_mat_offset()
 
@@ -807,6 +992,8 @@ class DRT:
         else:
             self.f_fit = []
         base_penalty = self._prep_penalty_matrices()
+        cap_rv, rm_dop, zm_dop, dop_base, dop_gmat = self._prep_special_matrices(
+            sample_times, step_times, step_sizes, tau_rise, frequencies)
         if series_neg:
             # the negative set: the same columns negated, its own penalty block
             if sample_times is not None:
@@ -823,23 +1010,35 @@ class DRT:
             rm_drt = rm_drt / self.input_signal_scale
             induc_rv = induc_rv / self.input_signal_scale
             inf_rv = inf_rv / self.input_signal_scale
+            if cap_rv is not None:
+                cap_rv = cap_rv / self.input_signal_scale
+            if rm_dop is not None:
+                rm_dop = rm_dop / self.input_signal_scale
 
         # _format_qp_matrices (:695)
         neg_allowed_indices = self._get_neg_allowed_indices(nonneg, neg_allowed_tau_range)
         self.inductance_scale = inductance_scale
+        self.capacitance_scale = capacitance_scale
+        self.dop_scale_vector = None
+        if self.fit_dop:
+            self.dop_scale_vector = dop_scale_vector(
+                self.basis_nu, self.nu_basis_type, self.nu_epsilon, self.normalize_dop,
+                self.tau_supergrid if self.tau_supergrid is not None else self.basis_tau)
         rm = zm = None
         if sample_times is not None:
             vb_mat = None
             if "v_baseline" in sp:
                 vb_mat, self.v_baseline_scale = get_baseline_matrix(
                     self.get_fit_times(), v_baseline_deg, normalize=True, sqrt=v_baseline_sqrt)
-            rm = chrono_design_matrix(rm_drt, sp, vb_mat, induc_rv, inf_rv, inductance_scale)
+            rm = chrono_design_matrix(rm_drt, sp, vb_mat, induc_rv, inf_rv, inductance_scale,
+                                      cap_rv, capacitance_scale, rm_dop, self.dop_scale_vector)
         if zm_drt is not None:
-            zm = eis_design_matrix(zm_drt, frequencies, sp, inductance_scale)
+            zm = eis_design_matrix(zm_drt, frequencies, sp, inductance_scale, capacitance_scale,
+                                   zm_dop, self.dop_scale_vector)
         m_stack = penalty_stack(base_penalty, sp, {
             "v_baseline": v_baseline_penalty, "vz_offset": 1 / vz_offset_scale,
             "background_scale": background_penalty, "R_inf": ohmic_penalty,
-            "inductance": inductance_penalty})
+            "inductance": inductance_penalty, "C_inv": capacitance_penalty}, dop_base)
 
         # The GP background operator of the dynamic and scaled modes
         # (:1114-1128), the dynamic mode's projection out of the design
@@ -852,7 +1051,7 @@ class DRT:
             if background_type == "dynamic":
                 rm_orig = rm.copy()
                 rm = rm - rm_bkg @ rm
-        rzm = zm if rm is None else (rm if zm is None else np.vstack((rm, zm)))
+        rzm = zm.copy() if rm is None else (rm.copy() if zm is None else np.vstack((rm, zm)))
 
         # vz offset (:1138-1153); it relates z to the raw voltage, not the
         # background-projected one
@@ -883,25 +1082,40 @@ class DRT:
         rzv = zv.copy() if rv is None else (rv.copy() if zv is None else np.concatenate([rv, zv]))
 
         n = rzm.shape[1]
-        l1_lambda_vector = l1_vector(n, ns, hypers)
+        l1_lambda_vector = l1_vector(n, ns, hypers, sp)
         k_range = len(hypers["derivative_weights"])
         rho_vector = np.array(hypers["rho_0"], dtype=float).copy()
         s_vectors = np.stack([np.ones(n) * hypers["s_0"][k] for k in range(k_range)])
-        dop_rho_vector = np.ones(k_range)
-        cfg = QPHBConfig(num_special=ns, k_range=k_range, eff_hp=eff_hp, has_outlier=False)
+        dop_rho_vector = np.array(hypers["dop_rho_0"], dtype=float).copy() if self.fit_dop \
+            else np.ones(k_range)
+        dop_start, dop_size = dop_config(sp)
+        cfg = QPHBConfig(num_special=ns, dop_start=dop_start, dop_size=dop_size, k_range=k_range,
+                         eff_hp=eff_hp, has_outlier=False)
         lb = make_lower_bound(n, nonneg, sp, neg_allowed_indices)
 
         if scale_data and solve_rp:
             # Data-scale refinement from a quick elastic-net solve (:1210-1221)
             x_rp = self._to_numpy(qphb_mod.estimate_x_rp(
                 self._hyp(hypers), self._t(m_stack), self._t(rho_vector), self._t(s_vectors),
-                self._t(rzv)[None], self._t(rzm), self._t(lb), cfg))[0]
+                self._t(rzv)[None], self._t(rzm), self._t(lb), cfg,
+                dop_rho_vector=self._t(dop_rho_vector)))[0]
             rp_est = self.predict_r_p(absolute=True, x=x_rp, raw=True)
             scale_factor = hypers["rp_scale"] / rp_est
             for vec in (rv, zv, rzv, rv_orig):
                 if vec is not None:
                     vec *= scale_factor
             self.update_data_scale(scale_factor)
+            if self.fit_dop and self.normalize_dop:
+                # The DOP columns rescaled to the DRT block's size, in place
+                # and in the JAX order (:1222-1231)
+                ds_, de_ = dop_start, dop_start + dop_size
+                dop_rescale = np.max(np.abs(x_rp[ns:])) / np.max(np.abs(x_rp[ds_:de_]))
+                self.dop_scale_vector /= dop_rescale
+                for mat in (rm, zm, rzm, rzm_vz, rm_orig):
+                    if mat is not None:
+                        mat[:, ds_:de_] /= dop_rescale
+                for k in range(k_range):
+                    m_stack[k][ds_:de_, ds_:de_] /= dop_rescale
 
         # The variance-averaging matrices, block diagonal for hybrid data
         chrono_vmm = eis_vmm = None
@@ -935,13 +1149,15 @@ class DRT:
                 "rho_vector": rho_vector, "dop_rho_vector": dop_rho_vector, "cfg": cfg,
                 "rzm_vz": rzm_vz, "vz_strength_vec": vz_strength_vec, "vz_offset": fit_vz,
                 "vz_index": vz_index, "data_type": data_type, "num_chrono": num_chrono,
-                "num_eis": num_eis, "hypers": hypers, "dop_gmat": None,
+                "num_eis": num_eis, "hypers": hypers,
+                "dop_gmat": None if dop_gmat is None else list(dop_gmat),
                 "outlier_p": None, "basis_tau": np.asarray(self.basis_tau),
                 "special_qp_params": dict(sp), "coefficient_scale": self.coefficient_scale,
                 "input_signal_scale": self.input_signal_scale,
                 "response_signal_scale": self.response_signal_scale,
                 "impedance_scale": self.impedance_scale,
-                "v_baseline_scale": self.v_baseline_scale, "dop_scale_vector": None,
+                "v_baseline_scale": self.v_baseline_scale,
+                "dop_scale_vector": self.dop_scale_vector,
                 "inductance_scale": inductance_scale, "capacitance_scale": capacitance_scale,
                 "sample_times": sample_times, "frequencies": frequencies,
                 "hybrid_weight_factor_method": hybrid_weight_factor_method,
@@ -960,7 +1176,8 @@ class DRT:
 
         def init_w(rv_, rm_, vmm_):
             out = qphb_mod.initialize_weights(iw_hyp, m_t, t(rho_vector), t(s_vectors),
-                                              t(rv_)[None], t(rm_), t(vmm_), lb_t, cfg)
+                                              t(rv_)[None], t(rm_), t(vmm_), lb_t, cfg,
+                                              dop_rho_vector=t(dop_rho_vector))
             return [npy(a) for a in out]
 
         c_est = c_init = x_over_c = e_est = e_init = x_over_e = None
@@ -1030,6 +1247,8 @@ class DRT:
         loop_kw = dict(hybrid, weight_factor=weight_factor, return_design=True)
         if bkg_scaled:
             loop_kw["rm_bkg"] = t(rm_bkg)
+        if dop_gmat is not None:
+            loop_kw["dop_gmat"] = t(dop_gmat)
         loop_args = (rzm_t, rzv_t, vmm_t, m_t, l1v_t, lb_t, hyp, t(np.full((1, n), 1e-6)),
                      t(s_vectors)[None], t(rho_vector)[None], t(dop_rho_vector)[None],
                      t(init_weights)[None], t(est_weights)[None], t(np.ones((1, len(rzv)))),
@@ -1064,7 +1283,8 @@ class DRT:
             warnings.warn(f"Solution did not converge within {max_iter} iterations. "
                           "This is usually not an issue.")
         p_t, q_t = qphb_mod.calculate_pq(rzm_t, rzv_t, m_t, hyp, l1v_t, state.rho_vector,
-                                         state.s_vectors, t(scaled_weights)[None], cfg)
+                                         state.s_vectors, t(scaled_weights)[None], cfg,
+                                         dop_rho_vector=state.dop_rho_vector)
         p_matrix, q_vector = npy(p_t), npy(q_t)
         rzm_out = self._to_numpy(rzm_t) if (fit_vz or bkg_scaled) else rzm
         if bkg and background_type != "static":
@@ -1088,7 +1308,8 @@ class DRT:
             "xmx_norms": npy(state.xmx_norms), "dop_xmx_norms": npy(state.dop_xmx_norms),
             "x_overfit_chrono": x_over_c, "x_overfit_eis": x_over_e,
             "p_matrix": p_matrix, "q_vector": q_vector, "x_raw": x,
-            "rho_vector": npy(state.rho_vector), "dop_rho_vector": None,
+            "rho_vector": npy(state.rho_vector),
+            "dop_rho_vector": npy(state.dop_rho_vector) if self.fit_dop else None,
             "s_vectors": [s_out[k] for k in range(k_range)], "outlier_t": npy(state.outlier_t),
             "vmm": vmm, "l1_lambda_vector": l1_lambda_vector,
             "rm": rzm_out, "rv": rzv,
@@ -1201,9 +1422,13 @@ class DRT:
         out["inductance"] = x[special["inductance"]] * (self.coefficient_scale
                                                         * self.inductance_scale) \
             if "inductance" in special else 0
-        out["C_inv"] = 0
+        out["C_inv"] = x[special["C_inv"]] * (self.coefficient_scale * self.capacitance_scale) \
+            if "C_inv" in special else 0
         if "background_scale" in special:
             out["background_scale"] = x[special["background_scale"]]
+        if self.fit_dop:
+            ds_, de_ = self.dop_indices
+            out["x_dop"] = x[ds_:de_] * (self.dop_scale_vector * self.coefficient_scale)
         return out
 
     def get_drt_params(self, x=None, sign=1):
@@ -1312,10 +1537,11 @@ class DRT:
             return self.fit_parameters
         return x if isinstance(x, dict) else self.extract_qphb_parameters(x)
 
-    def predict_z(self, frequencies=None, include_vz_offset=True, x=None, include_drt=True,
-                  include_inductance=True, include_ohmic=True, include_cap=True):
-        """Predicted impedance (:2004); a hybrid fit's times (1 - vz_offset
-        times its coupling strength)."""
+    def predict_z(self, frequencies=None, include_vz_offset=True, x=None, include_dop=True,
+                  include_drt=True, include_inductance=True, include_ohmic=True,
+                  include_cap=True):
+        """Predicted impedance (:2004), the DOP's part included; a hybrid
+        fit's times (1 - vz_offset times its coupling strength)."""
         if frequencies is None:
             frequencies = self.get_fit_frequencies()
         frequencies = np.asarray(frequencies, dtype=float)
@@ -1330,6 +1556,10 @@ class DRT:
             z = z + params.get("inductance", 0) * 2j * np.pi * frequencies
         if include_cap:
             z = z + params.get("C_inv", 0) / (2j * np.pi * frequencies)
+        if self.fit_dop and include_dop and params.get("x_dop") is not None:
+            zm_dop = phasance.construct_phasor_z_matrix(frequencies, self.basis_nu,
+                                                        self.nu_basis_type, self.nu_epsilon)
+            z = z + zm_dop @ params["x_dop"]
         if include_vz_offset and "vz_offset" in self.special_qp_params:
             _, vz_strength = self._get_vz_strength_vec(
                 None, frequencies, vz_offset_eps=self.fit_parameters.get("vz_offset_eps"))
@@ -1338,9 +1568,10 @@ class DRT:
 
     def predict_response(self, times=None, step_times=None, step_sizes=None, x=None,
                          include_vz_offset=True, v_baseline=None):
-        """Predicted chrono response (:2044): the DRT's and the ohmic
-        resistance's response to the steps, a hybrid fit's times (1 +
-        vz_offset times its coupling strength), plus the voltage baseline."""
+        """Predicted chrono response (:2044): the DRT's, the ohmic
+        resistance's, the capacitance's and the DOP's response to the steps,
+        a hybrid fit's times (1 + vz_offset times its coupling strength),
+        plus the voltage baseline."""
         if times is None:
             times = self.get_fit_times()
         times = np.asarray(times, dtype=float)
@@ -1354,6 +1585,15 @@ class DRT:
             pp.generate_model_signal(times, step_times, step_sizes, self.tau_rise,
                                      self.step_model), False, self.chrono_mode)
         response = response + params.get("R_inf", 0) * inf_rv
+        if self.fit_capacitance:
+            cap_rv = mat1d.construct_capacitance_response_vector(
+                times, self.step_model, step_times, step_sizes, self.tau_rise, self.chrono_mode)
+            response = response + params.get("C_inv", 0) * cap_rv
+        if self.fit_dop and params.get("x_dop") is not None:
+            rm_dop, _ = phasance.construct_phasor_v_matrix(
+                times, self.basis_nu, self.nu_basis_type, self.nu_epsilon, self.step_model,
+                step_times, step_sizes, self.chrono_mode)
+            response = response + rm_dop @ params["x_dop"]
         if include_vz_offset and "vz_offset" in self.special_qp_params:
             vz_strength, _ = self._get_vz_strength_vec(
                 times, None, vz_offset_eps=self.fit_parameters.get("vz_offset_eps"))
@@ -1393,7 +1633,13 @@ class DRT:
         return (np.sum(np.abs(x)) if absolute else np.sum(x)) * area
 
     def predict_r_inf(self):
-        return self.fit_parameters.get("R_inf", 0)
+        """R_inf, plus a delta-basis DOP's coefficient at nu = 0 (:2115)."""
+        r_inf = self.fit_parameters.get("R_inf", 0)
+        if self.fit_dop and self.nu_basis_type == "delta":
+            zero_index = np.where(self.basis_nu == 0)[0]
+            if len(zero_index) == 1:
+                r_inf = r_inf + np.sum(self.fit_parameters["x_dop"][zero_index])
+        return r_inf
 
     def predict_r_tot(self):
         return self.predict_r_inf() + self.predict_r_p()
@@ -1425,6 +1671,101 @@ class DRT:
         """(tau_min, tau_max) covered by the measured data (:2451)."""
         return pp.get_tau_lim(self.get_fit_frequencies(True), self.get_fit_times(True),
                               self.nonconsec_step_times)
+
+    # ------------------------------------------------------------------
+    # The distribution of phasances (:1832-1860, :2135-2147, :2386-2445)
+    # ------------------------------------------------------------------
+    def _check_dop(self):
+        if not self.fit_dop:
+            raise ValueError("DOP was not fitted")
+
+    def predict_dop(self, nu=None, x=None, order=0, normalize=False, normalize_tau=None,
+                    delta_density=False):
+        """The DOP over ``nu`` (default 201 points on [-1, 1]) (:1832);
+        ``normalize`` divides by the phasor scale over ``normalize_tau``
+        (default the basis)."""
+        self._check_dop()
+        if nu is None:
+            nu = np.linspace(-1, 1, 201)
+        if x is None:
+            x = self.fit_parameters["x_dop"]
+        em = basis_mod.func_eval_matrix_host(np.asarray(self.basis_nu), np.asarray(nu),
+                                             self.nu_basis_type, self.nu_epsilon, order)
+        out = em @ np.asarray(x)
+        if normalize:
+            tau_ref = normalize_tau if normalize_tau is not None else self.basis_tau
+            out = out / phasance.phasor_scale_vector(nu, tau_ref)
+        return out
+
+    @property
+    def tau_basis_area(self):
+        return basis_mod.get_basis_func_area(self.tau_basis_type, self.tau_epsilon)
+
+    @property
+    def nu_basis_area(self):
+        return basis_mod.get_basis_func_area(self.nu_basis_type, self.nu_epsilon)
+
+    def get_dop_norm(self, nu, normalize=False, normalize_tau=None,
+                     normalize_quantiles=(0.25, 0.75)):
+        """The normalization vector of DOP queries (:2135): the phasor scale
+        over the data's tau range divided by the nu basis's area."""
+        if not normalize:
+            return 1.0
+        if normalize_tau is None:
+            normalize_tau = pp.get_tau_lim(self.get_fit_frequencies(True),
+                                           self.get_fit_times(True), self.nonconsec_step_times)
+        sv = phasance.phasor_scale_vector(np.asarray(nu), np.asarray(normalize_tau),
+                                          normalize_quantiles)
+        return sv / basis_mod.get_basis_func_area(self.nu_basis_type, self.nu_epsilon)
+
+    def estimate_dop_cov(self, nu=None, p_matrix=None, normalize=False, normalize_tau=None,
+                         var_floor=0.0, order=0, delta_density=False):
+        """Covariance of the DOP at ``nu`` (default the basis) from the
+        Laplace posterior (:2386)."""
+        self._check_dop()
+        if nu is None:
+            nu = self.basis_nu
+        em = basis_mod.func_eval_matrix_host(np.asarray(self.basis_nu), np.asarray(nu),
+                                             self.nu_basis_type, self.nu_epsilon, order)
+        ds_, de_ = self.dop_indices
+        x_cov = self.estimate_param_cov(p_matrix=p_matrix)[ds_:de_, ds_:de_]
+        if delta_density and self.nu_basis_type == "delta":
+            x_cov = x_cov / self.get_nu_basis_spacing()
+        dist_cov = em @ x_cov @ em.T
+        if normalize:
+            tau_ref = normalize_tau if normalize_tau is not None else self.basis_tau
+            sv = phasance.phasor_scale_vector(np.asarray(nu), tau_ref)
+            dist_cov = dist_cov / (sv[:, None] * sv[None, :])
+        if var_floor > 0:
+            dist_cov[np.diag_indices_from(dist_cov)] = np.maximum(np.diag(dist_cov), var_floor)
+        return dist_cov
+
+    def predict_dop_ci(self, nu=None, x=None, normalize=False, normalize_tau=None,
+                       quantiles=(0.025, 0.975), order=0, delta_density=False):
+        """Credible interval of the DOP (:2414)."""
+        if nu is None:
+            nu = self.basis_nu
+        dist_cov = self.estimate_dop_cov(nu=nu, order=order, normalize=normalize,
+                                         normalize_tau=normalize_tau,
+                                         delta_density=delta_density)
+        sigma = np.sqrt(np.maximum(np.diag(dist_cov), 0))
+        mu = self.predict_dop(nu=nu, x=x, order=order, normalize=normalize,
+                              normalize_tau=normalize_tau, delta_density=delta_density)
+        out = [mu + ndtri(q) * sigma for q in quantiles]
+        return out[0], out[1]
+
+    def get_nu_basis_spacing(self):
+        """Each nu basis point's smaller spacing to a neighbour (:2432)."""
+        basis_nu = self.fixed_basis_nu if self.fixed_basis_nu is not None else self.basis_nu
+        dnu = np.diff(np.sort(np.asarray(basis_nu)))
+        dnu = np.minimum(dnu[1:], dnu[:-1])
+        med = np.median(dnu) if len(dnu) else 1.0
+        return np.concatenate([[med], dnu, [med]])
+
+    def get_dop_params(self, x=None):
+        if x is None:
+            x = self.fit_parameters["x_dop"]
+        return np.asarray(x)
 
     # ------------------------------------------------------------------
     # The Laplace posterior (:2166-2385)
@@ -1459,8 +1800,12 @@ class DRT:
                 scale_vec[start:end] = self.response_signal_scale / self.v_baseline_scale
             elif name == "inductance":
                 scale_vec[start:end] = self.coefficient_scale * self.inductance_scale
+            elif name == "C_inv":
+                scale_vec[start:end] = self.coefficient_scale * self.capacitance_scale
             elif name == "vz_offset":
                 scale_vec[start:end] = 1.0
+            elif name == "x_dop":
+                scale_vec[start:end] = self.coefficient_scale * self.dop_scale_vector
         return p_inv * scale_vec[:, None] * scale_vec[None, :]
 
     def estimate_distribution_cov(self, tau=None, ppd=20, order=0, extend_var=True,
@@ -1609,7 +1954,13 @@ class DRT:
             self._lane(self._raw_x()), self._lane(qp["rm"])[0], self._lane(qp["rv"]), m_stack,
             hyp, self._lane(qp["l1_lambda_vector"])[0], self._lane(qp["rho_vector"]),
             self._lane(np.stack(qp["s_vectors"])), self._lane(qp["weights"]), qp["cfg"],
-            **kw)[0])
+            dop_rho_vector=self._lane(self._dop_rho(qp)), **kw)[0])
+
+    @staticmethod
+    def _dop_rho(qp):
+        """The fit's DOP derivative strengths, ones without a DOP."""
+        dr = qp.get("dop_rho_vector")
+        return np.ones(qp["cfg"].k_range) if dr is None else dr
 
     def _raw_x(self):
         """The scaled (solver) parameter vector rebuilt from fit_parameters
@@ -1623,6 +1974,10 @@ class DRT:
                 x[start] = fp["R_inf"] / self.coefficient_scale
             elif name == "inductance":
                 x[start] = fp["inductance"] / (self.coefficient_scale * self.inductance_scale)
+            elif name == "C_inv":
+                x[start] = fp["C_inv"] / (self.coefficient_scale * self.capacitance_scale)
+            elif name == "x_dop":
+                x[start:end] = fp["x_dop"] / (self.dop_scale_vector * self.coefficient_scale)
             elif name in ("vz_offset", "background_scale"):
                 x[start] = fp[name]
             elif name == "v_baseline":
@@ -1824,8 +2179,10 @@ class DRT:
                    lane(qp["l1_lambda_vector"]), lane(qp["rho_vector"]),
                    torch.stack([lane(s_) for s_ in qp["s_vectors"]]), lane(qp["weights"]),
                    lane(qp["xmx_norms"]), qp["cfg"])
-        lp = qphb_mod.evaluate_posterior_lp(x_samples, *lp_args)
-        lp_hat = qphb_mod.evaluate_posterior_lp(x_hat[None], *lp_args)[0]
+        dop_rho = lane(self._dop_rho(qp))
+        lp = qphb_mod.evaluate_posterior_lp(x_samples, *lp_args, dop_rho_vector=dop_rho)
+        lp_hat = qphb_mod.evaluate_posterior_lp(x_hat[None], *lp_args,
+                                                dop_rho_vector=dop_rho)[0]
         self.map_samples = {"x": self._to_numpy(x_samples), "lp": self._to_numpy(lp),
                             "lp_hat": float(lp_hat), "x_hat": self._to_numpy(x_hat),
                             "index": np.repeat(np.arange(ns, n), len(deltas)),
@@ -1910,8 +2267,7 @@ class DRT:
 
     def get_attributes(self, which=None):
         """The attributes of the categories ``which`` (default "config" and
-        "fit_core") as a dict of deep copies; a name this class does not
-        have (DOP, capacitance, nu-basis options) comes back as None."""
+        "fit_core") as a dict of deep copies."""
         cats = self.attribute_categories
         if which is None:
             which = ["config", "fit_core"]

@@ -1,11 +1,13 @@
 """Gaussian radial basis functions in ln(tau) space, host-side float64.
 
-Counterpart of ``hybdrt_tpu/ops/basis.py`` for the gaussian basis only (the
-basis of the EIS, chrono and hybrid fits). Matrix assembly runs once per
-frequency grid or chrono protocol, so it stays in numpy/scipy float64 on the
-host; only the fit loop runs on the device.
+Counterpart of ``hybdrt_tpu/ops/basis.py`` for the gaussian basis (the tau
+basis of the EIS, chrono and hybrid fits, and the DOP's default nu basis)
+and the delta basis of the DOP (its function, area and evaluation matrix).
+Matrix assembly runs once per frequency grid or chrono protocol, so it stays
+in numpy/scipy float64 on the host; only the fit loop runs on the device.
 """
 import numpy as np
+from scipy.special import erf
 
 SQRT_PI = 1.7724538509055159
 
@@ -21,13 +23,21 @@ def gaussian(y, epsilon):
     return np.exp(-((epsilon * y) ** 2))
 
 
+def delta(y, epsilon=None):
+    return np.where(y == 0, 1.0, 0.0)
+
+
 def get_basis_func(basis_type):
+    if basis_type == "delta":
+        return delta
     _check_gaussian(basis_type)
     return gaussian
 
 
 def get_basis_func_area(basis_type, epsilon, zga_params=None):
     """Total area under phi (hybdrt_tpu/ops/basis.py:189)."""
+    if basis_type == "delta":
+        return 1.0
     _check_gaussian(basis_type)
     return SQRT_PI / epsilon
 
@@ -48,8 +58,53 @@ def integrated_derivative_kernel(order):
             a = epsilon * (x_m - x_n)
             return np.sqrt(np.pi / 2) * epsilon ** 3 * (3 - 6 * a ** 2 + a ** 4) \
                 * np.exp(-(a ** 2) / 2)
+    elif order == 3:
+        def func(x_n, x_m, epsilon):
+            a = epsilon * (x_m - x_n)
+            return -np.sqrt(np.pi / 2) * epsilon ** 5 \
+                * (-15 + 45 * a ** 2 - 15 * a ** 4 + a ** 6) * np.exp(-(a ** 2) / 2)
     else:
-        raise NotImplementedError(f"order={order}: the port implements orders 0..2")
+        raise ValueError(f"Invalid order {order}; must be in 0..3")
+    return func
+
+
+def integrated_derivative_kernel_indefinite(order):
+    """func(x, x_n, x_m, epsilon), the indefinite integral of d^k phi_n d^k
+    phi_m up to x, for truncated integration limits, k = 0..2
+    (hybdrt_tpu/ops/basis.py:232)."""
+    def exps(x, x_n, x_m, epsilon):
+        e_full = epsilon ** 2 * (2 * x * (x_m + x_n) - (x_m ** 2 + x_n ** 2 + 2 * x ** 2))
+        e_erf = epsilon ** 2 * (0.5 * ((x_m + x_n) ** 2 + 4 * x ** 2)
+                                - (x_m ** 2 + x_n ** 2 + 2 * x ** 2))
+        return e_full, e_erf
+
+    if order == 0:
+        def func(x, x_n, x_m, epsilon):
+            a = epsilon * (x_m - x_n)
+            b = epsilon * (x_m + x_n - 2 * x)
+            return erf(b / np.sqrt(2.0)) * (-np.sqrt(np.pi / 8) / epsilon
+                                            * np.exp(-0.5 * a ** 2))
+    elif order == 1:
+        def func(x, x_n, x_m, epsilon):
+            a = epsilon * (x_m - x_n)
+            b = epsilon * (x_m + x_n - 2 * x)
+            e_full, e_erf = exps(x, x_n, x_m, epsilon)
+            out = b * np.exp(e_full)
+            out = out + 0.5 * np.sqrt(2 * np.pi) * (a ** 2 - 1) * np.exp(e_erf) \
+                * erf(b / np.sqrt(2.0))
+            return out * 0.5 * epsilon
+    elif order == 2:
+        def func(x, x_n, x_m, epsilon):
+            a = epsilon * (x_m - x_n)
+            b = epsilon * (x_m + x_n - 2 * x)
+            e_full, e_erf = exps(x, x_n, x_m, epsilon)
+            out = 2 * b * np.exp(e_full) * (3 * a ** 2 - 2 * epsilon ** 2
+                                            * ((x - x_m) ** 2 + (x - x_n) ** 2) + 1)
+            out = out + np.sqrt(2 * np.pi) * (a ** 4 - 6 * a ** 2 + 3) * np.exp(e_erf) \
+                * erf(b / np.sqrt(2.0))
+            return out * (-0.25 * epsilon ** 3)
+    else:
+        raise ValueError(f"Invalid order {order}; must be in 0..2 for indefinite kernels")
     return func
 
 
@@ -58,6 +113,9 @@ def get_basis_func_derivative(basis_type, order):
     (hybdrt_tpu/ops/basis.py:110-121)."""
     if order == 0:
         return get_basis_func(basis_type)
+    if basis_type == "delta":
+        raise ValueError(f"Derivative of order {order} not implemented for basis type "
+                         f"{basis_type}")
     _check_gaussian(basis_type)
     if order == 1:
         return lambda y, epsilon: -2 * epsilon ** 2 * y * gaussian(y, epsilon)
@@ -92,7 +150,8 @@ def func_eval_matrix_host(basis_grid, eval_grid=None, basis_type="gaussian", eps
     the last 64 matrices, read-only."""
     basis_grid = np.asarray(basis_grid, dtype=float)
     eval_grid = basis_grid if eval_grid is None else np.asarray(eval_grid, dtype=float)
-    key = (basis_grid.tobytes(), eval_grid.tobytes(), basis_type, float(epsilon), int(order))
+    key = (basis_grid.tobytes(), eval_grid.tobytes(), basis_type,
+           None if epsilon is None else float(epsilon), int(order))
     em = _EVAL_MATRIX_HOST_CACHE.get(key)
     if em is None:
         em = construct_func_eval_matrix(basis_grid, eval_grid, basis_type, epsilon, order)

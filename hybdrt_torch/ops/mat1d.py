@@ -3,11 +3,13 @@
 
 Host-side float64 numpy: the matrices are built once per frequency grid or
 chrono protocol and uploaded to the device by the fitter. ``invert_psd``
-(the posterior covariances' inverse) runs in torch on the tensor's device. Only the gaussian
-basis and the ``integrate_method="interp"`` scheme are implemented (ROADMAP
-Queue 1 item 4); chrono data take ideal and ``expdecay`` steps, and the
-potentiostatic response is the delta-basis closed form, as in the JAX
-package.
+(the posterior covariances' inverse) runs in torch on the tensor's device. The fit matrices
+take the gaussian basis and the ``integrate_method="interp"`` scheme (other
+bases and ``trapz`` are ROADMAP Queue 1 item 4); chrono data take ideal and
+``expdecay`` steps, and the potentiostatic response is the delta-basis
+closed form, as in the JAX package. The penalty matrices also take the delta
+basis and truncated integration limits, and the capacitance has its
+impedance and (ideal-step) response vectors.
 """
 import numpy as np
 import torch
@@ -80,13 +82,44 @@ def construct_response_matrix(basis_tau, times, step_model, step_times, step_siz
 
 
 def construct_integrated_derivative_matrix(basis_grid, basis_type="gaussian", order=1,
-                                           epsilon=1.0):
-    """M with x^T M x = int (d^k gamma / d ln tau^k)^2 d ln tau, gaussian closed
-    form (hybdrt_tpu/ops/mat1d.py:153-181)."""
-    basis_mod._check_gaussian(basis_type)
+                                           epsilon=1.0, integration_limits=None):
+    """M with x^T M x = int (d^k gamma / d ln tau^k)^2 d ln tau
+    (hybdrt_tpu/ops/mat1d.py:153-211): the gaussian closed form, over
+    ``integration_limits`` (a, b) where given, ``order`` one order or a
+    list of three weights of orders 0..2; the delta basis's difference
+    operators. Other bases are ROADMAP Queue 1 item 4."""
     basis_grid = np.asarray(basis_grid, dtype=float)
+    n = basis_grid.shape[0]
+    xx_i, xx_j = basis_grid[None, :], basis_grid[:, None]
+    if integration_limits is not None:
+        func = basis_mod.integrated_derivative_kernel_indefinite(order)
+        a, b = integration_limits
+        return func(b, xx_i, xx_j, epsilon) - func(a, xx_i, xx_j, epsilon)
+    if basis_type == "delta":
+        if order == 0:
+            return np.eye(n)
+        if order == 1:
+            lm = np.eye(n)
+            np.fill_diagonal(lm[1:, :-1], -1)
+            lm[0, 0] = 0
+            lm[1:, 1:] /= np.diff(basis_grid)[:, None]
+            return lm.T @ lm
+        if order == 2:
+            lm = np.eye(n) * 2
+            lm[0, 0] = 1
+            lm[-1, -1] = 1
+            np.fill_diagonal(lm[1:, :-1], -1)
+            np.fill_diagonal(lm[:-1, 1:], -1)
+            lm[1:, 1:] /= np.diff(basis_grid)[:, None]
+            lm[:-1, :-1] /= np.diff(basis_grid)[:, None]
+            return lm.T @ lm
+        raise ValueError(f"Invalid order {order} for delta basis")
+    basis_mod._check_gaussian(basis_type)
+    if isinstance(order, (list, tuple)):
+        return sum(w * basis_mod.integrated_derivative_kernel(k)(xx_i, xx_j, epsilon)
+                   for k, w in enumerate(order))
     func = basis_mod.integrated_derivative_kernel(order)
-    return func(basis_grid[None, :], basis_grid[:, None], epsilon)
+    return func(xx_i, xx_j, epsilon)
 
 
 def construct_inductance_response_vector(times, step_model, step_times, step_sizes, tau_rise,
@@ -183,3 +216,22 @@ def invert_psd(a, use_cholesky=True):
     if bool(bad.any()):
         inv = torch.where(bad[..., None, None], torch.linalg.inv_ex(a)[0], inv)
     return inv
+
+
+def construct_capacitance_response_vector(times, step_model, step_times, step_sizes, tau_rise,
+                                          op_mode="galv"):
+    """The inverse capacitance's step response, sum of step_size (t -
+    t_step) after each step (hybdrt_tpu/ops/mat1d.py:248); ideal steps only,
+    with the JAX package's ``ValueError`` otherwise."""
+    if step_model != "ideal":
+        raise ValueError("Capacitance response not implemented for non-ideal steps")
+    times = np.asarray(times, dtype=float)
+    step_times = np.atleast_1d(np.asarray(step_times, dtype=float))
+    step_sizes = np.atleast_1d(np.asarray(step_sizes, dtype=float))
+    td = times[None, :] - step_times[:, None]
+    return np.sum(np.where(td >= 0, step_sizes[:, None] * td, 0.0), axis=0)
+
+
+def construct_capacitance_impedance_vector(frequencies):
+    """1 / (j omega) (hybdrt_tpu/ops/mat1d.py:264)."""
+    return 1 / (1j * 2 * np.pi * np.asarray(frequencies, dtype=float))

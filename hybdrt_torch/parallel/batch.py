@@ -16,7 +16,7 @@ import torch
 from .. import preprocessing as pp
 from ..models.drt import build_eis_problem, build_hybrid_problem
 from ..ops import basis as basis_mod
-from ..ops import mat1d
+from ..ops import mat1d, phasance
 from ..solver import fitcore, qphb as qphb_mod
 from ..utils.device import resolve_device
 
@@ -28,7 +28,7 @@ class BatchFitResult(NamedTuple):
     r_inf: np.ndarray          # (B,)
     inductance: np.ndarray     # (B,)
     c_inv: np.ndarray          # (B,)
-    x_dop: Optional[np.ndarray]  # always None: DOP is not ported yet
+    x_dop: Optional[np.ndarray]  # (B, n_nu) with fit_dop, else None
     scale: np.ndarray          # (B,) coefficient scale per spectrum
     weights: object            # (B, 2*n_f) final data weights (scaled space)
     rho: np.ndarray            # (B, 3)
@@ -65,6 +65,10 @@ class BatchedEISFitter:
     With ``tau_supergrid`` the basis is the slice of that grid covering the
     data, and ``tau_indices`` is its (left, right) on the supergrid (the
     window a map stores the coefficients in, ``hybdrt_tpu/mapping/drtmd.py:735``).
+
+    ``fit_dop=True`` adds the distribution of phasances (the default nu
+    basis of 50 functions, ``result.x_dop``), ``fit_capacitance=True`` the
+    inverse capacitance (``result.c_inv``), as in the JAX fitter.
     """
 
     def __init__(self, frequencies, basis_tau=None, tau_supergrid=None, fit_ohmic=True,
@@ -89,9 +93,13 @@ class BatchedEISFitter:
         ``build_eis_problem`` returns (``frequencies``, ``rzm``, ``vmm``,
         ``m_stack``, ``l1v``, ``lb``, ``hypers``, ``iw_hypers``, ``cfg``,
         ``special_qp_params``, ``basis_tau``, ``tau_epsilon``,
-        ``inductance_scale``). ``cfg`` may be a QPHBConfig or a dict of its
-        fields. ``fit_kw`` are the constructor's loop options (max_iter,
-        qp_max_iter, pred_stop, ...)."""
+        ``inductance_scale``; a capacitance fit's ``capacitance_scale``, a
+        DOP fit's ``dop_gmat``, ``dop_scale_vector``, ``basis_nu``,
+        ``nu_basis_type`` and ``nu_epsilon``, as a JAX fitter and its
+        template hold them; the loop's dop_rho0 is ``hypers["dop_rho_0"]``).
+        ``cfg`` may be a QPHBConfig or a dict of its fields. ``fit_kw`` are
+        the constructor's loop options (max_iter, qp_max_iter, pred_stop,
+        ...)."""
         self = cls.__new__(cls)
         problem = dict(problem)
         if not isinstance(problem["cfg"], qphb_mod.QPHBConfig):
@@ -115,13 +123,15 @@ class BatchedEISFitter:
         self.hypers = problem["hypers"]
         self.rp_scale = self.hypers.get("rp_scale", 14.0)
         self.cfg = problem["cfg"]
-        if self.cfg.fit_dop or self.cfg.has_outlier:
-            raise NotImplementedError("DOP and outlier fits are not ported yet")
+        if self.cfg.has_outlier:
+            raise NotImplementedError("the outlier model is not ported yet "
+                                      "(ROADMAP Queue 1 item 9)")
         self.num_special = self.cfg.num_special
         self.basis_tau = np.asarray(problem["basis_tau"], dtype=float)
         self.tau_epsilon = float(problem["tau_epsilon"])
         self.special_qp_params = problem["special_qp_params"]
         self.inductance_scale = problem["inductance_scale"]
+        self._set_special_scales(problem)
         self.tau_supergrid = problem.get("tau_supergrid")
         self.tau_indices = None
         if self.tau_supergrid is not None:
@@ -142,11 +152,29 @@ class BatchedEISFitter:
         self.lb = cast(problem["lb"])
         self.hyp = qphb_mod.hypers_to_tensors(self.hypers, self.device, dtype)
         self.iw_hyp = qphb_mod.hypers_to_tensors(problem["iw_hypers"], self.device, dtype)
+        # The DOP's order-0 smoothing matrices (hybdrt_tpu/parallel/batch.py:225-232)
+        self.dop_gmat = None if problem.get("dop_gmat") is None \
+            else cast(np.stack([np.asarray(g) for g in problem["dop_gmat"]]))
         self.fcfg = fitcore.FitConfig(cfg=self.cfg, max_iter=max_iter, x_rtol=xtol,
                                       qp_max_iter=qp_max_iter,
                                       qp_max_iter_warm=qp_max_iter_warm,
                                       pred_stop=bool(pred_stop), pred_rtol=float(pred_rtol),
                                       qp_fused=bool(qp_fused))
+
+    def _set_special_scales(self, problem):
+        """The capacitance's and the DOP's column scales and nu basis (None
+        where not fitted)."""
+        self.capacitance_scale = problem.get("capacitance_scale")
+        dsv = problem.get("dop_scale_vector")
+        self.dop_scale_vector = None if dsv is None else np.asarray(dsv, dtype=float)
+        self.basis_nu = None if problem.get("basis_nu") is None \
+            else np.asarray(problem["basis_nu"], dtype=float)
+        self.nu_basis_type = problem.get("nu_basis_type", "gaussian")
+        self.nu_epsilon = problem.get("nu_epsilon")
+
+    def _dop_kw(self):
+        """The loop's DOP keyword: the smoothing matrices of a DOP fit."""
+        return {} if self.dop_gmat is None else {"dop_gmat": self.dop_gmat}
 
     # ------------------------------------------------------------------
     def _loop_inputs(self, rzv):
@@ -155,11 +183,14 @@ class BatchedEISFitter:
         cfg = self.cfg
         b, n = rzv.shape[0], self.rzm.shape[1]
         rho0 = self.hyp["rho_0"]
-        dop_rho0 = torch.ones(cfg.k_range, dtype=self.dtype, device=self.device)
+        dop_rho0 = self.hyp.get("dop_rho_0")
+        if dop_rho0 is None:
+            dop_rho0 = torch.ones(cfg.k_range, dtype=self.dtype, device=self.device)
         s0 = torch.stack([torch.full((n,), float(self.hypers["s_0"][i]), dtype=self.dtype,
                                      device=self.device) for i in range(cfg.k_range)])
         est, init_w, _, out_t = qphb_mod.initialize_weights(
-            self.iw_hyp, self.m_stack, rho0, s0, rzv, self.rzm, self.vmm, self.lb, cfg)
+            self.iw_hyp, self.m_stack, rho0, s0, rzv, self.rzm, self.vmm, self.lb, cfg,
+            dop_rho_vector=dop_rho0)
         x0 = torch.full((b, n), 1e-6, dtype=self.dtype, device=self.device)
         lanes = lambda t: t.expand(b, *t.shape).clone()
         return dict(x0=x0, s0=lanes(s0), rho0=lanes(rho0), dop_rho0=lanes(dop_rho0),
@@ -174,12 +205,12 @@ class BatchedEISFitter:
 
     def _fit_plain(self, rzv):
         """Every lane in one loop; the loop steps only the lanes still live."""
-        return fitcore.qphb_fit_loop(*self._loop_args(rzv))
+        return fitcore.qphb_fit_loop(*self._loop_args(rzv), **self._dop_kw())
 
     def _fit_history(self, rzv):
         """(final states, history) of fitcore.qphb_fit_scan
         (``_fit_single_history``, hybdrt_tpu/parallel/batch.py:274)."""
-        return fitcore.qphb_fit_scan(*self._loop_args(rzv))
+        return fitcore.qphb_fit_scan(*self._loop_args(rzv), **self._dop_kw())
 
     # ------------------------------------------------------------------
     # Frame-to-frame warm starts (fit(warm_from=...), hybdrt_tpu/parallel/
@@ -210,7 +241,7 @@ class BatchedEISFitter:
             qp_dual=torch.zeros_like(x0))
         return fitcore.qphb_fit_loop_from_state(
             state0, self.rzm, rzv, self.vmm, self.m_stack, self.l1v, self.lb, self.hyp,
-            inp["est_weights"], fcfg, seed_pred_history=fcfg.pred_stop)
+            inp["est_weights"], fcfg, seed_pred_history=fcfg.pred_stop, **self._dop_kw())
 
     def _warm_arrays(self, warm_from, b, scale):
         """Per-lane seed tensors from a previous frame's BatchFitResult (this
@@ -443,12 +474,16 @@ class BatchedEISFitter:
                 return x_full[:, sp[name]["index"]] * scale * col_scale
             return np.zeros(len(scale))
 
+        x_dop = None
+        if self.cfg.fit_dop:
+            ds_, de_ = self.cfg.dop_start, self.cfg.dop_start + self.cfg.dop_size
+            x_dop = x_full[:, ds_:de_] * self.dop_scale_vector[None, :] * scale[:, None]
         result = BatchFitResult(
             x=x_full[:, ns:] * scale[:, None],
             r_inf=special("R_inf"),
             inductance=special("inductance", self.inductance_scale or 1.0),
-            c_inv=special("C_inv"),
-            x_dop=None,
+            c_inv=special("C_inv", self.capacitance_scale or 1.0),
+            x_dop=x_dop,
             scale=scale,
             weights=states.weights if lazy else _numpy(states.weights),
             rho=_numpy(states.rho_vector),
@@ -486,15 +521,22 @@ class BatchedEISFitter:
 
         Returns a float64 numpy array (B, N, N), in physical units unless
         ``scaled=True``: each row and column times the lane's scale, the
-        inductance's also times the inductance scale, as
-        ``DRT.estimate_param_cov``."""
+        inductance's, capacitance's and DOP's also times their column
+        scales, as ``DRT.estimate_param_cov``."""
         p, _, scale = self._posterior(result, z_batch, refine_iters)
         cov = torch.linalg.inv(p)
         if not scaled:
             dev, f64 = self.device, torch.float64
             col = torch.ones(cov.shape[-1], dtype=f64, device=dev)
-            if "inductance" in self.special_qp_params:
-                col[self.special_qp_params["inductance"]["index"]] = self.inductance_scale
+            sp = self.special_qp_params
+            if "inductance" in sp:
+                col[sp["inductance"]["index"]] = self.inductance_scale
+            if "C_inv" in sp:
+                col[sp["C_inv"]["index"]] = self.capacitance_scale
+            if "x_dop" in sp:
+                i0 = sp["x_dop"]["index"]
+                col[i0:i0 + sp["x_dop"]["size"]] = torch.as_tensor(self.dop_scale_vector,
+                                                                  dtype=f64, device=dev)
             sv = torch.as_tensor(scale, dtype=f64, device=dev)[:, None] * col[None, :]
             cov = cov * sv[:, :, None] * sv[:, None, :]
         return cov.cpu().numpy()
@@ -536,10 +578,13 @@ class BatchedEISFitter:
         b, k_range = rzv.shape[0], self.cfg.k_range
         opt = lambda a: torch.ones(b, k_range, dtype=f64, device=dev) if a is None else t(a)
         rho, s, w = t(result.rho), t(result.s_vectors), t(result.weights)
+        dop_rho = opt(getattr(result, "dop_rho", None))
         if refine_iters > 0:
+            # the JAX refinement runs without the DOP smoothing matrices
+            # (hybdrt_tpu/parallel/batch.py:919-925)
             x = t(result.x_raw)
             state = qphb_mod.QPHBState(
-                x=x, s_vectors=s, rho_vector=rho, dop_rho_vector=opt(result.dop_rho),
+                x=x, s_vectors=s, rho_vector=rho, dop_rho_vector=dop_rho,
                 weights=w, outlier_t=torch.ones_like(rzv), xmx_norms=opt(result.xmx_norms),
                 dop_xmx_norms=opt(result.dop_xmx_norms),
                 it=torch.ones(b, dtype=torch.int32, device=dev),
@@ -549,11 +594,11 @@ class BatchedEISFitter:
                            min_iter=1 + refine_iters, pred_stop=False, qp_max_iter_warm=None)
             st = fitcore.qphb_fit_loop_from_state(
                 state, h["rzm"], rzv, h["vmm"], h["m_stack"], h["l1v"], h["lb"], hyp, w, fcfg)
-            rho, s, w = st.rho_vector, st.s_vectors, st.weights
+            rho, s, w, dop_rho = st.rho_vector, st.s_vectors, st.weights, st.dop_rho_vector
         else:
             h["rzm"] = self._final_design(h, result)
         return qphb_mod.calculate_pq(h["rzm"], rzv, h["m_stack"], hyp, h["l1v"], rho, s, w,
-                                     self.cfg)
+                                     self.cfg, dop_rho_vector=dop_rho)
 
     def predict_r_p(self, result: BatchFitResult):
         area = basis_mod.get_basis_func_area("gaussian", self.tau_epsilon)
@@ -571,6 +616,10 @@ class BatchedEISFitter:
         z = np.asarray(result.x) @ zm.T
         z = z + result.r_inf[:, None]
         z = z + result.inductance[:, None] * 2j * np.pi * frequencies[None, :]
+        if self.cfg.fit_dop and result.x_dop is not None:
+            zm_dop = phasance.construct_phasor_z_matrix(frequencies, self.basis_nu,
+                                                        self.nu_basis_type, self.nu_epsilon)
+            z = z + np.asarray(result.x_dop) @ zm_dop.T
         return z
 
 
@@ -645,8 +694,13 @@ class BatchedHybridFitter:
         self.hypers = problem["hypers"]
         self.rp_scale = problem["rp_scale"]
         self.cfg = problem["cfg"]
-        if self.cfg.fit_dop or self.cfg.has_outlier:
-            raise NotImplementedError("DOP and outlier fits are not ported yet")
+        if self.cfg.fit_dop or "C_inv" in problem["special_qp_params"]:
+            raise ValueError("BatchedHybridFitter fits neither DOP nor capacitance, as in the "
+                             "JAX package, whose DRTMD routes such hybrid fits to the ragged "
+                             "fitter (BatchedRaggedFitter)")
+        if self.cfg.has_outlier:
+            raise NotImplementedError("the outlier model is not ported yet "
+                                      "(ROADMAP Queue 1 item 9)")
         self.num_special = self.cfg.num_special
         self.num_chrono = int(problem["num_chrono"])
         self.vz_index = int(problem["vz_index"])
@@ -655,6 +709,8 @@ class BatchedHybridFitter:
         self.tau_epsilon = float(problem["tau_epsilon"])
         self.special_qp_params = problem["special_qp_params"]
         self.inductance_scale = problem["inductance_scale"]
+        self._set_special_scales(problem)
+        self.dop_gmat = None
         self.input_signal_scale = float(problem["input_signal_scale"])
         self.v_baseline_scale = problem.get("v_baseline_scale")
 
@@ -690,6 +746,7 @@ class BatchedHybridFitter:
     # hybdrt_tpu/parallel/batch.py:1234-1255); the chrono/EIS weight factors
     # are 1 here, so the loop multiplies by none
     _loop_inputs = BatchedEISFitter._loop_inputs
+    _set_special_scales = BatchedEISFitter._set_special_scales
     _warm_arrays = BatchedEISFitter._warm_arrays
     _check_options = staticmethod(BatchedEISFitter._check_options)
     collect = BatchedEISFitter.collect

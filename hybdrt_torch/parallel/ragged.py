@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .. import preprocessing as pp
-from ..models.drt import DRT, qphb_hypers
+from ..models.drt import DRT, overfit_hypers, qphb_hypers
 from ..ops import chol_lane, ip_lane
 from ..solver import fitcore, qphb as qphb_mod
 from ..solver.qphb import QPHBConfig
@@ -48,7 +48,7 @@ class RaggedFitResult(NamedTuple):
     r_inf: np.ndarray
     inductance: np.ndarray
     c_inv: np.ndarray
-    x_dop: Optional[np.ndarray]  # always None: DOP is not ported yet
+    x_dop: Optional[np.ndarray]  # (B, n_nu) of a DOP batch, else None
     scale: np.ndarray           # (B,) coefficient scale
     weights: np.ndarray         # (B, R_max) final data weights (scaled space)
     rho: np.ndarray
@@ -72,8 +72,6 @@ def _port_system(s):
     if not isinstance(cfg, QPHBConfig):
         # a nonlinear configuration raises here (QPHBConfig.__post_init__)
         s = dict(s, cfg=QPHBConfig(**(cfg._asdict() if hasattr(cfg, "_asdict") else cfg)))
-    if s["cfg"].fit_dop:
-        raise NotImplementedError("DOP systems are not ported yet (ROADMAP Queue 1 item 4)")
     return s
 
 
@@ -117,7 +115,9 @@ class BatchedRaggedFitter:
     (freq, z) | None), all of one data type: EIS, chrono or hybrid.
     ``fit_kw`` are the single fit's keywords (``DRT._qphb_fit_core``), for
     example ``downsample``; ``qp_fused`` fuses the warm QPs
-    (``qp_max_iter_warm`` defaults to 8 with it).
+    (``qp_max_iter_warm`` defaults to 8 with it). ``fit_dop`` (on
+    ``fixed_basis_nu``, else the default nu basis) and ``fit_capacitance``
+    add the DOP block and the C_inv column to every observation's system.
 
     The fitter runs on the CUDA card unless ``device="cpu"`` is given, and
     raises ``RuntimeError`` where no card is present. The JAX fitter's
@@ -135,19 +135,17 @@ class BatchedRaggedFitter:
     def __init__(self, tau_supergrid, fit_ohmic=True, fit_inductance=True,
                  fit_capacitance=False, fit_dop=False, nonneg=True, dtype=torch.float64,
                  device=None, max_iter=50, xtol=1e-2, qp_max_iter=60, qp_max_iter_warm=None,
-                 mesh=None, step_model="ideal", chrono_mode="galv", fit_kw=None,
-                 per_obs_penalty=True, pred_stop=False, pred_rtol=1e-2, qp_fused=False,
-                 **hyper_kw):
+                 mesh=None, step_model="ideal", chrono_mode="galv", fixed_basis_nu=None,
+                 fit_kw=None, per_obs_penalty=True, pred_stop=False, pred_rtol=1e-2,
+                 qp_fused=False, **hyper_kw):
         if mesh is not None:
             raise NotImplementedError("mesh: multi-GPU sharding is not ported yet "
                                       "(ROADMAP Queue 1 item 10)")
-        if fit_dop or fit_capacitance:
-            raise NotImplementedError("fit_dop and fit_capacitance are not ported yet "
-                                      "(ROADMAP Queue 1 item 4)")
         if "batch_bucket" in hyper_kw:
             raise TypeError("batch_bucket is not taken: it padded the batch only so that XLA "
                             "would not recompile, and nothing here compiles per shape")
-        qphb_hypers(**hyper_kw)  # a misspelt hyperparameter fails here, not in prepare
+        # a misspelt hyperparameter fails here, not in prepare
+        qphb_hypers(fit_dop=fit_dop, **hyper_kw)
         self.tau_supergrid = np.asarray(tau_supergrid, dtype=float)
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -170,9 +168,10 @@ class BatchedRaggedFitter:
         # ulp, which the loop can amplify; hybdrt_tpu/parallel/ragged.py:112)
         self.per_obs_penalty = per_obs_penalty
         self._drt_kw = dict(tau_supergrid=self.tau_supergrid, fit_ohmic=fit_ohmic,
-                            fit_inductance=fit_inductance, step_model=step_model,
-                            chrono_mode=chrono_mode, warn=False, device=self.device,
-                            dtype=dtype)
+                            fit_inductance=fit_inductance, fit_capacitance=fit_capacitance,
+                            fit_dop=fit_dop, fixed_basis_nu=fixed_basis_nu,
+                            step_model=step_model, chrono_mode=chrono_mode, warn=False,
+                            device=self.device, dtype=dtype)
         DRT(**self._drt_kw)  # an unported step model or mode fails here
         self._drt_cache = {}
         self._sys_cache = {}
@@ -453,12 +452,18 @@ class BatchedRaggedFitter:
         self.cfg = cfg
         self.hypers = ref["hypers"]
         self.hyp = qphb_mod.hypers_to_tensors(self.hypers, self.device, self.dtype)
-        iw_hypers = dict(self.hypers)
-        iw_hypers["l1_lambda_0"] = ref["iw_l1_lambda_0"]
-        iw_hypers["l2_lambda_0"] = ref["iw_l2_lambda_0"]
+        iw_hypers = overfit_hypers(self.hypers, ref["iw_l1_lambda_0"], ref["iw_l2_lambda_0"])
         self.iw_hyp = qphb_mod.hypers_to_tensors(iw_hypers, self.device, self.dtype)
         self.special_qp_params = ref["special_qp_params"]
         self.inductance_scale = ref["inductance_scale"]
+        self.capacitance_scale = ref["capacitance_scale"]
+        # The DOP block lies at the same columns in every observation, so
+        # the reference observation's scale vector and smoothing matrices
+        # apply batch-wide (hybdrt_tpu/parallel/ragged.py:555-560)
+        self.dop_scale_vector = None if ref.get("dop_scale_vector") is None \
+            else np.asarray(ref["dop_scale_vector"], dtype=float)
+        self.dop_gmat = None if ref.get("dop_gmat") is None \
+            else np.stack([np.asarray(g, dtype=float) for g in ref["dop_gmat"]])
         self.data_type = data_type
         self.hybrid_wf_method = ref["hybrid_weight_factor_method"]
         # The ragged loop takes the chrono/EIS split per lane (row factors
@@ -528,9 +533,10 @@ class BatchedRaggedFitter:
         ``calculate_pq`` runs per protocol (observations that share one
         design-matrix array, hyperparameters and config), a hybrid
         protocol's design with each lane's final vz-offset column, and each
-        protocol's stacks are copied to the host once. Returns (systems,
-        [P_i (N_i, N_i)], [q_i (N_i,)]), host float64 arrays, aligned with
-        ``observations``."""
+        protocol's stacks are copied to the host once. A DOP system's block
+        takes its derivative strengths at 1, as the JAX map's rebuild takes
+        them whatever the fit's were (ROADMAP Queue 3 item 20). Returns (systems, [P_i (N_i, N_i)], [q_i (N_i,)]), host
+        float64 arrays, aligned with ``observations``."""
         systems = self._prep_systems(observations)
         dev, f64 = self.device, torch.float64
         t = lambda a: torch.as_tensor(np.asarray(a, dtype=float), dtype=f64, device=dev)
@@ -547,10 +553,11 @@ class BatchedRaggedFitter:
                 sign = fitcore.chrono_eis_sign(s0["num_chrono"], rzm.shape[0], x)
                 col = qphb_mod._mv(t(s0["rzm_vz"]), x) * sign * t(s0["vz_strength_vec"])
                 rzm = fitcore.with_vz_column(rzm, col, s0["vz_index"])
+            dr = torch.ones(len(ks), s0["cfg"].k_range, dtype=f64, device=dev)
             p, q = qphb_mod.calculate_pq(
                 rzm, t(np.stack([systems[k]["rzv"] for k in ks])), t(s0["m_stack"]),
                 qphb_mod.hypers_to_tensors(s0["hypers"], dev, f64), t(s0["l1_lambda_vector"]),
-                stack(rho), stack(s_vectors), stack(weights), s0["cfg"])
+                stack(rho), stack(s_vectors), stack(weights), s0["cfg"], dop_rho_vector=dr)
             p, q = p.cpu().numpy(), q.cpu().numpy()
             for bi, k in enumerate(ks):
                 p_out[k], q_out[k] = p[bi], q[bi]
@@ -591,16 +598,20 @@ class BatchedRaggedFitter:
         s0 = torch.stack([torch.full((n,), float(self.hypers["s_0"][k]), dtype=dt, device=dev)
                           for k in range(cfg.k_range)])
         masks = dict(col_mask=arrays["col_mask"], var_floor=arrays["var_floor"])
+        dop_rho0 = self.hyp.get("dop_rho_0")
+        if dop_rho0 is None:
+            dop_rho0 = torch.ones(cfg.k_range, dtype=dt, device=dev)
         est, init_w, _, out_t = qphb_mod.initialize_weights(
             self.iw_hyp, arrays["m_stack"], rho0, s0, rzv, arrays["rzm"], arrays["vmm"],
-            arrays["lb"], cfg, **masks)
+            arrays["lb"], cfg, dop_rho_vector=dop_rho0, **masks)
         lanes = lambda v: v.expand(b, *v.shape).clone()
         x0 = torch.full((b, n), 1e-6, dtype=dt, device=dev)
-        dop_rho0 = torch.ones(b, cfg.k_range, dtype=dt, device=dev)
         args = (arrays["rzm"], rzv, arrays["vmm"], arrays["m_stack"], arrays["l1v"],
-                arrays["lb"], self.hyp, x0, lanes(s0), lanes(rho0), dop_rho0, init_w, est,
-                out_t, self.fcfg)
+                arrays["lb"], self.hyp, x0, lanes(s0), lanes(rho0), lanes(dop_rho0), init_w,
+                est, out_t, self.fcfg)
         kw = dict(masks, row_mask=arrays["row_mask"], weight_factor=self.weight_factor)
+        if self.dop_gmat is not None:
+            kw["dop_gmat"] = torch.as_tensor(self.dop_gmat, dtype=dt, device=dev)
         if self.data_type == "hybrid":
             kw["row_factors"] = self._row_factors(est, arrays)
             if self.fcfg.vz_offset:
@@ -691,10 +702,14 @@ class BatchedRaggedFitter:
                 return x_full[:, sp[name]["index"]] * scale * col_scale
             return np.zeros(len(scale))
 
+        x_dop = None
+        if self.cfg.fit_dop:
+            ds_, de_ = self.cfg.dop_start, self.cfg.dop_start + self.cfg.dop_size
+            x_dop = x_full[:, ds_:de_] * self.dop_scale_vector[None, :] * scale[:, None]
         result = RaggedFitResult(
             x=x_full[:, ns:] * scale[:, None], tau_indices=self._tau_indices,
             r_inf=special("R_inf"), inductance=special("inductance", self.inductance_scale or 1.0),
-            c_inv=special("C_inv"), x_dop=None, scale=scale,
+            c_inv=special("C_inv", self.capacitance_scale or 1.0), x_dop=x_dop, scale=scale,
             weights=npy(states.weights if row_factors is None else states.weights * row_factors),
             rho=npy(states.rho_vector),
             s_vectors=npy(states.s_vectors), n_iter=npy(states.it),

@@ -23,6 +23,11 @@ each pass from the GP-filtered chrono residual.
 A global weight factor (``LaneSystem.weight_factor``) scales the QP's
 weights from iteration 1 of a fresh fit and from iteration 0 in
 continuation mode (``:89-94``).
+
+A DOP system (``cfg.fit_dop``) carries each lane's ``dop_rho_vector`` and
+``dop_xmx_norms`` in its state, gathered with the live lanes as the rest of
+the state is; its order-0 smoothing matrices ``dop_gmat`` lie beside
+``m_stack`` in the ``LaneSystem``, shared (K, d, d) or per lane.
 """
 from dataclasses import dataclass, replace
 from typing import Optional
@@ -36,8 +41,7 @@ from .qphb import QPHBConfig, QPHBState
 
 @dataclass(frozen=True)
 class FitConfig:
-    """Static fit-loop configuration (no DOP, outlier or background
-    blocks)."""
+    """Static fit-loop configuration (no outlier blocks)."""
     cfg: QPHBConfig
     data_type: str = "eis"          # 'eis' | 'chrono' | 'hybrid'
     num_chrono: int = 0
@@ -126,7 +130,9 @@ class LaneSystem:
 
     ``weight_factor`` is the global weight factor, a scalar or a (M,)
     tensor (None: 1, nothing multiplied); ``rm_bkg`` (C, C) the scaled
-    background's GP smoothing operator on the C chrono rows."""
+    background's GP smoothing operator on the C chrono rows; ``dop_gmat``
+    a DOP system's order-0 smoothing matrices of the DOP block, (K, d, d)
+    shared or (B, K, d, d) per lane (None: zeros)."""
     rzm: torch.Tensor
     vmm: torch.Tensor
     m_stack: torch.Tensor
@@ -141,6 +147,7 @@ class LaneSystem:
     vz_sign: Optional[torch.Tensor] = None
     weight_factor: Optional[torch.Tensor] = None
     rm_bkg: Optional[torch.Tensor] = None
+    dop_gmat: Optional[torch.Tensor] = None
 
     @property
     def per_lane(self):
@@ -153,7 +160,8 @@ class LaneSystem:
             return a[idx] if a is not None and a.dim() == lane_dims else a
         hybrid = dict(row_factors=pick(self.row_factors, 2), rzm_vz=pick(self.rzm_vz, 3),
                       vz_strength=pick(self.vz_strength, 2), vz_sign=pick(self.vz_sign, 2),
-                      weight_factor=pick(self.weight_factor, 2), rm_bkg=self.rm_bkg)
+                      weight_factor=pick(self.weight_factor, 2), rm_bkg=self.rm_bkg,
+                      dop_gmat=pick(self.dop_gmat, 4))
         if not self.per_lane:
             return replace(self, **hybrid)
         return LaneSystem(self.rzm[idx], self.vmm[idx],
@@ -208,7 +216,8 @@ def _loop_body(carry: FitCarry, sys_: LaneSystem, rzv, est_weights, hyp, fcfg: F
                                   x_rtol=fcfg.x_rtol, qp_max_iter=fcfg.qp_max_iter,
                                   qp_max_iter_warm=fcfg.qp_max_iter_warm,
                                   warm_mode=warm_mode, qp_fused_steps=fused,
-                                  col_mask=sys_.col_mask, var_floor=sys_.var_floor)
+                                  col_mask=sys_.col_mask, var_floor=sys_.var_floor,
+                                  dop_gmat=sys_.dop_gmat)
 
     if fcfg.continue_mode:
         # The seed's norms stay fixed, and convergence cannot stop a lane
@@ -222,6 +231,14 @@ def _loop_body(carry: FitCarry, sys_: LaneSystem, rzv, est_weights, hyp, fcfg: F
         xmx = torch.stack([qphb._xmx(x_drt, m_stack[..., k, ns:, ns:])
                            for k in range(fcfg.cfg.k_range)], dim=1)
         st_new.xmx_norms = torch.where((st.it == 0)[:, None], xmx, st_new.xmx_norms)
+        cfg = fcfg.cfg
+        if cfg.fit_dop:
+            ds, de = cfg.dop_start, cfg.dop_start + cfg.dop_size
+            x_dop = st_new.x[:, ds:de]
+            dop_xmx = torch.stack([qphb._xmx(x_dop, m_stack[..., k, ds:de, ds:de])
+                                   for k in range(cfg.k_range)], dim=1)
+            st_new.dop_xmx_norms = torch.where((st.it == 0)[:, None], dop_xmx,
+                                               st_new.dop_xmx_norms)
 
     bkg_col = carry.bkg_col
     if bkg_col is not None:
@@ -306,7 +323,8 @@ def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_w
                              return_pred_history=False, on_pass=None, col_mask=None,
                              row_mask=None, var_floor=None, row_factors=None, rzm_vz=None,
                              vz_strength=None, vz_sign=None, rebuild_vz=False,
-                             weight_factor=None, rm_bkg=None, return_design=False):
+                             weight_factor=None, rm_bkg=None, return_design=False,
+                             dop_gmat=None):
     """Run (or resume) the QPHB outer loop from an explicit per-lane state.
 
     The loop body is Markovian in the state, so resuming a loop that stopped
@@ -346,7 +364,8 @@ def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_w
     factor; ``rm_bkg`` the scaled background's GP operator, with
     ``fcfg.bkg_scaled``. ``return_design`` also returns the design of the
     last pass with the carried columns rewritten from the final iterate, the
-    JAX loop's final ``rzm``."""
+    JAX loop's final ``rzm``. ``dop_gmat`` are a DOP system's smoothing
+    matrices (``LaneSystem``)."""
     _check_config(fcfg)
     fit_vz = fcfg.data_type == "hybrid" and fcfg.vz_offset
     if fit_vz and vz_sign is None:
@@ -357,7 +376,7 @@ def qphb_fit_loop_from_state(state0, rzm, rzv, vmm, m_stack, l1v, lb, hyp, est_w
     if fcfg.bkg_scaled and rm_bkg is None:
         raise ValueError("fcfg.bkg_scaled needs rm_bkg")
     sys_ = LaneSystem(rzm, vmm, m_stack, l1v, lb, col_mask, row_mask, var_floor, row_factors,
-                      rzm_vz, vz_strength, vz_sign, weight_factor, rm_bkg)
+                      rzm_vz, vz_strength, vz_sign, weight_factor, rm_bkg, dop_gmat)
     if not sys_.per_lane and not (col_mask is None and row_mask is None and var_floor is None):
         raise ValueError("col_mask, row_mask and var_floor belong to per-lane systems "
                          "(a 3-D rzm)")

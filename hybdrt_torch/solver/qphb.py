@@ -14,7 +14,10 @@ are a dict of python floats, device tensors and None, as the JAX package's
 hypers pytree.
 
 Parameter layout: x = [special params | DRT coefficients], with
-cfg.num_special special columns first.
+cfg.num_special special columns first; a DOP fit's block of cfg.dop_size
+columns lies among them from cfg.dop_start, with penalties and
+hyperparameter updates of its own (``dop_rho_vector`` (B, K), the ``dop_*``
+hyperparameters, ``dop_gmat`` its order-0 smoothing matrix).
 """
 import dataclasses
 from dataclasses import dataclass
@@ -28,8 +31,9 @@ from ..ops.qp import solve_qp_box
 
 @dataclass(frozen=True)
 class QPHBConfig:
-    """Static configuration of the QPHB problem structure (EIS subset: no DOP,
-    outlier or nonlinear blocks)."""
+    """Static configuration of the QPHB problem structure: the special
+    columns first, the DOP block at [dop_start, dop_start + dop_size) among
+    them (no outlier or nonlinear blocks)."""
     num_special: int
     dop_start: int = 0
     dop_size: int = 0
@@ -128,29 +132,41 @@ def _xmx(x, pm):
 # L2 (SMS) matrix assembly (hybdrt_tpu/solver/qphb.py:60)
 # ------------------------------------------------------------------
 def calculate_qp_l2_matrix(hyp, rho_vector, m_stack, s_vectors, cfg: QPHBConfig,
-                           col_mask=None):
+                           col_mask=None, dop_rho_vector=None):
     """l2 = sum_k S_k^1/2 M_k S_k^1/2 with the DRT block of M_k scaled by
-    l2_lambda_0 * w_k * rho_k. rho_vector (..., K), s_vectors (..., K, N),
-    m_stack (K, N, N) or (B, K, N, N) -> (..., N, N).
+    l2_lambda_0 * w_k * rho_k, and with ``cfg.fit_dop`` the DOP block by
+    dop_l2_lambda_0 * dop_w_k * dop_rho_k. rho_vector and dop_rho_vector
+    (..., K), s_vectors (..., K, N), m_stack (K, N, N) or (B, K, N, N) ->
+    (..., N, N).
 
     col_mask (B, N) decouples a lane's padded columns from the penalty and
     pins them by a unit diagonal: with zero design columns there, the QP's
     solution is exactly 0 on them and the real block is the unpadded
     problem's."""
-    if cfg.fit_dop:
-        raise NotImplementedError("DOP penalty blocks are not ported yet")
     n = m_stack.shape[-1]
     dw = hyp["derivative_weights"]
     l2l0 = hyp["l2_lambda_0"]
     ns = cfg.num_special
     drt_mask = torch.ones(n, dtype=m_stack.dtype, device=m_stack.device)
     drt_mask[:ns] = 0.0
-    special_mask = 1.0 - drt_mask
+    dop_mask = None
+    if cfg.fit_dop:
+        if dop_rho_vector is None:
+            raise ValueError("a DOP system's penalty needs dop_rho_vector")
+        dop_mask = torch.zeros(n, dtype=m_stack.dtype, device=m_stack.device)
+        dop_mask[cfg.dop_start:cfg.dop_start + cfg.dop_size] = 1.0
+        special_mask = 1.0 - drt_mask - dop_mask
+    else:
+        special_mask = 1.0 - drt_mask
 
     l2_mat = None
     for k in range(cfg.k_range):
         d_factor = l2l0 * dw[k] * rho_vector[..., k]
         scale_vec = special_mask + drt_mask * d_factor[..., None]
+        if dop_mask is not None:
+            dop_factor = hyp["dop_l2_lambda_0"] * hyp["dop_derivative_weights"][k] \
+                * dop_rho_vector[..., k]
+            scale_vec = scale_vec + dop_mask * dop_factor[..., None]
         if col_mask is not None:
             scale_vec = scale_vec * col_mask
         d_k = torch.sqrt(s_vectors[..., k, :] * scale_vec)
@@ -223,18 +239,18 @@ def estimate_weights(x, y, vmm, rm, est_weights=None, var_floor=None):
 
 
 def initialize_weights(iw_hyp, m_stack, rho_vector, s_vectors, rv, rm, vmm, lb,
-                       cfg: QPHBConfig, col_mask=None, var_floor=None):
+                       cfg: QPHBConfig, col_mask=None, var_floor=None, dop_rho_vector=None):
     """Overfit-ridge solve -> residual variance -> initial weights (no-outlier
     branch). rho_vector (K,) and s_vectors (K, N) are shared by all lanes;
     rv is (B, M). With per-lane systems, col_mask (B, N) pins the padded
     columns (unit linear cost there, so with lb = 0 the pinned solution is
     strictly complementary) and var_floor (B,) is each lane's unpadded data
-    variance times 1e-7. Returns (est_weights, init_weights, x_overfit,
-    outlier_t)."""
+    variance times 1e-7. A DOP system takes its dop_rho_vector (K,).
+    Returns (est_weights, init_weights, x_overfit, outlier_t)."""
     if cfg.has_outlier:
         raise NotImplementedError("the outlier model is not ported yet")
     l2_matrix = calculate_qp_l2_matrix(iw_hyp, rho_vector, m_stack, s_vectors, cfg,
-                                       col_mask=col_mask)
+                                       col_mask=col_mask, dop_rho_vector=dop_rho_vector)
     l1_0 = iw_hyp["l1_lambda_0"]
     if col_mask is not None:
         l1_0 = l1_0 * col_mask + (1.0 - col_mask)
@@ -248,13 +264,17 @@ def initialize_weights(iw_hyp, m_stack, rho_vector, s_vectors, rv, rm, vmm, lb,
 
 
 def estimate_x_rp(hyp, m_stack, rho_vector, s_vectors, rv, rm, lb, cfg: QPHBConfig,
-                  l2_lambda_0=1e-4, l1_lambda_0=1e-3):
+                  l2_lambda_0=1e-4, l1_lambda_0=1e-3, dop_rho_vector=None):
     """Quick elastic-net solve for the Rp estimate of ``solve_rp``
     (hybdrt_tpu/solver/qphb.py:283): one QP per lane of rv (B, M), with the
-    shared rm (M, N), rho_vector (K,) and s_vectors (K, N)."""
+    shared rm (M, N), rho_vector and dop_rho_vector (K,) and s_vectors (K,
+    N); the DOP block's l2 strength scales with the DRT block's."""
     rp_hyp = dict(hyp)
     rp_hyp["l2_lambda_0"] = l2_lambda_0
-    l2_matrix = calculate_qp_l2_matrix(rp_hyp, rho_vector, m_stack, s_vectors, cfg)
+    if "dop_l2_lambda_0" in hyp:
+        rp_hyp["dop_l2_lambda_0"] = hyp["dop_l2_lambda_0"] / hyp["l2_lambda_0"] * l2_lambda_0
+    l2_matrix = calculate_qp_l2_matrix(rp_hyp, rho_vector, m_stack, s_vectors, cfg,
+                                       dop_rho_vector=dop_rho_vector)
     p_matrix = rm.mT @ rm + l2_matrix
     q_vector = -_mv(rm.mT, rv) + l1_lambda_0
     return solve_qp_box(p_matrix.expand(rv.shape[0], -1, -1), q_vector, lb).x
@@ -264,15 +284,15 @@ def estimate_x_rp(hyp, m_stack, rho_vector, s_vectors, rv, rm, lb, cfg: QPHBConf
 # Posterior quantities (hybdrt_tpu/solver/qphb.py:299)
 # ------------------------------------------------------------------
 def calculate_pq(rm, rv, m_stack, hyp, l1_lambda_vector, rho_vector, s_vectors, weights,
-                 cfg: QPHBConfig, col_mask=None):
+                 cfg: QPHBConfig, col_mask=None, dop_rho_vector=None):
     """The weighted QP of each lane: P = l2 + (W rm)^T (W rm), q = -(W rm)^T
-    (W rv) + l1. rv, weights (B, M); rho_vector (B, K); s_vectors (B, K, N);
-    rm (M, N) or (B, M, N) -> P (B, N, N), q (B, N). EIS subset: no DOP
-    block, so dop_rho is ones."""
+    (W rv) + l1. rv, weights (B, M); rho_vector and dop_rho_vector (a DOP
+    system's) (B, K); s_vectors (B, K, N); rm (M, N) or (B, M, N) -> P (B,
+    N, N), q (B, N)."""
     wrm = rm * weights[:, :, None]
     wrv = rv * weights
     l2_matrix = calculate_qp_l2_matrix(hyp, rho_vector, m_stack, s_vectors, cfg,
-                                       col_mask=col_mask)
+                                       col_mask=col_mask, dop_rho_vector=dop_rho_vector)
     p_matrix = wrm.mT @ wrm + l2_matrix
     q_vector = -torch.matmul(wrm.mT, wrv[:, :, None])[:, :, 0] + l1_lambda_vector
     return p_matrix, q_vector
@@ -318,14 +338,16 @@ def evaluate_llh(x_hat, rm, rv, weights, marginalize_weights=True, alpha_0=2.0, 
 
 
 def evaluate_lml(x_hat, rm, rv, m_stack, hyp, l1_lambda_vector, rho_vector, s_vectors,
-                 weights, cfg: QPHBConfig, alpha_0=1.0, beta_0=1.0):
+                 weights, cfg: QPHBConfig, alpha_0=1.0, beta_0=1.0, dop_rho_vector=None):
     """Log-marginal likelihood of each lane with fixed hyperparameters
-    (qphb.py:343): x_hat (B, N), rv and weights (B, M), rho_vector (B, K),
-    s_vectors (B, K, N), rm and m_stack shared or per lane -> (B,)."""
+    (qphb.py:343): x_hat (B, N), rv and weights (B, M), rho_vector and
+    dop_rho_vector (B, K), s_vectors (B, K, N), rm and m_stack shared or per
+    lane -> (B,)."""
     p_matrix, _ = calculate_pq(rm, rv, m_stack, hyp, l1_lambda_vector, rho_vector, s_vectors,
-                               weights, cfg)
+                               weights, cfg, dop_rho_vector=dop_rho_vector)
     _, log_det_p = torch.linalg.slogdet(p_matrix)
-    omega = calculate_qp_l2_matrix(hyp, rho_vector, m_stack, s_vectors, cfg)
+    omega = calculate_qp_l2_matrix(hyp, rho_vector, m_stack, s_vectors, cfg,
+                                   dop_rho_vector=dop_rho_vector)
     _, log_det_omega = torch.linalg.slogdet(omega)
     wrmx = weights * _mv(rm, x_hat)
     wrv = rv * weights
@@ -356,13 +378,14 @@ def _log_pdf_gamma(x, alpha, beta):
 
 
 def evaluate_posterior_lp(x, rm, rv, m_stack, hyp, l1_lambda_vector, rho_vector, s_vectors,
-                          weights, xmx_norms, cfg: QPHBConfig):
+                          weights, xmx_norms, cfg: QPHBConfig, dop_rho_vector=None):
     """Joint log posterior of (x, rho, s) (hybdrt_tpu/solver/qphb.py:372-388)
     for each row of x (S, N) under one fit's system: rm (M, N), rv and
-    weights (M,), rho_vector and xmx_norms (K,), s_vectors (K, N). The QP
-    (P, q) is built once and read by every row -> (S,)."""
-    p_matrix, q_vector = calculate_pq(rm, rv[None], m_stack, hyp, l1_lambda_vector,
-                                      rho_vector[None], s_vectors[None], weights[None], cfg)
+    weights (M,), rho_vector, dop_rho_vector and xmx_norms (K,), s_vectors
+    (K, N). The QP (P, q) is built once and read by every row -> (S,)."""
+    p_matrix, q_vector = calculate_pq(
+        rm, rv[None], m_stack, hyp, l1_lambda_vector, rho_vector[None], s_vectors[None],
+        weights[None], cfg, dop_rho_vector=None if dop_rho_vector is None else dop_rho_vector[None])
     wrv = rv * weights
     lp_x = -0.5 * _xmx(x, p_matrix[0]) - torch.matmul(x, q_vector[0]) - 0.5 * torch.dot(wrv, wrv)
     rho_a, rho_b, s_a, s_b = get_raw_hyperparams(hyp, rho_vector, xmx_norms)
@@ -392,9 +415,11 @@ def is_converged(x_in, x_out, x_atol, x_rtol):
 def iterate_qphb(state: QPHBState, rv, rm, vmm, m_stack, m1_gmat_source, l1_lambda_vector,
                  lb, est_weights, hyp, cfg: QPHBConfig, x_rtol=1e-2, qp_max_iter=60,
                  qp_max_iter_warm=None, warm_mode="auto", qp_fused_steps=None,
-                 col_mask=None, var_floor=None):
-    """Weighted QP for x, closed-form s/rho updates on the DRT block, then data
-    weight re-estimation. Returns (new_state, qp_result).
+                 col_mask=None, var_floor=None, dop_gmat=None):
+    """Weighted QP for x, closed-form s/rho updates on the DRT block (and
+    on the DOP block of a DOP system, ``dop_gmat`` (K, d, d) or (B, K, d, d)
+    its smoothing matrices, None for zeros), then data weight
+    re-estimation. Returns (new_state, qp_result).
 
     With ``warm_mode="warm"`` and ``qp_fused_steps``, the warm-started QP runs
     exactly that many Mehrotra steps in one fused call
@@ -404,14 +429,14 @@ def iterate_qphb(state: QPHBState, rv, rm, vmm, m_stack, m1_gmat_source, l1_lamb
     calculate_qp_l2_matrix): the padded columns of x are pinned to exactly 0
     after the QP, and the convergence test's atol averages x over the real
     columns only (``hybdrt_tpu/solver/qphb.py:464-467``, ``:548-551``)."""
-    if cfg.fit_dop or cfg.has_outlier:
-        raise NotImplementedError("DOP and outlier blocks are not ported yet")
+    if cfg.has_outlier:
+        raise NotImplementedError("the outlier model is not ported yet")
     ns = cfg.num_special
     dw = hyp["derivative_weights"]
 
     p_matrix, q_vector = calculate_pq(rm, rv, m_stack, hyp, l1_lambda_vector,
                                       state.rho_vector, state.s_vectors, state.weights, cfg,
-                                      col_mask=col_mask)
+                                      col_mask=col_mask, dop_rho_vector=state.dop_rho_vector)
     if warm_mode == "cold" or state.qp_dual is None:
         qp_res = solve_qp_box(p_matrix, q_vector, lb, max_iter=qp_max_iter)
     elif warm_mode == "warm":
@@ -472,6 +497,35 @@ def iterate_qphb(state: QPHBState, rv, rm, vmm, m_stack, m1_gmat_source, l1_lamb
     s_vectors = torch.cat([state.s_vectors[:, :, :ns], torch.stack(new_s, dim=1)], dim=2)
     rho_vector = torch.stack(new_rho, dim=1)
 
+    dop_rho_vector = state.dop_rho_vector
+    if cfg.fit_dop:
+        # DOP block hyperparameter updates (hybdrt_tpu/solver/qphb.py:513-539)
+        ds, de = cfg.dop_start, cfg.dop_start + cfg.dop_size
+        x_dop = x[:, ds:de]
+        ddw = hyp["dop_derivative_weights"]
+        new_s = []
+        new_rho = []
+        for k in range(cfg.k_range):
+            pm_dop = m_stack[..., k, ds:de, ds:de]
+            sv_dop = s_vectors[:, k, ds:de]
+            s_k_alpha = hyp["dop_s_alpha"][k]
+            s_k_beta = (s_k_alpha - 1) / hyp["dop_s_0"][k]
+            rho_k_eff = 1.0 if cfg.eff_hp else dop_rho_vector[:, k, None, None]
+            g_mat_dop = None if dop_gmat is None else dop_gmat[..., k, :, :]
+            sv_out = solve_s_integral(pm_dop, x_dop, sv_dop, rho_k_eff, s_k_alpha, s_k_beta,
+                                      g_mat_dop, hyp["dop_sigma_ds"][k])
+            sv_out = torch.where(sv_out <= 0, 1e-15, sv_out)
+            rho_k_alpha = hyp["dop_rho_alpha"][k]
+            rho_k_beta = rho_k_alpha / hyp["dop_rho_0"][k]
+            rho_k = solve_rho(pm_dop, x_dop, sv_out, rho_k_alpha, rho_k_beta,
+                              state.dop_xmx_norms[:, k])
+            active = ddw[k] > 0
+            new_s.append(torch.where(active, sv_out, sv_dop))
+            new_rho.append(torch.where(active, rho_k, dop_rho_vector[:, k]))
+        s_vectors = torch.cat([s_vectors[:, :, :ds], torch.stack(new_s, dim=1),
+                               s_vectors[:, :, de:]], dim=2)
+        dop_rho_vector = torch.stack(new_rho, dim=1)
+
     weights, outlier_t = estimate_weights(x, rv, vmm, rm, est_weights=est_weights,
                                           var_floor=var_floor)
     if col_mask is None:
@@ -481,7 +535,7 @@ def iterate_qphb(state: QPHBState, rv, rm, vmm, m_stack, m1_gmat_source, l1_lamb
     converged = is_converged(state.x, x, x_atol, x_rtol)
     new_state = QPHBState(
         x=x, s_vectors=s_vectors, rho_vector=rho_vector,
-        dop_rho_vector=state.dop_rho_vector, weights=weights, outlier_t=outlier_t,
+        dop_rho_vector=dop_rho_vector, weights=weights, outlier_t=outlier_t,
         xmx_norms=state.xmx_norms, dop_xmx_norms=state.dop_xmx_norms,
         it=state.it + 1, converged=converged,
         qp_dual=qp_res.z if state.qp_dual is not None else None)

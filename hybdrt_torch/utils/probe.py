@@ -88,6 +88,20 @@ def make_batch(batch, n_freq, seed=1):
     return freq, z + noise * 0.004
 
 
+def make_dop_batch(batch, n_freq, seed=1):
+    """``make_batch``'s spectra plus a seeded constant-phase term each,
+    amplitude (j omega)^nu with nu in [-0.6, -0.4] and amplitude in [0.02,
+    0.1] (the form of tests/test_parallel.py:292-300's DOP spectrum), for
+    ``BatchedEISFitter(fit_dop=True)`` to find. The draws of ``make_batch``
+    are unchanged; the term's come from their own generator. Returns (freq,
+    z)."""
+    freq, z = make_batch(batch, n_freq, seed)
+    rng = np.random.default_rng([seed, 1])
+    amp = rng.uniform(0.02, 0.1, batch)
+    nu = rng.uniform(-0.6, -0.4, batch)
+    return freq, z + amp[:, None] * (2j * np.pi * freq[None, :]) ** nu[:, None]
+
+
 # The het leg's basis supergrid (bench.py:175): 10 points a decade
 TAU_SUPER = np.logspace(-8, 3, 111)
 
@@ -188,7 +202,7 @@ def make_het_hybrid(n_eis=768, n_hybrid=256, seed=3):
     return obs, TAU_SUPER
 
 
-def make_het_map(n_eis=768, n_hybrid=256, seed=3, schedule="staged", device=None):
+def make_het_map(n_eis=768, n_hybrid=256, seed=3, schedule="staged", device=None, **md_kw):
     """The benchmark's heterogeneous map as the port's ``DRTMD``
     (``bench.py::make_het_map``, copied as ``make_het_eis`` is): ``n_eis``
     EIS spectra on three grids and ``n_hybrid`` hybrid observations on two
@@ -196,7 +210,8 @@ def make_het_map(n_eis=768, n_hybrid=256, seed=3, schedule="staged", device=None
     the random numbers drawn in the benchmark's order; ``batch_fit_kw`` the
     het leg's (``qp_max_iter=20, qp_max_iter_warm=4``, and
     ``adaptive="staged"`` with ``schedule="staged"``). ``device`` is the
-    map's (the card by default)."""
+    map's (the card by default); ``md_kw`` are further DRTMD options, such
+    as ``fit_dop=True``."""
     from ..mapping.drtmd import DRTMD
 
     rng = np.random.default_rng(seed)
@@ -204,7 +219,7 @@ def make_het_map(n_eis=768, n_hybrid=256, seed=3, schedule="staged", device=None
     qp_kw = {"qp_max_iter": 20, "qp_max_iter_warm": 4}
     md = DRTMD(tau_supergrid=TAU_SUPER, psi_dim_names=["i"], warn=False, print_progress=False,
                batch_fit_kw={"adaptive": "staged", **qp_kw} if schedule == "staged"
-               else dict(qp_kw), device=device)
+               else dict(qp_kw), device=device, **md_kw)
     n_tot = n_eis + n_hybrid
     kinds = np.array(["eis"] * n_eis + ["hyb"] * n_hybrid)
     rng.shuffle(kinds)

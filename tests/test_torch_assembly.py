@@ -117,8 +117,7 @@ def test_fixed_basis_and_hyper_overrides_match():
     _hyp_equal(prob["hypers"], jf.hypers)
 
 
-@pytest.mark.parametrize("kw", [{"fit_dop": True}, {"fit_capacitance": True},
-                                {"tau_basis_type": "Cole-Cole"},
+@pytest.mark.parametrize("kw", [{"tau_basis_type": "Cole-Cole"},
                                 {"integrate_method": "trapz"}, {"outlier_p": 0.05}])
 def test_options_outside_the_slice_raise(kw):
     with pytest.raises(NotImplementedError):

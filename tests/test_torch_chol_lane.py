@@ -26,15 +26,6 @@ torch.set_num_threads(1)
 TOL = 2e-4
 
 
-_JAX_FACTOR = {}
-
-
-def _jax_factor_solve(a, rhs, key):
-    if key not in _JAX_FACTOR:
-        _JAX_FACTOR[key] = jax_factor_solve(jnp.asarray(a), jnp.asarray(rhs), interpret=True)
-    return _JAX_FACTOR[key]
-
-
 def _spd_batch(b, n, seed=0):
     rng = np.random.default_rng(seed)
     g = rng.normal(size=(b, n, n)).astype(np.float32)
@@ -43,36 +34,66 @@ def _spd_batch(b, n, seed=0):
     return a, rhs
 
 
+BATCHES = (4, 130)
+
+# The TPU kernels' outputs in interpret mode by (kernel, n, b). Interpret
+# runs cost seconds each, mostly tracing for the shape, and the lanes are
+# independent, so the inputs of every batch size of one n go through one call
+# per kernel, split by batch afterwards
+_JAX = {}
+
+
+def _jax_outputs(kernel, n, b):
+    if (kernel, n, b) not in _JAX:
+        cases = [_spd_batch(bb, n, seed=n + bb) for bb in BATCHES]
+        a = jnp.asarray(np.concatenate([c[0] for c in cases]))
+        rhs = np.concatenate([c[1] for c in cases])
+        if kernel == "factor_solve":
+            out = jax_factor_solve(a, jnp.asarray(rhs), interpret=True)
+        elif kernel == "solve_factored":
+            # the JAX factor carries leftover input above the diagonal
+            l_j = np.concatenate([_jax_outputs("factor_solve", n, bb)[1] for bb in BATCHES])
+            out = (jax_solve_factored(jnp.asarray(l_j), jnp.asarray(rhs * 0.5 - 1.0),
+                                      interpret=True),)
+        elif kernel == "solve":
+            out = (jax_solve(a, jnp.asarray(rhs), interpret=True),)
+        else:
+            out = (jax_factor(a, interpret=True),)
+        out = [np.asarray(o) for o in out]
+        start = 0
+        for bb in BATCHES:
+            _JAX[(kernel, n, bb)] = tuple(o[start:start + bb] for o in out)
+            start += bb
+    return _JAX[(kernel, n, b)]
+
+
 @pytest.mark.parametrize("kernel", ["factor_solve", "solve_factored", "solve", "factor"])
 @pytest.mark.parametrize("n", [5, 16, 17, 37])
-@pytest.mark.parametrize("b", [4, 130])
+@pytest.mark.parametrize("b", BATCHES)
 def test_plain_matches_pallas_interpret(kernel, n, b):
     a, rhs = _spd_batch(b, n, seed=n + b)
     at, rt = torch.from_numpy(a), torch.from_numpy(rhs)
     if kernel == "factor_solve":
         x, l = chol_lane.chol_factor_solve_lane(at, rt)
-        x_j, l_j = _jax_factor_solve(a, rhs, (n, b))
-        np.testing.assert_allclose(x.numpy(), np.asarray(x_j), rtol=TOL, atol=TOL)
+        x_j, l_j = _jax_outputs("factor_solve", n, b)
+        np.testing.assert_allclose(x.numpy(), x_j, rtol=TOL, atol=TOL)
         # contract: only the lower triangle of a factor is valid
-        np.testing.assert_allclose(np.tril(l.numpy()), np.tril(np.asarray(l_j)),
-                                   rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(np.tril(l.numpy()), np.tril(l_j), rtol=TOL, atol=TOL)
     elif kernel == "solve_factored":
-        _, l_j = _jax_factor_solve(a, rhs, (n, b))
+        _, l_j = _jax_outputs("factor_solve", n, b)
         rhs2 = rhs * 0.5 - 1.0
-        # the JAX factor carries leftover input above the diagonal
         x = chol_lane.chol_solve_factored_lane(torch.from_numpy(np.array(l_j)),
                                                torch.from_numpy(rhs2))
-        x_j = jax_solve_factored(l_j, jnp.asarray(rhs2), interpret=True)
-        np.testing.assert_allclose(x.numpy(), np.asarray(x_j), rtol=TOL, atol=TOL)
+        x_j, = _jax_outputs("solve_factored", n, b)
+        np.testing.assert_allclose(x.numpy(), x_j, rtol=TOL, atol=TOL)
     elif kernel == "solve":
         x = chol_lane.chol_solve_lane(at, rt)
-        x_j = jax_solve(jnp.asarray(a), jnp.asarray(rhs), interpret=True)
-        np.testing.assert_allclose(x.numpy(), np.asarray(x_j), rtol=TOL, atol=TOL)
+        x_j, = _jax_outputs("solve", n, b)
+        np.testing.assert_allclose(x.numpy(), x_j, rtol=TOL, atol=TOL)
     else:
         l = chol_lane.chol_factor_lane(at)
-        l_j = jax_factor(jnp.asarray(a), interpret=True)
-        np.testing.assert_allclose(np.tril(l.numpy()), np.tril(np.asarray(l_j)),
-                                   rtol=TOL, atol=TOL)
+        l_j, = _jax_outputs("factor", n, b)
+        np.testing.assert_allclose(np.tril(l.numpy()), np.tril(l_j), rtol=TOL, atol=TOL)
         # the factor-only wrapper leaves its input as it was
         np.testing.assert_array_equal(at.numpy(), a)
 

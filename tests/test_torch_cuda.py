@@ -1194,3 +1194,89 @@ def test_item11_options_on_card_match_cpu(cuda):
         assert gpu.qphb_params["n_iter"] == cpu.qphb_params["n_iter"], (ctor, kw)
         x, x_c = gpu.fit_parameters["x"], cpu.fit_parameters["x"]
         assert np.max(np.abs(x - x_c)) <= 1e-6 * np.max(np.abs(x_c)), (ctor, kw)
+
+
+def _dop_spectrum():
+    """tests/test_parallel.py:296-300: a ZARC and a constant-phase term."""
+    rng = np.random.default_rng(0)
+    f = np.logspace(5, -2, 51)
+    w = 2j * np.pi * f
+    z = 0.4 + 1.0 / (1 + (w * 1e-2) ** 0.9) + 0.05 * (w ** -0.5)
+    return f, z + rng.normal(0, 1e-3, 51) + 1j * rng.normal(0, 1e-3, 51)
+
+
+@pytest.mark.parametrize("kw", [{"fit_dop": True}, {"fit_capacitance": True},
+                                {"fit_dop": True, "nu_basis_type": "delta",
+                                 "fixed_basis_nu": np.linspace(-1, 1, 21)}],
+                         ids=["dop", "capacitance", "delta"])
+def test_dop_drt_on_card_matches_cpu(cuda, kw):
+    """DRT.fit_eis with the DOP or the capacitance in float64 on the card
+    against the CPU: the same iterations, x, x_dop and C_inv within 1e-6 of
+    max |x|; every fit kernel launched; the DOP's readouts finite."""
+    f, z = _dop_spectrum()
+    cpu = DRT(device="cpu", warn=False, **kw).fit_eis(f, z)
+    chol_lane.reset_launch_counts()
+    card = DRT(warn=False, **kw).fit_eis(f, z)
+    assert all(chol_lane.LAUNCHES[k] > 0 for k in FIT_KERNELS)
+    assert card.qphb_params["n_iter"] == cpu.qphb_params["n_iter"]
+    xm = np.max(np.abs(cpu.fit_parameters["x"]))
+    for key in ("x", "x_dop", "C_inv", "R_inf"):
+        if key in cpu.fit_parameters:
+            assert np.max(np.abs(np.asarray(card.fit_parameters[key])
+                                 - np.asarray(cpu.fit_parameters[key]))) <= 1e-6 * xm, key
+    if card.fit_dop:
+        lo, hi = card.predict_dop_ci()
+        assert np.all(np.isfinite(card.predict_dop())) and np.all(hi >= lo)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+def test_dop_batched_on_card_matches_cpu(cuda, fused):
+    """BatchedEISFitter(fit_dop=True) on make_dop_batch's spectra (n = 143)
+    in float64 on the card against the CPU: the same iterations, x and x_dop
+    within 1e-6 of each lane's max |x|; in float32 every kernel of the path
+    launched and x_dop finite."""
+    from hybdrt_torch.utils.probe import make_dop_batch
+    freq, z = make_dop_batch(32, 71)
+    kw = dict(qp_fused=fused, qp_max_iter=20, qp_max_iter_warm=4, pred_stop=True,
+              pred_rtol=3e-2)
+    r_cpu = BatchedEISFitter(freq, fit_dop=True, device="cpu", **kw).fit(z)
+    r_gpu = BatchedEISFitter(freq, fit_dop=True, **kw).fit(z)
+    np.testing.assert_array_equal(r_gpu.n_iter, r_cpu.n_iter)
+    xm = np.max(np.abs(r_cpu.x), axis=1)
+    assert np.all(np.max(np.abs(r_gpu.x - r_cpu.x), axis=1) <= 1e-6 * xm)
+    assert np.all(np.max(np.abs(r_gpu.x_dop - r_cpu.x_dop), axis=1) <= 1e-6 * xm)
+    chol_lane.reset_launch_counts()
+    ip_lane.reset_launch_counts()
+    tf = BatchedEISFitter(freq, fit_dop=True, dtype=torch.float32, **kw)
+    assert tf.rzm.shape[1] == 143
+    r32 = tf.fit(z, adaptive="staged", collect="lazy")
+    assert all(chol_lane.LAUNCHES[k] > 0 for k in FIT_KERNELS)
+    assert (ip_lane.LAUNCHES["ip_steps_lane"] > 0) == fused
+    assert np.all(np.isfinite(r32.x_dop)) and np.all(np.isfinite(r32.x))
+
+
+def test_dop_map_on_card_matches_cpu(cuda):
+    """DRTMD(fit_dop=True) on the small mixed map (both halves through the
+    ragged fitter) in float64 on the card against the CPU: the same
+    iterations, obs_x and x_dop within 1e-6 of each observation's max |x|,
+    and the coupled resolve's x_dop at rtol 1e-6, atol 1e-8."""
+    maps = []
+    for device in ("cpu", None):
+        tau, obs = small_map("mixed")
+        md = DRTMD(tau, psi_dim_names=["T"], warn=False, print_progress=False, fit_dop=True,
+                   device=device)
+        for psi, c, e in obs:
+            md.add_observation(psi, c, e, group_id="g")
+        md.fit_all(batched=True)
+        md.resolve_group("g", psi_sort_dims=["T"], coupled=True)
+        maps.append(md)
+    cpu, card = maps
+    for i in range(cpu.num_obs):
+        assert card.obs_fit_attr[i]["n_iter"] == cpu.obs_fit_attr[i]["n_iter"]
+        xm = np.max(np.abs(cpu.obs_x[i]))
+        assert np.max(np.abs(card.obs_x[i] - cpu.obs_x[i])) <= 1e-6 * xm
+        assert np.max(np.abs(card.obs_special["x_dop"][i] - cpu.obs_special["x_dop"][i])) \
+            <= 1e-6 * xm
+    np.testing.assert_allclose(card.obs_special_resolved["x_dop"],
+                               cpu.obs_special_resolved["x_dop"], rtol=1e-6, atol=1e-8)
+    assert np.all(np.isfinite(card.predict_dop()))

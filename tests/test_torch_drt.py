@@ -173,8 +173,6 @@ def _refits(**fit_kw):
 
 
 @pytest.mark.parametrize("make,item", [
-    (lambda: hybdrt_torch.DRT(fit_dop=True, device="cpu"), "item 4"),
-    (lambda: hybdrt_torch.DRT(fit_capacitance=True, device="cpu"), "item 4"),
     (lambda: hybdrt_torch.DRT(tau_basis_type="Cole-Cole", device="cpu"), "item 4"),
     (lambda: hybdrt_torch.DRT(interpolate_integrals=False, device="cpu"), "item 4"),
     (_refits(remove_outliers=True, outlier_p=0.05), "item 9"),
@@ -182,8 +180,7 @@ def _refits(**fit_kw):
     (_refits(return_outlier_index=True), "item 9"),
     (lambda: hybdrt_torch.DRT(device="cpu").fit_chrono(*hybrid_data()[:3], outlier_p=0.05),
      "item 9"),
-], ids=["dop", "capacitance", "cole_cole", "trapz", "remove_outliers", "outlier_p",
-        "outlier_index", "chrono"])
+], ids=["cole_cole", "trapz", "remove_outliers", "outlier_p", "outlier_index", "chrono"])
 def test_unported_options_raise(make, item):
     with pytest.raises(NotImplementedError, match=item):
         make()

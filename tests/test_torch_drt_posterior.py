@@ -247,8 +247,8 @@ def test_diagnostics(fits, name):
 
 def test_parity_methods_without_dop(fits):
     """tests/test_multi_misc.py::test_drt_parity_methods' assertions on its
-    spectrum, fitted without DOP (the port raises on fit_dop, item 4), and
-    the JAX package's values on the same fit."""
+    spectrum, fitted without DOP (tests/test_torch_dop_drt.py holds them on
+    the DOP fit), and the JAX package's values on the same fit."""
     dj, drt = fits["parity"]
     f, _ = _parity_spectrum()
     tau = np.logspace(-6, 2, 80)

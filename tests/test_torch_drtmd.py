@@ -98,7 +98,8 @@ def test_store_matches_jax(fitted):
 
 def test_drt_attributes_round_trip():
     """DRT.get_attributes / set_attributes of the config and fit_core
-    categories carry a fit over; names the port's DRT lacks come back None."""
+    categories carry a fit over; a fit without DOP holds fit_dop False and
+    nu_epsilon None, as the JAX DRT's does."""
     from hybdrt_torch import DRT
     tau, obs = probe.small_map("eis")
     _, _, (freq, z) = obs[0]
@@ -106,7 +107,7 @@ def test_drt_attributes_round_trip():
     att = drt.get_attributes()
     assert set(att) == set(drt.attribute_categories["config"]) \
         | set(drt.attribute_categories["fit_core"])
-    assert att["fit_dop"] is None and att["nu_epsilon"] is None
+    assert att["fit_dop"] is False and att["nu_epsilon"] is None
     assert att["fit_kwargs"]["nonneg"] is True and att["series_neg"] is False
     other = DRT(device="cpu").set_attributes(att)
     np.testing.assert_array_equal(other.predict_z(freq), drt.predict_z(freq))
@@ -182,9 +183,6 @@ UNPORTED = {
     "resolve mesh": ("10", lambda md: md.resolve_group("g", batched=True, mesh=object())),
     "fit_type=pfrt": ("9", lambda md: DRTMD(md.tau_supergrid, fit_type="pfrt",
                                             device="cpu")),
-    "fixed_basis_nu": ("4", lambda md: DRTMD(md.tau_supergrid, fixed_basis_nu=[1.0],
-                                             device="cpu")),
-    "fit_dop": ("4", lambda md: DRTMD(md.tau_supergrid, fit_dop=True, device="cpu")),
 }
 
 

@@ -268,14 +268,14 @@ def test_port_pickle_loads_in_jax(maps, tmp_path):
 
 
 def test_from_source_keeps_the_constructors_raises(maps):
-    """Config the port's constructor raises on keeps raising from a file or
-    dict, naming its item; so does a map of PFRT fits."""
+    """A map of PFRT fits raises from a file or dict, naming its item; the
+    DOP configuration, which the constructor takes, builds its map."""
     _, mt = maps["unresolved"]
     att = mt.get_attributes()
-    with pytest.raises(NotImplementedError, match=r"item 4(?!\d)"):
-        DRTMD.from_source(dict(att, fixed_basis_nu=np.linspace(-1, 1, 5)), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 4(?!\d)"):
-        DRTMD.from_source(dict(att, fit_dop=True), device="cpu")
+    nu = np.linspace(-1, 1, 5)
+    md = DRTMD.from_source(dict(att, fixed_basis_nu=nu, fit_dop=True), device="cpu")
+    assert md.fit_dop and np.array_equal(md.fixed_basis_nu, nu)
+    assert md.drt1d.fit_dop and np.array_equal(md.drt1d.fixed_basis_nu, nu)
     with pytest.raises(NotImplementedError, match=r"item 9(?!\d)"):
         DRTMD.from_source(dict(att, fit_type="pfrt"), device="cpu")
     with pytest.raises(ValueError, match="Invalid attribute category"):
@@ -283,7 +283,6 @@ def test_from_source_keeps_the_constructors_raises(maps):
 
 
 UNPORTED = {
-    "predict_dop": ("4", lambda md: md.predict_dop(obs_index=[0])),
     "score_group_data_badness": ("9", lambda md: md.score_group_data_badness("g")),
 }
 

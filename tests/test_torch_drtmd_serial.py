@@ -36,42 +36,16 @@ from hybdrt_torch.ops import basis as basis_mod
 from hybdrt_torch.solver.qphb import QPHBConfig
 from hybdrt_torch.utils import probe
 
+import serial_maps
+
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-FREQ = np.logspace(5, -1, 41)
-TAU_SUPER = np.logspace(-7, 2, 91)
-PSIS = np.linspace(0, 1, 10)
-
-
-def _zarc(f, r, tau0, a=0.9):
-    return r / (1 + (2j * np.pi * f * tau0) ** a)
-
-
-def _ten_spectra():
-    """tests/test_mapping.py:18-26."""
-    rng = np.random.default_rng(0)
-    out = []
-    for p in PSIS:
-        z = 0.3 + 0.2 * p + _zarc(FREQ, 1.0 + 0.5 * p, 10 ** (-3 + 2 * p))
-        out.append(z + (rng.normal(size=len(FREQ)) + 1j * rng.normal(size=len(FREQ))) * 0.002)
-    return out
-
-
-def _observations(kind):
-    if kind == "ten":
-        return TAU_SUPER, [([p], None, (FREQ, z)) for p, z in zip(PSIS, _ten_spectra())]
-    return probe.small_map(kind)
-
-
-def _pair(kind, **kw):
-    tau, obs = _observations(kind)
-    mj = JaxDRTMD(tau, psi_dim_names=["T"], warn=False, print_progress=False, **kw)
-    mt = DRTMD(tau, psi_dim_names=["T"], warn=False, print_progress=False, device="cpu", **kw)
-    for psi, c, e in obs:
-        mj.add_observation(psi, c, e, group_id="g")
-        mt.add_observation(psi, c, e, group_id="g")
-    return mj, mt
+# the maps (tests/serial_maps.py, with tests/test_torch_resolve_dense.py;
+# tests/test_torch_drtmd_serial_options.py imports them from here)
+FREQ, TAU_SUPER, PSIS = serial_maps.FREQ, serial_maps.TAU_SUPER, serial_maps.PSIS
+_ten_spectra, _observations = serial_maps.ten_spectra, serial_maps.observations
+_pair = serial_maps.pair
 
 
 @pytest.fixture(scope="module")

@@ -41,31 +41,56 @@ _LANE_BLOCKED = _load("pallas_chol_lane_blocked")
 _COLUMN = _load("pallas_chol_column")
 _BLOCKED = _load("pallas_chol_blocked")
 
-# JAX outputs per kernel, parameter and inputs: the interpret runs take seconds
-_JAX = {}
-
-
-def _jax(kernel, param, a, rhs):
-    key = (kernel, param, hashlib.sha256(a.tobytes() + rhs.tobytes()).hexdigest())
-    if key not in _JAX:
-        aj, rj = jnp.asarray(a), jnp.asarray(rhs)
-        if kernel == "lane_blocked":
-            out = _LANE_BLOCKED.chol_factor_solve_lane_blocked(aj, rj, kb=param, interpret=True)
-        elif kernel == "column":
-            out = _COLUMN.chol_solve_batched(aj, rj, interpret=True)
-        else:
-            out = _BLOCKED.chol_solve_blocked(aj, rj, nb=param, interpret=True)
-        _JAX[key] = tuple(np.asarray(o) for o in out) if isinstance(out, (tuple, list)) \
-            else np.asarray(out)
-    return _JAX[key]
-
-
 def _spd_batch(b, n, seed=0):
     rng = np.random.default_rng(seed)
     g = rng.normal(size=(b, n, n)).astype(np.float32)
     a = g @ np.swapaxes(g, 1, 2) + n * np.eye(n, dtype=np.float32)
     rhs = rng.normal(size=(b, n)).astype(np.float32)
     return a, rhs
+
+
+BATCHES = (4, 130)
+
+
+def _run_jax(kernel, param, a, rhs):
+    aj, rj = jnp.asarray(a), jnp.asarray(rhs)
+    if kernel == "lane_blocked":
+        out = _LANE_BLOCKED.chol_factor_solve_lane_blocked(aj, rj, kb=param, interpret=True)
+    elif kernel == "column":
+        out = _COLUMN.chol_solve_batched(aj, rj, interpret=True)
+    else:
+        out = _BLOCKED.chol_solve_blocked(aj, rj, nb=param, interpret=True)
+    return tuple(np.asarray(o) for o in out) if isinstance(out, (tuple, list)) \
+        else np.asarray(out)
+
+
+# JAX outputs per kernel, parameter and inputs: the interpret runs take
+# seconds, mostly tracing for the shape
+_JAX = {}
+
+
+def _jax(kernel, param, a, rhs):
+    key = (kernel, param, hashlib.sha256(a.tobytes() + rhs.tobytes()).hexdigest())
+    if key not in _JAX:
+        _JAX[key] = _run_jax(kernel, param, a, rhs)
+    return _JAX[key]
+
+
+def _jax_seeded(kernel, param, n, b):
+    """The JAX outputs of the seeded batch (b, n): the inputs of every batch
+    size of one n go through one interpret call (the lanes are independent),
+    split by batch afterwards."""
+    key = (kernel, param, n, b)
+    if key not in _JAX:
+        cases = [_spd_batch(bb, n, seed=n + bb) for bb in BATCHES]
+        out = _run_jax(kernel, param, np.concatenate([c[0] for c in cases]),
+                       np.concatenate([c[1] for c in cases]))
+        start = 0
+        for bb in BATCHES:
+            _JAX[(kernel, param, n, bb)] = tuple(o[start:start + bb] for o in out) \
+                if isinstance(out, tuple) else out[start:start + bb]
+            start += bb
+    return _JAX[key]
 
 
 def _failing_batch():
@@ -82,31 +107,31 @@ def _close(got, want):
 
 @pytest.mark.parametrize("kb", [4, 8])
 @pytest.mark.parametrize("n", [5, 16, 17, 37])
-@pytest.mark.parametrize("b", [4, 130])
+@pytest.mark.parametrize("b", BATCHES)
 def test_lane_blocked_matches_pallas_interpret(kb, n, b):
     a, rhs = _spd_batch(b, n, seed=n + b)
     x, l = chol_lane_blocked.chol_factor_solve_lane_blocked(
         torch.from_numpy(a), torch.from_numpy(rhs), kb=kb)
-    x_j, l_j = _jax("lane_blocked", kb, a, rhs)
+    x_j, l_j = _jax_seeded("lane_blocked", kb, n, b)
     _close(x.numpy(), x_j)
     _close(np.tril(l.numpy()), np.tril(l_j))
 
 
 @pytest.mark.parametrize("n", [5, 16, 17, 37])
-@pytest.mark.parametrize("b", [4, 130])
+@pytest.mark.parametrize("b", BATCHES)
 def test_column_matches_pallas_interpret(n, b):
     a, rhs = _spd_batch(b, n, seed=n + b)
     x = chol_column.chol_solve_batched(torch.from_numpy(a), torch.from_numpy(rhs))
-    _close(x.numpy(), _jax("column", None, a, rhs))
+    _close(x.numpy(), _jax_seeded("column", None, n, b))
 
 
 @pytest.mark.parametrize("nb", [8, 16])
 @pytest.mark.parametrize("n", [5, 16, 17, 37])
-@pytest.mark.parametrize("b", [4, 130])
+@pytest.mark.parametrize("b", BATCHES)
 def test_blocked_matches_pallas_interpret(nb, n, b):
     a, rhs = _spd_batch(b, n, seed=n + b)
     x = chol_blocked.chol_solve_blocked(torch.from_numpy(a), torch.from_numpy(rhs), nb=nb)
-    _close(x.numpy(), _jax("blocked", nb, a, rhs))
+    _close(x.numpy(), _jax_seeded("blocked", nb, n, b))
 
 
 @pytest.mark.parametrize("n", [5, 16, 17, 37])

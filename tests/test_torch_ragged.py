@@ -216,10 +216,9 @@ def test_final_predictions(mixed):
     (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu").fit(o, staged_buckets=2), ValueError),
     (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu").fit(o, adaptive="fast"), ValueError),
     (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu", mesh=object()), NotImplementedError),
-    (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu", fit_dop=True), NotImplementedError),
     (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu", batch_bucket=True), TypeError),
     (lambda o: BatchedRaggedFitter(TAU_SG, device="cpu", l2_lambda=1.0), ValueError),
-], ids=["phase_budgets", "capacities", "buckets", "adaptive", "mesh", "dop", "batch_bucket",
+], ids=["phase_budgets", "capacities", "buckets", "adaptive", "mesh", "batch_bucket",
         "hyper_typo"])
 def test_rejects(make, err):
     obs = _shared_grid_obs()[:2]

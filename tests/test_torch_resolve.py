@@ -385,9 +385,12 @@ def test_group_resolve_rejects_what_is_not_ported(fitted):
     plain = BatchedEISFitter(FREQ, dtype=torch.float64, device="cpu")
     with pytest.raises(ValueError, match="tau_supergrid"):
         resolve_group(plain, res, zs, device="cpu")
-    with pytest.raises(NotImplementedError, match="C_inv"):
-        resolve.unpack_resolved_x(np.ones((2, 4)), [1.0, 1.0],
-                                  {"C_inv": {"index": 0, "nonneg": True, "size": 1}})
+    c_inv = {"C_inv": {"index": 0, "nonneg": True, "size": 1}}
+    with pytest.raises(ValueError, match="capacitance_scale"):
+        resolve.unpack_resolved_x(np.ones((2, 4)), [1.0, 1.0], c_inv)
+    _, sp = resolve.unpack_resolved_x(np.ones((2, 4)), [1.0, 2.0], c_inv,
+                                      capacitance_scale=1e-3)
+    np.testing.assert_array_equal(sp["C_inv"], [1e-3, 2e-3])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             resolve_group(fitter, res, zs, coupled=True)

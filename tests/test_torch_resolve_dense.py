@@ -23,7 +23,6 @@ import pytest
 import torch
 
 from hybdrt_tpu.mapping import resolve as jax_resolve
-from hybdrt_tpu.mapping.drtmd import DRTMD as JaxDRTMD
 from hybdrt_tpu.ops.qp import solve_qp_box as jax_solve_qp_box
 from hybdrt_torch.mapping import resolve
 from hybdrt_torch.mapping.drtmd import DRTMD, resolve_group, resolve_windows
@@ -31,34 +30,15 @@ from hybdrt_torch.ops import chol_lane
 from hybdrt_torch.parallel.batch import BatchedEISFitter
 from hybdrt_torch.utils import probe
 
+import serial_maps
+
 torch.set_num_threads(1)
 
-FREQ = np.logspace(5, -1, 41)
-TAU_SUPER = np.logspace(-7, 2, 91)
-PSIS = np.linspace(0, 1, 10)
 RTOL, ATOL = 1e-8, 1e-10
 
 
-def _ten_spectra():
-    """tests/test_mapping.py:18-26."""
-    rng = np.random.default_rng(0)
-    out = []
-    for p in PSIS:
-        z = 0.3 + 0.2 * p + (1.0 + 0.5 * p) / (1 + (2j * np.pi * FREQ * 10 ** (-3 + 2 * p)) ** 0.9)
-        out.append(z + (rng.normal(size=len(FREQ)) + 1j * rng.normal(size=len(FREQ))) * 0.002)
-    return out
-
-
 def _pair(kind, batched=False):
-    if kind == "ten":
-        tau, obs = TAU_SUPER, [([p], None, (FREQ, z)) for p, z in zip(PSIS, _ten_spectra())]
-    else:
-        tau, obs = probe.small_map(kind)
-    mj = JaxDRTMD(tau, psi_dim_names=["T"], warn=False, print_progress=False)
-    mt = DRTMD(tau, psi_dim_names=["T"], warn=False, print_progress=False, device="cpu")
-    for psi, c, e in obs:
-        mj.add_observation(psi, c, e, group_id="g")
-        mt.add_observation(psi, c, e, group_id="g")
+    mj, mt = serial_maps.pair(kind)
     mj.fit_all(batched=batched)
     mt.fit_all(batched=batched)
     return mj, mt
