@@ -290,7 +290,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
     fit's converged share at least ``DOP_CONVERGED_FLOOR``, and the first 64
     spectra against the CPU's float64 fit within ``DOP_SPREAD_FACTOR`` times
     the JAX package's own float32 spread on them (``DOP_F32_SPREAD``, from
-    ``tests/dop_f32_spread.py``); (b) #1-#3 on the plain fit's first QP at
+    ``tests/f32_spread.py dop``); (b) #1-#3 on the plain fit's first QP at
     (8192, 143) in float32 and on a float64 fit's at (1024, 143), held as
     phase 12 holds them (``hold_first_qp``), #4 on the first Mehrotra step's
     systems in both precisions, #5 on the fused fit's first warm QP
@@ -309,9 +309,29 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
     launched, finite x and x_dop; ``DOP_CPU_WINDOWS`` windows solved again
     on the CPU, the same IP iterations and x within ``DOP_SPREAD_FACTOR``
     times their spread on the card under a one-ulp move of P) and
-    ``predict_dop`` finite. The other tau bases and
-    ``trapz`` are not ported yet (ROADMAP Queue 1 item 4), so no phase runs
-    them.
+    ``predict_dop`` finite;
+19. the other tau bases and ragged fits above the lane kernels' tile rule:
+    (a) ``DRT`` single fits in float64 on the card (B = 1, #1-#3) on
+    ``basis_probe``'s spectrum and record: ``fit_eis`` with the delta basis,
+    Cole-Cole at epsilon 0.95 and at its default, and the gaussian with
+    ``interpolate_integrals=False``; ``fit_chrono`` with Cole-Cole at 0.95
+    and delta; ``fit_hybrid`` with delta; each against the port's CPU fit
+    (the same n_iter, x within ``BASIS_X_TOL`` of max |x|); (b) the main
+    leg's ``make_batch(8192, 71)`` as delta-basis EIS systems on its basis
+    (n = 93) through ``BatchedRaggedFitter.from_systems`` in float32 with the
+    benchmark's knobs, plain and fused, timed in turns; #1-#3 and #5 against
+    their plain versions on the first QP's systems; the first 64 lanes
+    against a float64 fit on the card (the Rp max and R_inf on the lanes
+    that stop at the same iteration), each path within the larger of phase
+    5's bound and 3x the JAX package's own float32 spread of the same path
+    on these systems (``DELTA_F32_SPREAD``, from ``tests/f32_spread.py
+    delta``; the JAX package's Rp max and R_inf exceed phase 5's 5e-3 on
+    both paths); (c) the het leg's 768 EIS spectra on 40 points a decade
+    (padded n above 268) in float32, plain and fused: every QP on the
+    library route, the fused warm QPs on the plain steps (``fused_plain``),
+    no lane-kernel launch, the first ``WIDE_CPU_LANES`` lanes against the
+    CPU's float64 fit within phase 5's bounds (the CPU's fits run after the
+    card's, before 19a, with nothing timed beside them).
 
 The line before the last is a JSON object with one entry per kernel (its
 launches from the path it serves: phase 5 and phase 13's timed fits for the
@@ -321,9 +341,11 @@ three fit Cholesky kernels, phase 6 and phase 13's fused fit for
 quick-start fit and serial ``fit_all`` for #1-#3, phase 17's fused map's
 second call for #1-#3 and #5, and its single, sample and ragged fits for
 #1-#3, phase 18's timed DOP fits, single fits and DOP map for #1-#5, phase
+19's single fits for #1-#3 and its timed delta-basis batches for #1-#3 and
+#5, phase
 9's study for the four layout kernels, phase 10's study for
 ``ip_steps_loop``; the max_abs_err of #1-#4 takes in phase 18b's first DOP
-QPs too);
+QPs, and of #1-#3 phase 19b's first delta-basis QP, too);
 the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -2430,8 +2452,8 @@ def phase_defaults(het_md):
           f"{len(captured[0][1])}; rebuild {info['rebuild_s']:.4f} s, host assembly "
           f"{info['assembly_s']:.4f} s, solve {info['solve_s']:.4f} s); IP iterations "
           f"{n_it.tolist()}; QPs by route {routes}; lane launches {dict(cl.LAUNCHES)}")
-    check(routes == {"lane": 0, "library": info["windows"]}, "16d every window's QP took the "
-          "library route")
+    check(routes == {"lane": 0, "library": info["windows"], "fused_plain": 0},
+          "16d every window's QP took the library route")
     check(all(v == 0 for v in cl.LAUNCHES.values()), "16d no lane kernel launched")
     check(np.isfinite(md.obs_x_resolved).all(), "16d finite")
     xd, fd = md.obs_x_resolved.copy(), md.group_objective("g", psi_sort_dims=["i"])
@@ -2471,8 +2493,8 @@ def phase_defaults(het_md):
           f"{info['windows']} windows, IP iterations median {np.median(info['n_iter']):.0f} max "
           f"{int(np.max(info['n_iter']))}, solve {info['solve_s']:.4f} s, host assembly "
           f"{info['assembly_s']:.4f} s; QPs by route {dict(cl.QP_ROUTES)}")
-    check(cl.QP_ROUTES == {"lane": 0, "library": info["windows"]}, "16d het windows took the "
-          "library route")
+    check(cl.QP_ROUTES == {"lane": 0, "library": info["windows"], "fused_plain": 0},
+          "16d het windows took the library route")
     check(np.isfinite(het_md.obs_x_resolved).all(), "16d het resolve finite")
 
     # 16e: the map's uncertainty readouts, 8 observations against the CPU
@@ -2983,7 +3005,7 @@ def phase_rest(het_md):
 # a constant-phase term each (probe.make_dop_batch), n = 93 + 50 nu functions
 DOP_N = 143
 DOP_F64_B = 1024
-# tests/dop_f32_spread.py: the JAX package's own float32 DOP fit against its
+# tests/f32_spread.py dop: the JAX package's own float32 DOP fit against its
 # float64 fit on the same first 64 spectra, on a CPU (Rp median, p95 and max
 # relative error, max |dR_inf|, the functional fit), the larger of its plain
 # and fused fits' (fit(z)'s schedule; adaptive="staged" gives the same to
@@ -3000,7 +3022,7 @@ DOP_F32_SPREAD = dict(rp_median=3.055e-3, rp_p95=1.075e-2, rp_max=2.112e-2, r_in
                       z=4.359e-3)
 DOP_SPREAD_FACTOR = 3
 # the share of lanes the plain DOP fit must converge (every one of the 64 in
-# both precisions in the JAX package's fits of tests/dop_f32_spread.py)
+# both precisions in the JAX package's fits of tests/f32_spread.py dop)
 DOP_CONVERGED_FLOOR = 0.99
 # 18c's single fits: the card's float64 fit against the CPU's, as phase 17
 DOP_X_TOL = 1e-6
@@ -3017,7 +3039,7 @@ DOP_WINDOW_X_TOL = 1e-8
 def dop_spread(fitter, res, ref, r64, z):
     """The card's float32 DOP fit ``res`` against the CPU's float64 ``r64``
     on the first 64 spectra of ``z``: {metric: value} on all 64 lanes, as
-    tests/dop_f32_spread.py measures the JAX package's, and the lanes that
+    tests/f32_spread.py dop measures the JAX package's, and the lanes that
     stop at the same iteration."""
     rp32, rp64 = fitter.predict_r_p(res)[:64], ref.predict_r_p(r64)
     rel_rp = np.abs(rp32 - rp64) / np.abs(rp64)
@@ -3409,6 +3431,286 @@ def phase_dop():
     return walls, launches, errs, times
 
 
+# Phase 19: the other tau bases, and ragged fits above the lane kernels'
+# tile rule. (a)'s single fits, float64 on the card against the CPU's:
+# ctor keywords, data
+BASIS_CASES = {
+    "delta eis": ({"tau_basis_type": "delta"}, "eis"),
+    "Cole-Cole 0.95 eis": ({"tau_basis_type": "Cole-Cole", "tau_epsilon": 0.95}, "eis"),
+    "Cole-Cole default eis": ({"tau_basis_type": "Cole-Cole"}, "eis"),
+    "gaussian trapz eis": ({"interpolate_integrals": False}, "eis"),
+    "Cole-Cole 0.95 chrono": ({"tau_basis_type": "Cole-Cole", "tau_epsilon": 0.95}, "chrono"),
+    "delta chrono": ({"tau_basis_type": "delta"}, "chrono"),
+    "delta hybrid": ({"tau_basis_type": "delta"}, "hybrid"),
+}
+BASIS_X_TOL = 1e-8
+# (b): the main leg's padded n on its basis. Phase 5's bounds, and the JAX
+# package's own float32 spread on the first 64 delta-basis systems, each
+# path's (tests/f32_spread.py delta, "jax plain" and "jax fused": the Rp
+# median and p95 and the functional fit on all lanes, the Rp max and R_inf
+# on the lanes that stop at the same iteration), where phase 5's bound is
+# below DELTA_SPREAD_FACTOR times it, as phase 18a holds the DOP fit
+MAIN_N = 93
+PHASE5_BOUNDS = dict(rp_median=1e-3, rp_p95=3e-3, z=1.5e-2, rp_max=5e-3, r_inf=5e-3)
+DELTA_F32_SPREAD = {
+    "plain": dict(rp_median=1.068e-4, rp_p95=1.068e-3, z=5.192e-4, rp_max=6.238e-3,
+                  r_inf=8.162e-3),
+    "fused": dict(rp_median=7.549e-5, rp_p95=1.140e-3, z=5.300e-4, rp_max=5.338e-3,
+                  r_inf=6.975e-3)}
+DELTA_SPREAD_FACTOR = 3
+# (c): the het leg's EIS spectra on a supergrid of 40 points a decade, and
+# the lanes held against the CPU's float64 fit (16 lanes take 28 s there,
+# beside phase 19's 60 s)
+WIDE_TAU = np.logspace(-8, 3, 441)
+WIDE_CPU_LANES = 8
+
+
+def basis_fit(device, ctor, kind, data):
+    import hybdrt_torch
+
+    (times, i_sig, v), (freq, z) = data
+    drt = hybdrt_torch.DRT(warn=False, device=device, **ctor)
+    if kind == "eis":
+        return drt.fit_eis(freq, z)
+    if kind == "chrono":
+        return drt.fit_chrono(times, i_sig, v)
+    return drt.fit_hybrid(times, i_sig, v, freq, z)
+
+
+def phase_bases_single():
+    """Phase 19a: single fits of the other bases on ``basis_probe``'s
+    spectrum and record, float64 on the card (B = 1, #1-#3), each against
+    the port's fit on the CPU: the same n_iter and x within BASIS_X_TOL of
+    max |x|. Returns ({label: wall}, {kernel: launches})."""
+    from hybdrt_torch.ops import chol_lane as cl
+    from hybdrt_torch.utils.probe import basis_probe
+
+    data = basis_probe()
+    walls, total = {}, {k: 0 for k in FIT_KERNELS}
+    for label, (ctor, kind) in BASIS_CASES.items():
+        cl.reset_launch_counts()
+        t0 = time.time()
+        card = basis_fit(None, ctor, kind, data)
+        torch.cuda.synchronize()
+        walls[label] = time.time() - t0
+        launches = launch_counts()
+        for k in FIT_KERNELS:
+            total[k] += launches[k]
+        cpu = basis_fit("cpu", ctor, kind, data)
+        x, x_ref = card.fit_parameters["x"], cpu.fit_parameters["x"]
+        dx = float(np.max(np.abs(x - x_ref)) / np.max(np.abs(x_ref)))
+        n_it = (card.qphb_params["n_iter"], cpu.qphb_params["n_iter"])
+        print(f"bases 19a: {label} ({card.tau_basis_type}, epsilon {card.tau_epsilon:.4g}, "
+              f"{card.integrate_method}), f64 on the card, n = "
+              f"{card.qphb_params['p_matrix'].shape[0]}: {walls[label]:.4f} s (first call); "
+              f"n_iter card / CPU {n_it}; Rp {card.predict_r_p():.6g}; max |dx| / max |x| "
+              f"{dx:.3g}")
+        print(f"bases 19a: {label} launches {launches}")
+        check(bool(np.all(np.isfinite(x))), f"19a {label}: finite x")
+        check(all(launches[k] > 0 for k in FIT_KERNELS), f"19a {label} launched #1-#3")
+        check(n_it[0] == n_it[1] and dx < BASIS_X_TOL,
+              f"19a {label}: the CPU's iterations and coefficients ({dx:.3g})")
+    return walls, total
+
+
+def ragged_holds(label, fitter, res, ref, r64, n_lanes, area, same_only, bounds=None):
+    """``bounds`` (phase 5's by default) on a ragged fit's first ``n_lanes``
+    lanes, float32 ``res`` against float64 ``r64``: the Rp median and p95 and
+    the functional fit on all of them; the Rp max and R_inf on the lanes
+    that stop at the same iteration (``same_only``) or on all."""
+    bounds = PHASE5_BOUNDS if bounds is None else bounds
+    rp32 = np.sum(np.abs(res.x[:n_lanes]), axis=1) * area
+    rp64 = np.sum(np.abs(r64.x[:n_lanes]), axis=1) * area
+    rel_rp = np.abs(rp32 - rp64) / np.abs(rp64)
+    d_rinf = np.abs(res.r_inf[:n_lanes] - r64.r_inf[:n_lanes])
+    y32, y64 = fitter.final_predictions(res)[:n_lanes], ref.final_predictions(r64)[:n_lanes]
+    rows = res.num_rows[:n_lanes]
+    zrel = [np.max(np.abs(y32[k, :r] - y64[k, :r])) / np.max(np.abs(y64[k, :r]))
+            for k, r in enumerate(rows)]
+    same = res.n_iter[:n_lanes] == r64.n_iter[:n_lanes]
+    held = same if same_only else np.ones(n_lanes, dtype=bool)
+    print(f"  {label}: f32 against f64 on {n_lanes} lanes: Rp rel err median "
+          f"{np.median(rel_rp):.3g} p95 {np.percentile(rel_rp, 95):.3g} max {np.max(rel_rp):.3g}, "
+          f"max |dR_inf| {np.max(d_rinf):.3g}; functional fit max {max(zrel):.3g}; "
+          f"{int(same.sum())} lanes at the same n_iter; Rp max and R_inf held on "
+          f"{int(held.sum())} lanes: {np.max(rel_rp[held]):.3g}, {np.max(d_rinf[held]):.3g}")
+    got = dict(rp_median=np.median(rel_rp), rp_p95=np.percentile(rel_rp, 95), z=max(zrel),
+               rp_max=np.max(rel_rp[held]), r_inf=np.max(d_rinf[held]))
+    check(held.sum() >= min(16, n_lanes), f"{label}: {int(held.sum())} lanes held")
+    for k, v in got.items():
+        check(v < bounds[k], f"{label}: {k} {v:.4g} < {bounds[k]:.4g}")
+
+
+def phase_bases_batch():
+    """Phase 19b: ``make_batch(8192, 71)`` as delta-basis EIS systems on the
+    main leg's basis (``probe.eis_systems``: one system that
+    ``DRT(tau_basis_type="delta")`` prepares, each spectrum's own scaled
+    data vector) through ``BatchedRaggedFitter.from_systems`` in float32 with
+    the benchmark's knobs, plain and fused: a first call of each (the first
+    QP's #1-#3 and first warm QP's #5 inputs kept), then two timed calls of
+    each in turns, the counters reset before each; #1-#3 and #5 against
+    their plain versions on those inputs; the first 64 lanes against a
+    float64 fit on the card, the Rp max and R_inf on the lanes that stop at
+    the same iteration, each path within the larger of phase 5's bound and
+    DELTA_SPREAD_FACTOR times the JAX package's own float32 spread of that
+    path on these systems (``DELTA_F32_SPREAD``). Returns ({label: wall}, {kernel: launches},
+    {kernel: max abs err})."""
+    import hybdrt_torch
+    from hybdrt_torch.ops import chol_lane as cl, ip_lane
+    from hybdrt_torch.utils.probe import eis_systems
+
+    freq, z = make_batch(B_BENCH, N_FREQ)
+    drt = hybdrt_torch.DRT(tau_basis_type="delta", warn=False, device="cpu")
+    t0 = time.time()
+    systems = eis_systems(drt, freq, z)
+    prep = time.time() - t0
+    n = systems[0]["rzm"].shape[1]
+    print(f"bases 19b: {B_BENCH} delta-basis EIS systems, n = {n} (the main leg's {MAIN_N}), "
+          f"prepared in {prep:.3f} s")
+    check(n == MAIN_N, f"19b n = {n}")
+    fitters = {fused: hybdrt_torch.BatchedRaggedFitter.from_systems(
+        systems, drt.basis_tau, dtype=torch.float32, qp_fused=fused, **FIT_KW)
+        for fused in (False, True)}
+    firsts = {}
+    for fused, fitter in fitters.items():
+        with FirstKernelInputs() as first, FirstFusedInputs() as first_fused:
+            res = fitter.fit(adaptive="staged")
+        torch.cuda.synchronize()
+        firsts[fused] = (first, first_fused.inputs, res)
+    walls, launches = {}, {}
+    for turn in range(2):
+        for fused, fitter in fitters.items():
+            label = "fused" if fused else "plain"
+            cl.reset_launch_counts()
+            ip_lane.reset_launch_counts()
+            t0 = time.time()
+            res = fitter.fit(adaptive="staged")
+            torch.cuda.synchronize()
+            walls.setdefault(label, []).append(time.time() - t0)
+            launches[label] = {**launch_counts(), **ip_lane.LAUNCHES}
+    for fused in (False, True):
+        label = "fused" if fused else "plain"
+        res = firsts[fused][2]
+        print(f"bases 19b: delta batch {label} f32, B={B_BENCH} n={n}: second and third calls "
+              f"{walls[label][0]:.4f}, {walls[label][1]:.4f} s (in turns); converged "
+              f"{int(res.converged.sum())}/{B_BENCH}; n_iter mean {res.n_iter.mean():.2f}")
+        print(f"bases 19b: delta batch {label} launches {launches[label]}")
+        path = [*FIT_KERNELS, "ip_steps_lane"] if fused else FIT_KERNELS
+        check(all(launches[label][k] > 0 for k in path), f"19b {label}: #1-#3 (and #5) launched")
+        if not fused:
+            check(launches[label]["ip_steps_lane"] == 0, "19b plain: no fused steps")
+        check(bool(np.all(np.isfinite(res.x_raw))), f"19b {label}: finite coefficients")
+    errs = hold_first_qp("19b delta", firsts[False][0])
+    hold_fused_steps("19b delta", firsts[True][1])
+    for fused in (False, True):
+        label = "fused" if fused else "plain"
+        delta_bounds = {k: max(v, DELTA_SPREAD_FACTOR * DELTA_F32_SPREAD[label][k])
+                        for k, v in PHASE5_BOUNDS.items()}
+        print(f"  19b {label} bounds: "
+              + ", ".join(f"{k} {v:.4g}" for k, v in delta_bounds.items()))
+        ref = hybdrt_torch.BatchedRaggedFitter.from_systems(
+            systems[:64], drt.basis_tau, dtype=torch.float64, qp_fused=fused, **FIT_KW)
+        r64 = ref.fit(adaptive="staged")
+        ragged_holds(f"19b delta {label}", fitters[fused], firsts[fused][2], ref, r64, 64, 1.0,
+                     same_only=True, bounds=delta_bounds)
+    return {f"delta batch {k}": min(w) for k, w in walls.items()}, \
+        {k: launches["plain"][k] + launches["fused"][k]
+         for k in (*FIT_KERNELS, "ip_steps_lane")}, errs
+
+
+def wide_card_fits():
+    """Phase 19c's card part: the het leg's 768 EIS spectra on WIDE_TAU (40
+    points a decade), padded n above the lane kernels' float32 tile rule,
+    through ``BatchedRaggedFitter`` in float32 with the het leg's knobs,
+    plain and fused, one call each with the counters reset before it: every
+    QP on the library route, the fused fit's warm QPs on the plain steps
+    (``fused_plain``), and no lane-kernel launch. Returns (observations,
+    {label: (fitter, result)}, {label: wall})."""
+    import hybdrt_torch
+    from hybdrt_torch.ops import chol_lane as cl, ip_lane, qp
+
+    obs, _ = make_het_eis()
+    fits, walls = {}, {}
+    for fused in (False, True):
+        label = "fused" if fused else "plain"
+        fitter = hybdrt_torch.BatchedRaggedFitter(WIDE_TAU, dtype=torch.float32, qp_fused=fused,
+                                                  **HET_KW)
+        cl.reset_launch_counts()
+        ip_lane.reset_launch_counts()
+        t0 = time.time()
+        res = fitter.fit(obs, adaptive="staged")
+        torch.cuda.synchronize()
+        walls[f"wide {label}"] = time.time() - t0
+        routes, lane = dict(cl.QP_ROUTES), {**launch_counts(), **ip_lane.LAUNCHES}
+        n = res.x_raw.shape[1]
+        print(f"bases 19c: {len(obs)} het EIS spectra on {len(WIDE_TAU)} taus, {label} f32, "
+              f"padded n = {n}: {walls[f'wide {label}']:.4f} s (first call); n_iter mean "
+              f"{res.n_iter.mean():.2f}")
+        print(f"bases 19c: wide {label} QP routes {routes}; lane kernel launches {lane}")
+        check(not cl.admitted(n, torch.float32), f"19c n = {n} above the tile rule")
+        check(qp.fused_route(n, torch.float32) == "fused_plain", "19c fused route plain")
+        check(routes["library"] > 0 and routes["lane"] == 0, f"19c {label}: library route")
+        check((routes["fused_plain"] > 0) == fused, f"19c {label}: fused_plain routes")
+        check(all(v == 0 for v in lane.values()), f"19c {label}: no lane kernel launched")
+        check(bool(np.all(np.isfinite(res.x_raw))), f"19c {label}: finite coefficients")
+        fits[label] = (fitter, res)
+    return obs, fits, walls
+
+
+def wide_cpu_refs(obs):
+    """Phase 19c's references: the port's float64 fits of the first
+    WIDE_CPU_LANES observations on the CPU, plain and fused, {label:
+    (fitter, result, seconds)}."""
+    import hybdrt_torch
+
+    refs = {}
+    for fused in (False, True):
+        t0 = time.time()
+        ref = hybdrt_torch.BatchedRaggedFitter(WIDE_TAU, dtype=torch.float64, device="cpu",
+                                               qp_fused=fused, **HET_KW)
+        r64 = ref.fit(obs[:WIDE_CPU_LANES], adaptive="staged")
+        refs["fused" if fused else "plain"] = (ref, r64, time.time() - t0)
+    return refs
+
+
+def wide_holds(fits, refs):
+    """Phase 19c's holds: the first WIDE_CPU_LANES lanes of each card fit
+    against the CPU's float64 fit within phase 5's bounds."""
+    from hybdrt_torch.ops import basis
+
+    area = basis.get_basis_func_area("gaussian", 1 / np.mean(np.diff(np.log(WIDE_TAU))))
+    for label, (fitter, res) in fits.items():
+        ref, r64, secs = refs[label]
+        print(f"  19c: the CPU's f64 {label} fit of {WIDE_CPU_LANES} lanes {secs:.1f} s")
+        ragged_holds(f"19c wide {label}", fitter, res, ref, r64, WIDE_CPU_LANES, area,
+                     same_only=False)
+
+
+def phase_bases():
+    """Phase 19: 19c's card fits first, while no other fit moves the QP
+    route counts, then their CPU references and holds, then 19a and 19b,
+    each with nothing else running. Returns (walls, {kernel: launches},
+    {kernel: max abs err})."""
+    t_phase = time.time()
+    obs, wide_fits, wide_walls = wide_card_fits()
+    t_refs = time.time()
+    wide_holds(wide_fits, wide_cpu_refs(obs))
+    t_a = time.time()
+    walls, launches = phase_bases_single()
+    t_b = time.time()
+    w_batch, l_batch, errs = phase_bases_batch()
+    t_c = time.time()
+    walls.update(w_batch)
+    walls.update(wide_walls)
+    launches["ip_steps_lane"] = 0
+    for k, v in l_batch.items():
+        launches[k] += v
+    print(f"bases: phase {t_c - t_phase:.1f} s (19c's card fits {t_refs - t_phase:.1f} s, "
+          f"their CPU references and holds {t_a - t_refs:.1f} s, 19a {t_b - t_a:.1f} s, "
+          f"19b {t_c - t_b:.1f} s); launches {launches}")
+    return walls, launches, errs
+
+
 def main():
     phase_card()
     phase_build()
@@ -3441,6 +3743,11 @@ def main():
     for k, n in dop_launches.items():
         launches[k] += n
     for k, e in dop_err.items():
+        max_err[k] = max(max_err[k], e)
+    bases_walls, bases_launches, bases_err = phase_bases()
+    for k, n in bases_launches.items():
+        launches[k] += n
+    for k, e in bases_err.items():
         max_err[k] = max(max_err[k], e)
     for k, e in {**ragged_err, **hybrid_err}.items():
         max_err[k] = max(max_err[k], e)
@@ -3478,6 +3785,8 @@ def main():
           + "; kernels at n = 143: " + ", ".join(f"{k} {t['ms']:.4f} ms (bound "
                                                  f"{t['bound'][0]:.4f})"
                                                  for k, t in dop_times.items()))
+    print("other bases and wide ragged fits: " + ", ".join(f"{k} {w:.4f} s"
+                                                          for k, w in bases_walls.items()))
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu, "launches": launches[k],
          "max_abs_err": max_err[k], "ms": times[k]["ms"], "plain_ms": times[k]["plain_ms"],

@@ -342,14 +342,12 @@ class DRTMD:
             store_attr_categories = ["config", "fit_core"]
         self.device = resolve_device(device)
         self.drt1d = DRT(tau_supergrid=tau_supergrid, tau_basis_type=tau_basis_type,
-                         extend_basis_decades=extend_basis_decades, step_model=step_model,
+                         tau_epsilon=tau_epsilon, extend_basis_decades=extend_basis_decades, step_model=step_model,
                          chrono_mode=chrono_mode, fit_inductance=fit_inductance,
                          fit_ohmic=fit_ohmic, fit_capacitance=fit_capacitance, fit_dop=fit_dop,
                          fixed_basis_nu=fixed_basis_nu, nu_basis_type=nu_basis_type,
                          nu_epsilon=nu_epsilon, normalize_dop=normalize_dop, warn=warn,
                          device=self.device)
-        if tau_epsilon is not None:
-            self.drt1d.tau_epsilon = tau_epsilon
 
         self.psi_dim_names = psi_dim_names
         self.store_attr_categories = list(store_attr_categories)
@@ -554,8 +552,9 @@ class DRTMD:
         ns = fitter.num_special
         p_b, _ = self._uniform_pq(fitter, attrs)
         cov = mat1d.invert_psd(p_b)[:, ns:, ns:]
+        # the fitter's basis, gaussian (Queue 3 item 27)
         em = torch.tensor(basis_mod.func_eval_matrix_host(
-            np.log(basis_tau), np.log(self.tau_supergrid), self.tau_basis_type,
+            np.log(basis_tau), np.log(self.tau_supergrid), "gaussian",
             fitter.tau_epsilon, 0), dtype=cov.dtype, device=cov.device)
         var = torch.einsum("tj,bjk,tk->bt", em, cov, em).cpu().numpy()
         var = var * np.array([float(a["scale"]) for a in attrs])[:, None] ** 2
@@ -848,10 +847,14 @@ class DRTMD:
                     fit_kw={k: v for k, v in self.fit_kw.items() if k != "nonneg"},
                     **self._split_batch_kw()[0])
 
-    def _special_drt(self):
+    def _special_drt(self, tau_basis_type="gaussian"):
         """A DRT of this map's configuration, its nu basis set as a fit sets
-        it, to carry a batched fit (:1070, :1327)."""
-        drt = DRT(tau_supergrid=self.tau_supergrid, fit_ohmic=self.fit_ohmic,
+        it, to carry a batched fit (:1070, :1327): a ragged fit's carries the
+        map's basis, a shared-grid fitter's the gaussian of its template, as
+        in the JAX package, whose batched fitters fit the gaussian basis
+        whatever the map's (ROADMAP Queue 3 item 27)."""
+        drt = DRT(tau_supergrid=self.tau_supergrid, tau_basis_type=tau_basis_type,
+                  fit_ohmic=self.fit_ohmic,
                   fit_inductance=self.fit_inductance, fit_capacitance=self.fit_capacitance,
                   fit_dop=self.fit_dop, fixed_basis_nu=self.fixed_basis_nu,
                   nu_basis_type=self.nu_basis_type, nu_epsilon=self.nu_epsilon,
@@ -1170,7 +1173,7 @@ class DRTMD:
         if kind == "uniform":
             drt = self._fitter_template(src, isinstance(src, BatchedHybridFitter))
         else:
-            drt = self._special_drt()
+            drt = self._special_drt(self.tau_basis_type)
             drt.basis_tau = src["basis_tau"]
             drt.tau_epsilon = self.tau_epsilon
             drt.special_qp_params = special

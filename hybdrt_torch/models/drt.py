@@ -1,8 +1,11 @@
 """The single-observation DRT (EIS, chrono and hybrid fits) and the EIS
 problem assembly it shares with the batched fitter.
 
-Counterpart of ``hybdrt_tpu/models/drt.py`` for the gaussian basis and
-``integrate_method="interp"``; chrono data in galvanostatic mode with ideal
+Counterpart of ``hybdrt_tpu/models/drt.py`` for every tau basis the JAX
+package takes (its ``ValueError``s and ``TypeError``s where it raises, at
+the same call; ``set_zga_params`` for the ZGA basis) and both
+``integrate_method``s, "interp" (``interpolate_integrals=True``) and
+"trapz"; chrono data in galvanostatic mode with ideal
 or ``expdecay`` steps, downsampled or not, with or without the GP background
 (``models/background.py``; static, dynamic and scaled), the ``series_neg``
 and ``weight_factor`` options, the capacitance column (``fit_capacitance``,
@@ -134,13 +137,28 @@ def special_slice(special, name):
     return slice(sp["index"], sp["index"] + sp.get("size", 1))
 
 
-def impedance_matrix(frequencies, basis_tau, tau_epsilon):
+ANALYTIC_BASES = ("Cole-Cole", "zga", "delta")
+
+
+def impedance_lookups(basis_type, tau_epsilon, integrate_method="interp"):
+    """The (real, imag) impedance tables of a quadrature basis with
+    ``integrate_method="interp"`` (cached by ``lookup``), (None, None) for
+    the others (:163-173)."""
+    if integrate_method == "interp" and basis_type not in ANALYTIC_BASES:
+        return lookup.generate_impedance_lookup(basis_type, float(tau_epsilon))
+    return None, None
+
+
+def impedance_matrix(frequencies, basis_tau, tau_epsilon, basis_type="gaussian",
+                     integrate_method="interp", zga_params=None):
     """Complex (F, n_tau) matrix of the DRT block's impedance (:629-637)."""
-    zre_lu, zim_lu = lookup.generate_impedance_lookup("gaussian", float(tau_epsilon))
+    zre_lu, zim_lu = impedance_lookups(basis_type, tau_epsilon, integrate_method)
+    kw = dict(basis_type=basis_type, epsilon=tau_epsilon, integrate_method=integrate_method,
+              zga_params=zga_params)
     return mat1d.construct_impedance_matrix(frequencies, "real", basis_tau,
-                                            epsilon=tau_epsilon, interpolate_grids=zre_lu) \
+                                            interpolate_grids=zre_lu, **kw) \
         + 1j * mat1d.construct_impedance_matrix(frequencies, "imag", basis_tau,
-                                                epsilon=tau_epsilon, interpolate_grids=zim_lu)
+                                                interpolate_grids=zim_lu, **kw)
 
 
 def eis_design_matrix(zm_drt, frequencies, special, inductance_scale, capacitance_scale=None,
@@ -182,26 +200,23 @@ def default_nu_epsilon(basis_nu, nu_basis_type="gaussian", nu_epsilon=None):
 
 
 def check_nu_basis_type(nu_basis_type):
-    """The DOP's nu basis: gaussian or delta; the other basis types reach
-    the generic penalty of ROADMAP Queue 1 item 4."""
+    """The DOP's nu basis: any basis type the JAX package takes."""
     validation.check_basis_type(nu_basis_type)
-    if nu_basis_type not in ("gaussian", "delta"):
-        raise _unported(f"nu_basis_type={nu_basis_type!r}: DOP bases other than gaussian and "
-                        f"delta", 4)
 
 
 def dop_penalty_matrices(basis_nu, nu_basis_type, nu_epsilon):
     """The DOP block's integrated-derivative penalties of orders 0..2 (3, d,
-    d), gaussian in nu (the delta basis's at epsilon = 1 / its median
-    spacing), and the order-0 smoothing matrix gmat0 (d, d) of its s update
-    (:675-689)."""
+    d): the delta basis's are the gaussian's at epsilon = 1 / its median
+    spacing, every other basis's its own (``mat1d``'s generic form for a
+    non-gaussian one); and the order-0 smoothing matrix gmat0 (d, d) of its
+    s update, gaussian (:675-689)."""
     basis_nu = np.asarray(basis_nu, dtype=float)
     if nu_basis_type == "delta":
-        eps = 1 / np.median(np.diff(np.sort(basis_nu)))
+        pen_type, eps = "gaussian", 1 / np.median(np.diff(np.sort(basis_nu)))
     else:
-        eps = nu_epsilon
+        pen_type, eps = nu_basis_type, nu_epsilon
     m_dop = np.stack([mat1d.construct_integrated_derivative_matrix(
-        basis_nu, basis_type="gaussian", order=k, epsilon=eps) for k in range(3)])
+        basis_nu, basis_type=pen_type, order=k, epsilon=eps) for k in range(3)])
     dnu = np.mean(np.abs(np.diff(basis_nu)))
     gmat0 = mat1d.construct_integrated_derivative_matrix(basis_nu, basis_type="gaussian",
                                                          order=1, epsilon=1 / dnu)
@@ -227,11 +242,12 @@ def dop_scale_vector(basis_nu, nu_basis_type, nu_epsilon, normalize_dop, tau_eva
     return dsv
 
 
-def base_penalty_matrices(basis_tau, tau_epsilon):
+def base_penalty_matrices(basis_tau, tau_epsilon, basis_type="gaussian", zga_params=None):
     """The DRT block's integrated-derivative penalties of orders 0..2,
     (3, n_tau, n_tau) (:668-673)."""
     return np.stack([mat1d.construct_integrated_derivative_matrix(
-        np.log(basis_tau), order=k, epsilon=tau_epsilon) for k in range(3)])
+        np.log(basis_tau), basis_type=basis_type, order=k, epsilon=tau_epsilon,
+        zga_params=zga_params) for k in range(3)])
 
 
 def chrono_design_matrix(rm_drt, special, vb_mat, induc_rv, inf_rv, inductance_scale,
@@ -368,10 +384,12 @@ def build_eis_problem(frequencies, basis_tau=None, tau_supergrid=None, fit_ohmic
     DOP's ``basis_nu``, ``nu_basis_type``, ``nu_epsilon``,
     ``dop_scale_vector`` and ``dop_gmat`` (3, d, d) (None without it).
     """
-    if tau_basis_type != "gaussian":
-        raise _unported(f"tau_basis_type={tau_basis_type!r}: bases other than gaussian", 4)
-    if integrate_method != "interp":
-        raise _unported(f"integrate_method={integrate_method!r}: quadrature assembly", 4)
+    if tau_basis_type != "gaussian" or integrate_method != "interp":
+        # the JAX fitter's template DRT takes neither option
+        raise NotImplementedError(
+            f"tau_basis_type={tau_basis_type!r}, integrate_method={integrate_method!r}: the "
+            f"batched EIS fitter fits the gaussian basis with 'interp', as the JAX package's "
+            f"template fit does (ROADMAP Queue 3 item 27)")
 
     hypers = qphb_hypers(eff_hp=True, fit_dop=fit_dop, **hyper_kw)
     frequencies = np.asarray(frequencies, dtype=float)
@@ -435,13 +453,18 @@ class DRT:
     ``device=None`` means the card (``RuntimeError`` where none is present;
     ``device="cpu"`` runs on the CPU). ``dtype`` is the fit's, float64 by
     default as the JAX ``DRT`` (``hybdrt_tpu/__init__.py:27``); the assembly
-    is host float64 either way. Chrono data are galvanostatic, with ideal or
+    is host float64 either way. ``tau_basis_type`` is any of
+    ``utils/validation.py``'s, with ``tau_epsilon`` (else from the basis
+    grid's spacing; Cole-Cole takes 0.95 only where no grid or ppd gives one,
+    ROADMAP Queue 3 item 26). Chrono data are galvanostatic, with ideal or
     ``expdecay`` steps; ``chrono_mode="pot"`` raises the JAX package's own
-    ``ValueError`` (its gaussian response integrand is galvanostatic only).
+    ``ValueError``: at construction for a quadrature basis (its response
+    integrand is galvanostatic only), at ``fit_chrono`` for the delta basis
+    (the ohmic response vector).
     """
 
     def __init__(self, fixed_basis_tau=None, tau_supergrid=None, tau_basis_type="gaussian",
-                 basis_tau_ppd=10, extend_basis_decades=1, step_model="ideal",
+                 tau_epsilon=None, basis_tau_ppd=10, extend_basis_decades=1, step_model="ideal",
                  chrono_mode="galv", interpolate_integrals=True, chrono_tau_rise=None,
                  fixed_basis_nu=None, nu_basis_type="gaussian", nu_epsilon=None, fit_dop=False,
                  normalize_dop=True, fit_inductance=True, fit_ohmic=True, fit_capacitance=False,
@@ -449,14 +472,7 @@ class DRT:
         validation.check_basis_type(tau_basis_type)
         validation.check_step_model(step_model)
         validation.check_ctrl_mode(chrono_mode)
-        if tau_basis_type != "gaussian":
-            raise _unported(f"tau_basis_type={tau_basis_type!r}: bases other than gaussian", 4)
-        if not interpolate_integrals:
-            raise _unported("interpolate_integrals=False (integrate_method='trapz')", 4)
         check_nu_basis_type(nu_basis_type)
-        # the response table of this mode (:163-171): potentiostatic data
-        # raise here, as in the JAX package
-        basis_mod.get_response_func(tau_basis_type, chrono_mode, step_model)
         self.device = resolve_device(device)
         self.dtype = dtype
         self.fixed_basis_tau = None if fixed_basis_tau is None else np.asarray(fixed_basis_tau)
@@ -467,7 +483,8 @@ class DRT:
         self.step_model = step_model
         self.chrono_mode = chrono_mode
         self.chrono_tau_rise = chrono_tau_rise
-        self.integrate_method = "interp"
+        self.integrate_method = "interp" if interpolate_integrals else "trapz"
+        self.zga_params = None
         self.fit_inductance = fit_inductance
         self.fit_ohmic = fit_ohmic
         self.fit_capacitance = fit_capacitance
@@ -480,8 +497,10 @@ class DRT:
         self.normalize_dop = normalize_dop
         self.dop_scale_vector = None
         self.warn = warn
-        self.tau_epsilon = default_tau_epsilon(self.fixed_basis_tau, self.tau_supergrid,
-                                               basis_tau_ppd)
+        self.tau_epsilon = tau_epsilon
+        if tau_epsilon is None:
+            self.tau_epsilon = default_tau_epsilon(self.fixed_basis_tau, self.tau_supergrid,
+                                                   basis_tau_ppd)
 
         # chrono state
         self.t_fit = []
@@ -525,8 +544,43 @@ class DRT:
         self._assembly_cache = {}
         self._fit_rm_signature = None
         self._pred_mat_cache = {}
+        # the lookup tables of a quadrature basis, built here as in the JAX
+        # package (:153-158): a basis or mode they cannot take raises here
+        # (the potentiostatic response of any quadrature basis, beta-rbf)
+        self.interpolate_lookups
 
     # ------------------------------------------------------------------
+    @property
+    def interpolate_lookups(self):
+        """{"z_real", "z_imag", "response"}: the lookup tables of the basis
+        at the current epsilon (:163-173), None for an analytic basis or
+        ``integrate_method="trapz"``; cached by ``lookup``."""
+        zre, zim = impedance_lookups(self.tau_basis_type, self.tau_epsilon,
+                                     self.integrate_method)
+        return {"z_real": zre, "z_imag": zim,
+                "response": None if zre is None else self._response_lookup()}
+
+    def get_zga_params(self):
+        return self.zga_params
+
+    def set_zga_params(self, value=None, approx_func_epsilon=None, num_bases=7,
+                       basis_extent=2, curvature_penalty=None, nonneg=False):
+        """The ZGA parameters (:231-249): ``value``, an (x_basis, coef,
+        epsilon) tuple, stored as it is; without it the Cole-Cole
+        approximation of the gaussian at this model's tau_epsilon
+        (``basis.get_basis_approx_params``)."""
+        if value is not None:
+            self.zga_params = value
+            return
+        if self.tau_epsilon is None:
+            if self.basis_tau is None:
+                raise ValueError("Set basis_tau or tau_epsilon before computing ZGA params")
+            self.tau_epsilon = 1 / np.mean(np.diff(np.log(self.basis_tau)))
+        self.zga_params = basis_mod.get_basis_approx_params(
+            "gaussian", "Cole-Cole", self.tau_epsilon, approx_func_epsilon,
+            num_bases=num_bases, basis_extent=basis_extent,
+            curvature_penalty=curvature_penalty, nonneg=nonneg)
+
     def get_qp_mat_offset(self):
         return num_special(self.special_qp_params)
 
@@ -561,8 +615,10 @@ class DRT:
             + 2 * len(np.atleast_1d(self.get_fit_frequencies()))
 
     def _basis_signature(self):
+        """The assembly cache's key of the basis (:1921-1930)."""
         return (self.tau_basis_type, float(self.tau_epsilon),
-                np.asarray(self.basis_tau, dtype=float).tobytes(), self.integrate_method)
+                np.asarray(self.basis_tau, dtype=float).tobytes(),
+                basis_mod.zga_key(self.zga_params), self.integrate_method)
 
     def _cached(self, key, build):
         """The assembly cache (:601-611): repeated preps on one grid and
@@ -706,7 +762,8 @@ class DRT:
                 self.basis_tau, times, self.step_model, step_times, step_sizes,
                 basis_type=self.tau_basis_type, epsilon=self.tau_epsilon, tau_rise=tau_rise,
                 op_mode=self.chrono_mode, integrate_method=self.integrate_method,
-                interpolate_grids=self._response_lookup())
+                zga_params=self.zga_params,
+                interpolate_grids=self.interpolate_lookups["response"])
             induc_rv = mat1d.construct_inductance_response_vector(
                 times, self.step_model, step_times, step_sizes, tau_rise, self.chrono_mode)
             inf_rv = mat1d.construct_ohmic_response_vector(
@@ -740,13 +797,18 @@ class DRT:
     def _prep_impedance_fit_matrix(self, frequencies):
         self.f_fit = np.asarray(frequencies)
         zm = self._cached(("zm", self._basis_signature(), self.f_fit.tobytes()),
-                          lambda: impedance_matrix(frequencies, self.basis_tau, self.tau_epsilon))
+                          lambda: self._impedance_matrix(frequencies))
         self.fit_matrices["impedance"] = zm
         return zm
 
+    def _impedance_matrix(self, frequencies):
+        return impedance_matrix(frequencies, self.basis_tau, self.tau_epsilon,
+                                self.tau_basis_type, self.integrate_method, self.zga_params)
+
     def _prep_penalty_matrices(self):
         base = self._cached(("pen", self._basis_signature()),
-                            lambda: base_penalty_matrices(self.basis_tau, self.tau_epsilon))
+                            lambda: base_penalty_matrices(self.basis_tau, self.tau_epsilon,
+                                                          self.tau_basis_type, self.zga_params))
         self.fit_matrices.update({f"m{k}": base[k] for k in range(3)})
         return base
 
@@ -980,7 +1042,11 @@ class DRT:
                                        self.extend_basis_decades, times=times,
                                        step_times=step_times)
         if self.tau_epsilon is None:
-            self.tau_epsilon = 1 / np.mean(np.diff(np.log(self.basis_tau)))
+            # (:482-486): Cole-Cole's default, the others' from the basis
+            if self.tau_basis_type in ("gaussian", "zga"):
+                self.tau_epsilon = 1 / np.mean(np.diff(np.log(self.basis_tau)))
+            elif self.tau_basis_type == "Cole-Cole":
+                self.tau_epsilon = 0.95
         if sample_times is not None:
             rm_drt, inf_rv, induc_rv = self._prep_chrono_fit_matrix(
                 sample_times, step_times, step_sizes, tau_rise, smooth_inf_response)
@@ -1465,7 +1531,8 @@ class DRT:
             tau = self.get_tau_eval(ppd)
         em = basis_mod.func_eval_matrix_host(np.log(self.basis_tau),
                                              np.log(np.asarray(tau, dtype=float)),
-                                             self.tau_basis_type, self.tau_epsilon, order)
+                                             self.tau_basis_type, self.tau_epsilon, order,
+                                             self.zga_params)
         if sign is None:
             sign = self.default_dist_sign()
         if x is None:
@@ -1505,7 +1572,7 @@ class DRT:
         if zm_fit is not None and np.size(self.f_fit) == f.size \
                 and np.array_equal(np.asarray(self.f_fit, dtype=float), f):
             return zm_fit
-        return impedance_matrix(f, self.basis_tau, self.tau_epsilon)
+        return self._impedance_matrix(f)
 
     def _get_response_pred_matrix(self, times, step_times, step_sizes, tau_rise=None):
         """The DRT block's step response at ``times``: rows of the fit
@@ -1528,7 +1595,7 @@ class DRT:
             self.basis_tau, times, self.step_model, step_times, step_sizes,
             basis_type=self.tau_basis_type, epsilon=self.tau_epsilon, tau_rise=tau_rise,
             op_mode=self.chrono_mode, integrate_method=self.integrate_method,
-            interpolate_grids=self._response_lookup())
+            zga_params=self.zga_params, interpolate_grids=self.interpolate_lookups["response"])
         self._pred_mat_cache["response"] = (sig, times.copy(), rm)
         return rm
 
@@ -1621,7 +1688,8 @@ class DRT:
         """Polarization resistance: the DRT coefficients' sum times the basis
         area (:2101); ``sign`` as ``get_drt_params`` (default: a series_neg
         fit's two sets summed)."""
-        area = basis_mod.get_basis_func_area(self.tau_basis_type, self.tau_epsilon)
+        area = basis_mod.get_basis_func_area(self.tau_basis_type, self.tau_epsilon,
+                                             self.zga_params)
         if sign is None:
             sign = self.default_dist_sign()
         if raw:
@@ -1699,7 +1767,8 @@ class DRT:
 
     @property
     def tau_basis_area(self):
-        return basis_mod.get_basis_func_area(self.tau_basis_type, self.tau_epsilon)
+        return basis_mod.get_basis_func_area(self.tau_basis_type, self.tau_epsilon,
+                                             self.zga_params)
 
     @property
     def nu_basis_area(self):
@@ -1827,7 +1896,8 @@ class DRT:
         cov_drt = cov[ns:, ns:]
         tau = np.asarray(tau)
         em = basis_mod.func_eval_matrix_host(np.log(self.basis_tau), np.log(tau),
-                                             self.tau_basis_type, self.tau_epsilon, order)
+                                             self.tau_basis_type, self.tau_epsilon, order,
+                                             self.zga_params)
         if self.series_neg:
             sign = 0 if sign is None else sign
             zero = np.zeros_like(em)

@@ -34,8 +34,9 @@ nowhere else.
 
 Matrices above the tile rule (``admitted``) do not reach these wrappers:
 ``ops/qp.py`` factors them with the library route, and counts the box QPs
-that took each route in ``QP_ROUTES``; ``reset_launch_counts`` zeroes both
-counters.
+that took each route in ``QP_ROUTES`` (and the fused warm QPs above the
+fused kernel's rule, which run its steps in plain PyTorch);
+``reset_launch_counts`` zeroes both counters.
 """
 import torch
 
@@ -45,8 +46,9 @@ LAUNCHES = {"chol_factor_solve_lane": 0, "chol_solve_factored_lane": 0,
             "chol_solve_lane": 0, "chol_factor_lane": 0}
 # Box QPs (ops/qp.py::solve_qp_box) by route: "lane" through the wrappers
 # below (the kernels on a GPU), "library" through ops/qp.py's library factor
-# route (torch.linalg)
-QP_ROUTES = {"lane": 0, "library": 0}
+# route (torch.linalg); "fused_plain" counts, besides, the QPs whose fused
+# steps ran as a loop of plain Mehrotra steps (n above ip_lane.admitted)
+QP_ROUTES = {"lane": 0, "library": 0, "fused_plain": 0}
 
 # Shared memory one block may use on sm_90 (dynamic, after opting in)
 MAX_SMEM_BYTES = 232448

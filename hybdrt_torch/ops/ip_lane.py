@@ -156,15 +156,19 @@ def mehrotra_step(P, q, lb, x, s, z, mu_floor, factor_solve, solve_factored,
     return x_new, s_new, z_new, bad
 
 
-def ip_steps_lane_plain(P, q, lb, x0, s0, z0, n_steps, full_step=False):
+def ip_steps_lane_plain(P, q, lb, x0, s0, z0, n_steps, full_step=False,
+                        factor_solve=chol_lane.chol_factor_solve_lane_plain,
+                        solve_factored=chol_lane.chol_solve_factored_lane_plain):
     """The kernel's steps in plain PyTorch; ``full_step`` as in
-    ``mehrotra_step``."""
+    ``mehrotra_step``. ``factor_solve`` and ``solve_factored`` are the
+    Cholesky routines (the plain ones by default; ``ops/qp.py`` passes its
+    dispatching ones for n above ``admitted``, the JAX package's vmapped
+    ``_ip_steps_single``, ``hybdrt_tpu/ops/qp.py:218``)."""
     x, s, z = x0, s0, z0
     frozen = torch.zeros(q.shape[0], dtype=torch.bool, device=q.device)
     for _ in range(n_steps):
         x_new, s_new, z_new, bad = mehrotra_step(
-            P, q, lb, x, s, z, 1e-30, chol_lane.chol_factor_solve_lane_plain,
-            chol_lane.chol_solve_factored_lane_plain, full_step)
+            P, q, lb, x, s, z, 1e-30, factor_solve, solve_factored, full_step)
         frozen = frozen | bad
         keep = frozen[:, None]
         x = torch.where(keep, x, x_new)

@@ -5,7 +5,8 @@ Each impedance matrix element of a quadrature basis depends only on
 log(w_n * tau_m), and each response matrix element only on
 (t_n - t_step) / tau_m, so a 1-D table of the integral against that product
 plus linear interpolation gives the whole matrix. Same grids and trapezoid rule
-as the JAX package, in float64 numpy.
+as the JAX package, in float64 numpy, for every quadrature basis (those
+without a closed form: all but Cole-Cole, delta and zga).
 """
 from functools import lru_cache
 
@@ -25,8 +26,11 @@ _trapezoid = getattr(np, "trapezoid", None) or np.trapz
 
 
 @lru_cache(maxsize=16)
-def generate_impedance_lookup(basis_type, epsilon, grid_points=IMPEDANCE_GRID_POINTS):
-    """Return ((log_wt_re, z_re), (log_wt_im, z_im)) lookup tables.
+def generate_impedance_lookup(basis_type, epsilon, grid_points=IMPEDANCE_GRID_POINTS,
+                              zga_key=None):
+    """Return ((log_wt_re, z_re), (log_wt_im, z_im)) lookup tables
+    (hybdrt_tpu/ops/lookup.py:37-56). ``zga_key`` only keys the cache, as
+    in the JAX package.
 
     Cached: callers must not modify the returned arrays."""
     wt_re_grid = np.logspace(-RE_LIM, RE_LIM, grid_points)
@@ -42,10 +46,10 @@ def generate_impedance_lookup(basis_type, epsilon, grid_points=IMPEDANCE_GRID_PO
 
 @lru_cache(maxsize=16)
 def generate_response_lookup(basis_type, op_mode, step_model, epsilon,
-                             grid_points=RESPONSE_GRID_POINTS, tau_rise=None):
+                             grid_points=RESPONSE_GRID_POINTS, tau_rise=None, zga_key=None):
     """(log_td_grid, response_grid): the unit-step response of a basis
     function at tau_m = 1 against log(t - t_step), over logspace(-6, 2)
-    (hybdrt_tpu/ops/lookup.py:59-76).
+    (hybdrt_tpu/ops/lookup.py:59-76); ``zga_key`` as above.
 
     Cached: callers must not modify the returned arrays."""
     td_grid = np.logspace(-6, 2, grid_points)

@@ -3,13 +3,19 @@
 
 Host-side float64 numpy: the matrices are built once per frequency grid or
 chrono protocol and uploaded to the device by the fitter. ``invert_psd``
-(the posterior covariances' inverse) runs in torch on the tensor's device. The fit matrices
-take the gaussian basis and the ``integrate_method="interp"`` scheme (other
-bases and ``trapz`` are ROADMAP Queue 1 item 4); chrono data take ideal and
-``expdecay`` steps, and the potentiostatic response is the delta-basis
-closed form, as in the JAX package. The penalty matrices also take the delta
-basis and truncated integration limits, and the capacitance has its
-impedance and (ideal-step) response vectors.
+(the posterior covariances' inverse) runs in torch on the tensor's device.
+Every basis of ``ops/basis.py`` is taken as the JAX package takes it: the
+Cole-Cole, delta and ZGA bases by their closed forms (the Cole-Cole and ZGA
+step responses through ``ops/mittag_leffler.py``), the others by quadrature
+over y = ln(tau / tau_m), from the lookup tables of ``ops/lookup.py``
+(``integrate_method="interp"``) or by the trapezoid rule at every element
+(``"trapz"``). Chrono data take ideal and ``expdecay`` steps, and the
+potentiostatic response is the delta-basis closed form of any basis. The
+penalty matrices are the gaussian's closed forms (also over truncated
+integration limits), the delta basis's difference operators, and for the
+other bases the JAX package's squared evaluation matrix (``em @ em``, not
+``em.T @ em``; ROADMAP Queue 3 item 25). The capacitance has its impedance
+and (ideal-step) response vectors.
 """
 import numpy as np
 import torch
@@ -19,43 +25,66 @@ from ..utils.chrono import get_time_transforms
 
 from . import basis as basis_mod
 from . import lookup as lookup_mod
+from . import mittag_leffler as ml
+
+_trapezoid = lookup_mod._trapezoid
 
 
 def construct_impedance_matrix(frequencies, part, tau, basis_type="gaussian", epsilon=1.0,
-                               integrate_method="interp", interpolate_grids=None):
+                               integrate_method="interp", integrate_points=1000,
+                               zga_params=None, interpolate_grids=None):
     """Matrix mapping DRT coefficients to Re or Im impedance at ``frequencies``
-    (hybdrt_tpu/ops/mat1d.py:28-51). ``np.interp`` clamps at the table ends as
-    ``jnp.interp`` does."""
-    basis_mod._check_gaussian(basis_type)
-    if integrate_method != "interp":
-        raise NotImplementedError(
-            f"integrate_method={integrate_method!r}: the port implements 'interp' only")
+    (hybdrt_tpu/ops/mat1d.py:28-57): the closed form of the Cole-Cole, ZGA
+    and delta bases; for the others the lookup table interpolated at
+    log(w tau) (``np.interp`` clamps at the table ends as ``jnp.interp``
+    does), or the trapezoid rule over ``integrate_points`` points of y in
+    [-20, 20]."""
     omega = np.asarray(frequencies, dtype=float) * 2 * np.pi
     tau = np.asarray(tau, dtype=float)
-    log_wt = np.log(omega[:, None] * tau[None, :])
-    if interpolate_grids is None:
-        re_lu, im_lu = lookup_mod.generate_impedance_lookup(basis_type, float(epsilon))
-        interpolate_grids = re_lu if part == "real" else im_lu
-    log_wt_grid, z_grid = interpolate_grids
-    return np.interp(log_wt, log_wt_grid, z_grid)
+    if basis_type in ("Cole-Cole", "zga", "delta"):
+        func = basis_mod.get_impedance_func(part, basis_type, zga_params)
+        return func(omega[:, None], tau[None, :], epsilon)
+    if integrate_method == "interp":
+        if interpolate_grids is None:
+            re_lu, im_lu = lookup_mod.generate_impedance_lookup(basis_type, float(epsilon))
+            interpolate_grids = re_lu if part == "real" else im_lu
+        log_wt_grid, z_grid = interpolate_grids
+        return np.interp(np.log(omega[:, None] * tau[None, :]), log_wt_grid, z_grid)
+    if integrate_method == "trapz":
+        y = np.linspace(-lookup_mod.Y_LIMIT, lookup_mod.Y_LIMIT, integrate_points)
+        func = basis_mod.get_impedance_func(part, basis_type, zga_params)
+        # the integrand over (N_f, N_tau, quad)
+        vals = func(y[None, None, :], omega[:, None, None], tau[None, :, None], epsilon)
+        return _trapezoid(vals, x=y, axis=-1)
+    raise ValueError(f"Invalid integrate_method {integrate_method!r}; options: interp, trapz")
 
 
 def construct_response_matrix(basis_tau, times, step_model, step_times, step_sizes,
                               basis_type="gaussian", epsilon=0.975, tau_rise=None,
-                              op_mode="galv", integrate_method="interp", interpolate_grids=None):
+                              op_mode="galv", integrate_method="interp", integrate_points=1000,
+                              zga_params=None, interpolate_grids=None):
     """(A, A_layered): A @ x is the modelled response to the input steps,
     and A_layered (n_steps, n_times, n_tau) each step's part of it
-    (hybdrt_tpu/ops/mat1d.py:65: the potentiostatic closed form of any
-    basis, :88-93, and the quadrature bases' interp branch). Without
-    ``interpolate_grids`` the table is the one of this step model and of
-    the first step's ``tau_rise``."""
+    (hybdrt_tpu/ops/mat1d.py:65-144): the potentiostatic closed form of any
+    basis; the delta basis's closed form; the Cole-Cole and ZGA bases'
+    (t / tau)^a E_{a,a+1}(-(t / tau)^a), each ZGA term at its own tau; and
+    the quadrature bases' table (without ``interpolate_grids``, the one of
+    this step model and of the first step's ``tau_rise``) or trapezoid rule.
+    """
     basis_tau = np.asarray(basis_tau, dtype=float)
     times = np.asarray(times, dtype=float)
     step_times = np.asarray(step_times, dtype=float)
     step_sizes = np.asarray(step_sizes, dtype=float)
+    tau_rise = np.zeros(step_times.shape) if tau_rise is None \
+        else np.asarray(tau_rise, dtype=float)
     # (n_steps, n_times): the time since each step
     td = times[None, :] - step_times[:, None]
     active = td > 0
+
+    def layered(vals):
+        a_layered = np.where(active[:, :, None], vals, 0.0) * step_sizes[:, None, None]
+        return np.sum(a_layered, axis=0), a_layered
+
     if op_mode == "pot":
         # The delta basis's closed form (:88-93)
         with np.errstate(over="ignore", invalid="ignore"):
@@ -64,30 +93,65 @@ def construct_response_matrix(basis_tau, times, step_model, step_times, step_siz
                              expo, 0.0) * step_sizes[:, None, None]
         a_layered = np.nan_to_num(a_layered, nan=0.0)
         return np.sum(a_layered, axis=0), a_layered
-    basis_mod._check_gaussian(basis_type)
-    if integrate_method != "interp":
-        raise NotImplementedError(
-            f"integrate_method={integrate_method!r}: the port implements 'interp' only")
-    if interpolate_grids is None:
-        tr = None if step_model == "ideal" else float(np.atleast_1d(
-            0.0 if tau_rise is None else tau_rise)[0])
-        interpolate_grids = lookup_mod.generate_response_lookup(basis_type, op_mode, step_model,
-                                                                float(epsilon), tau_rise=tr)
-    log_td_grid, response_grid = interpolate_grids
+
+    if basis_type == "delta":
+        func = basis_mod.get_response_func("delta", op_mode, step_model)
+        with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
+            if step_model == "ideal":
+                vals = func(basis_tau[None, None, :], td[:, :, None])
+            else:
+                vals = func(basis_tau[None, None, :], td[:, :, None], tau_rise[:, None, None])
+        return layered(vals)
+
+    if basis_type in ("Cole-Cole", "zga"):
+        td_safe = np.where(active[:, :, None], td[:, :, None], 1.0)
+
+        def zarc_response(tau, eps):
+            with np.errstate(over="ignore", invalid="ignore"):
+                ratio = (td_safe / tau[None, None, :]) ** eps
+                return ratio * ml.mittag_leffler_neg(ratio, eps, eps + 1)
+
+        if basis_type == "Cole-Cole":
+            vals = zarc_response(basis_tau, epsilon)
+        else:
+            eps_zga = zga_params[2]
+            y_basis, coef = zga_params[:2]
+            vals = sum(x_i * zarc_response(basis_tau * np.exp(y_i), eps_zga)
+                       for x_i, y_i in zip(coef[1:], y_basis))
+        return layered(vals)
+
+    # The quadrature bases (gaussian etc.)
     td_safe = np.where(active, td, 1.0)
-    log_ratio = np.log(td_safe[:, :, None] / basis_tau[None, None, :])
-    vals = np.interp(log_ratio, log_td_grid, response_grid)
-    a_layered = np.where(active[:, :, None], vals, 0.0) * step_sizes[:, None, None]
-    return np.sum(a_layered, axis=0), a_layered
+    if integrate_method == "interp":
+        if interpolate_grids is None:
+            tr = None if step_model == "ideal" else float(tau_rise[0])
+            interpolate_grids = lookup_mod.generate_response_lookup(
+                basis_type, op_mode, step_model, float(epsilon), tau_rise=tr)
+        log_td_grid, response_grid = interpolate_grids
+        log_ratio = np.log(td_safe[:, :, None] / basis_tau[None, None, :])
+        vals = np.interp(log_ratio, log_td_grid, response_grid)
+    elif integrate_method == "trapz":
+        y = np.linspace(-lookup_mod.Y_LIMIT, lookup_mod.Y_LIMIT, integrate_points)
+        func = basis_mod.get_response_func(basis_type, op_mode, step_model, zga_params)
+        # (steps, times, taus, quad)
+        vals = func(y[None, None, None, :], basis_tau[None, None, :, None],
+                    td_safe[:, :, None, None], epsilon, tau_rise[:, None, None, None])
+        vals = _trapezoid(vals, x=y, axis=-1)
+    else:
+        raise ValueError(f"Invalid integrate_method {integrate_method!r}")
+    return layered(vals)
 
 
 def construct_integrated_derivative_matrix(basis_grid, basis_type="gaussian", order=1,
-                                           epsilon=1.0, integration_limits=None):
+                                           epsilon=1.0, zga_params=None, integration_limits=None):
     """M with x^T M x = int (d^k gamma / d ln tau^k)^2 d ln tau
     (hybdrt_tpu/ops/mat1d.py:153-211): the gaussian closed form, over
     ``integration_limits`` (a, b) where given, ``order`` one order or a
     list of three weights of orders 0..2; the delta basis's difference
-    operators. Other bases are ROADMAP Queue 1 item 4."""
+    operators; for any other basis the JAX package's generic form, the
+    evaluation matrix of that order times itself (``em @ em``) times the
+    grid's mean spacing, which is not positive semi-definite (ROADMAP
+    Queue 3 item 25)."""
     basis_grid = np.asarray(basis_grid, dtype=float)
     n = basis_grid.shape[0]
     xx_i, xx_j = basis_grid[None, :], basis_grid[:, None]
@@ -95,6 +159,11 @@ def construct_integrated_derivative_matrix(basis_grid, basis_type="gaussian", or
         func = basis_mod.integrated_derivative_kernel_indefinite(order)
         a, b = integration_limits
         return func(b, xx_i, xx_j, epsilon) - func(a, xx_i, xx_j, epsilon)
+    if basis_type == "gaussian":
+        if isinstance(order, (list, tuple)):
+            return sum(w * basis_mod.integrated_derivative_kernel(k)(xx_i, xx_j, epsilon)
+                       for k, w in enumerate(order))
+        return basis_mod.integrated_derivative_kernel(order)(xx_i, xx_j, epsilon)
     if basis_type == "delta":
         if order == 0:
             return np.eye(n)
@@ -114,12 +183,9 @@ def construct_integrated_derivative_matrix(basis_grid, basis_type="gaussian", or
             lm[:-1, :-1] /= np.diff(basis_grid)[:, None]
             return lm.T @ lm
         raise ValueError(f"Invalid order {order} for delta basis")
-    basis_mod._check_gaussian(basis_type)
-    if isinstance(order, (list, tuple)):
-        return sum(w * basis_mod.integrated_derivative_kernel(k)(xx_i, xx_j, epsilon)
-                   for k, w in enumerate(order))
-    func = basis_mod.integrated_derivative_kernel(order)
-    return func(xx_i, xx_j, epsilon)
+    em = basis_mod.construct_func_eval_matrix(basis_grid, None, basis_type, epsilon, order,
+                                              zga_params)
+    return (em @ em) * np.mean(np.abs(np.diff(basis_grid)))
 
 
 def construct_inductance_response_vector(times, step_model, step_times, step_sizes, tau_rise,

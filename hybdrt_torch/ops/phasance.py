@@ -2,10 +2,12 @@
 
 Counterpart of ``hybdrt_tpu/ops/phasance.py``. The DOP represents
 constant-phase features (inductance, capacitance, Warburg) with impedance
-(j omega)^nu over a basis in nu in [-1, 1]; gaussian-in-nu bases have
-closed-form erf integrals. The matrices are built once per frequency grid or
-chrono protocol, so they stay in numpy on the host, as the rest of the
-assembly does.
+(j omega)^nu over a basis in nu in [-1, 1]; the delta basis's columns are
+the unit phasors, and every other nu basis's the gaussian's closed-form erf
+integrals, as in the JAX package (``hybdrt_tpu/ops/phasance.py:78-119``
+takes the gaussian integral whatever the basis). The matrices are built
+once per frequency grid or chrono protocol, so they stay in numpy on the
+host, as the rest of the assembly does.
 """
 import numpy as np
 from scipy.special import erf, gammaln

@@ -15,13 +15,15 @@ Each Mehrotra step (``ops/ip_lane.py::mehrotra_step``) factors
 above their tile rule, through the library route (``library_route``); the
 cold start and the polish factor and solve in one call. With ``fused_steps`` a
 fixed number of steps runs in one call of the fused kernel
-``ops/ip_lane.py::ip_steps_lane`` instead of the loop.
+``ops/ip_lane.py::ip_steps_lane`` instead of the loop, or, for n above that
+kernel's rule (``fused_route``), as a loop of the same steps on the
+dispatching Cholesky routines.
 """
 from typing import NamedTuple
 
 import torch
 
-from . import chol_lane
+from . import chol_lane, ip_lane
 from .ip_lane import _add_diag, _dot, _mv, ip_steps_lane, mehrotra_step
 
 
@@ -50,6 +52,15 @@ def library_route(n, dtype):
     """Whether (n, n) matrices of ``dtype`` take the library route: those
     above the lane kernels' tile rule."""
     return not chol_lane.admitted(n, dtype)
+
+
+def fused_route(n, dtype):
+    """How ``fused_steps`` run for (n, n) matrices of ``dtype``: "fused", one
+    launch of ``ip_steps_lane``, for the n its kernel takes
+    (``ip_lane.admitted``); "fused_plain", a loop of the same steps on
+    ``spd_factor_solve`` and ``spd_solve_factored``, above it. Chosen by
+    size alone, before anything runs."""
+    return "fused" if ip_lane.admitted(n, dtype) else "fused_plain"
 
 
 def _library_factor(a):
@@ -172,8 +183,14 @@ def _solve_qp_box_core(P, q, lb, max_iter, x_init=None, z_init=None, fused_steps
         return ok_gap & ok_dual
 
     if fused_steps is not None:
-        x, s, z = ip_steps_lane(*(t.contiguous() for t in (P, q, lb, x0, s0, z0)),
-                                fused_steps)
+        if fused_route(n, dtype) == "fused":
+            x, s, z = ip_steps_lane(*(t.contiguous() for t in (P, q, lb, x0, s0, z0)),
+                                    fused_steps)
+        else:
+            chol_lane.QP_ROUTES["fused_plain"] += 1
+            x, s, z = ip_lane.ip_steps_lane_plain(P, q, lb, x0, s0, z0, int(fused_steps),
+                                                  factor_solve=spd_factor_solve,
+                                                  solve_factored=spd_solve_factored)
         it = torch.full((bsz,), int(fused_steps), dtype=torch.int32, device=device)
     else:
         max_iter = torch.as_tensor(max_iter, device=device).expand(bsz)

@@ -21,12 +21,16 @@ The matrix stacks are kept once per measurement protocol (frequency grid, or
 time grid, input signal and frequency grid) on the host and gathered to the
 whole batch on the device, and the fit runs the port's live-lane loop over
 per-lane systems (``solver/fitcore.py``). One batch holds one data type.
+A padded n above the lane kernels' tile rule takes the QP's library route
+(``ops/qp.py::library_route``), as the single fit's does: the JAX fitter
+refuses no size either.
 
 With ``qp_fused`` every warm QP of a live lane runs ``qp_max_iter_warm``
 fixed Mehrotra steps in one launch of the fused kernel
 (``ops/ip_lane.py::ip_steps_lane``) over the lanes' own (P, q, lb), the
-padded columns pinned as in the plain path; iteration 0 runs cold over every
-lane first, as in the JAX fitter (``hybdrt_tpu/parallel/ragged.py:101-106``).
+padded columns pinned as in the plain path, or above that kernel's rule the
+same steps as a loop (``ops/qp.py::fused_route``); iteration 0 runs cold over
+every lane first, as in the JAX fitter (``hybdrt_tpu/parallel/ragged.py:101-106``).
 """
 from typing import NamedTuple, Optional
 
@@ -35,7 +39,6 @@ import torch
 
 from .. import preprocessing as pp
 from ..models.drt import DRT, overfit_hypers, qphb_hypers
-from ..ops import chol_lane, ip_lane
 from ..solver import fitcore, qphb as qphb_mod
 from ..solver.qphb import QPHBConfig
 from ..utils.device import resolve_device
@@ -254,7 +257,8 @@ class BatchedRaggedFitter:
             self._sys_cache[key] = sys_
         return sys_
 
-    def _eis_rescale_batch(self, tmpl, z_list):
+    @staticmethod
+    def _eis_rescale_batch(tmpl, z_list):
         """The fast path's rescale (scale_data's EIS branch,
         ``preprocessing.estimate_rp``) for observations sharing a cached
         grid, in one vectorized pass (:371)."""
@@ -585,15 +589,6 @@ class BatchedRaggedFitter:
         cfg, dev, dt = self.cfg, self.device, self.dtype
         rzv = arrays["rzv"]
         b, n = rzv.shape[0], arrays["rzm"].shape[2]
-        if dev.type == "cuda" and not chol_lane.admitted(n, dt):
-            raise NotImplementedError(
-                f"padded QPs of n={n} parameters in {dt} exceed the lane kernels' tile rule "
-                f"(ops/chol_lane.py::admitted); the dense path for larger systems is ROADMAP "
-                f"Queue 1 item 8")
-        if dev.type == "cuda" and self.qp_fused and not ip_lane.admitted(n, dt):
-            raise NotImplementedError(
-                f"qp_fused: padded QPs of n={n} parameters in {dt} exceed the fused kernel's "
-                f"tile rule (ops/ip_lane.py::admitted); fit them with qp_fused=False")
         rho0 = self.hyp["rho_0"]
         s0 = torch.stack([torch.full((n,), float(self.hypers["s_0"][k]), dtype=dt, device=dev)
                           for k in range(cfg.k_range)])

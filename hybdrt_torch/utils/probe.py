@@ -364,6 +364,35 @@ def quickstart_readouts(drt):
     return out
 
 
+def basis_probe(seed=0):
+    """The probes of the tau bases other than gaussian: ((times, i, v),
+    (freq, z)). The spectrum is one RC element after an ohmic 1 ohm, Rp = 1,
+    z = 1 + 1 / (1 + j omega 1e-3) on logspace(5, -1, 41), noiseless; the
+    chrono record a unit current step at t = 0, sampled 8 times before it and
+    60 times on logspace(-5, 0) after, v = i (2 - exp(-t / 1e-3)) plus
+    N(0, 1e-3) noise from ``seed``."""
+    freq = np.logspace(5, -1, 41)
+    z = 1 + 1 / (1 + 2j * np.pi * freq * 1e-3)
+    times = np.concatenate([np.linspace(-5e-3, -5e-4, 8), np.logspace(-5, 0, 60)])
+    i_sig = np.where(times >= 0, 1.0, 0.0)
+    v = i_sig * (2 - np.exp(-np.maximum(times, 0) / 1e-3)) \
+        + np.random.default_rng(seed).normal(0, 1e-3, len(times))
+    return (times, i_sig, v), (freq, z)
+
+
+def eis_systems(drt, freq, z_batch):
+    """Prep-only EIS systems of the spectra ``z_batch`` (B, F) on one grid
+    for ``BatchedRaggedFitter.from_systems``: the first spectrum's system as
+    ``drt`` (a ``DRT`` of any basis) assembles it, and each spectrum's own
+    scaled data vector and scales on the same matrices, as the ragged
+    fitter's EIS fast path rescales a cached grid's
+    (``BatchedRaggedFitter._eis_rescale_batch``). The systems share one
+    design-matrix array, so they are one protocol."""
+    from ..parallel.ragged import BatchedRaggedFitter
+    tmpl = drt._qphb_fit_core(None, None, None, freq, z_batch[0], prep_only=True)
+    return BatchedRaggedFitter._eis_rescale_batch(tmpl, list(z_batch))
+
+
 def hybrid_data(seed=0):
     """simulate_chrono then simulate_eis from one seeded generator, as
     tests/test_chrono_hybrid.py draws them: (times, i, v, freq, z)."""

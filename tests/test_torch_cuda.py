@@ -28,7 +28,7 @@ from hybdrt_torch.utils.probe import (GOLDEN_HYPERS, TAU_SUPER, FitLaunches, cov
                                       key_average_sums, hybrid_data, inverse_residual,
                                       make_batch, make_frames, make_het_eis, make_het_hybrid,
                                       make_hybrid_batch, qp_batch, readout_errors, small_map,
-                                      spd_batch)
+                                      spd_batch, eis_systems)
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-4  # float32 kernel vs plain, as tests/test_pallas_lane_kernels.py
@@ -1280,3 +1280,88 @@ def test_dop_map_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(card.obs_special_resolved["x_dop"],
                                cpu.obs_special_resolved["x_dop"], rtol=1e-6, atol=1e-8)
     assert np.all(np.isfinite(card.predict_dop()))
+
+
+def test_delta_ragged_on_card_matches_cpu(cuda):
+    """Delta-basis EIS systems (``probe.eis_systems``, one protocol) of 64
+    of the main leg's spectra through ``BatchedRaggedFitter.from_systems``
+    in float64 on the card against the CPU, plain and fused: the same
+    iterations, x within 1e-6 of each lane's max; in float32 #1-#3 (and #5)
+    launched."""
+    freq, z = make_batch(64, 71)
+    drt = DRT(tau_basis_type="delta", warn=False, device="cpu")
+    systems = eis_systems(drt, freq, z)
+    for fused in (False, True):
+        kw = dict(qp_fused=fused, qp_max_iter=20, qp_max_iter_warm=4)
+        r_cpu = BatchedRaggedFitter.from_systems(systems, drt.basis_tau, device="cpu",
+                                                 **kw).fit()
+        r_gpu = BatchedRaggedFitter.from_systems(systems, drt.basis_tau, **kw).fit()
+        np.testing.assert_array_equal(r_gpu.n_iter, r_cpu.n_iter)
+        for k in range(len(systems)):
+            assert np.max(np.abs(r_gpu.x[k] - r_cpu.x[k])) <= 1e-6 * np.max(np.abs(r_cpu.x[k]))
+        chol_lane.reset_launch_counts()
+        ip_lane.reset_launch_counts()
+        r32 = BatchedRaggedFitter.from_systems(systems, drt.basis_tau, dtype=torch.float32,
+                                               **kw).fit()
+        assert all(chol_lane.LAUNCHES[k] > 0 for k in FIT_KERNELS)
+        assert (ip_lane.LAUNCHES["ip_steps_lane"] > 0) == fused
+        assert np.all(np.isfinite(r32.x_raw))
+
+
+def test_wide_ragged_routes_on_card(cuda):
+    """Eight of the het leg's spectra on 40 points a decade (padded n above
+    the float32 tile rule): plain and fused in float32 on the card, every QP
+    on the library route, the fused warm QPs on the plain steps, no lane
+    kernel launched; in float64 against the CPU, the same iterations and x
+    within 1e-6 of each observation's max."""
+    obs = make_het_eis()[0][:8]
+    tau = np.logspace(-8, 3, 441)
+    for fused in (False, True):
+        kw = dict(qp_fused=fused, qp_max_iter=20, qp_max_iter_warm=4, max_iter=20)
+        chol_lane.reset_launch_counts()
+        ip_lane.reset_launch_counts()
+        r32 = BatchedRaggedFitter(tau, dtype=torch.float32, **kw).fit(obs)
+        n = r32.x_raw.shape[1]
+        assert not chol_lane.admitted(n, torch.float32)
+        routes = chol_lane.QP_ROUTES
+        assert routes["lane"] == 0 and routes["library"] > 0
+        assert (routes["fused_plain"] > 0) == fused
+        assert all(v == 0 for v in chol_lane.LAUNCHES.values())
+        assert ip_lane.LAUNCHES["ip_steps_lane"] == 0
+        assert np.all(np.isfinite(r32.x_raw))
+        r_cpu = BatchedRaggedFitter(tau, device="cpu", **kw).fit(obs)
+        r_gpu = BatchedRaggedFitter(tau, **kw).fit(obs)
+        np.testing.assert_array_equal(r_gpu.n_iter, r_cpu.n_iter)
+        for k in range(len(obs)):
+            assert np.max(np.abs(r_gpu.x[k] - r_cpu.x[k])) <= 1e-6 * np.max(np.abs(r_cpu.x[k]))
+
+
+@pytest.mark.parametrize("dtype, n_tau", [(torch.float32, 276), (torch.float64, 200)])
+def test_fused_plain_band_on_card(cuda, dtype, n_tau):
+    """Eight of the het leg's spectra on a supergrid whose padded n lies
+    above #5's rule and within the lane kernels' (216 < n <= 268 in
+    float32, 152 < n <= 188 in float64): the fused fit's warm QPs take the
+    plain steps (``fused_plain``) on #1 and #2, never ``ip_steps_lane``,
+    and the card's fit matches the CPU's in the same precision: in float64
+    the same iterations and x within 1e-6 of each observation's max; in
+    float32 the same Rp within 1e-2 and x within 1e-2 of each max."""
+    obs = make_het_eis()[0][:8]
+    tau = np.logspace(-8, 3, n_tau)
+    kw = dict(dtype=dtype, qp_fused=True, qp_max_iter=20, qp_max_iter_warm=4, max_iter=20)
+    chol_lane.reset_launch_counts()
+    ip_lane.reset_launch_counts()
+    r_gpu = BatchedRaggedFitter(tau, **kw).fit(obs)
+    n = r_gpu.x_raw.shape[1]
+    assert chol_lane.admitted(n, dtype) and not ip_lane.admitted(n, dtype)
+    assert chol_lane.QP_ROUTES["fused_plain"] > 0 and chol_lane.QP_ROUTES["library"] == 0
+    assert chol_lane.LAUNCHES["chol_factor_solve_lane"] > 0
+    assert chol_lane.LAUNCHES["chol_solve_factored_lane"] > 0
+    assert ip_lane.LAUNCHES["ip_steps_lane"] == 0
+    r_cpu = BatchedRaggedFitter(tau, device="cpu", **kw).fit(obs)
+    tol = 1e-6 if dtype == torch.float64 else 1e-2
+    if dtype == torch.float64:
+        np.testing.assert_array_equal(r_gpu.n_iter, r_cpu.n_iter)
+    else:
+        np.testing.assert_allclose(np.sum(r_gpu.x, axis=1), np.sum(r_cpu.x, axis=1), rtol=tol)
+    for k in range(len(obs)):
+        assert np.max(np.abs(r_gpu.x[k] - r_cpu.x[k])) <= tol * np.max(np.abs(r_cpu.x[k]))

@@ -358,5 +358,14 @@ def test_capacitance_of_non_ideal_steps_raises_as_in_jax():
         drt.fit_chrono(times, i_sig, v, max_iter=2)
     with pytest.raises(ValueError, match="Invalid basis_type"):
         hybdrt_torch.DRT(device="cpu", fit_dop=True, nu_basis_type="bogus")
-    with pytest.raises(NotImplementedError, match=r"item 4(?!\d)"):
-        hybdrt_torch.DRT(device="cpu", fit_dop=True, nu_basis_type="pwl")
+    # another nu basis: its penalties are the JAX package's generic form
+    # (hybdrt_tpu/models/drt.py:680-683)
+    from hybdrt_tpu.ops import mat1d as jax_mat1d
+    from hybdrt_torch.models.drt import dop_penalty_matrices
+    hybdrt_torch.DRT(device="cpu", fit_dop=True, nu_basis_type="pwl")
+    nu = np.linspace(-1, 1, 21)
+    m_dop, _ = dop_penalty_matrices(nu, "pwl", 10.0)
+    for k in range(3):
+        want = np.asarray(jax_mat1d.construct_integrated_derivative_matrix(
+            nu, basis_type="pwl", order=k, epsilon=10.0))
+        assert np.max(np.abs(m_dop[k] - want)) <= 1e-12 * np.max(np.abs(want))

@@ -9,7 +9,7 @@ packages with ``DRTMD(fit_dop=True).fit_all(batched=True)``. Held: the same
 iteration counts, obs_x and obs_special["x_dop"] within 1e-6 of each
 observation's max |x|; the resolve of the JAX map's fits carried over by
 ``load_fit_state`` (coupled and windowed), obs_x_resolved and the resolved
-x_dop at rtol 1e-6, atol 1e-8 (tests/test_torch_drtmd_resolve.py's); the
+x_dop at rtol 1e-6, atol 1e-8 (tests/test_torch_drtmd.py's resolve); the
 rebuilt (P, q) at rtol 1e-9 (its rebuild tolerance); ``predict_dop``; and a
 JAX DOP map's pickle read without JAX's classes (``load_pickle``).
 

@@ -173,8 +173,10 @@ def _refits(**fit_kw):
 
 
 @pytest.mark.parametrize("make,item", [
-    (lambda: hybdrt_torch.DRT(tau_basis_type="Cole-Cole", device="cpu"), "item 4"),
-    (lambda: hybdrt_torch.DRT(interpolate_integrals=False, device="cpu"), "item 4"),
+    (lambda: hybdrt_torch.DRT(tau_basis_type="Cole-Cole", device="cpu").fit_eis(
+        *_spectrum(0), outlier_p=0.05), "item 9"),
+    (lambda: hybdrt_torch.DRT(interpolate_integrals=False, device="cpu").fit_eis(
+        *_spectrum(0), outlier_p=0.05), "item 9"),
     (_refits(remove_outliers=True, outlier_p=0.05), "item 9"),
     (_refits(outlier_p=0.05), "item 9"),
     (_refits(return_outlier_index=True), "item 9"),

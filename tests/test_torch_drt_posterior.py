@@ -395,7 +395,7 @@ def test_routes_by_size():
     for n in (50, 188, 189):
         a, b = _spd(n, 3, b=1)
         qp.solve_qp_box(a, b, torch.zeros(1, n, dtype=torch.float64))
-    assert chol_lane.QP_ROUTES == {"lane": 2, "library": 1}
+    assert chol_lane.QP_ROUTES == {"lane": 2, "library": 1, "fused_plain": 0}
 
 
 def test_solve_qp_box_at_one_lane_matches_jax():
@@ -414,7 +414,7 @@ def test_solve_qp_box_at_one_lane_matches_jax():
     assert np.max(np.abs(out.x[0].numpy() - x_j)) <= 1e-10 * np.max(np.abs(x_j))
     assert int(out.iterations[0]) == int(ref.iterations)
     assert 0 < np.sum(x_j == 0) < n
-    assert chol_lane.QP_ROUTES == {"lane": 0, "library": 1}
+    assert chol_lane.QP_ROUTES == {"lane": 0, "library": 1, "fused_plain": 0}
 
 
 def test_wide_basis_fits_through_the_library_route():

@@ -265,5 +265,5 @@ def test_eval_matrices_match_jax(order):
 def test_eval_matrix_orders_and_bases_out_of_range_raise():
     with pytest.raises(ValueError, match="order 4"):
         basis.construct_func_eval_matrix(np.arange(3.0), order=4)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        basis.construct_func_eval_matrix(np.arange(3.0), basis_type="Cole-Cole", order=1)
+    with pytest.raises(ValueError, match="order 3 not implemented for basis type Cole-Cole"):
+        basis.construct_func_eval_matrix(np.arange(3.0), basis_type="Cole-Cole", order=3)

@@ -21,7 +21,6 @@ The map's fit with ``qp_fused`` is held bit for bit to the fused ragged fits
 of its two halves.
 """
 import numpy as np
-import pytest
 import torch
 import jax.numpy as jnp
 
@@ -64,27 +63,40 @@ def test_plain_steps_match_the_tpu_kernel_on_per_lane_systems(monkeypatch):
 def test_het_padded_systems_take_the_fused_kernel():
     """#5's admission rule (``ip_lane.admitted``, n <= 216 in float32 and
     152 in float64) against the padded n of the het map's EIS and hybrid
-    batches: the constructor's raise above it is not hit by the het leg."""
+    batches: the het leg's fused QPs take the kernel, not the plain steps
+    above its rule."""
     for obs, tau in (probe.make_het_eis(6, 2), probe.make_het_hybrid(6, 2)):
         fitter = BatchedRaggedFitter(tau, device="cpu", qp_fused=True)
         fitter.prepare(obs)
         n = fitter._uniq["rzm"].shape[2]
         assert n <= len(tau) + 5
         assert ip_lane.admitted(n, torch.float32) and ip_lane.admitted(n, torch.float64)
+        assert qp_mod.fused_route(n, torch.float32) == "fused"
 
 
-def test_padded_systems_above_the_rule_raise():
-    """On the card a batch whose padded n exceeds #5's rule raises before
-    any launch, naming the rule; there is no fall back to unfused steps."""
+def test_padded_systems_above_the_rule_raise(monkeypatch):
+    """A batch whose padded n exceeds #5's rule but not the lane kernels'
+    (216 < n <= 268 in float32) no longer raises: its fused QPs run the
+    same Mehrotra steps as a loop on the dispatching Cholesky routines
+    (``qp.fused_route`` "fused_plain", counted in ``QP_ROUTES``), chosen by
+    n before any launch, and never reach ``ip_steps_lane``."""
     tau = np.logspace(-8, 3, 276)
     obs, _ = probe.make_het_eis(3, 1)
-    fitter = BatchedRaggedFitter(tau, device="cpu", dtype=torch.float32, qp_fused=True)
+    fitter = BatchedRaggedFitter(tau, device="cpu", dtype=torch.float32, qp_fused=True,
+                                 max_iter=3)
     arrays = fitter._device_arrays(fitter.prepare(obs))
     n = arrays["rzm"].shape[2]
     assert chol_lane.admitted(n, torch.float32) and not ip_lane.admitted(n, torch.float32)
-    fitter.device = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="fused kernel's tile rule"):
-        fitter._loop_args(arrays)
+    assert qp_mod.fused_route(n, torch.float32) == "fused_plain"
+
+    def refuse(*args):
+        raise AssertionError("ip_steps_lane reached above its rule")
+
+    monkeypatch.setattr(qp_mod, "ip_steps_lane", refuse)
+    chol_lane.reset_launch_counts()
+    res = fitter.fit(obs)
+    assert chol_lane.QP_ROUTES["fused_plain"] > 0 and chol_lane.QP_ROUTES["library"] == 0
+    assert np.all(np.isfinite(res.x))
 
 
 def test_drtmd_routes_qp_fused_to_both_ragged_fits(monkeypatch):
